@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's RAG ingest and retrieval path once on one NVIDIA card.
+"""Drive the PyTorch port's RAG ingest and retrieval path and its training step on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -16,7 +16,15 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    kernels' launch counts are zeroed just before and read just after.
 4. The bert architecture at full width through ``load_hf_state_dict`` of a seeded HF-shaped
    state dict.
-5. One JSON line with each kernel's numbers, then the closing JSON line.
+5. The training step (``models/pipeline.py::make_step``) at full width: the default encoder on
+   B=256 pairs at S=128 (tokens of the seeded corpus; the second view as the reference augments
+   it), an index of 1,048,576 x 384 f32 rows, 64 queries at S=32, k=10. First the attention
+   backward against autograd of the plain attention at head widths 16, 32 and 64, the InfoNCE
+   kernel against its plain version, and both kernels' times; then the gradient and one whole
+   step on the kernel route against the plain route from the same parameters; then 2 warm-up and
+   8 timed steps with the launch counts zeroed just before and read just after, and one more step
+   under the profiler.
+6. One JSON line with each kernel's numbers, then the closing JSON line.
 
 It needs one CUDA card and exits non-zero, printing no result, without one. It imports nothing
 of JAX and nothing of the ``pathway_tpu`` package.
@@ -24,6 +32,7 @@ of JAX and nothing of the ``pathway_tpu`` package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -39,9 +48,16 @@ import torch  # noqa: E402
 # H100 SXM peaks (NVIDIA data sheet, dense, at the full 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
 BF16_OPS_PER_S = 989e12
+F32_OPS_PER_S = 67e12  # outside the tensor cores
 
 ATTN_ATOL, ATTN_RTOL = 1e-2, 2.0 ** -7  # bf16 output: 1e-2 plus one bf16 ulp of the value
 EMB_ATOL, EMB_MIN_COS = 3e-2, 0.999  # unit vectors: card (kernel) against host (plain), bf16
+# the training step, kernel route against plain route on the card: bf16 rounds at other places
+# inside attention, so the loss within 1e-2 of max(1, |loss|), each parameter's gradient with a
+# cosine of at least 0.999 and a difference of at most 5% of its norm, the inserted rows (unit
+# vectors) within 1e-2
+STEP_LOSS_RTOL, GRAD_MIN_COS, GRAD_MAX_REL, ROW_ATOL = 1e-2, 0.999, 0.05, 1e-2
+INFONCE_RTOL = 1e-5  # f32 loss and gradient, the sums in another order
 
 
 def log(msg: str) -> None:
@@ -88,8 +104,8 @@ def profiled(label: str, fn) -> None:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
 
 
-def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / BF16_OPS_PER_S
+def bound(n_bytes: float, n_ops: float, ops_per_s: float = BF16_OPS_PER_S) -> tuple[float, str]:
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -449,6 +465,288 @@ def run_bert(device, *, vocab: int, dim: int, layers: int, heads: int, inter: in
     return err
 
 
+# -- phase 5: the training step ----------------------------------------------------------------
+
+
+def check_attention_backward(shapes, device) -> float:
+    """The gradient through ``masked_attention`` (the forward kernel with its statistic, then the
+    backward kernel) against autograd of the plain version, at each (B, H, S, D) of ``shapes``,
+    with an all-pad row and ragged masks. The gradients of rows with real keys must not be zero:
+    the kernel route stays in the autograd graph."""
+    from pathway_tpu_torch.ops.attention import masked_attention, masked_attention_bwd_plain
+
+    gen = torch.Generator(device=device).manual_seed(14)
+    worst = 0.0
+    for B, H, S, D in shapes:
+        q, k, v, mask = attention_inputs(B, S, gen, device, H=H, D=D)
+        dout = torch.randn(q.shape, generator=gen, device=device).to(torch.bfloat16)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = masked_attention(*leaves, mask)
+        got = torch.autograd.grad(out, leaves, dout)
+        want = masked_attention_bwd_plain(q, k, v, dout, mask)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        for name, g, w in zip("qkv", got, want):
+            g, w = g.float(), w.float()
+            if not torch.isfinite(g).all():
+                raise AssertionError(f"attention backward d{name} D={D}: non-finite")
+            if g[1:].abs().max().item() == 0:
+                raise AssertionError(f"attention backward d{name} D={D}: zero gradient")
+            err = (g - w).abs()
+            if (err > ATTN_ATOL + ATTN_RTOL * w.abs()).any():
+                raise AssertionError(
+                    f"attention backward d{name} B={B} H={H} S={S} D={D}: max |err| "
+                    f"{err.max().item()} over atol {ATTN_ATOL} + rtol {ATTN_RTOL}"
+                )
+            worst = max(worst, err.max().item())
+        log(f"masked_attention_bwd B={B} H={H} S={S} D={D}: max |kernel - plain| over dq, dk, "
+            f"dv = {max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want)):.3e}"
+            f" (atol {ATTN_ATOL} + rtol {ATTN_RTOL}), all non-zero")
+    return worst
+
+
+def infonce_inputs(B: int, gen: torch.Generator, device) -> torch.Tensor:
+    """Logits of the step's shape and scale: two noisy views of B unit vectors, over 0.07."""
+    ea = torch.nn.functional.normalize(torch.randn((B, 384), generator=gen, device=device), dim=1)
+    eb = torch.nn.functional.normalize(
+        ea + 0.5 * torch.randn((B, 384), generator=gen, device=device), dim=1)
+    return (ea @ eb.T) / 0.07
+
+
+def check_infonce(sizes, device) -> float:
+    from pathway_tpu_torch.ops.infonce import infonce, infonce_plain
+
+    gen = torch.Generator(device=device).manual_seed(15)
+    worst = 0.0
+    for B in sizes:
+        logits = infonce_inputs(B, gen, device).requires_grad_()
+        loss = infonce(logits)
+        (grad,) = torch.autograd.grad(loss, logits)
+        want = infonce_plain(logits)
+        (want_grad,) = torch.autograd.grad(want, logits)
+        l_err = abs(loss.item() - want.item())
+        g_err = (grad - want_grad).abs()
+        if l_err > INFONCE_RTOL * max(1.0, abs(want.item())) or (
+                g_err > INFONCE_RTOL * (1.0 / B + want_grad.abs())).any():
+            raise AssertionError(f"infonce B={B}: loss err {l_err}, grad err {g_err.max().item()}")
+        worst = max(worst, l_err, g_err.max().item())
+        log(f"infonce B={B}: loss {loss.item():.6f}, |kernel - plain| loss {l_err:.3e}, gradient "
+            f"{g_err.max().item():.3e} (rtol {INFONCE_RTOL})")
+    return worst
+
+
+def time_training_kernels(device) -> dict:
+    """Times at the training step's shapes: the attention backward at B=256, H=12, S=128, D=32
+    (one layer of one view), InfoNCE at B=256."""
+    import torch.nn.functional as F
+
+    from pathway_tpu_torch.ops import attention
+    from pathway_tpu_torch.ops.infonce import infonce, infonce_plain
+
+    gen = torch.Generator(device=device).manual_seed(16)
+    B, H, S, D = 256, 12, 128, 32
+    q, k, v, mask = attention_inputs(B, S, gen, device, H=H, D=D)
+    dout = torch.randn(q.shape, generator=gen, device=device).to(torch.bfloat16)
+    _, stat = attention._forward(q, k, v, mask, with_stat=True)
+    sdpa = [t.clone().requires_grad_() for t in (q, k, v)]
+    sdpa_out = F.scaled_dot_product_attention(*sdpa, attn_mask=mask[:, None, None, :])
+    bwd = {
+        "ms": cuda_ms(lambda: attention.masked_attention_bwd(q, k, v, dout, mask, stat), 20),
+        "plain_ms": cuda_ms(
+            lambda: attention.masked_attention_bwd_plain(q, k, v, dout, mask), 5),
+        "library_ms": cuda_ms(
+            lambda: torch.autograd.grad(sdpa_out, sdpa, dout, retain_graph=True), 20),
+    }
+    bwd["bound_ms"], bwd["bound_by"] = bound(
+        7 * B * H * S * D * 2 + B * H * S * 8 + B * S, 10 * B * H * S * S * D)
+    bwd["shape"] = f"B={B} H={H} S={S} D={D}"
+
+    n = 256
+    logits = infonce_inputs(n, gen, device)
+    live = logits.clone().requires_grad_()
+    labels = torch.arange(n, device=device)
+    nce = {
+        "ms": cuda_ms(lambda: infonce(logits), 50),
+        "plain_ms": cuda_ms(lambda: torch.autograd.grad(infonce_plain(live), live), 20),
+        "library_ms": cuda_ms(lambda: torch.autograd.grad(
+            F.cross_entropy(live, labels) + F.cross_entropy(live.T, labels), live), 20),
+    }
+    # per logit: max, subtract, exp, add for the row and again for the column; subtract, exp,
+    # subtract twice, add and multiply for the gradient
+    nce["bound_ms"], nce["bound_by"] = bound(2 * n * n * 4 + 4, 15 * n * n, F32_OPS_PER_S)
+    nce["shape"] = f"B={n}"
+    return {"masked_attention_bwd": bwd, "infonce": nce}
+
+
+@contextlib.contextmanager
+def plain_route():
+    """The training step with every kernel swapped for its plain version where the step's modules
+    call it: the route this script holds the kernels' route against (the package has no switch
+    for it)."""
+    from pathway_tpu_torch.models import embedder, pipeline
+    from pathway_tpu_torch.ops.attention import masked_attention_plain
+    from pathway_tpu_torch.ops.infonce import infonce_plain
+    from pathway_tpu_torch.ops.knn import topk_scores_plain
+
+    saved = embedder.masked_attention, pipeline.infonce, pipeline.topk_scores
+    embedder.masked_attention = masked_attention_plain
+    pipeline.infonce = infonce_plain
+    pipeline.topk_scores = topk_scores_plain
+    try:
+        yield
+    finally:
+        embedder.masked_attention, pipeline.infonce, pipeline.topk_scores = saved
+
+
+def compare_grads(label: str, got: dict, want: dict) -> tuple[float, float]:
+    """Each gradient leaf of ``got`` against ``want``: non-zero, cosine and relative error within
+    the stated bounds. Returns the worst cosine and relative error."""
+    from pathway_tpu_torch.models.pipeline import _leaves
+
+    worst_cos, worst_rel = 1.0, 0.0
+    for i, (g, w) in enumerate(zip(_leaves(got), _leaves(want))):
+        g, w = g.float(), w.float()
+        nw = w.norm().item()
+        if g.abs().max().item() == 0 or nw == 0:
+            raise AssertionError(f"{label}: gradient leaf {i} {tuple(g.shape)} is zero")
+        cos = ((g * w).sum() / (g.norm() * w.norm())).item()
+        rel = ((g - w).norm() / nw).item()
+        if cos < GRAD_MIN_COS or rel > GRAD_MAX_REL:
+            raise AssertionError(f"{label}: gradient leaf {i} {tuple(g.shape)} cosine {cos}, "
+                                 f"relative error {rel}")
+        worst_cos, worst_rel = min(worst_cos, cos), max(worst_rel, rel)
+    return worst_cos, worst_rel
+
+
+def run_training(device, *, cfg=None, batch: int = 256, seq: int = 128, n_rows: int = 1 << 20,
+                 n_queries: int = 64, q_seq: int = 32, k: int = 10, warmup: int = 2,
+                 steps: int = 8) -> dict:
+    from pathway_tpu_torch.models import pipeline
+    from pathway_tpu_torch.models.embedder import (
+        EmbedderConfig, embed_tokens, init_params, tokenize_batch,
+    )
+    from pathway_tpu_torch.ops.attention import masked_attention, masked_attention_bwd
+    from pathway_tpu_torch.ops.infonce import infonce
+    from pathway_tpu_torch.ops.knn import topk_scores, topk_scores_plain
+
+    cuda = device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    cfg = cfg or EmbedderConfig()
+    texts = [c for c, _ in make_corpus(batch + n_queries, 256, seed=3)]
+    tokens = torch.from_numpy(tokenize_batch(texts[:batch], cfg.vocab_size, seq)).to(device)
+    # pipeline.py:110's augmentation, as it is: every id divisible by 7 becomes 1, pad ids too
+    tokens_aug = torch.where(tokens % 7 == 0, 1, tokens)
+    queries = torch.from_numpy(tokenize_batch(
+        [t.split(".")[0] for t in texts[batch:]], cfg.vocab_size, q_seq)).to(device)
+    params = init_params(cfg, 0, device=device)
+    gen = torch.Generator(device=device).manual_seed(17)
+    index = torch.randn((n_rows, cfg.dim), generator=gen, device=device)
+    index /= index.norm(dim=1, keepdim=True)
+    real = int((tokens > 0).sum().item())
+    log(f"training inputs: {batch} pairs at S={seq} ({real} real tokens in the first view), "
+        f"{n_queries} queries at S={q_seq}, index {n_rows} x {cfg.dim} f32, k={k}")
+
+    # the gradient, kernel route against plain route, from the same parameters
+    loss_k, ea_k, grads_k = pipeline.value_and_grad(params, tokens, tokens_aug, cfg)
+    with plain_route():
+        loss_p, ea_p, grads_p = pipeline.value_and_grad(params, tokens, tokens_aug, cfg)
+    sync()
+    loss_err = abs(loss_k.item() - loss_p.item())
+    if not math.isfinite(loss_k.item()) or loss_err > STEP_LOSS_RTOL * max(1.0, abs(loss_p.item())):
+        raise AssertionError(f"training loss: kernel {loss_k.item()} against plain {loss_p.item()}")
+    cos, rel = compare_grads("value_and_grad", grads_k, grads_p)
+    qkv = [layer["qkv"].abs().max().item() for layer in grads_k["layers"]]
+    log(f"value_and_grad: loss kernel {loss_k.item():.6f}, plain {loss_p.item():.6f}; "
+        f"{len(list(pipeline._leaves(grads_k)))} gradients, worst cosine {cos:.6f}, worst relative "
+        f"error {rel:.3e}; max |d qkv| per layer {[f'{x:.2e}' for x in qkv]} (non-zero)")
+
+    # one whole step on each route, from the same parameters and index; the plain route's search
+    # keeps k + 1, so that the gap below the k-th score is known
+    step = pipeline.make_step(cfg, k=k, device=device)
+    insert_at = n_rows - batch // 2  # clamped to n_rows - batch, as dynamic_update_slice does
+    idx_k, idx_p = index.clone(), index.clone()
+    new_k, _, sl_k, s_k, i_k = step(params, tokens, tokens_aug, idx_k, insert_at, queries)
+    with plain_route():
+        _, _, sl_p, s_p, i_p = pipeline.make_step(cfg, k=k + 1, device=device)(
+            params, tokens, tokens_aug, idx_p, insert_at, queries)
+    sync()
+    if abs(sl_k.item() - sl_p.item()) > STEP_LOSS_RTOL * max(1.0, abs(sl_p.item())):
+        raise AssertionError(f"step loss: kernel {sl_k.item()} against plain {sl_p.item()}")
+    rows_k, rows_p = idx_k[n_rows - batch:], idx_p[n_rows - batch:]
+    row_err = (rows_k - rows_p).abs().max().item()
+    if row_err > ROW_ATOL or not torch.equal(idx_k[: n_rows - batch], index[: n_rows - batch]):
+        raise AssertionError(f"step: inserted rows differ by {row_err} or landed elsewhere")
+    if (rows_k - ea_k).abs().max().item() > 1e-5:  # the same forward again
+        raise AssertionError("step: the inserted rows are not the loss pass's embeddings")
+    for new, old in zip(pipeline._leaves(new_k), pipeline._leaves(params)):
+        if not torch.isfinite(new).all() or torch.equal(new, old):
+            raise AssertionError(f"step: a parameter {tuple(old.shape)} is not finite or not moved")
+    # the routes' queries differ by the attention's rounding in the updated weights
+    check_topk_against_plain(s_k, i_k, s_p, i_p, bf16_ulp(s_p) + ROW_ATOL)
+    with torch.no_grad():  # the kernel's search against the plain scorer on the same tensors
+        qe = embed_tokens(new_k, queries, cfg)
+        s_kk, i_kk = topk_scores(qe, idx_k, k)
+        s_pp, i_pp = topk_scores_plain(qe, idx_k, k + 1)
+    check_topk_against_plain(s_kk, i_kk, s_pp, i_pp, topk_tolerance(s_pp, qe, idx_k, "cos"))
+    if not (torch.equal(s_kk, s_k) and torch.equal(i_kk, i_k)):
+        raise AssertionError("step: its search is not the scorer's on the same tensors")
+    hits = int((i_k >= n_rows - batch).sum().item())
+    log(f"step: loss kernel {sl_k.item():.6f} plain {sl_p.item():.6f}; {batch} rows written at "
+        f"{n_rows - batch} (insert_at {insert_at}, clamped), max |kernel - plain| {row_err:.3e}; "
+        f"search scores within one bf16 ulp + {ROW_ATOL}; {hits} of {n_queries * k} hits are new "
+        f"rows")
+    del idx_k, idx_p, new_k, grads_k, grads_p
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # the main path of this phase: a short training run, counts zeroed just before
+    counters = (masked_attention, masked_attention_bwd, infonce, topk_scores)
+    for fn in counters:
+        fn.launches = 0
+    p = params
+    losses = []
+
+    def one(i):
+        nonlocal p
+        p, _, loss, _, _ = step(p, tokens, tokens_aug, index, i * batch, queries)
+        losses.append(loss)
+
+    for i in range(warmup):
+        one(i)
+    sync()
+    t0 = time.perf_counter()
+    if cuda:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+    for i in range(warmup, warmup + steps):
+        one(i)
+    if cuda:
+        end.record()
+    sync()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    step_ms = start.elapsed_time(end) / steps if cuda else float("nan")
+    counts = {"masked_attention": masked_attention.launches,
+              "masked_attention_bwd": masked_attention_bwd.launches,
+              "infonce": infonce.launches, "knn_topk": topk_scores.launches}
+    n_steps = warmup + steps
+    log(f"launches over {n_steps} training steps: {counts} "
+        f"(per step {({n: c / n_steps for n, c in counts.items()})})")
+    for name, n in counts.items():
+        if n == 0 and cuda:
+            raise AssertionError(f"{name} was not launched on the training path")
+    trend = [round(x.item(), 6) for x in losses]
+    if not all(math.isfinite(x) for x in trend):
+        raise AssertionError(f"training loss not finite: {trend}")
+    log(f"training losses over {n_steps} steps: {trend}")
+    if cuda:
+        profiled("training step", lambda: one(warmup + steps))
+    return {
+        "step_ms": step_ms, "wall_ms": wall_ms,
+        "tokens_per_s": 2 * batch * seq / (step_ms / 1e3) if cuda else float("nan"),
+        "launches": counts, "loss_err": loss_err, "row_err": row_err,
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -487,19 +785,37 @@ def main() -> int:
     run_bert(device, vocab=30522, dim=384, layers=6, heads=12, inter=1536, max_pos=512,
              batch=64, seq=128)
 
+    bwd_err = check_attention_backward(
+        ((64, 24, 128, 16), (256, 12, 128, 32), (64, 6, 128, 64), (4, 6, 512, 64)), device)
+    nce_err = check_infonce((256, 1000), device)
+    times.update(time_training_kernels(device))
+    for name in ("masked_attention_bwd", "infonce"):
+        t = times[name]
+        log(f"{name} at {t['shape']}: {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
+            f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}) [{card}]")
+    torch.cuda.empty_cache()
+    train = run_training(device)
+    log(f"training step: {train['step_ms']:.3f} ms (CUDA events; host clock {train['wall_ms']:.3f}"
+        f" ms), {train['tokens_per_s']:.1f} trained tokens/s (2 x 256 x 128 per step) [{card}]")
+
     sources = {
         "masked_attention": ("pathway_tpu_torch/csrc/masked_attention.cu",
                              "pathway_tpu/models/embedder.py:90", attn_err),
+        "masked_attention_bwd": ("pathway_tpu_torch/csrc/masked_attention_bwd.cu",
+                                 "pathway_tpu/models/pipeline.py:72", bwd_err),
         "knn_topk": ("pathway_tpu_torch/csrc/knn_topk.cu", "pathway_tpu/ops/knn.py:46", knn_err),
+        "infonce": ("pathway_tpu_torch/csrc/infonce.cu", "pathway_tpu/models/pipeline.py:61",
+                    nce_err),
     }
     kernels = []
     for name, (source, replaces, err) in sources.items():
         t = times[name]
+        by_path = {"rag": path["launches"].get(name, 0), "train": train["launches"][name]}
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": path["launches"][name], "max_abs_err": err, "ms": t["ms"],
-            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"],
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -25,6 +25,12 @@
 // list per query in shared memory: a warp compares a tile's 64 scores with the list's last entry
 // by ballot and inserts the few that beat it. Pass 2 merges the blocks' lists, one warp per query.
 // Only the lists, q * blocks * k entries, ever reach device memory.
+//
+// Any width d >= 1. Rows of a width divisible by 4 are read 16 bytes at a time; other widths leave
+// rows unaligned and are read one float at a time. The block keeps at most kQW = 1024 columns of
+// its queries in shared memory: a wider index is walked in chunks of kQW columns, each chunk's
+// queries loaded anew for every tile, and the f32 sum runs on across the chunks, so the dot is
+// rounded to bf16 once, at the end, as the program types it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -38,6 +44,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kR = 64;         // index rows per tile
 constexpr int kDK = 128;       // feature columns per load step
 constexpr int kXS = kDK + 8;   // padded tile row, in bf16: 68 words, no bank conflict
+constexpr int kQW = 1024;      // query columns held in shared memory at once (a multiple of kDK)
 constexpr int kMergeWarps = 4;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kNoRow = 0x7fffffff;
@@ -147,8 +154,9 @@ knn_score_topk_kernel(const float* __restrict__ q, const float* __restrict__ x,
 
   extern __shared__ __align__(16) unsigned char smem[];
   const int dpad = (d + kDK - 1) / kDK * kDK;
-  const Layout L = layout(QC, dpad, k);
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem + L.qs);  // [QC][dpad + 8]
+  const int qw = dpad < kQW ? dpad : kQW;  // query columns in shared memory
+  const Layout L = layout(QC, qw, k);
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem + L.qs);  // [QC][qw + 8]
   __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem + L.xs);  // [kR][kXS]
   float* qn = reinterpret_cast<float*>(smem + L.qn);                  // [QC]
   float* xn = reinterpret_cast<float*>(smem + L.xn);                  // [kR]
@@ -160,13 +168,16 @@ knn_score_topk_kernel(const float* __restrict__ q, const float* __restrict__ x,
   const int g = lane >> 2, t = lane & 3;  // mma fragment coordinates
   const int q0 = blockIdx.y * QC;
   const int G = gridDim.x;
-  const int qstride = dpad + 8;
-
-  for (int e = tid; e < QC * dpad; e += kThreads) {
-    const int qi = e / dpad, c = e % dpad;
-    const float val = (q0 + qi < Q && c < d) ? q[static_cast<size_t>(q0 + qi) * d + c] : 0.f;
-    qs[qi * qstride + c] = __float2bfloat16_rn(val);
-  }
+  const int qstride = qw + 8;
+  // queries' columns c0 .. c0 + qw - 1 into shared memory as bf16, zeros past d
+  auto load_queries = [&](int c0) {
+    for (int e = tid; e < QC * qw; e += kThreads) {
+      const int qi = e / qw, c = c0 + e % qw;
+      const float val = (q0 + qi < Q && c < d) ? q[static_cast<size_t>(q0 + qi) * d + c] : 0.f;
+      qs[qi * qstride + c - c0] = __float2bfloat16_rn(val);
+    }
+  };
+  load_queries(0);
   for (int qi = warp; qi < QC; qi += kWarps) {
     float acc = 0.f;
     if (q0 + qi < Q)
@@ -189,13 +200,24 @@ knn_score_topk_kernel(const float* __restrict__ q, const float* __restrict__ x,
   // thread tid loads float4 number tid + u * kThreads of a 64-row step: row (tid / 32) + 8 u,
   // columns 4 (tid % 32) .. +3
   float4 pre[LPT];
+  const bool vec = d % 4 == 0;  // rows 16-byte aligned (the wrapper aligns the base)
   auto load = [&](long long row0, int c0) {
 #pragma unroll
     for (int u = 0; u < LPT; ++u) {
       const int r = (tid + u * kThreads) / (kDK / 4), c = c0 + (tid % (kDK / 4)) * 4;
-      pre[u] = (row0 + r < rend && c < d)
-                   ? *reinterpret_cast<const float4*>(x + (row0 + r) * d + c)
-                   : make_float4(0.f, 0.f, 0.f, 0.f);
+      float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (row0 + r < rend && c < d) {
+        const float* src = x + (row0 + r) * d + c;
+        if (vec) {
+          val = *reinterpret_cast<const float4*>(src);
+        } else {  // the scalar tail: each of the four columns that lies inside the row
+          val.x = src[0];
+          if (c + 1 < d) val.y = src[1];
+          if (c + 2 < d) val.z = src[2];
+          if (c + 3 < d) val.w = src[3];
+        }
+      }
+      pre[u] = val;
     }
   };
   if (rbeg < rend) load(rbeg, 0);
@@ -206,7 +228,8 @@ knn_score_topk_kernel(const float* __restrict__ q, const float* __restrict__ x,
     float nrm[LPT] = {};  // partial |row|^2 of the rows this thread loads
 
     for (int c0 = 0; c0 < dpad; c0 += kDK) {
-      __syncthreads();  // the previous step's readers are done with xs
+      __syncthreads();  // the previous step's readers are done with xs (and qs)
+      if (dpad > kQW && c0 % kQW == 0) load_queries(c0);  // the next chunk of a wide index
 #pragma unroll
       for (int u = 0; u < LPT; ++u) {
         const float4 val = pre[u];
@@ -224,7 +247,7 @@ knn_score_topk_kernel(const float* __restrict__ q, const float* __restrict__ x,
 #pragma unroll
       for (int st = 0; st < kDK / 16; ++st) {
         const int mt = warp * TPW / NT;  // every pair of this warp shares its query tile
-        const __nv_bfloat16* qp = qs + (mt * 16 + g) * qstride + c0 + st * 16 + t * 2;
+        const __nv_bfloat16* qp = qs + (mt * 16 + g) * qstride + c0 % kQW + st * 16 + t * 2;
         const uint32_t a[4] = {ld32(qp), ld32(qp + 8 * qstride), ld32(qp + 8),
                                ld32(qp + 8 * qstride + 8)};
 #pragma unroll
@@ -332,7 +355,7 @@ int launch_score(const float* q, const float* x, const uint8_t* valid, int Q, in
                  int metric, int G, int tiles_per_range, float* cand_s, int* cand_i,
                  cudaStream_t stream) {
   const int dpad = (d + kDK - 1) / kDK * kDK;
-  const size_t smem = layout(QC, dpad, k).total;
+  const size_t smem = layout(QC, dpad < kQW ? dpad : kQW, k).total;
   cudaError_t err = cudaFuncSetAttribute(knn_score_topk_kernel<QC>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
@@ -345,7 +368,8 @@ int launch_score(const float* q, const float* x, const uint8_t* valid, int Q, in
 
 }  // namespace
 
-// q: f32 [Q, d]; x: f32 [N, d]; valid: bool [N] or null; both row-major and contiguous, d % 4 == 0.
+// q: f32 [Q, d]; x: f32 [N, d], 16-byte aligned; valid: bool [N] or null; both row-major and
+// contiguous, any d >= 1.
 // cand_s / cand_i: scratch of Q * G * k entries. out_s: f32 [Q, k]; out_i: int64 [Q, k].
 // `qc` is the query chunk of pass 1 (16 or 64); rows split into G ranges of tiles_per_range * 64.
 extern "C" int knn_topk(const void* q, const void* x, const void* valid, void* cand_s,

@@ -9,20 +9,26 @@
 //   p[i, j] = bf16(softmax_j s[i, :])         softmax in f32, then `.astype(bfloat16)`
 //   o[i]    = bf16(sum_j p[i, j] v[j])        accumulated in f32
 //
+// for head widths D of 16, 32 and 64. On request it also writes each query row's softmax
+// statistic, the row max m and the sum l of exp(s - m), as f32 pairs [B, H, S, 2]: the backward
+// (masked_attention_bwd.cu) recomputes p from them bit for bit as this kernel computed it.
+//
 // Bound on the H100 at the ingest shape B=1024, H=12, S=128, D=32: memory. q, k, v and o are
 // 4 * B*H*S*D * 2 bytes, about 400 MB, or about 120 us at 3.35 TB/s; the 4*B*H*S*S*D = 2.6e10
 // operations would take about 26 us at 989 TFLOP/s in bf16.
 //
-// Design: one block per (b, h), four warps. The head's K and V go into shared memory once, with
-// asynchronous 16-byte copies all in flight together, in rows padded so that the tensor cores' operand loads hit distinct banks. A warp
-// takes 16 query rows at a time and runs both products on the tensor cores (mma.sync m16n8k16, bf16
-// in, f32 accumulated; V's operand comes transposed through ldmatrix). The probabilities are
-// rounded to bf16 before the product with V, as the JAX expression casts them, so the softmax needs
-// its max and its sum before any probability is known: pass 1 computes the scores once and keeps
-// them in a per-thread slice of shared memory with the row max, pass 2 turns them into exponentials
-// and sums them, pass 3 divides, rounds and multiplies by V. Each thread reads back only what it
-// wrote, so the passes need no barrier. The output is written straight into the caller's layout
-// (strides), so the head merge costs nothing.
+// Design: one block per (b, h), four warps (three or two at D=64 with S above 416, where four
+// warps' score buffers and the head's K and V do not fit in shared memory together). The head's K
+// and V go into shared memory once, with asynchronous 16-byte copies all in flight together, in
+// rows padded so that the tensor cores' operand loads hit distinct banks. A warp takes 16 query
+// rows at a time and runs both products on the tensor cores (mma.sync m16n8k16, bf16 in, f32
+// accumulated; V's operand comes transposed through ldmatrix). The probabilities are rounded to
+// bf16 before the product with V, as the JAX expression casts them, so the softmax needs its max
+// and its sum before any probability is known: pass 1 computes the scores once and keeps them in a
+// per-thread slice of shared memory with the row max, pass 2 turns them into exponentials and sums
+// them, pass 3 divides, rounds and multiplies by V. Each thread reads back only what it wrote, so
+// the passes need no barrier. The output is written straight into the caller's layout (strides), so
+// the head merge costs nothing.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -31,10 +37,8 @@
 
 namespace {
 
-constexpr int kD = 32;  // head width
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kKS = kD + 8;  // K row stride in shared memory (bf16): 20 words, no bank conflict
+constexpr int kMaxWarps = 4;
+constexpr int kMaxSmem = 232448;  // the most dynamic shared memory a block may ask for on sm_90
 constexpr unsigned kFull = 0xffffffffu;
 enum KeyKind : uint8_t { kReal = 0, kMasked = 1, kAbsent = 2 };  // kAbsent: the pad up to 16
 
@@ -90,18 +94,23 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_b
                : "r"(a));
 }
 
-__global__ void __launch_bounds__(kThreads)
+// kD: the head width; K and V rows lie kD + 8 apart in shared memory (20, 12 or 36 words), so
+// that the eight rows of an operand load start in distinct banks.
+template <int kD>
+__global__ void __launch_bounds__(kMaxWarps * 32)
 masked_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                         const __nv_bfloat16* __restrict__ v, const uint8_t* __restrict__ mask,
-                        __nv_bfloat16* __restrict__ o, int H, int S, Strides sq, Strides sk,
-                        Strides sv, Strides so, long long mask_b) {
+                        __nv_bfloat16* __restrict__ o, float* __restrict__ stat, int H, int S,
+                        Strides sq, Strides sk, Strides sv, Strides so, long long mask_b) {
+  constexpr int kKS = kD + 8;
   extern __shared__ __align__(16) unsigned char smem[];
+  const int warps = blockDim.x / 32;
   const int S16 = (S + 15) & ~15;
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);  // [S16][kKS]
   __nv_bfloat16* vs = ks + S16 * kKS;                           // [S16][kKS]
   // per warp, per 8-key tile, per lane: that lane's 4 scores of the tile
-  float4* sb = reinterpret_cast<float4*>(vs + S16 * kKS);       // [kWarps][S16 / 8][32]
-  uint8_t* kind = reinterpret_cast<uint8_t*>(sb + kWarps * (S16 / 8) * 32);  // [S16]
+  float4* sb = reinterpret_cast<float4*>(vs + S16 * kKS);       // [warps][S16 / 8][32]
+  uint8_t* kind = reinterpret_cast<uint8_t*>(sb + warps * (S16 / 8) * 32);  // [S16]
 
   const int b = blockIdx.x / H, h = blockIdx.x % H;
   const __nv_bfloat16* qb = q + b * sq.b + h * sq.h;
@@ -109,14 +118,14 @@ masked_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
   const __nv_bfloat16* vb = v + b * sv.b + h * sv.h;
   __nv_bfloat16* ob = o + b * so.b + h * so.h;
 
-  for (int e = threadIdx.x; e < S16 * (kD / 8); e += kThreads) {  // 16 bytes at a time, async
+  for (int e = threadIdx.x; e < S16 * (kD / 8); e += blockDim.x) {  // 16 bytes at a time, async
     const int j = e / (kD / 8), c = (e % (kD / 8)) * 8;
     const int jj = j < S ? j : 0;  // rows past S read nothing and fill with zeros
     cp_async16(ks + j * kKS + c, kb + jj * sk.s + c, j < S);
     cp_async16(vs + j * kKS + c, vb + jj * sv.s + c, j < S);
   }
   asm volatile("cp.async.commit_group;\n" ::);
-  for (int j = threadIdx.x; j < S16; j += kThreads)
+  for (int j = threadIdx.x; j < S16; j += blockDim.x)
     kind[j] = j >= S ? kAbsent : (mask[b * mask_b + j] ? kReal : kMasked);
   asm volatile("cp.async.wait_all;\n" ::);
   __syncthreads();
@@ -128,12 +137,12 @@ masked_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
   const float inv_scale = 1.f / sqrtf(static_cast<float>(kD));
   float4* mine = sb + warp * (S16 / 8) * 32 + lane;   // tile j at mine[j * 32]
 
-  for (int r0 = warp * 16; r0 < S; r0 += kWarps * 16) {
-    // q rows r0 + g and r0 + g + 8 as A fragments for the two 16-wide steps over d
-    uint32_t qa[2][4];
+  for (int r0 = warp * 16; r0 < S; r0 += warps * 16) {
+    // q rows r0 + g and r0 + g + 8 as A fragments for the 16-wide steps over d
+    uint32_t qa[kD / 16][4];
     const bool lo_in = r0 + g < S, hi_in = r0 + g + 8 < S;
 #pragma unroll
-    for (int st = 0; st < 2; ++st) {
+    for (int st = 0; st < kD / 16; ++st) {
       const int c = st * 16 + t * 2;
       qa[st][0] = lo_in ? ld32(qb + (r0 + g) * sq.s + c) : 0u;
       qa[st][1] = hi_in ? ld32(qb + (r0 + g + 8) * sq.s + c) : 0u;
@@ -147,7 +156,7 @@ masked_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
     for (int n0 = 0; n0 < S16; n0 += 8) {
       float c[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-      for (int st = 0; st < 2; ++st) {
+      for (int st = 0; st < kD / 16; ++st) {
         const __nv_bfloat16* kp = ks + (n0 + g) * kKS + st * 16 + t * 2;
         const uint32_t kb2[2] = {ld32(kp), ld32(kp + 8)};
         mma_bf16(c, qa[st], kb2);
@@ -156,7 +165,9 @@ masked_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const uint8_t kk = (i & 1) ? k1 : k0;
-        c[i] = kk == kReal ? bf16_round(c[i]) * inv_scale
+        // __fmul_rn: never fused with the subtraction of the max that follows, so the backward
+        // recomputes the same number
+        c[i] = kk == kReal ? __fmul_rn(bf16_round(c[i]), inv_scale)
                            : (kk == kMasked ? -1e30f : -INFINITY);
       }
       m_lo = fmaxf(m_lo, fmaxf(c[0], c[1]));
@@ -178,7 +189,14 @@ masked_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
       l_hi += c.z + c.w;
       mine[j * 32] = c;
     }
-    const float inv_lo = 1.f / quad_sum(l_lo), inv_hi = 1.f / quad_sum(l_hi);
+    l_lo = quad_sum(l_lo);
+    l_hi = quad_sum(l_hi);
+    const float inv_lo = 1.f / l_lo, inv_hi = 1.f / l_hi;
+    if (stat != nullptr && t == 0) {
+      float* st = stat + (static_cast<long long>(blockIdx.x) * S + r0 + g) * 2;
+      if (lo_in) *reinterpret_cast<float2*>(st) = make_float2(m_lo, l_lo);
+      if (hi_in) *reinterpret_cast<float2*>(st + 16) = make_float2(m_hi, l_hi);
+    }
 
     // pass 3: p = bf16(e / l); the C fragments of two 8-key tiles are the A fragment of one
     // 16-key step against V
@@ -215,30 +233,46 @@ masked_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
   }
 }
 
-size_t smem_bytes(int S) {
+template <int kD>
+int launch(const void* q, const void* k, const void* v, const void* mask, void* o, float* stat,
+           int B, int H, int S, Strides sq, Strides sk, Strides sv, Strides so, long long mask_b,
+           cudaStream_t stream) {
   const size_t S16 = (static_cast<size_t>(S) + 15) & ~static_cast<size_t>(15);
-  return sizeof(__nv_bfloat16) * 2 * S16 * kKS + sizeof(float4) * kWarps * (S16 / 8) * 32 + S16;
+  const size_t fixed = sizeof(__nv_bfloat16) * 2 * S16 * (kD + 8) + S16;
+  const size_t per_warp = sizeof(float4) * (S16 / 8) * 32;
+  int warps = kMaxWarps;
+  while (warps > 1 && fixed + warps * per_warp > kMaxSmem) --warps;
+  const size_t smem = fixed + warps * per_warp;
+  cudaError_t err = cudaFuncSetAttribute(masked_attention_kernel<kD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  masked_attention_kernel<kD><<<B * H, warps * 32, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const uint8_t*>(mask),
+      static_cast<__nv_bfloat16*>(o), stat, H, S, sq, sk, sv, so, mask_b);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q, k, v, o: bf16 [B, H, S, 32] with the given element strides (d contiguous; q, k and v with
-// strides divisible by 8 and 16-byte aligned bases); mask: bool [B, S] with row stride mask_b. Launches on `stream`
-// and returns cudaGetLastError().
+// q, k, v, o: bf16 [B, H, S, D], D in {16, 32, 64}, with the given element strides (d contiguous;
+// q, k and v with strides divisible by 8 and 16-byte aligned bases); mask: bool [B, S] with row
+// stride mask_b; stat: f32 [B, H, S, 2] contiguous, or null for no statistic. Launches on
+// `stream` and returns cudaGetLastError().
 extern "C" int masked_attention(const void* q, const void* k, const void* v, const void* mask,
-                                void* o, int B, int H, int S, long long qb, long long qh,
-                                long long qs, long long kb, long long kh, long long ks,
-                                long long vb, long long vh, long long vs, long long ob,
-                                long long oh, long long os, long long mask_b, void* stream) {
-  const size_t smem = smem_bytes(S);
-  cudaError_t err = cudaFuncSetAttribute(masked_attention_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  masked_attention_kernel<<<B * H, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const uint8_t*>(mask),
-      static_cast<__nv_bfloat16*>(o), H, S, Strides{qb, qh, qs}, Strides{kb, kh, ks},
-      Strides{vb, vh, vs}, Strides{ob, oh, os}, mask_b);
-  return static_cast<int>(cudaGetLastError());
+                                void* o, void* stat, int B, int H, int S, int D, long long qb,
+                                long long qh, long long qs, long long kb, long long kh,
+                                long long ks, long long vb, long long vh, long long vs,
+                                long long ob, long long oh, long long os, long long mask_b,
+                                void* stream) {
+  const Strides sq{qb, qh, qs}, sk{kb, kh, ks}, sv{vb, vh, vs}, so{ob, oh, os};
+  float* st = static_cast<float*>(stat);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 16: return launch<16>(q, k, v, mask, o, st, B, H, S, sq, sk, sv, so, mask_b, s);
+    case 32: return launch<32>(q, k, v, mask, o, st, B, H, S, sq, sk, sv, so, mask_b, s);
+    case 64: return launch<64>(q, k, v, mask, o, st, B, H, S, sq, sk, sv, so, mask_b, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -164,7 +164,9 @@ def embed_tokens(params: dict, token_ids: torch.Tensor, cfg: EmbedderConfig) -> 
     mask = token_ids > 0
     s = token_ids.shape[1]
     dt = cfg.dtype
-    x = params["tok_emb"][token_ids].to(dt) + params["pos_emb"][:s].to(dt)[None, :, :]
+    # F.embedding, not tok_emb[token_ids]: the same gather, but its backward sums repeated ids
+    # (pads, the augmented view's 1s) in parallel, where indexing's adds them one after another
+    x = F.embedding(token_ids, params["tok_emb"]).to(dt) + params["pos_emb"][:s].to(dt)[None, :, :]
     if cfg.arch == "bert":
         x = x + params["type_emb"][0].to(dt)[None, None, :]
         x = _layernorm(x, params["emb_ln_scale"], params["emb_ln_bias"], cfg.ln_eps)

@@ -25,9 +25,11 @@ __all__ = [
     "MAX_K", "MAX_DIM",
 ]
 
-#: largest k the kernel keeps per query (its per-query lists live in shared memory)
+#: largest k the kernel keeps per query: its per-query lists live in shared memory, and longer
+#: ones would need another selection algorithm
 MAX_K = 1024
-#: widest vector the kernel takes (the block keeps its queries in shared memory)
+#: columns of its queries the kernel keeps in shared memory at once; a wider index is walked in
+#: chunks of this width (kQW in csrc/knn_topk.cu)
 MAX_DIM = 1024
 _ROWS_PER_TILE = 64  # kR in csrc/knn_topk.cu
 _BLOCKS_PER_SM = 4
@@ -116,9 +118,8 @@ def topk_scores(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Best k rows of ``index`` per query, as :func:`topk_scores_plain` computes them.
 
-    On CUDA tensors it launches the fused score + top-k kernel (f32 rows with a width divisible
-    by 4 and at most ``MAX_DIM``, 1 <= k <= min(n, ``MAX_K``)); on CPU tensors it runs the plain
-    version."""
+    On CUDA tensors it launches the fused score + top-k kernel (rows of any width, cast to f32,
+    and 1 <= k <= min(n, ``MAX_K``)); on CPU tensors it runs the plain version."""
     if queries.device.type == "cpu":
         return topk_scores_plain(queries, index, k, metric, valid)
     if queries.device.type != "cuda":
@@ -130,8 +131,8 @@ def topk_scores(
         raise ValueError("topk_scores: queries and index differ in width or device")
     if not 1 <= k <= min(N, MAX_K):
         raise ValueError(f"topk_scores: kernel takes 1 <= k <= min(rows, {MAX_K}), got k={k}")
-    if d % 4 or d > MAX_DIM:
-        raise ValueError(f"topk_scores: kernel takes widths divisible by 4 up to {MAX_DIM}")
+    if d < 1:
+        raise ValueError("topk_scores: kernel takes widths of at least 1")
     if valid is not None:
         if valid.dtype != torch.bool or valid.shape != (N,) or valid.device != queries.device:
             raise ValueError("topk_scores: valid must be bool [n] on the device of the queries")

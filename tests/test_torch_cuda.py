@@ -5,10 +5,12 @@ with a card and without JAX, run them without the repository's conftest, which i
 
     python -m pytest --noconftest tests/test_torch_cuda.py
 
-Tolerances: attention output within 1e-2 plus one bf16 ulp of the value; top-k scores within one
-bf16 ulp of the dot product, ids equal wherever a score is clear of its neighbours by more than
-that, equal scores lower row first; encoder embeddings within 3e-2 with a cosine of at least
-0.999 against the same weights on the host.
+Tolerances: attention output and its gradients within 1e-2 plus one bf16 ulp of the value; top-k
+scores within one bf16 ulp of the dot product, ids equal wherever a score is clear of its
+neighbours by more than that, equal scores lower row first; encoder embeddings within 3e-2 with a
+cosine of at least 0.999 against the same weights on the host; the InfoNCE loss and gradient
+within 1e-5 of the value (f32, sums in another order); the training step's parameter gradients
+against the host's with a cosine of at least 0.999.
 """
 
 from __future__ import annotations
@@ -17,8 +19,15 @@ import numpy as np
 import pytest
 import torch
 
-from pathway_tpu_torch.models.embedder import Embedder, EmbedderConfig
-from pathway_tpu_torch.ops.attention import masked_attention, masked_attention_plain
+from pathway_tpu_torch.models import pipeline
+from pathway_tpu_torch.models.embedder import Embedder, EmbedderConfig, embed_tokens, init_params
+from pathway_tpu_torch.ops.attention import (
+    masked_attention,
+    masked_attention_bwd,
+    masked_attention_bwd_plain,
+    masked_attention_plain,
+)
+from pathway_tpu_torch.ops.infonce import infonce, infonce_plain
 from pathway_tpu_torch.ops.index_engines import BruteForceKnnEngine
 from pathway_tpu_torch.ops.knn import MAX_K, topk_scores, topk_scores_plain
 from torch_topk_checks import assert_topk_equal, topk_tol
@@ -34,9 +43,17 @@ def cuda():
     return torch.device("cuda")
 
 
-def _attention_inputs(B, H, S, device, seed=0):
+ATTN_ATOL, ATTN_RTOL = 1e-2, 2.0 ** -7
+
+
+def _close(got, want):
+    got, want = got.float(), want.float()
+    return bool(((got - want).abs() <= ATTN_ATOL + ATTN_RTOL * want.abs()).all())
+
+
+def _attention_inputs(B, H, S, device, seed=0, D=32):
     gen = torch.Generator(device=device).manual_seed(seed)
-    q, k, v = (torch.randn((B, H, S, 32), generator=gen, device=device).to(torch.bfloat16)
+    q, k, v = (torch.randn((B, H, S, D), generator=gen, device=device).to(torch.bfloat16)
                for _ in range(3))
     lengths = torch.randint(1, S + 1, (B,), generator=gen, device=device)
     lengths[0] = 0
@@ -122,8 +139,8 @@ def test_knn_topk_kernel_refuses_what_it_does_not_take(cuda):
     index = torch.randn((2000, 64), device=cuda)
     with pytest.raises(ValueError, match=str(MAX_K)):
         topk_scores(index[:1], index, MAX_K + 1)
-    with pytest.raises(ValueError, match="divisible by 4"):
-        topk_scores(torch.randn((1, 6), device=cuda), torch.randn((10, 6), device=cuda), 1)
+    with pytest.raises(ValueError, match="differ in width"):
+        topk_scores(torch.randn((1, 6), device=cuda), torch.randn((10, 7), device=cuda), 1)
 
 
 def test_embedder_and_engine_on_the_card_match_the_host(cuda):
@@ -139,3 +156,120 @@ def test_embedder_and_engine_on_the_card_match_the_host(cuda):
     engine.add_batch(list(range(4)), texts, [None] * 4)
     rows = engine.search(texts[:2], [2, 2], [None, None])
     assert [row[0][0] for row in rows] == [0, 1]
+
+
+@pytest.mark.parametrize("D", [16, 64])
+@pytest.mark.parametrize("S", [1, 33, 128, 512])
+def test_masked_attention_kernel_other_head_widths(cuda, D, S):
+    q, k, v, mask = _attention_inputs(3, 5, S, cuda, seed=S, D=D)
+    got = masked_attention(q, k, v, mask)
+    want = masked_attention_plain(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all() and _close(got, want)
+
+
+@pytest.mark.parametrize("D", [16, 32, 64])
+@pytest.mark.parametrize("S", [1, 16, 33, 128, 512])
+def test_masked_attention_backward_kernel_matches_plain(cuda, D, S):
+    """Ragged masks with an all-pad row (the first): the gradient through autograd on the card
+    launches both kernels, and agrees with autograd of the plain version."""
+    q, k, v, mask = _attention_inputs(3, 4, S, cuda, seed=D + S, D=D)
+    dout = torch.randn(q.shape, device=cuda).to(torch.bfloat16)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    fwd, bwd = masked_attention.launches, masked_attention_bwd.launches
+    out = masked_attention(*leaves, mask)
+    assert out.grad_fn is not None  # part of the graph
+    got = torch.autograd.grad(out, leaves, dout)
+    assert (masked_attention.launches, masked_attention_bwd.launches) == (fwd + 1, bwd + 1)
+    want = masked_attention_bwd_plain(q, k, v, dout, mask)
+    torch.cuda.synchronize()
+    for name, g, w in zip("qkv", got, want):
+        assert torch.isfinite(g.float()).all(), name
+        assert _close(g, w), (name, (g.float() - w.float()).abs().max().item())
+    assert not got[0][0].any() and not got[1][0].any()  # all-pad row: no score gradient
+    if S > 1:
+        assert all(g[1:].float().abs().max() > 0 for g in got)
+
+
+def test_masked_attention_backward_kernel_takes_strided_heads(cuda):
+    B, S, H, D = 2, 40, 3, 64
+    qkv = torch.randn((B, S, 3 * H * D), device=cuda).to(torch.bfloat16).requires_grad_()
+    q, k, v = (t.view(B, S, H, D).transpose(1, 2) for t in qkv.split(H * D, dim=-1))
+    mask = torch.ones((B, S), dtype=torch.bool, device=cuda)
+    mask[1, 25:] = False
+    dout = torch.randn((B, H, S, D), device=cuda).to(torch.bfloat16)
+    (got,) = torch.autograd.grad(masked_attention(q, k, v, mask), qkv, dout)
+    want = torch.cat([g.transpose(1, 2).reshape(B, S, H * D) for g in
+                      masked_attention_bwd_plain(q, k, v, dout, mask)], dim=-1)
+    assert _close(got, want)
+
+
+def test_masked_attention_without_grad_launches_no_statistic(cuda):
+    q, k, v, mask = _attention_inputs(2, 2, 16, cuda)
+    out = masked_attention(q.requires_grad_(), k, v, mask)
+    assert out.grad_fn is not None
+    with torch.no_grad():
+        assert masked_attention(q, k, v, mask).grad_fn is None
+
+
+def test_masked_attention_bwd_refuses_what_it_does_not_take(cuda):
+    q, k, v, mask = _attention_inputs(1, 1, 16, cuda)
+    stat = torch.zeros((1, 1, 16, 2), device=cuda)
+    with pytest.raises(ValueError, match="stat"):
+        masked_attention_bwd(q, k, v, q, mask, stat[..., :1])
+    with pytest.raises(ValueError, match="head widths"):
+        bad = torch.zeros((1, 1, 16, 48), dtype=torch.bfloat16, device=cuda)
+        masked_attention_bwd(bad, bad, bad, bad, mask, stat)
+
+
+@pytest.mark.parametrize("B", [1, 7, 256, 1100])
+def test_infonce_kernel_matches_plain(cuda, B):
+    gen = torch.Generator(device=cuda).manual_seed(B)
+    ea = torch.nn.functional.normalize(torch.randn((B, 64), generator=gen, device=cuda), dim=1)
+    eb = torch.nn.functional.normalize(ea + 0.3 * torch.randn((B, 64), generator=gen,
+                                                              device=cuda), dim=1)
+    logits = ((ea @ eb.T) / pipeline.TAU).requires_grad_()
+    before = infonce.launches
+    loss = infonce(logits)
+    assert infonce.launches == before + 1
+    (grad,) = torch.autograd.grad(3.0 * loss, logits)
+    want = infonce_plain(logits)
+    (want_grad,) = torch.autograd.grad(3.0 * want, logits)
+    torch.cuda.synchronize()
+    assert abs(loss.item() - want.item()) <= 1e-5 * max(1.0, abs(want.item()))
+    assert ((grad - want_grad).abs() <= 1e-5 * (1.0 / B + want_grad.abs())).all()
+
+
+def test_attention_gradients_reach_the_weights_on_the_card(cuda):
+    """The qkv weights get their gradient only through attention: on the card it is non-zero
+    and agrees with the host's, from the same weights and tokens."""
+    cfg = EmbedderConfig(vocab_size=500, dim=128, n_layers=2, n_heads=4, max_len=64)
+    params = init_params(cfg, 3, device=cuda)
+    rng = np.random.default_rng(4)
+    tokens = rng.integers(1, cfg.vocab_size, (16, 64)).astype(np.int32)
+    tokens[rng.random(tokens.shape) < 0.2] = 0
+    ids = torch.from_numpy(tokens)
+    aug = torch.where(ids % 7 == 0, 1, ids)
+    loss_c, _, grads_c = pipeline.value_and_grad(params, ids.to(cuda), aug.to(cuda), cfg)
+    host = pipeline._rebuild(params, (t.cpu() for t in pipeline._leaves(params)))
+    loss_h, _, grads_h = pipeline.value_and_grad(host, ids, aug, cfg)
+    assert abs(loss_c.item() - loss_h.item()) <= 1e-2 * max(1.0, abs(loss_h.item()))
+    for i, (layer_c, layer_h) in enumerate(zip(grads_c["layers"], grads_h["layers"])):
+        g_c, g_h = layer_c["qkv"].cpu(), layer_h["qkv"]
+        assert g_c.abs().max() > 0, i
+        cos = (g_c * g_h).sum() / (g_c.norm() * g_h.norm())
+        assert cos >= 0.999, (i, cos.item())
+
+
+@pytest.mark.parametrize("d", [3, 385, 1030])
+def test_knn_topk_kernel_at_any_width(cuda, d):
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    index = torch.randn((3000, d), generator=gen, device=cuda)
+    index[1500:1600] = index[:100]
+    queries = index[:20] + 0.05 * torch.randn((20, d), generator=gen, device=cuda)
+    for metric in ("ip", "l2"):
+        s_k, i_k = topk_scores(queries, index, 10, metric)
+        s_p, i_p = topk_scores_plain(queries, index, 11, metric)
+        s_p = s_p.cpu().numpy()
+        assert_topk_equal(s_k.cpu().numpy(), i_k.cpu().numpy(), s_p, i_p.cpu().numpy(),
+                          topk_tol(s_p, queries.cpu().numpy(), index.cpu().numpy(), metric))
