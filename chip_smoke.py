@@ -13,7 +13,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    seeded init) embeds 16,384 chunks of a seeded corpus into ``BruteForceKnnEngine`` in ticks
    of 1024, seeded unit vectors fill the index to 1,048,576 rows, and 8 searches of 64 text
    queries (k=10) are answered, then one with a metadata filter, then one after removals. The
-   kernels' launch counts are zeroed just before and read just after.
+   kernels' launch counts are zeroed just before and read just after. The encoder's forward at
+   an ingest tick's shape is timed, and its time outside attention set beside its bound.
 4. The bert architecture at full width through ``load_hf_state_dict`` of a seeded HF-shaped
    state dict.
 5. The training step (``models/pipeline.py::make_step``) at full width: the default encoder on
@@ -22,9 +23,25 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    backward against autograd of the plain attention at head widths 16, 32 and 64, the InfoNCE
    kernel against its plain version, and both kernels' times; then the gradient and one whole
    step on the kernel route against the plain route from the same parameters; then 2 warm-up and
-   8 timed steps with the launch counts zeroed just before and read just after, and one more step
-   under the profiler.
-6. One JSON line with each kernel's numbers, then the closing JSON line.
+   8 timed steps with the launch counts zeroed just before and read just after, one more step
+   under the profiler, and the step on the plain route timed beside its bound.
+6. Ring attention's block step (``ops/ring.py``) against its plain version: one call over
+   B=1, S=4096, H=12, D=32 in bf16, the same sequence folded as 4 blocks of 1024 in the order
+   rank 0 of a 4-rank ring meets them, D=8 in f32, D=64, and a fully masked first block; the
+   top-k merge (``ops/knn.py::topk_merge``) after the scorer over 4 slices of the 1,048,576-row
+   index, against the scorer over the whole index (exact); then both kernels at the new paths'
+   shapes (the block step at one layer of the long forward, B=4 x 8192 x 8192, the merge at a
+   sharded search's), each against its plain version on the same inputs and timed.
+7. The long-context path (``models/ring_attention.py::embed_tokens_long``) on a
+   ``torch.distributed`` group of world size 1 (NCCL): the default encoder on B=4 seeded
+   documents of S=8192 tokens (16x the position table, so positions wrap) with padded tails of
+   different lengths and one document all padding; 2 warm-up and 5 timed forwards with the launch
+   counts zeroed just before and read just after, one more under the profiler; then B=1, S=2048
+   against the plain route on the card.
+8. The sharded index (``ShardedKnnIndex(mesh=...)``) on that group over 1,048,576 seeded unit
+   rows of 384, added from the host 65,536 rows at a time (each add timed), then 8 searches of 64 queries
+   at k=10 with the counts zeroed just before, against the unsharded index (exact).
+9. One JSON line with each kernel's numbers, then the closing JSON line.
 
 It needs one CUDA card and exits non-zero, printing no result, without one. It imports nothing
 of JAX and nothing of the ``pathway_tpu`` package.
@@ -58,6 +75,7 @@ EMB_ATOL, EMB_MIN_COS = 3e-2, 0.999  # unit vectors: card (kernel) against host 
 # vectors) within 1e-2
 STEP_LOSS_RTOL, GRAD_MIN_COS, GRAD_MAX_REL, ROW_ATOL = 1e-2, 0.999, 0.05, 1e-2
 INFONCE_RTOL = 1e-5  # f32 loss and gradient, the sums in another order
+RING_TOL = 2e-5  # the ring step in f32: within 2e-5 + 2e-5 |value|, the sums in another order
 
 
 def log(msg: str) -> None:
@@ -395,12 +413,27 @@ def run_main_path(device, *, n_chunks: int, n_rows: int, tick: int, n_queries: i
     fwd_ms = cuda_ms(lambda: emb._forward(toks), 5) if device.type == "cuda" else float("nan")
     return {
         "ingest_docs_per_s": n_chunks / ingest_s,
+        "fwd_ms": fwd_ms,
         "embed_tokens_per_s": tick * 128 / (fwd_ms / 1e3),
         "search_p50_ms": statistics.median(search_ms),
         "search_ms": search_ms,
         "launches": counts,
         "index_rows": engine._slots.high,
     }
+
+
+def encoder_outside_attention(fwd_ms: float, attn_ms: float, B: int = 1024, S: int = 128,
+                              dim: int = 384, layers: int = 6, vocab: int = 30528) -> dict:
+    """The default encoder's forward at B x S less its attention launches, beside the bound of
+    what it does there: the bf16 matmuls (qkv, proj and the MLP, 12 dim^2 weights a layer), and
+    the token gather, the activations each layer reads and writes (about 20 bf16 passes of
+    [B, S, dim], the MLP's four times wider) and the weights."""
+    tokens = B * S
+    ops = 2 * tokens * 12 * dim * dim * layers
+    n_bytes = tokens * (8 + dim * 2) + layers * (20 * tokens * dim * 2 + 12 * dim * dim * 4) \
+        + vocab * dim * 4
+    bound_ms, bound_by = bound(n_bytes, ops)
+    return {"ms": fwd_ms - layers * attn_ms, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 # -- phase 4: bert arch -------------------------------------------------------------------------
@@ -740,11 +773,333 @@ def run_training(device, *, cfg=None, batch: int = 256, seq: int = 128, n_rows: 
     log(f"training losses over {n_steps} steps: {trend}")
     if cuda:
         profiled("training step", lambda: one(warmup + steps))
+        with plain_route():  # the same step with every kernel's plain version, timed the same way
+            plain_step = pipeline.make_step(cfg, k=k, device=device)
+            plain_ms = cuda_ms(lambda: plain_step(p, tokens, tokens_aug, index, 0, queries), 3,
+                               warmup=1)
+    else:
+        plain_ms = float("nan")
+    # the bound: the forward's matmuls and attention products over both views and the queries,
+    # twice that again for the backward of the two views, and the search's dots
+    per_token = 2 * (12 * cfg.dim * cfg.dim + 2 * seq * cfg.dim) * cfg.n_layers
+    step_ops = 3 * 2 * batch * seq * per_token + n_queries * q_seq * per_token \
+        + 2 * n_queries * n_rows * cfg.dim
+    step_bound = bound(n_rows * cfg.dim * 4 + batch * cfg.dim * 4, step_ops)
     return {
-        "step_ms": step_ms, "wall_ms": wall_ms,
+        "step_ms": step_ms, "wall_ms": wall_ms, "plain_ms": plain_ms,
+        "bound_ms": step_bound[0], "bound_by": step_bound[1],
         "tokens_per_s": 2 * batch * seq / (step_ms / 1e3) if cuda else float("nan"),
         "launches": counts, "loss_err": loss_err, "row_err": row_err,
     }
+
+
+# -- phases 6-8: ring attention and the sharded search --------------------------------------
+
+
+def ring_inputs(B: int, H: int, S: int, D: int, dtype, gen: torch.Generator, device,
+                masked_first: bool = False):
+    """q, k, v ``[B, H, S, D]`` and a key mask with ragged padded tails; with ``masked_first``,
+    row 0 has no real key and row 1 none in the first quarter."""
+    q, k, v = (torch.randn((B, H, S, D), generator=gen, device=device).to(dtype)
+               for _ in range(3))
+    lengths = torch.randint(S // 2, S + 1, (B,), generator=gen, device=device)
+    mask = torch.arange(S, device=device)[None, :] < lengths[:, None]
+    if masked_first:
+        mask[0] = False
+        mask[1, : S // 4] = False
+    return q, k, v, mask
+
+
+def ring_fold(step_fn, q, k, v, mask, order):
+    """The block step folded over the key blocks in ``order``; the normalised f32 output."""
+    from pathway_tpu_torch.ops.ring import init_state
+
+    o, m, l = init_state(q)
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    blk = q.shape[2] // len(order)
+    for step, j in enumerate(order):
+        part = slice(j * blk, (j + 1) * blk)
+        step_fn(q, k[:, :, part], v[:, :, part], mask[:, part], o, m, l, q.shape[-1] ** -0.5,
+                out=out if step == len(order) - 1 else None)
+    return out
+
+
+def ring_close(label: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    err = (got - want).abs()
+    if not torch.isfinite(got).all() or (err > RING_TOL + RING_TOL * want.abs()).any():
+        raise AssertionError(f"{label}: max |err| {err.max().item()} over {RING_TOL} + "
+                             f"{RING_TOL} |value|")
+    log(f"{label}: max |err| = {err.max().item():.3e} (within {RING_TOL} + {RING_TOL} |value|)")
+    return err.max().item()
+
+
+RING_CASES = (  # (B, H, S, D, dtype, a fully masked first block)
+    (1, 12, 4096, 32, torch.bfloat16, False),
+    (2, 4, 1024, 8, torch.float32, True),
+    (2, 6, 1024, 64, torch.bfloat16, True),
+)
+
+
+def check_ring_block(device, cases=RING_CASES) -> float:
+    """The ring's block step against its plain version; the same sequence as one block and as
+    four, in the order rank 0 of a 4-rank ring meets them (blocks 0, 3, 2, 1)."""
+    from pathway_tpu_torch.ops.ring import ring_block_attention, ring_block_attention_plain
+
+    gen = torch.Generator(device=device).manual_seed(18)
+    worst = 0.0
+    rank0 = (0, 3, 2, 1)
+    for B, H, S, D, dtype, masked_first in cases:
+        q, k, v, mask = ring_inputs(B, H, S, D, dtype, gen, device, masked_first)
+        name = f"ring_block_attention B={B} H={H} S={S} D={D} {str(dtype)[6:]}"
+        one = ring_fold(ring_block_attention, q, k, v, mask, (0,))
+        four = ring_fold(ring_block_attention, q, k, v, mask, rank0)
+        for label, got, order in ((f"{name}, one block", one, (0,)),
+                                  (f"{name}, 4 blocks in rank 0's order", four, rank0)):
+            want = ring_fold(ring_block_attention_plain, q, k, v, mask, order)
+            worst = max(worst, ring_close(label + ", kernel vs plain", got, want))
+        ring_close(f"{name}, 4 blocks vs one call (kernel)", four, one)
+        if masked_first:
+            log(f"  (row 0 all padding, row 1's first block fully masked)")
+        del q, k, v, mask, one, four
+    return worst
+
+
+def check_sharded_merge(device, Q: int = 64, N: int = 1 << 20, d: int = 384,
+                        ks: tuple[int, ...] = (1, 10, 100), shards: int = 4) -> float:
+    """The scorer over ``shards`` slices of the index, ids shifted to global rows, candidates
+    gathered shard-major and merged, against the scorer over the whole index: equal exactly.
+    Returns the largest score difference seen (0)."""
+    from pathway_tpu_torch.ops.knn import topk_merge, topk_scores
+
+    gen = torch.Generator(device=device).manual_seed(12)
+    queries, index, valid = knn_inputs(Q, N, d, gen, device)
+    rows = N // shards
+    worst = 0.0
+    for metric in ("cos", "l2"):
+        for k in ks:
+            parts = [topk_scores(queries, index[r * rows : (r + 1) * rows], k, metric,
+                                 valid=valid[r * rows : (r + 1) * rows]) for r in range(shards)]
+            all_s = torch.cat([s for s, _ in parts], dim=1)
+            all_i = torch.cat([i + r * rows for r, (_, i) in enumerate(parts)], dim=1)
+            s_m, i_m = topk_merge(all_s, all_i, k)
+            s_w, i_w = topk_scores(queries, index, k, metric, valid=valid)
+            if not (torch.equal(s_m, s_w) and torch.equal(i_m, i_w)):
+                bad = (i_m != i_w).sum().item()
+                raise AssertionError(f"topk_merge over {shards} slices, {metric} k={k}: {bad} ids "
+                                     f"differ from the unsharded scorer")
+            n_ties = int((s_w[:, 1:] == s_w[:, :-1]).sum().item())
+            worst = max(worst, (s_m - s_w).abs().max().item())
+            log(f"topk_merge of {shards} slices of {N} x {d}, q={Q} {metric} k={k}: equal to the "
+                f"unsharded scorer exactly ({n_ties} exact ties in order)")
+    del queries, index, valid
+    return worst
+
+
+def time_parallel_kernels(device, B: int = 4, S: int = 8192, H: int = 12, D: int = 32,
+                          Q: int = 64, k: int = 10) -> dict:
+    """Both kernels at the new paths' shapes: the block step at the long-context forward's (one
+    layer: B=4, 8192 queries against 8192 keys at world size 1, q/k/v laid out as the layer gives
+    them, ragged key lengths), the merge at a sharded search's at world size 1 (64 queries,
+    1 x 10 candidates, k=10). Each is first held against its plain version on the same inputs
+    (the block step from a fresh state, within ``RING_TOL``; the merge exactly), then timed."""
+    import torch.nn.functional as F
+
+    from pathway_tpu_torch.ops.knn import topk_merge, topk_merge_plain
+    from pathway_tpu_torch.ops.ring import (
+        init_state, ring_block_attention, ring_block_attention_plain,
+    )
+
+    gen = torch.Generator(device=device).manual_seed(20)
+    qkv = torch.randn((B, S, 3 * H * D), generator=gen, device=device).to(torch.bfloat16)
+    q, k_, v = (t.view(B, S, H, D) for t in qkv.split(H * D, dim=-1))
+    qh, kh, vh = q.transpose(1, 2), k_.contiguous().transpose(1, 2), v.contiguous().transpose(1, 2)
+    lengths = torch.tensor([S, S - 1000, S // 2 + 123, 1], device=device)[:B]
+    mask = (torch.arange(S, device=device)[None, :] < lengths[:, None]).to(torch.uint8)
+    scale = D ** -0.5
+    shape = f"B={B} H={H} s=s_blk={S} D={D} bf16"
+    outs = []  # the kernel and its plain version on exactly these inputs, each from a fresh state
+    for fn in (ring_block_attention, ring_block_attention_plain):
+        o, m, l = init_state(qh)
+        out = torch.empty((B, H, S, D), dtype=torch.float32, device=device)
+        fn(qh, kh, vh, mask, o, m, l, scale, out=out)
+        outs.append(out)
+    torch.cuda.synchronize()
+    ring = {"err": ring_close(f"ring_block_attention at {shape}, lengths {lengths.tolist()}, "
+                              f"kernel vs plain", *outs), "shape": shape}
+    del outs
+    ring["ms"] = cuda_ms(lambda: ring_block_attention(qh, kh, vh, mask, o, m, l, scale, out=out), 5)
+    ring["plain_ms"] = cuda_ms(
+        lambda: ring_block_attention_plain(qh, kh, vh, mask, o, m, l, scale, out=out), 2, warmup=1)
+    qf, kf, vf = (t.float().contiguous() for t in (qh, kh, vh))
+    bool_mask = mask.bool()[:, None, None, :]
+    ring["library_ms"] = cuda_ms(
+        lambda: F.scaled_dot_product_attention(qf, kf, vf, attn_mask=bool_mask), 5)
+    ring["bound_ms"], ring["bound_by"] = bound(
+        3 * B * H * S * D * 2 + B * S + 2 * B * H * S * (D + 2) * 4 + B * H * S * D * 4,
+        4 * B * H * S * S * D, F32_OPS_PER_S)
+    del qkv, q, k_, v, qh, kh, vh, o, m, l, out, qf, kf, vf
+    torch.cuda.empty_cache()
+
+    values = torch.tensor([0.5, 0.25, 0.0, -0.25], device=device)
+    scores = values[torch.randint(0, 4, (Q, k), generator=gen, device=device)]
+    scores = scores.sort(dim=1, descending=True).values
+    ids = torch.randint(0, 1 << 20, (Q, k), generator=gen, device=device)
+    got, want = topk_merge(scores, ids, k), topk_merge_plain(scores, ids, k)
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"topk_merge at q={Q} m={k} k={k}: differs from its plain version")
+    log(f"topk_merge at q={Q} m={k} k={k} (scores of four values, ties in every row): equal to "
+        f"its plain version exactly")
+    merge = {
+        "err": (got[0] - want[0]).abs().max().item(),
+        "ms": cuda_ms(lambda: topk_merge(scores, ids, k), 50),
+        "plain_ms": cuda_ms(lambda: topk_merge_plain(scores, ids, k), 50),
+        "library_ms": cuda_ms(lambda: torch.topk(scores, k, dim=1), 50),
+    }
+    merge["bound_ms"], merge["bound_by"] = bound(2 * Q * k * (4 + 8), Q * k * 11)
+    merge["shape"] = f"q={Q} m={k} k={k}"
+    return {"ring_attention": ring, "topk_merge": merge}
+
+
+@contextlib.contextmanager
+def plain_ring():
+    """The long-context forward with the block step swapped for its plain version."""
+    from pathway_tpu_torch.models import ring_attention
+    from pathway_tpu_torch.ops.ring import ring_block_attention_plain
+
+    saved = ring_attention.ring_block_attention
+    ring_attention.ring_block_attention = ring_block_attention_plain
+    try:
+        yield
+    finally:
+        ring_attention.ring_block_attention = saved
+
+
+def long_documents(B: int, S: int, vocab: int, seed: int) -> np.ndarray:
+    """Seeded token ids ``[B, S]``: padded tails of different lengths, the last document all
+    padding."""
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(2, vocab, size=(B, S)).astype(np.int64)
+    lengths = [S, S - S // 8, S // 2 + S // 64, 0][:B] if B <= 4 else rng.integers(0, S + 1, B)
+    for b, n in enumerate(lengths):
+        tokens[b, int(n):] = 0
+    return tokens
+
+
+def run_long_context(device, *, cfg=None, batch: int = 4, seq: int = 8192, warmup: int = 2,
+                     iters: int = 5, check_seq: int = 2048) -> dict:
+    from pathway_tpu_torch.models.embedder import EmbedderConfig, init_params
+    from pathway_tpu_torch.models.ring_attention import embed_tokens_long
+    from pathway_tpu_torch.ops.ring import ring_block_attention
+    from pathway_tpu_torch.parallel.distributed import global_mesh
+
+    cuda = device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    cfg = cfg or EmbedderConfig()
+    mesh = global_mesh({"data": 1}, device=device.type)
+    params = init_params(cfg, 0, device=device)
+    tokens = torch.from_numpy(long_documents(batch, seq, cfg.vocab_size, seed=21)).to(device)
+    real = int((tokens > 0).sum().item())
+    log(f"long context: {batch} documents of S={seq} ({seq / cfg.max_len:g}x max_len, "
+        f"{real} real tokens, the last all padding) on a {mesh.size()}-rank "
+        f"{torch.distributed.get_backend()} group")
+
+    ring_block_attention.launches = 0
+    with torch.no_grad():
+        for _ in range(warmup):
+            emb = embed_tokens_long(params, tokens, cfg, mesh)
+        sync()
+        t0 = time.perf_counter()
+        if cuda:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+        for _ in range(iters):
+            emb = embed_tokens_long(params, tokens, cfg, mesh)
+        if cuda:
+            end.record()
+        sync()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+    fwd_ms = start.elapsed_time(end) / iters if cuda else float("nan")
+    counts = {"ring_attention": ring_block_attention.launches}
+    n_fwd = warmup + iters
+    log(f"launches over {n_fwd} long-context forwards: {counts} "
+        f"(per forward {counts['ring_attention'] / n_fwd:g}, {cfg.n_layers} layers)")
+    if cuda and counts["ring_attention"] != n_fwd * cfg.n_layers:
+        raise AssertionError("ring_block_attention was not launched once per layer")
+    norms = emb.norm(dim=1)
+    if emb.shape != (batch, cfg.dim) or not torch.isfinite(emb).all() or \
+            (norms[:-1] - 1).abs().max().item() > 1e-4 or norms[-1].item() != 0:
+        raise AssertionError(f"long context: embeddings of shape {tuple(emb.shape)}, norms "
+                             f"{norms.tolist()} (unit, and 0 for the all-pad document)")
+    if cuda:
+        with torch.no_grad():
+            profiled("long-context forward", lambda: embed_tokens_long(params, tokens, cfg, mesh))
+
+    # the kernel route against the plain route on the same device, B=1
+    one = tokens[:1, :check_seq].clone()
+    one[0, check_seq - check_seq // 8 :] = 0
+    with torch.no_grad():
+        got = embed_tokens_long(params, one, cfg, mesh)
+        with plain_ring():
+            want = embed_tokens_long(params, one, cfg, mesh)
+    err = (got - want).abs().max().item()
+    cos = (got * want).sum(1).min().item()
+    log(f"long context B=1 S={check_seq}: kernel route vs plain route max |err| {err:.3e} "
+        f"(atol {EMB_ATOL}), cosine {cos:.6f} (at least {EMB_MIN_COS})")
+    if not (err <= EMB_ATOL and cos >= EMB_MIN_COS):
+        raise AssertionError("long context: the kernel route disagrees with the plain route")
+    return {"fwd_ms": fwd_ms, "wall_ms": wall_ms, "launches": counts,
+            "tokens_per_s": batch * seq / (fwd_ms / 1e3) if cuda else float("nan"),
+            "real_tokens": real, "err": err}
+
+
+def run_sharded_search(device, *, n_rows: int = 1 << 20, dim: int = 384, n_queries: int = 64,
+                       k: int = 10, searches: int = 8) -> dict:
+    from pathway_tpu_torch.ops.knn import ShardedKnnIndex, topk_merge, topk_scores
+    from pathway_tpu_torch.parallel.distributed import global_mesh
+
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    mesh = global_mesh({"data": 1}, device=device.type)
+    sharded = ShardedKnnIndex(dim, capacity=n_rows, mesh=mesh, device=device)
+    single = ShardedKnnIndex(dim, capacity=n_rows, device=device)
+    rng = np.random.default_rng(22)
+    add_ms = []
+    for start in range(0, n_rows, 65536):
+        rows = rng.standard_normal((min(65536, n_rows - start), dim), dtype=np.float32)
+        rows /= np.linalg.norm(rows, axis=1, keepdims=True)
+        sync()
+        t0 = time.perf_counter()
+        sharded.add(rows)
+        sync()
+        add_ms.append((time.perf_counter() - t0) * 1e3)
+        single.add(rows)
+    picks = rng.integers(0, n_rows, n_queries)
+    queries = single._data[torch.from_numpy(picks).to(device)].cpu().numpy()
+    queries = queries + 0.05 * rng.standard_normal(queries.shape, dtype=np.float32)
+    sharded.query(queries, k)  # first use
+
+    topk_scores.launches = 0
+    topk_merge.launches = 0
+    search_ms = []
+    for _ in range(searches):
+        t0 = time.perf_counter()
+        s, i = sharded.query(queries, k)
+        search_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = {"knn_topk": topk_scores.launches, "topk_merge": topk_merge.launches}
+    log(f"launches over {searches} sharded searches: {counts}")
+    if device.type == "cuda" and min(counts.values()) == 0:
+        raise AssertionError(f"a kernel was not launched on the sharded path: {counts}")
+    s1, i1 = single.query(queries, k)
+    if not (np.array_equal(s, s1) and np.array_equal(i, i1)):
+        raise AssertionError("the sharded index disagrees with the unsharded one")
+    hits = int((i[:, 0] == picks).sum())
+    log(f"sharded search over {n_rows} x {dim}, {n_queries} queries, k={k}, {mesh.size()} shard: "
+        f"equal to the unsharded index; {hits} of {n_queries} queries find their source row first")
+    # an add of the mesh index on the host API: 65536 rows of f32 from host memory into this
+    # rank's rows and valid column; its bound is the bytes it writes at the device memory's rate
+    # (the copy crosses PCIe)
+    add_bound = bound(65536 * dim * 4 + 65536, 0)
+    return {"search_p50_ms": statistics.median(search_ms), "search_ms": search_ms,
+            "launches": counts, "add_ms": statistics.median(add_ms), "add_bound_ms": add_bound[0]}
 
 
 def main() -> int:
@@ -780,6 +1135,10 @@ def main() -> int:
                          n_searches=8, k=10)
     log(f"ingest: {path['ingest_docs_per_s']:.1f} docs/s over 16384 chunks [{card}]")
     log(f"embed forward: {path['embed_tokens_per_s']:.1f} tokens/s at B=1024 S=128 [{card}]")
+    outside = encoder_outside_attention(path["fwd_ms"], times["masked_attention"]["ms"])
+    log(f"embed_tokens outside attention at B=1024 S=128: {outside['ms']:.4f} ms (the forward's "
+        f"{path['fwd_ms']:.4f} ms less 6 x masked_attention), bound {outside['bound_ms']:.4f} ms "
+        f"({outside['bound_by']}) [{card}]")
     log(f"search: p50 {path['search_p50_ms']:.3f} ms for 64 text queries, k=10, over "
         f"{path['index_rows']} rows (each: {[round(x, 3) for x in path['search_ms']]}) [{card}]")
     run_bert(device, vocab=30522, dim=384, layers=6, heads=12, inter=1536, max_pos=512,
@@ -797,6 +1156,29 @@ def main() -> int:
     train = run_training(device)
     log(f"training step: {train['step_ms']:.3f} ms (CUDA events; host clock {train['wall_ms']:.3f}"
         f" ms), {train['tokens_per_s']:.1f} trained tokens/s (2 x 256 x 128 per step) [{card}]")
+    log(f"training step: plain route {train['plain_ms']:.3f} ms, bound {train['bound_ms']:.3f} ms "
+        f"({train['bound_by']}) [{card}]")
+    torch.cuda.empty_cache()
+
+    ring_err = check_ring_block(device)
+    merge_err = check_sharded_merge(device)
+    times.update(time_parallel_kernels(device))
+    for name in ("ring_attention", "topk_merge"):
+        t = times[name]
+        log(f"{name} at {t['shape']}: {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
+            f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}) [{card}]")
+    torch.cuda.empty_cache()
+    long = run_long_context(device)
+    log(f"long context: {long['fwd_ms']:.3f} ms a forward of 4 x 8192 tokens (CUDA events; host "
+        f"clock {long['wall_ms']:.3f} ms), {long['tokens_per_s']:.1f} tokens/s "
+        f"({long['real_tokens']} of them real) [{card}]")
+    sharded = run_sharded_search(device)
+    log(f"sharded search: p50 {sharded['search_p50_ms']:.3f} ms for 64 queries, k=10, over "
+        f"1048576 rows on 1 shard (each: {[round(x, 3) for x in sharded['search_ms']]}) [{card}]")
+    log(f"ShardedKnnIndex(mesh=...).add of 65536 x 384 f32 rows from the host, 1 rank: median "
+        f"{sharded['add_ms']:.4f} ms (host clock, synchronised), bound "
+        f"{sharded['add_bound_ms']:.4f} ms (bytes) [{card}]")
+    torch.distributed.destroy_process_group()
 
     sources = {
         "masked_attention": ("pathway_tpu_torch/csrc/masked_attention.cu",
@@ -806,11 +1188,18 @@ def main() -> int:
         "knn_topk": ("pathway_tpu_torch/csrc/knn_topk.cu", "pathway_tpu/ops/knn.py:46", knn_err),
         "infonce": ("pathway_tpu_torch/csrc/infonce.cu", "pathway_tpu/models/pipeline.py:61",
                     nce_err),
+        "ring_attention": ("pathway_tpu_torch/csrc/ring_attention.cu",
+                           "pathway_tpu/models/ring_attention.py:80",
+                           max(ring_err, times["ring_attention"]["err"])),
+        "topk_merge": ("pathway_tpu_torch/csrc/topk_merge.cu", "pathway_tpu/ops/knn.py:125",
+                       max(merge_err, times["topk_merge"]["err"])),
     }
     kernels = []
     for name, (source, replaces, err) in sources.items():
         t = times[name]
-        by_path = {"rag": path["launches"].get(name, 0), "train": train["launches"][name]}
+        by_path = {"rag": path["launches"].get(name, 0), "train": train["launches"].get(name, 0),
+                   "long": long["launches"].get(name, 0),
+                   "sharded": sharded["launches"].get(name, 0)}
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,

@@ -21,7 +21,10 @@ __all__ = ["SOURCES", "build_all", "check", "load"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parent / "_build"
-SOURCES = ("masked_attention", "masked_attention_bwd", "knn_topk", "infonce")
+SOURCES = (
+    "masked_attention", "masked_attention_bwd", "knn_topk", "infonce", "ring_attention",
+    "topk_merge",
+)
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

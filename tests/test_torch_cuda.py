@@ -10,7 +10,8 @@ scores within one bf16 ulp of the dot product, ids equal wherever a score is cle
 neighbours by more than that, equal scores lower row first; encoder embeddings within 3e-2 with a
 cosine of at least 0.999 against the same weights on the host; the InfoNCE loss and gradient
 within 1e-5 of the value (f32, sums in another order); the training step's parameter gradients
-against the host's with a cosine of at least 0.999.
+against the host's with a cosine of at least 0.999; the ring's block step in f32 within 2e-5 plus
+2e-5 of the value (the sums in another order, no TF32); the top-k merge exactly.
 """
 
 from __future__ import annotations
@@ -29,7 +30,17 @@ from pathway_tpu_torch.ops.attention import (
 )
 from pathway_tpu_torch.ops.infonce import infonce, infonce_plain
 from pathway_tpu_torch.ops.index_engines import BruteForceKnnEngine
-from pathway_tpu_torch.ops.knn import MAX_K, topk_scores, topk_scores_plain
+from pathway_tpu_torch.models import ring_attention as ring_model
+from pathway_tpu_torch.ops.knn import (
+    MAX_CANDIDATES,
+    MAX_K,
+    ShardedKnnIndex,
+    topk_merge,
+    topk_merge_plain,
+    topk_scores,
+    topk_scores_plain,
+)
+from pathway_tpu_torch.ops.ring import init_state, ring_block_attention, ring_block_attention_plain
 from torch_topk_checks import assert_topk_equal, topk_tol
 
 pytestmark = pytest.mark.cuda
@@ -40,6 +51,7 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the hand-written kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain ring step's f32 products
     return torch.device("cuda")
 
 
@@ -273,3 +285,152 @@ def test_knn_topk_kernel_at_any_width(cuda, d):
         s_p = s_p.cpu().numpy()
         assert_topk_equal(s_k.cpu().numpy(), i_k.cpu().numpy(), s_p, i_p.cpu().numpy(),
                           topk_tol(s_p, queries.cpu().numpy(), index.cpu().numpy(), metric))
+
+
+RING_TOL = 2e-5
+
+
+def _ring_inputs(B, H, S, D, dtype, device, seed):
+    """Row 0 has no real key; row 1 none in its first quarter (the first block of four)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, k, v = (torch.randn((B, H, S, D), generator=gen, device=device).to(dtype)
+               for _ in range(3))
+    mask = torch.rand((B, S), generator=gen, device=device) > 0.2
+    mask[0] = False
+    mask[1, : S // 4] = False
+    return q, k, v, mask
+
+
+def _fold(step_fn, q, k, v, mask, order):
+    """The ring's block step folded over the key blocks in ``order``: the normalised output and
+    the state."""
+    o, m, l = init_state(q)
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    blk = q.shape[2] // len(order)
+    scale = 1.0 / q.shape[-1] ** 0.5
+    for step, j in enumerate(order):
+        part = slice(j * blk, (j + 1) * blk)
+        step_fn(q, k[:, :, part], v[:, :, part], mask[:, part], o, m, l, scale,
+                out=out if step == len(order) - 1 else None)
+    return out, (o, m, l)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("D", [8, 16, 32, 64])
+@pytest.mark.parametrize("order", [(0,), (0, 3, 2, 1)], ids=["1block", "4blocks"])
+def test_ring_block_kernel_matches_plain(cuda, dtype, D, order):
+    """S = 260: blocks of 65 keys end in a partial tile, 260 query rows in a partial block of
+    rows; the fold of four blocks starts with row 1's fully masked one."""
+    q, k, v, mask = _ring_inputs(3, 4, 260, D, dtype, cuda, seed=D)
+    before = ring_block_attention.launches
+    got, (o, m, l) = _fold(ring_block_attention, q, k, v, mask, order)
+    assert ring_block_attention.launches == before + len(order)
+    want, (o_p, m_p, l_p) = _fold(ring_block_attention_plain, q, k, v, mask, order)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert ((got - want).abs() <= RING_TOL + RING_TOL * want.abs()).all(), (
+        (got - want).abs().max().item())
+    assert ((l - l_p).abs() <= RING_TOL * l_p.abs()).all()
+    assert ((m - m_p).abs() <= RING_TOL * (1 + m_p.abs())).all()
+
+
+def test_ring_block_kernel_takes_strided_heads(cuda):
+    """q, k and v as views of [B, S, H, D] tensors, the output written into one such view."""
+    B, S, H, D = 2, 100, 3, 32
+    q, k, v = (torch.randn((B, S, H, D), device=cuda) for _ in range(3))
+    mask = torch.ones((B, S), dtype=torch.bool, device=cuda)
+    mask[1, 60:] = False
+    o, m, l = init_state(q.transpose(1, 2))
+    out = torch.empty((B, S, H, D), device=cuda)
+    ring_block_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                         mask.to(torch.uint8), o, m, l, D ** -0.5, out=out.transpose(1, 2))
+    want = ring_model.full_attention(q, k, v, mask, D ** -0.5)
+    assert ((out - want).abs() <= RING_TOL + RING_TOL * want.abs()).all()
+
+
+def test_ring_block_kernel_refuses_what_it_does_not_take(cuda):
+    q = torch.zeros((1, 1, 8, 48), device=cuda)
+    o, m, l = init_state(q)
+    mask = torch.ones((1, 8), dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="head width"):
+        ring_block_attention(q, q, q, mask, o, m, l, 1.0)
+    q = torch.zeros((1, 1, 8, 32), device=cuda)
+    o, m, l = init_state(q)
+    with pytest.raises(ValueError, match="k_blk"):
+        ring_block_attention(q, q.to(torch.bfloat16), q, mask, o, m, l, 1.0)
+
+
+def _merge_inputs(q, m, device, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    values = torch.tensor([0.5, 0.25, 0.0, -0.0, -0.25, 1e-3], device=device)
+    scores = values[torch.randint(0, len(values), (q, m), generator=gen, device=device)]
+    scores[torch.rand((q, m), generator=gen, device=device) < 0.2] = -torch.inf
+    ids = torch.stack([torch.randperm(10 * m, generator=gen, device=device)[:m]
+                       for _ in range(q)])
+    return scores, ids
+
+
+@pytest.mark.parametrize("q,m,k", [(1, 1, 1), (5, 20, 10), (64, 400, 100), (7, 3000, 3000),
+                                   (3, MAX_CANDIDATES, 1024)])
+def test_topk_merge_kernel_matches_plain(cuda, q, m, k):
+    """Ties (also between -0 and +0) keep the lower position first; -inf never passes a real
+    score; 8192 candidates take 64 KB of shared memory."""
+    scores, ids = _merge_inputs(q, m, cuda, seed=m)
+    before = topk_merge.launches
+    s_k, i_k = topk_merge(scores, ids, k)
+    assert topk_merge.launches == before + 1
+    s_p, i_p = topk_merge_plain(scores, ids, k)
+    torch.cuda.synchronize()
+    assert torch.equal(s_k, s_p) and torch.equal(i_k, i_p)
+
+
+def test_topk_merge_kernel_refuses_what_it_does_not_take(cuda):
+    scores, ids = _merge_inputs(1, MAX_CANDIDATES + 1, cuda, seed=0)
+    with pytest.raises(ValueError, match=str(MAX_CANDIDATES)):
+        topk_merge(scores, ids, 1)
+    with pytest.raises(ValueError, match="int64"):
+        topk_merge(scores[:, :10], ids[:, :10].int(), 1)
+
+
+@pytest.fixture
+def world_one(cuda):
+    """A mesh of one rank on the card (NCCL, a group of world size 1)."""
+    from pathway_tpu_torch.parallel.distributed import global_mesh
+
+    return global_mesh({"data": 1}, device="cuda")
+
+
+def test_long_context_embedding_on_the_card(cuda, world_one, monkeypatch):
+    """S = 6 x max_len at world size 1: the kernel route against the plain route on the card,
+    one launch per layer; the all-pad document pools to zero."""
+    cfg = EmbedderConfig(vocab_size=500, dim=64, n_layers=2, n_heads=2, max_len=32)
+    params = init_params(cfg, 5, device=cuda)
+    rng = np.random.default_rng(6)
+    tokens = torch.from_numpy(rng.integers(1, 500, (3, 192))).to(cuda)
+    tokens[0, 100:] = 0
+    tokens[2] = 0
+    before = ring_block_attention.launches
+    got = ring_model.embed_tokens_long(params, tokens, cfg, world_one)
+    assert ring_block_attention.launches == before + cfg.n_layers
+    monkeypatch.setattr(ring_model, "ring_block_attention", ring_block_attention_plain)
+    want = ring_model.embed_tokens_long(params, tokens, cfg, world_one)
+    assert (got - want).abs().max() <= 3e-2
+    assert ((got[:2] * want[:2]).sum(1) >= 0.999).all()
+    assert not got[2].any()
+
+
+def test_sharded_index_at_world_size_one_on_the_card(cuda, world_one):
+    rng = np.random.default_rng(7)
+    rows = rng.standard_normal((3000, 48)).astype(np.float32)
+    queries = rows[:5] + 0.05 * rng.standard_normal((5, 48)).astype(np.float32)
+    sharded = ShardedKnnIndex(48, capacity=4096, mesh=world_one, device=cuda)
+    single = ShardedKnnIndex(48, capacity=4096, device=cuda)
+    for idx in (sharded, single):
+        idx.add(rows[:1000])
+        idx.add(rows[1000:])
+    before = topk_merge.launches
+    s, i = sharded.query(queries, 10)
+    assert topk_merge.launches == before + 1
+    s1, i1 = single.query(queries, 10)
+    np.testing.assert_array_equal(s, s1)
+    np.testing.assert_array_equal(i, i1)

@@ -109,8 +109,11 @@ def test_sharded_knn_index_empty_and_mesh():
     assert s_o.shape == s_t.shape == (2, 1)
     assert np.isneginf(s_o).all() and np.isneginf(s_t).all()
     np.testing.assert_array_equal(i_o, i_t)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tknn.ShardedKnnIndex(8, capacity=32, mesh=object(), device="cpu")
+    # a mesh is taken now (tests/test_torch_sharded_knn.py runs it on gloo ranks); one laid over
+    # another device type than the index's is refused
+    card_mesh = type("CardMesh", (), {"device_type": "cuda"})()
+    with pytest.raises(ValueError, match="mesh on 'cuda', index on 'cpu'"):
+        tknn.ShardedKnnIndex(8, capacity=32, mesh=card_mesh, device="cpu")
 
 
 def test_merge_shard_topk_matches_jax():
