@@ -1,4 +1,5 @@
-"""Drive the PyTorch port's RAG ingest and retrieval path and its training step on one NVIDIA card.
+"""Drive the PyTorch port's RAG ingest and retrieval path, its training step, its parallel paths and
+its dataflow engine on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -41,7 +42,20 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 8. The sharded index (``ShardedKnnIndex(mesh=...)``) on that group over 1,048,576 seeded unit
    rows of 384, added from the host 65,536 rows at a time (each add timed), then 8 searches of 64 queries
    at k=10 with the counts zeroed just before, against the unsharded index (exact).
-9. One JSON line with each kernel's numbers, then the closing JSON line.
+9. The dataflow engine (``pathway_tpu_torch/engine``) on worker threads, as the JAX package's
+   graph runner runs executors, over ``LocalComm`` and over ``MeshComm`` on the card (the record
+   exchange's dense columns through the ``bucket_exchange`` kernel): the reference's streaming
+   wordcount (500,000 rows, 997 words, commits of 10,000) at 1, 2 and 8 workers; a dense
+   groupby-and-join (4,194,304 rows over 65,536 groups in commits of 65,536, joined to a
+   65,536-row dimension table) at 1 worker and at 8 with each comm; every multi-worker table equal
+   to the 1-worker table exactly. The kernel against its plain version bitwise (n = 2, 4, 8,
+   cap_in 8 to 65,536, w 4 to 16, rows without a destination, overflowing buckets, words with the
+   high bit set, and the dense path's largest launch), timed there; the driver's exchange ticks
+   under the profiler. Then RAG through the engine: 16,384 corpus chunks in commits of 1024
+   embedded by a ``Rowwise`` into ``ExternalIndexNode`` over a 1,048,576-row
+   ``BruteForceKnnEngine``, 64 text queries at k=10, 2 workers with mesh exchange, the replies
+   against a direct search. Each path zeroes the launch counts just before and reads them after.
+10. One JSON line with each kernel's numbers, then the closing JSON line.
 
 It needs one CUDA card and exits non-zero, printing no result, without one. It imports nothing
 of JAX and nothing of the ``pathway_tpu`` package.
@@ -49,7 +63,9 @@ of JAX and nothing of the ``pathway_tpu`` package.
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import functools
 import json
 import math
 import statistics
@@ -280,6 +296,7 @@ def time_kernels(device) -> dict:
 # -- phase 3: the main path ---------------------------------------------------------------------
 
 
+@functools.cache
 def make_corpus(n_chunks: int, max_tokens: int, seed: int):
     """Seeded documents of sentences over a synthetic vocabulary, split until ``n_chunks``
     chunks exist. Returns [(chunk text, topic)]."""
@@ -1102,6 +1119,400 @@ def run_sharded_search(device, *, n_rows: int = 1 << 20, dim: int = 384, n_queri
             "launches": counts, "add_ms": statistics.median(add_ms), "add_bound_ms": add_bound[0]}
 
 
+# -- phase 9: the dataflow engine with its record exchange on the card --------------------------
+
+#: the kernel wrappers whose launch counts each engine path reads
+def launch_counters() -> dict:
+    from pathway_tpu_torch.ops.attention import masked_attention, masked_attention_bwd
+    from pathway_tpu_torch.ops.infonce import infonce
+    from pathway_tpu_torch.ops.knn import topk_merge, topk_scores
+    from pathway_tpu_torch.ops.ring import ring_block_attention
+    from pathway_tpu_torch.parallel.exchange import bucket_exchange
+
+    return {"masked_attention": masked_attention, "masked_attention_bwd": masked_attention_bwd,
+            "knn_topk": topk_scores, "infonce": infonce, "ring_attention": ring_block_attention,
+            "topk_merge": topk_merge, "bucket_exchange": bucket_exchange}
+
+
+@contextlib.contextmanager
+def counted(path: str, into: dict):
+    """Zero every wrapper's launch count, run the block, read the counts into ``into[path]``."""
+    wrappers = launch_counters()
+    for fn in wrappers.values():
+        fn.launches = 0
+    yield
+    into[path] = {name: fn.launches for name, fn in wrappers.items()}
+
+
+def run_workers(build, n_workers: int, mesh: bool, device) -> tuple[object, float, dict]:
+    """Build ``build(worker)``'s graph once per worker and run the executors on ``n_workers``
+    threads, as the JAX package's graph runner runs them: over ``LocalComm``, or with
+    ``mesh=True`` over ``MeshComm`` on ``device``; one executor without a comm at 1 worker.
+    Returns (worker 0's Capture, seconds from the threads' start to the last join, the comm's
+    counters)."""
+    import threading
+
+    from pathway_tpu_torch.engine.executor import Executor
+    from pathway_tpu_torch.parallel.comm import LocalComm, WorkerContext
+    from pathway_tpu_torch.parallel.meshcomm import MeshComm
+
+    comm = None
+    if n_workers > 1:
+        comm = LocalComm(n_workers)
+        if mesh:
+            comm = MeshComm(comm, device=device)
+    graphs = [build(w) for w in range(n_workers)]
+    executors = [Executor(nodes, ctx=None if comm is None else WorkerContext(w, n_workers, comm))
+                 for w, (nodes, _) in enumerate(graphs)]
+    errors: list[BaseException] = []
+
+    def work(ex):
+        try:
+            ex.run()
+        except BaseException as e:  # noqa: BLE001 — raised below, after every worker stopped
+            errors.append(e)
+            if comm is not None:
+                comm.abort()
+
+    threads = [threading.Thread(target=work, args=(ex,), daemon=True) for ex in executors]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    seconds = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("an engine worker did not finish within 600 s")
+    if errors:
+        raise errors[0]
+    stats = comm.comm_stats() if comm is not None else {}
+    if comm is not None:
+        comm.close()
+    return graphs[0][1], seconds, stats
+
+
+def table(cap) -> collections.Counter:
+    """A Capture's consolidated table as a multiset of (row key, row)."""
+    return collections.Counter((int(k), tuple(v.item() if isinstance(v, np.generic) else v
+                                              for v in row))
+                               for k, row in cap.state.iter_items())
+
+
+def row_keys(n: int, salt: int) -> np.ndarray:
+    from pathway_tpu_torch.engine import keys as K
+
+    return K.mix_columns([np.arange(n, dtype=np.int64)], n, salt=salt, register=False)
+
+
+def wordcount_graph(n_rows: int, commit: int):
+    """The reference's in-repo streaming wordcount (``bench.py:2089``): words ``w{i % 997}``,
+    one commit per ``commit`` rows, grouped and counted into a Capture."""
+    from pathway_tpu_torch.engine import operators as ops
+    from pathway_tpu_torch.engine.delta import Delta
+    from pathway_tpu_torch.engine.reducers import make_reducer
+
+    words = np.array([f"w{i % 997}" for i in range(n_rows)], dtype=object)
+    keys = row_keys(n_rows, 1)
+    batches = [(2 * t + 2, keys[s:s + commit], words[s:s + commit])
+               for t, s in enumerate(range(0, n_rows, commit))]
+
+    def build(worker):
+        src = ops.ScheduledSource(["word"], [(t, Delta(keys=k, data={"word": w}))
+                                             for t, k, w in batches])
+        counts = ops.GroupByReduce(src, ["word"], [("count", make_reducer("count"), [])])
+        cap = ops.Capture(counts)
+        return [src, counts, cap], cap
+
+    return build
+
+
+def dense_graph(n_rows: int, n_groups: int, commit: int, seed: int = 30):
+    """Every column numeric: (group int64 over ``n_groups``, value int64, weight float64) in
+    commits of ``commit`` rows, a sum/sum/count groupby joined to a ``n_groups``-row dimension
+    table on the group. Weights are multiples of 1/16 below 2^16, so their sums are exact in any
+    order and every sharding gives the same table bit for bit."""
+    from pathway_tpu_torch.engine import keys as K, operators as ops
+    from pathway_tpu_torch.engine.delta import Delta
+    from pathway_tpu_torch.engine.reducers import make_reducer
+
+    rng = np.random.default_rng(seed)
+    g = rng.integers(0, n_groups, n_rows).astype(np.int64)
+    v = rng.integers(-2**31, 2**31, n_rows).astype(np.int64)
+    w = rng.integers(-2**20, 2**20, n_rows) / 16.0
+    keys = row_keys(n_rows, 2)
+    batches = [(2 * t + 2, slice(s, s + commit)) for t, s in enumerate(range(0, n_rows, commit))]
+    dim_g = np.arange(n_groups, dtype=np.int64)
+    dim_keys, labels = row_keys(n_groups, 3), dim_g * 7919 + 13
+
+    def jk(cols, k):
+        return K.mix_columns([cols["g"]], len(k), register=False)
+
+    def build(worker):
+        src = ops.ScheduledSource(["g", "v", "w"], [
+            (t, Delta(keys=keys[sl], data={"g": g[sl], "v": v[sl], "w": w[sl]}))
+            for t, sl in batches])
+        sums = ops.GroupByReduce(src, ["g"], [("sv", make_reducer("sum"), ["v"]),
+                                              ("sw", make_reducer("sum"), ["w"]),
+                                              ("n", make_reducer("count"), [])])
+        left = ops.Rowwise(sums, {"jk": jk, **{c: (lambda c_: lambda cols, k: cols[c_])(c)
+                                               for c in ("g", "sv", "sw", "n")}})
+        dim = ops.StaticSource(dim_keys, {"g": dim_g, "label": labels})
+        right = ops.Rowwise(dim, {"jk": jk, "label": lambda cols, k: cols["label"]})
+        joined = ops.Join(left, right, "jk", "jk", ["g", "sv", "sw", "n"], ["label"],
+                          ["g", "sv", "sw", "n", "label"])
+        cap = ops.Capture(joined)
+        return [src, sums, left, dim, right, joined, cap], cap
+
+    return build
+
+
+def exchange_case(n: int, cap_in: int, w: int, seed: int, device):
+    """Words of 64-bit values with the high bit set, a fifth of the rows without a destination
+    (-1), the rest skewed to destination 0 so that small buckets overflow."""
+    gen = torch.Generator().manual_seed(seed)
+    words = torch.randint(-2**31, 2**31 - 1, (n, cap_in, w), generator=gen,
+                          dtype=torch.int64).to(torch.int32)
+    words[..., 1::2] |= torch.tensor(-2**31, dtype=torch.int32)
+    dest = torch.randint(0, n, (n, cap_in), generator=gen, dtype=torch.int32)
+    dest[torch.rand((n, cap_in), generator=gen) < 0.3] = 0
+    dest[torch.rand((n, cap_in), generator=gen) < 0.2] = -1
+    return words.to(device), dest.to(device)
+
+
+EXCHANGE_CASES = (  # (n, cap_in, w, cap_bucket): buckets that hold every row, and overflow
+    (2, 8, 4, 8), (2, 1024, 4, 64), (2, 65536, 16, 65536), (4, 4096, 6, 4096),
+    (4, 16384, 8, 256), (8, 8, 4, 2), (8, 16384, 10, 16384), (8, 65536, 16, 1024),
+    (8, 65536, 4, 65536),
+)
+
+
+def check_bucket_exchange(device, recorded) -> int:
+    """The kernel against its plain version on the card, bitwise, on ``EXCHANGE_CASES`` and on
+    the inputs the dense path gave it. Returns the largest word difference seen (0)."""
+    from pathway_tpu_torch.parallel.exchange import bucket_exchange, bucket_exchange_plain
+
+    cases = [(f"n={n} cap_in={c} w={w} cap_bucket={b}", *exchange_case(n, c, w, n * c + w, device),
+              n, b) for n, c, w, b in EXCHANGE_CASES]
+    cases.append((f"the dense path's largest input {tuple(recorded[0].shape)}, cap_bucket="
+                  f"{recorded[3]}", *recorded))
+    worst = 0
+    for label, words, dest, n, cap_bucket in cases:
+        out, valid = bucket_exchange(words, dest, n, cap_bucket)
+        want, want_valid = bucket_exchange_plain(words, dest, n, cap_bucket)
+        torch.cuda.synchronize()
+        kept, rows = int(want_valid.sum()), int((dest >= 0).sum())
+        if not (torch.equal(out, want) and torch.equal(valid, want_valid)):
+            raise AssertionError(f"bucket_exchange at {label}: differs from its plain version")
+        worst = max(worst, int((out.long() - want.long()).abs().max()))
+        log(f"bucket_exchange at {label}: equal to its plain version bitwise ({kept} of {rows} "
+            f"rows kept, {rows - kept} dropped for overflow)")
+    return worst
+
+
+def time_bucket_exchange(recorded) -> dict:
+    """The kernel at the dense path's shape, on the inputs of that path's largest launch."""
+    from pathway_tpu_torch.parallel.exchange import bucket_exchange, bucket_exchange_plain
+
+    words, dest, n_dst, cap_bucket = recorded
+    n_src, cap_in, w = words.shape
+    out_rows = n_dst * n_src * cap_bucket
+    t = {
+        "shape": f"n_src={n_src} cap_in={cap_in} w={w} n_dst={n_dst} cap_bucket={cap_bucket}",
+        "ms": cuda_ms(lambda: bucket_exchange(words, dest, n_dst, cap_bucket), 50),
+        "plain_ms": cuda_ms(lambda: bucket_exchange_plain(words, dest, n_dst, cap_bucket), 10),
+        "library_ms": None,  # no PyTorch call buckets rows in source order
+    }
+    # each input word read once, each output word and validity byte written once
+    t["bound_ms"], t["bound_by"] = bound(words.numel() * 4 + dest.numel() * 4
+                                         + out_rows * w * 4 + out_rows, 0)
+    return t
+
+
+@contextlib.contextmanager
+def record_largest_exchange(into: list):
+    """Keep a copy of the bucketing inputs of the exchange made in the block that moves the most
+    words (read plus written). The engine's runner reaches ``bucketed_all_to_all`` through
+    ``parallel.exchange``'s module attribute, which the block wraps."""
+    from pathway_tpu_torch.parallel import exchange
+
+    original = exchange.bucketed_all_to_all
+    most = [0]
+
+    def recording(values, dest, n_shards, cap_out, **kw):
+        rows, w = values.shape
+        words = values.numel() + n_shards * cap_out * w
+        if words > most[0]:
+            most[0] = words
+            into[:] = [values.reshape(n_shards, rows // n_shards, w).clone(),
+                       dest.reshape(n_shards, rows // n_shards).clone(), n_shards,
+                       cap_out // n_shards]
+        return original(values, dest, n_shards, cap_out, **kw)
+
+    exchange.bucketed_all_to_all = recording
+    try:
+        yield
+    finally:
+        exchange.bucketed_all_to_all = original
+
+
+@contextlib.contextmanager
+def device_profile(on: bool):
+    """The profiler over the block when ``on`` (the card), else nothing."""
+    if not on:
+        yield None
+        return
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        yield prof
+        torch.cuda.synchronize()
+
+
+def exchange_split(prof, stats: dict, seconds: float, label: str) -> None:
+    """The driver's exchange ticks of one engine run: the host time of its steps (the runner's
+    counters: pack, the upload's enqueue, the kernel's enqueue with the wait for it, and the
+    workers' readbacks), the device time by kernel and copy (the profiler, which records the
+    card's work of every thread), and the idle share of the run."""
+    device_ev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in device_ev) / 1e3
+    wall_ms = seconds * 1e3
+    n = int(stats["mesh_collectives"])
+    split = {k: stats[f"mesh_{k}_ms"] for k in ("pack", "upload", "kernel", "readback")}
+    card = card_line()
+    log(f"{label} under the profiler: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms (idle "
+        f"share {1 - busy_ms / wall_ms:.4f}); {n} collectives, "
+        f"{int(stats['mesh_rows_moved'])} rows [{card}]")
+    log("  host, summed over the run: " + ", ".join(
+        f"{k} {v:.3f} ms ({v / n:.4f} a collective)" for k, v in split.items()) + f" [{card}]")
+    for e in sorted(device_ev, key=lambda e: -e.self_device_time_total)[:6]:
+        log(f"  device {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:80]} "
+            f"[{card}]")
+
+
+def run_engine(device, *, wc_rows: int = 500_000, wc_commit: int = 10_000,
+               dense_rows: int = 1 << 22, groups: int = 1 << 16, dense_commit: int = 1 << 16,
+               workers: int = 8, rag_chunks: int = 16384, rag_rows: int = 1 << 20,
+               rag_commit: int = 1024, rag_queries: int = 64, k: int = 10, cfg=None) -> dict:
+    """The engine phase; sizes as the defaults say on the card (a CPU rehearsal passes small
+    ones). Returns the rows/s of each run, the launch counts of each path and the bucket
+    exchange's check and times."""
+    from pathway_tpu_torch.engine import operators as ops
+    from pathway_tpu_torch.engine.delta import Delta
+    from pathway_tpu_torch.engine.external_index import ExternalIndexNode
+    from pathway_tpu_torch.models.embedder import Embedder
+    from pathway_tpu_torch.ops.index_engines import BruteForceKnnEngine
+
+    cuda = device.type == "cuda"
+    launches: dict = {}
+    rates: dict = {}
+
+    build = wordcount_graph(wc_rows, wc_commit)
+    base, sec, _ = run_workers(build, 1, False, device)
+    rates["wordcount 1 worker"] = wc_rows / sec
+    want = table(base)
+    if sum(r[1] for _, r in want) != wc_rows or len(want) != min(997, wc_rows):
+        raise AssertionError("wordcount: the counts do not add up to the rows")
+    for n in (2, workers):
+        with counted(f"engine_wordcount_{n}", launches):
+            cap, sec, stats = run_workers(build, n, True, device)
+        if table(cap) != want:
+            raise AssertionError(f"wordcount at {n} workers with mesh exchange differs from 1")
+        rates[f"wordcount {n} workers, mesh exchange"] = wc_rows / sec
+        log(f"wordcount {wc_rows} rows at {n} workers, mesh exchange: equal to 1 worker; "
+            f"{int(stats['mesh_rows_moved'])} rows in {int(stats['mesh_collectives'])} "
+            f"collectives; launches {launches[f'engine_wordcount_{n}']['bucket_exchange']}")
+
+    build = dense_graph(dense_rows, groups, dense_commit)
+    base, sec, _ = run_workers(build, 1, False, device)
+    rates["dense 1 worker"] = dense_rows / sec
+    want = table(base)
+    if len(want) != groups or sum(r[3] for _, r in want) != dense_rows:
+        raise AssertionError("dense groupby-join: the table does not cover every group and row")
+    recorded: list = []
+    with counted("engine_dense", launches), record_largest_exchange(recorded), \
+            device_profile(cuda) as prof:
+        cap, sec, stats = run_workers(build, workers, True, device)
+    if cuda:
+        exchange_split(prof, stats, sec, f"dense groupby-join at {workers} workers, mesh exchange,")
+    if table(cap) != want:
+        raise AssertionError(f"dense groupby-join at {workers} workers with mesh exchange "
+                             f"differs from 1 worker")
+    rates[f"dense {workers} workers, mesh exchange"] = dense_rows / sec
+    log(f"dense groupby-join {dense_rows} rows at {workers} workers, mesh exchange: equal to 1 "
+        f"worker; {int(stats['mesh_rows_moved'])} rows in {int(stats['mesh_collectives'])} "
+        f"collectives")
+    cap, sec, _ = run_workers(build, workers, False, device)
+    if table(cap) != want:
+        raise AssertionError(f"dense groupby-join at {workers} workers over LocalComm differs")
+    rates[f"dense {workers} workers, LocalComm"] = dense_rows / sec
+    del base, cap, want
+
+    result = {"rates": rates, "launches": launches}
+    if cuda:
+        result["exchange_err"] = check_bucket_exchange(device, recorded)
+        result["exchange"] = time_bucket_exchange(recorded)
+    del recorded
+
+    # RAG through the engine: chunks embedded by a Rowwise (kernel 1) into ExternalIndexNode
+    # over the brute-force index on worker 0, filled first to rag_rows with seeded unit rows
+    emb = Embedder(cfg, seed=0, device=device)
+    corpus = make_corpus(rag_chunks, 256, seed=1)
+    texts = np.array([c for c, _ in corpus], dtype=object)
+    index = BruteForceKnnEngine(emb.cfg.dim, reserved_space=rag_rows, embedder=emb,
+                                device=device)
+    rng = np.random.default_rng(31)
+    for start in range(0, rag_rows - rag_chunks, 65536):
+        n = min(65536, rag_rows - rag_chunks - start)
+        vecs = rng.standard_normal((n, emb.cfg.dim), dtype=np.float32)
+        index.add_batch(list(range((1 << 62) + start, (1 << 62) + start + n)), vecs, [None] * n)
+    doc_keys = row_keys(rag_chunks, 4)
+    queries = np.array([texts[i].split(".")[0] for i in rng.integers(0, rag_chunks, rag_queries)],
+                       dtype=object)
+    n_commits = -(-rag_chunks // rag_commit)
+
+    def build_rag(worker):
+        docs = ops.ScheduledSource(["text"], [
+            (2 * t + 2, Delta(keys=doc_keys[s:s + rag_commit], data={"text": texts[s:s + rag_commit]}))
+            for t, s in enumerate(range(0, rag_chunks, rag_commit))])
+        embedded = ops.Rowwise(docs, {"__data__": lambda c, k: emb.embed_texts(list(c["text"]))})
+        qs = ops.ScheduledSource(["__query__", "__limit__"], [(2 * n_commits + 2, Delta(
+            keys=row_keys(rag_queries, 5),
+            data={"__query__": queries, "__limit__": np.full(rag_queries, k, np.int64)}))])
+        # the index lives on worker 0, where both inputs gather; the other workers' nodes never
+        # receive a row, so they get an empty index
+        engine = index if worker == 0 else BruteForceKnnEngine(emb.cfg.dim, reserved_space=1,
+                                                                device=device)
+        node = ExternalIndexNode(embedded, qs, engine, asof_now=True)
+        cap = ops.Capture(node)
+        return [docs, embedded, qs, node, cap], cap
+
+    emb.embed_texts(list(texts[:8]))  # first use: kernel libraries load, cuBLAS warms up
+    with counted("engine_rag", launches):
+        cap, sec, stats = run_workers(build_rag, 2, True, device)
+    rates["rag 2 workers, mesh exchange (chunks/s)"] = rag_chunks / sec
+    replies = {int(k_): row[0] for k_, row in cap.state.iter_items()}
+    q_keys = row_keys(rag_queries, 5)
+    direct = index.search(list(queries), [k] * rag_queries, [None] * rag_queries)
+    for qk, want_row in zip(q_keys, direct):
+        got_row = replies.get(int(qk))
+        if got_row != tuple((int(a), float(b)) for a, b in want_row):
+            raise AssertionError("a reply of the engine differs from a direct search")
+    corpus_keys = set(doc_keys.tolist())
+    found = sum(1 for qk in q_keys if replies[int(qk)][0][0] in corpus_keys)
+    log(f"RAG through the engine at 2 workers, mesh exchange: {rag_chunks} chunks in "
+        f"{n_commits} commits into {index._slots.high} rows; {rag_queries} replies equal a direct "
+        f"search; {found} of {rag_queries} top hits are corpus chunks; launches "
+        f"{launches['engine_rag']}")
+    if cuda:
+        for path, need in (("engine_wordcount_2", ("bucket_exchange",)),
+                           (f"engine_wordcount_{workers}", ("bucket_exchange",)),
+                           ("engine_dense", ("bucket_exchange",)),
+                           ("engine_rag", ("bucket_exchange", "masked_attention", "knn_topk"))):
+            missing = [name for name in need if launches[path][name] == 0]
+            if missing:
+                raise AssertionError(f"{missing} not launched on the {path} path")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -1112,6 +1523,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    start = time.perf_counter()
+
+    def phase(name: str) -> None:
+        log(f"-- {name}, {time.perf_counter() - start:.1f} s into the run")
+
     card = card_line()
     log(card)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
@@ -1124,6 +1540,7 @@ def main() -> int:
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  {name}: {line.strip()}")
 
+    phase("kernels of the RAG path")
     attn_err = check_attention(64, (16, 128, 512), device)
     knn_err, _ = check_knn(64, 1 << 20, 384, (1, 10, 100), device)
     times = time_kernels(device)
@@ -1131,6 +1548,7 @@ def main() -> int:
         log(f"{name} at {t['shape']}: {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
             f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}) [{card}]")
 
+    phase("the RAG path")
     path = run_main_path(device, n_chunks=16384, n_rows=1 << 20, tick=1024, n_queries=64,
                          n_searches=8, k=10)
     log(f"ingest: {path['ingest_docs_per_s']:.1f} docs/s over 16384 chunks [{card}]")
@@ -1144,6 +1562,7 @@ def main() -> int:
     run_bert(device, vocab=30522, dim=384, layers=6, heads=12, inter=1536, max_pos=512,
              batch=64, seq=128)
 
+    phase("the training step")
     bwd_err = check_attention_backward(
         ((64, 24, 128, 16), (256, 12, 128, 32), (64, 6, 128, 64), (4, 6, 512, 64)), device)
     nce_err = check_infonce((256, 1000), device)
@@ -1160,6 +1579,7 @@ def main() -> int:
         f"({train['bound_by']}) [{card}]")
     torch.cuda.empty_cache()
 
+    phase("the parallel paths")
     ring_err = check_ring_block(device)
     merge_err = check_sharded_merge(device)
     times.update(time_parallel_kernels(device))
@@ -1179,7 +1599,18 @@ def main() -> int:
         f"{sharded['add_ms']:.4f} ms (host clock, synchronised), bound "
         f"{sharded['add_bound_ms']:.4f} ms (bytes) [{card}]")
     torch.distributed.destroy_process_group()
+    torch.cuda.empty_cache()
 
+    phase("the engine")
+    engine = run_engine(device)
+    for name, rate in engine["rates"].items():
+        log(f"engine {name}: {rate:.1f} rows/s [{card}]")
+    t = engine["exchange"]
+    times["bucket_exchange"] = {**t, "err": engine["exchange_err"]}
+    log(f"bucket_exchange at {t['shape']}: {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+        f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}) [{card}]")
+
+    phase("done")
     sources = {
         "masked_attention": ("pathway_tpu_torch/csrc/masked_attention.cu",
                              "pathway_tpu/models/embedder.py:90", attn_err),
@@ -1193,13 +1624,16 @@ def main() -> int:
                            max(ring_err, times["ring_attention"]["err"])),
         "topk_merge": ("pathway_tpu_torch/csrc/topk_merge.cu", "pathway_tpu/ops/knn.py:125",
                        max(merge_err, times["topk_merge"]["err"])),
+        "bucket_exchange": ("pathway_tpu_torch/csrc/bucket_exchange.cu",
+                            "pathway_tpu/parallel/exchange.py:51", engine["exchange_err"]),
     }
     kernels = []
     for name, (source, replaces, err) in sources.items():
         t = times[name]
         by_path = {"rag": path["launches"].get(name, 0), "train": train["launches"].get(name, 0),
                    "long": long["launches"].get(name, 0),
-                   "sharded": sharded["launches"].get(name, 0)}
+                   "sharded": sharded["launches"].get(name, 0),
+                   **{p: c[name] for p, c in engine["launches"].items()}}
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,

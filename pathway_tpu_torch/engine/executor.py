@@ -1,0 +1,802 @@
+"""Single-worker dataflow executor: logical-time ticks over an operator DAG.
+
+Re-design of the reference's per-worker event loop
+(``src/engine/dataflow.rs:5596-5650`` — ``step_or_park`` over timely
+operators): here the DAG is explicit, acyclic (iteration is a composite node
+running an inner fixpoint), and each logical timestamp is processed by one
+topological sweep that moves columnar ``Delta`` batches between operators.
+Progress tracking degenerates to "times are processed in nondecreasing
+order", which is exactly the reference's total-order ``Timestamp``
+(``src/engine/timestamp.rs:20``) semantics.
+
+Multi-worker sharding (reference: timely exchange channels) is layered above
+by partitioning deltas on ``keys.shard_of`` — see ``parallel/``. Sharded runs
+advance in lock-step: every worker sweeps the same ticks, and each Exchange
+is a blocking all-to-all.
+
+Copy of ``pathway_tpu/engine/executor.py`` with its bulk-synchronous tick
+loop. Left out: the frontier-driven async plane, persistence and recovery
+replay, and the hooks that are inert unless configured (chaos injection, the
+flight recorder, the profiler's operator slot, the upgrade fingerprints, the
+spill budget, key-load accounting, the commit-wave recorder).
+"""
+
+from __future__ import annotations
+
+import itertools
+from typing import Any, Callable
+
+import numpy as np
+
+from .delta import Delta, concat_deltas
+
+__all__ = [
+    "Node", "SourceNode", "Executor", "EngineStats", "END_TIME", "E2E_STAGES",
+]
+
+END_TIME = 1 << 62
+
+#: staged decomposition of the ingest→emit histogram, pipeline order:
+#: connector ingest → exchange post (route), post → operator delivery
+#: (inbox dwell), delivery → emitting sweep (settle/commit wait), sweep
+#: start → emit. The four stage observations sum EXACTLY to the
+#: ``e2e_latency_hist`` observation they decompose (the third stage is
+#: the remainder by construction) — see EngineStats.note_e2e.
+E2E_STAGES = ("ingest_route", "inbox_dwell", "settle_commit", "commit_deliver")
+
+
+class EngineStats:
+    """Live counters read by the monitoring dashboard and the /metrics
+    endpoint (the reference's ProberStats role, graph.rs:521-563)."""
+
+    def __init__(self) -> None:
+        import time as _time
+
+        from ..observability.histogram import LogHistogram
+
+        self.started_at = _time.time()
+        self.ticks = 0
+        self.rows_total = 0
+        self.input_rows = 0
+        self.output_rows = 0
+        self.latency_ms: float | None = None
+        #: wall-clock of the last latency_ms update — the gauge freezes at
+        #: the last commit's value, so its age is what separates "fast"
+        #: from "stalled" (pathway_output_latency_age_seconds)
+        self.latency_updated_at: float | None = None
+        self.last_time: int = 0
+        self.rows_by_node: dict[str, int] = {}
+        #: cumulative processing nanoseconds per node (the dashboard's
+        #: per-operator latency column, reference monitoring.py:56-190);
+        #: populated when detailed monitoring or tracing is on
+        self.time_by_node: dict[str, int] = {}
+        #: set by the dashboard at level >= ALL to turn on per-node timing
+        self.detailed = False
+        self.finished = False
+        # -- distribution-level metrics (observability/histogram.py) --
+        #: wall time of each tick sweep, ns
+        self.tick_duration = LogHistogram()
+        #: commit-to-output latency, ns (histogram companion of latency_ms)
+        self.latency_hist = LogHistogram()
+        #: end-to-end ingest→emit latency, ns: connector ingest stamp
+        #: (ConnectorSubject._emit wall time) to the tick that delivered
+        #: rows to a terminal output node — the signals plane's
+        #: user-visible latency distribution
+        self.e2e_latency_hist = LogHistogram()
+        #: last observed ingest→emit latency (gauge companion)
+        self.e2e_ms: float | None = None
+        #: per-operator processing time, ns (fed with time_by_node)
+        self.node_time_hist: dict[str, Any] = {}
+        self._hist_factory = LogHistogram
+        # -- liveness / readiness (observability/health.py) --
+        #: updated every tick AND every idle park cycle; a stale heartbeat
+        #: on an unfinished run means the executor thread is wedged
+        self.last_heartbeat = self.started_at
+        #: all sources collected/started — first half of /readyz
+        self.sources_connected = False
+        # -- exchange backpressure (Exchange nodes / comm backends) --
+        self.exchange_rows_out = 0
+        self.exchange_rows_in = 0
+        self.exchange_batches = 0
+        #: staged ingest→emit histograms (E2E_STAGES order); each e2e
+        #: observation lands once in every stage, so per-stage p99s name
+        #: the stage behind an e2e p99 move
+        self.stage_hists: dict[str, Any] = {
+            s: LogHistogram() for s in E2E_STAGES
+        }
+
+    def heartbeat(self) -> None:
+        import time as _time
+
+        self.last_heartbeat = _time.time()
+
+    def note_node(self, node: "Node", n_rows: int, is_source: bool) -> None:
+        self.rows_total += n_rows
+        if is_source:
+            self.input_rows += n_rows
+        # fused chains (engine/fusion.py) attribute under their MEMBER
+        # labels so the rows and time series share keys; the chain's
+        # emitted count is credited to each member (a best-effort rate,
+        # exact for filterless chains)
+        labels = getattr(node, "attribution_labels", None) or (
+            f"{type(node).__name__}#{node.node_id}",
+        )
+        for label in labels:
+            self.rows_by_node[label] = self.rows_by_node.get(label, 0) + n_rows
+
+    def note_node_time(self, node: "Node", ns: int) -> None:
+        self.note_op_time(f"{type(node).__name__}#{node.node_id}", ns)
+
+    def note_op_time(self, label: str, ns: int) -> None:
+        """Per-operator time under an explicit label — fused chains
+        (engine/fusion.py) self-report their MEMBER operators' cost
+        splits here so /attribution still names the bottleneck operator
+        inside a fused chain."""
+        self.time_by_node[label] = self.time_by_node.get(label, 0) + ns
+        hist = self.node_time_hist.get(label)
+        if hist is None:
+            hist = self.node_time_hist[label] = self._hist_factory()
+        hist.observe(ns)
+
+    def note_e2e(
+        self,
+        ingest_ns: int,
+        route_ns: int = 0,
+        dwell_ns: int = 0,
+        sweep_t0_wall_ns: "int | None" = None,
+    ) -> None:
+        """Record one ingest→emit observation: rows stamped at connector
+        ingest time ``ingest_ns`` just reached a terminal output node —
+        and decompose it into the E2E_STAGES. ``route_ns`` is the
+        sender-side ingest→exchange-post latency, ``dwell_ns`` the
+        exchange inbox dwell (both ride the frame meta through the async
+        plane), ``sweep_t0_wall_ns`` the wall clock at the start of the
+        sweep that emitted. Stages are clamped in order against the
+        total, the settle/commit stage is the remainder — the four
+        observations sum exactly to the e2e one."""
+        import time as _time
+
+        now = _time.time_ns()
+        lat_ns = now - int(ingest_ns)
+        if lat_ns < 0:  # clock skew guard (stamps come from this host)
+            lat_ns = 0
+        self.e2e_latency_hist.observe(lat_ns)
+        self.e2e_ms = lat_ns / 1e6
+        s1 = min(max(0, int(route_ns)), lat_ns)
+        s2 = min(max(0, int(dwell_ns)), lat_ns - s1)
+        s4 = 0
+        if sweep_t0_wall_ns is not None:
+            s4 = min(max(0, now - int(sweep_t0_wall_ns)), lat_ns - s1 - s2)
+        h = self.stage_hists
+        h["ingest_route"].observe(s1)
+        h["inbox_dwell"].observe(s2)
+        h["settle_commit"].observe(lat_ns - s1 - s2 - s4)
+        h["commit_deliver"].observe(s4)
+
+    def note_exchange(self, rows_out: int, rows_in: int) -> None:
+        self.exchange_batches += 1
+        self.exchange_rows_out += rows_out
+        self.exchange_rows_in += rows_in
+
+    def note_tick(self, time: int) -> None:
+        import time as _time
+
+        self.ticks += 1
+        self.last_time = time
+        now = _time.time()
+        self.last_heartbeat = now
+        now_ms = now * 1000.0
+        # only wall-clock commit timestamps are latency-comparable; small
+        # logical times (scheduled test streams) would read as ~epoch ms
+        if time > 1_000_000_000_000:
+            # a logical clock nudged past wall-clock means we're keeping up
+            self.latency_ms = max(0.0, now_ms - time)
+            self.latency_updated_at = now
+            self.latency_hist.observe(int(self.latency_ms * 1e6))
+
+
+class Node:
+    """An engine operator: consumes per-tick input deltas, emits one delta."""
+
+    _ids = itertools.count()
+
+    #: run process() every tick even with no local input (Exchange nodes
+    #: must join every collective; sharded peers may be sending rows)
+    always_run = False
+
+    #: instance attributes that together form this operator's state
+    #: (reference: the arrangement each operator keeps). Empty = stateless;
+    #: a run whose nodes are all stateless skips key registration.
+    STATE_FIELDS: tuple[str, ...] = ()
+
+    def __init__(self, inputs: list["Node"], column_names: list[str]):
+        self.node_id = next(Node._ids)
+        self.inputs = list(inputs)
+        self.column_names = list(column_names)
+        #: pw.local_error_log() scope of the table this node was lowered
+        #: from (set by graph_runner.lower; None = no local scope)
+        self.error_scope: int | None = None
+
+    def has_state(self) -> bool:
+        return bool(self.STATE_FIELDS)
+
+    def exchange_specs(self) -> list[tuple | None]:
+        """Routing requirement per input port for sharded execution: None
+        (stateless — rows may stay wherever they are) or a route spec the
+        sharding pass turns into an Exchange node (see operators.Exchange).
+        Stateful operators MUST route so each worker owns a disjoint
+        key-shard of their state (reference ShardPolicy, value.rs:93)."""
+        return [None] * len(self.inputs)
+
+    def on_shard(self, ctx) -> None:
+        """Hook called by the sharding pass on every node; sink nodes mute
+        user callbacks on workers that never receive gathered rows."""
+
+    def process(self, time: int, in_deltas: list[Delta | None]) -> Delta | None:
+        raise NotImplementedError
+
+    def advance_to(self, time: int) -> Delta | None:
+        """Called when logical time advances to `time`, before any deltas at
+        `time` are delivered. Temporal buffers release their due rows here."""
+        return None
+
+    def on_end(self) -> Delta | None:
+        """Input frontier closed — flush anything still buffered."""
+        return None
+
+    def __repr__(self) -> str:
+        return f"<{type(self).__name__} #{self.node_id} cols={self.column_names}>"
+
+
+def _min_stamp(a: "int | None", b: "int | None") -> "int | None":
+    """Oldest of two optional ingest stamps (ns)."""
+    if a is None:
+        return b
+    if b is None:
+        return a
+    return min(a, b)
+
+
+class SourceNode(Node):
+    """A source: provides a schedule of (time, delta) batches.
+
+    Batch inputs yield everything at a single time; streaming test sources
+    (stream generators, demo streams, the python ConnectorSubject machinery)
+    yield a finite timestamped schedule. Long-running realtime sources
+    implement ``poll`` instead (see io/).
+    """
+
+    def __init__(self, column_names: list[str]):
+        super().__init__([], column_names)
+
+    def schedule(self) -> list[tuple[int, Delta]]:
+        raise NotImplementedError
+
+    def process(self, time: int, in_deltas: list[Delta | None]) -> Delta | None:
+        return None
+
+
+class RealtimeSource(SourceNode):
+    """A live long-running source, polled by the streaming event loop.
+
+    ``attach_waker`` hands the source the loop's wake event: setting it on
+    new data ends the idle park immediately (the reference's unpark on
+    channel activity) instead of waiting out the poll interval — this is
+    what keeps serve-path latency at data-arrival time, not park cadence.
+
+    The reference runs each connector on its own thread feeding a channel
+    drained by the worker loop's pollers (``src/connectors/mod.rs:427``,
+    ``dataflow.rs:5596-5650``); subclasses here do the same — a producer
+    thread fills an internal queue and ``poll()`` drains it.
+    """
+
+    def schedule(self) -> list[tuple[int, Delta]]:
+        return []
+
+    def start(self) -> None:
+        """Begin producing (spawn the reader thread)."""
+
+    def attach_waker(self, event) -> None:
+        """Receive the streaming loop's wake event; implementations may set
+        it when new data arrives to end the idle park immediately."""
+        self.waker = event
+
+    def poll(self) -> list[Delta]:
+        """Drain everything produced since the last poll. Each returned
+        delta is committed at its own fresh timestamp (a commit tick)."""
+        return []
+
+    def take_ingest_stamps(self) -> list["int | None"]:
+        """Ingest wall-time stamps (ns) aligned 1:1 with the deltas the
+        last ``poll()`` returned — when the connector actually received
+        each batch's oldest row. Feeds the ingest→emit latency histogram
+        (EngineStats.e2e_latency_hist); sources without stamping return
+        ``[]`` and their ticks simply don't observe."""
+        return []
+
+    def is_finished(self) -> bool:
+        return False
+
+    def stop(self) -> None:
+        """Request shutdown (engine teardown)."""
+
+
+def owned_sources(realtime: list["RealtimeSource"], ctx) -> list["RealtimeSource"]:
+    """The realtime sources THIS worker polls (round-robin by source
+    index): one owner per source."""
+    if not ctx.is_sharded:
+        return list(realtime)
+    return [
+        s for i, s in enumerate(realtime)
+        if i % ctx.n_workers == ctx.worker_id
+    ]
+
+
+def _topological(nodes: list[Node]) -> list[Node]:
+    """Deterministic topo order (DFS post-order, children by construction
+    id): the sharding pass inserts Exchange nodes after their consumers were
+    constructed, so plain id order is no longer topological."""
+    seen: dict[int, bool] = {}
+    out: list[Node] = []
+
+    def visit(n: Node) -> None:
+        if seen.get(n.node_id):
+            return
+        seen[n.node_id] = True
+        for inp in n.inputs:
+            visit(inp)
+        out.append(n)
+
+    for n in sorted(nodes, key=lambda n: n.node_id):
+        visit(n)
+    return out
+
+
+def shard_graph(nodes: list[Node], ctx: Any) -> list[Node]:
+    """Insert Exchange nodes on every stateful-operator input (SURVEY §7
+    step 6: record exchange at groupby/join boundaries). Channel ids derive
+    from each consumer's position in the deterministic build order so the
+    same program built on every worker agrees on them."""
+    from .operators import Exchange
+
+    ordered = sorted(nodes, key=lambda n: n.node_id)
+    out = list(ordered)
+    # monotone counter, not pos*16+port: nodes with >16 routed inputs
+    # (Iterate gathers one port per pinned input) must not collide
+    next_channel = 0
+    # K stateless consumers of one realtime source share ONE Exchange (one
+    # all-to-all per tick, not K identical ones)
+    source_exchanges: dict[int, Node] = {}
+    for node in ordered:
+        node.on_shard(ctx)
+        for port, spec in enumerate(node.exchange_specs()):
+            inp = node.inputs[port]
+            if spec is None:
+                # realtime sources are polled by one owner worker only;
+                # spread their rows to owner shards immediately so all
+                # downstream *stateless* work (expressions, UDFs, filters)
+                # parallelizes too (reference: connector input exchanged to
+                # owner shards right after the reader, SURVEY §3.2 step 5)
+                if not isinstance(inp, RealtimeSource):
+                    continue
+                if inp.node_id in source_exchanges:
+                    node.inputs[port] = source_exchanges[inp.node_id]
+                    continue
+                spec = ("key",)
+            ex = Exchange(inp, spec, ctx)
+            ex.channel = next_channel
+            next_channel += 1
+            node.inputs[port] = ex
+            out.append(ex)
+            if isinstance(inp, RealtimeSource) and spec == ("key",):
+                source_exchanges[inp.node_id] = ex
+    return out
+
+
+class Executor:
+    """Runs a DAG of Nodes over logical times.
+
+    Batch mode (finite source schedules) processes all scheduled times and
+    finishes; streaming mode (any RealtimeSource present) is the analog of
+    the reference per-worker event loop (``step_or_park`` + pollers +
+    flushers, dataflow.rs:5596-5650): poll sources, mint an even wall-clock
+    commit timestamp (timestamp.rs:22-28), run one topological sweep, park
+    briefly when idle.
+    """
+
+    def __init__(self, nodes: list[Node], ctx: Any = None):
+        if ctx is None:
+            from ..parallel.comm import single_worker_context
+
+            ctx = single_worker_context()
+        self.ctx = ctx
+        if ctx.is_sharded:
+            nodes = shard_graph(nodes, ctx)
+        # whole-graph kernel fusion (engine/fusion.py): maximal pure
+        # Rowwise/Filter chains collapse into single FusedChain nodes and
+        # groupby/join preambles are absorbed — AFTER sharding, so
+        # Exchange boundaries are fusion barriers by construction.
+        # PATHWAY_FUSION=0 is the escape hatch (fuse_graph no-ops).
+        from .fusion import fuse_graph
+
+        nodes = fuse_graph(nodes)
+        self.nodes = _topological(nodes)
+        self._consumers: dict[int, list[tuple[Node, int]]] = {}
+        for node in self.nodes:
+            for port, inp in enumerate(node.inputs):
+                self._consumers.setdefault(inp.node_id, []).append((node, port))
+        self._on_time_end: list[Callable[[int], None]] = []
+        self._stop_requested = False
+        self._last_clock = 0
+        self.stats = EngineStats()
+        #: ingest wall-time (ns) of the oldest row feeding the NEXT tick
+        #: (set by the streaming loops from connector stamps); consumed
+        #: and cleared by _tick to observe ingest→emit latency
+        self._next_tick_ingest_ns: int | None = None
+        for node in self.nodes:
+            # Exchange nodes report per-tick sent/received row counts into
+            # the worker's stats (backpressure signals)
+            node._engine_stats = self.stats
+        from ..internals.tracing import get_tracer
+
+        self.tracer = get_tracer()
+
+    def request_stop(self) -> None:
+        self._stop_requested = True
+
+    def _partition_source(self, delta: Delta) -> Delta:
+        """Each worker reads its key-shard of every static schedule (no
+        exchange needed at sources: downstream stateful boundaries re-route
+        anyway). Times stay aligned across workers — empty partitions still
+        tick."""
+        if not self.ctx.is_sharded:
+            return delta
+        from . import keys as K
+
+        shards = K.shard_of(delta.keys, self.ctx.n_workers)
+        return delta.take(np.flatnonzero(shards == self.ctx.worker_id))
+
+    def run(self) -> None:
+        from . import keys as K
+
+        # stateless dataflows (no keyed operator state anywhere) suspend
+        # 128-bit key registration for the duration of the run: conflation
+        # can only corrupt coexisting keyed STATE, and the registry probe
+        # costs real throughput on unique-key streams (see keys.py)
+        stateless = not any(n.has_state() for n in self.nodes)
+        if stateless:
+            K._suspend_registration(+1)  # thread-local: this executor only
+        for node in self.nodes:
+            if isinstance(node, RealtimeSource):
+                node._keys_register = not stateless
+        try:
+            if self.tracer is not None:
+                try:
+                    with self.tracer.span(
+                        "engine.run",
+                        n_nodes=len(self.nodes),
+                        worker=self.ctx.worker_id,
+                        n_workers=self.ctx.n_workers,
+                    ):
+                        self._run_inner()
+                finally:
+                    if not self.ctx.is_sharded:
+                        # sharded runs flush once after every worker
+                        # joined — a per-worker flush here would freeze
+                        # the file at the first worker's finish
+                        self.tracer.flush()
+            else:
+                self._run_inner()
+        finally:
+            if stateless:
+                K._suspend_registration(-1)
+
+    def _run_inner(self) -> None:
+        realtime = [n for n in self.nodes if isinstance(n, RealtimeSource)]
+        if realtime:
+            self._run_streaming(realtime)
+            return
+        # Collect source schedules, merged by time (monotone processing order).
+        pending: dict[int, list[tuple[SourceNode, Delta]]] = {}
+        for node in self.nodes:
+            if isinstance(node, SourceNode):
+                for time, delta in node.schedule():
+                    pending.setdefault(int(time), []).append(
+                        (node, self._partition_source(delta))
+                    )
+        # batch mode: every input is a finite schedule already in hand
+        self.stats.sources_connected = True
+
+        for time in sorted(pending):
+            self._tick(time, pending[time])
+        self._finish()
+
+    def _run_streaming(self, realtime: list[RealtimeSource]) -> None:
+        import time as _time
+
+        # finite schedules (static tables) land on the first ticks
+        pending: dict[int, list[tuple[SourceNode, Delta]]] = {}
+        for node in self.nodes:
+            if isinstance(node, SourceNode) and not isinstance(node, RealtimeSource):
+                for t, delta in node.schedule():
+                    pending.setdefault(int(t), []).append(
+                        (node, self._partition_source(delta))
+                    )
+        clock = 0
+        for t in sorted(pending):
+            clock = max(clock + 2, int(t))
+            self._tick(clock, pending[t])
+
+        if self.ctx.is_sharded:
+            self._stream_loop_sharded(realtime, clock)
+            self._finish()
+            return
+
+        import threading
+
+        wake = threading.Event()
+        for src in realtime:
+            src.attach_waker(wake)
+            src.start()
+        self.stats.sources_connected = True
+        try:
+            while not self._stop_requested:
+                self.stats.heartbeat()
+                # each commit batch of a source gets its own timestamp;
+                # batch j of every source shares round j's tick
+                rounds: list[list[tuple[SourceNode, Delta]]] = []
+                ingest: list[int | None] = []
+                for src in realtime:
+                    deltas = src.poll()
+                    stamps = src.take_ingest_stamps()
+                    for j, delta in enumerate(deltas):
+                        if delta is None or not len(delta):
+                            continue
+                        while len(rounds) <= j:
+                            rounds.append([])
+                            ingest.append(None)
+                        rounds[j].append((src, delta))
+                        ingest[j] = _min_stamp(
+                            ingest[j],
+                            stamps[j] if j < len(stamps) else None,
+                        )
+                if rounds:
+                    for j, emissions in enumerate(rounds):
+                        # even wall-clock ms, strictly increasing (timestamp.rs)
+                        wall = int(_time.time() * 1000) & ~1
+                        clock = max(clock + 2, wall)
+                        self._next_tick_ingest_ns = ingest[j]
+                        self._tick(clock, emissions)
+                elif all(src.is_finished() for src in realtime):
+                    break
+                else:
+                    # park until data arrives (waker) or the poll interval
+                    # lapses (step_or_park's timed wait)
+                    wake.wait(0.005)
+                    wake.clear()
+        finally:
+            for src in realtime:
+                src.stop()
+        self._finish()
+
+    def _stream_loop_sharded(self, realtime: list[RealtimeSource], clock: int) -> None:
+        """Multi-worker streaming event loop: each realtime source is polled
+        by exactly one owner worker (reference ``parallel_readers`` — other
+        workers idle on that source, worker-architecture doc :40-42); every
+        poll cycle the workers allgather (rounds, finished, stop, wall) so
+        all agree on the tick times to sweep — the host-side progress
+        protocol of SURVEY §7 hard part (c) under a total order."""
+        import time as _time
+
+        import threading
+
+        ctx = self.ctx
+        owned = owned_sources(realtime, ctx)
+        wake = threading.Event()
+        for src in owned:
+            src.attach_waker(wake)
+            src.start()
+        self.stats.sources_connected = True
+        cycle = 0
+        try:
+            while True:
+                self.stats.heartbeat()
+                rounds: list[list[tuple[SourceNode, Delta]]] = []
+                cycle_ingest: int | None = None
+                for src in owned:
+                    deltas = src.poll()
+                    stamps = src.take_ingest_stamps()
+                    for j, delta in enumerate(deltas):
+                        if delta is None or not len(delta):
+                            continue
+                        while len(rounds) <= j:
+                            rounds.append([])
+                        rounds[j].append((src, delta))
+                        cycle_ingest = _min_stamp(
+                            cycle_ingest,
+                            stamps[j] if j < len(stamps) else None,
+                        )
+                finished = all(src.is_finished() for src in owned)
+                wall = int(_time.time() * 1000) & ~1
+                gathered = ctx.comm.allgather(
+                    ("cycle", cycle), ctx.worker_id,
+                    (len(rounds), finished, self._stop_requested, wall,
+                     cycle_ingest),
+                )
+                cycle += 1
+                n_rounds = max(p[0] for p in gathered)
+                agreed_wall = max(p[3] for p in gathered)
+                # oldest ingest stamp anywhere in the cluster this cycle:
+                # gathered rows cross workers inside the tick (BSP), so
+                # the sink worker needs the ORIGIN's stamp, not its own
+                agreed_ingest: int | None = None
+                for p in gathered:
+                    agreed_ingest = _min_stamp(agreed_ingest, p[4])
+                for j in range(n_rounds):
+                    # identical on every worker: deterministic fn of the
+                    # gathered payload and the shared tick history
+                    clock = max(clock + 2, agreed_wall + 2 * j)
+                    self._next_tick_ingest_ns = agreed_ingest
+                    self._tick(clock, rounds[j] if j < len(rounds) else [])
+                # honour stop only after flushing this cycle's rounds —
+                # breaking first would drop rows already drained from the
+                # connector queues (the single-worker loop always flushes)
+                if any(p[2] for p in gathered):
+                    break
+                if n_rounds == 0:
+                    if all(p[1] for p in gathered):
+                        break
+                    # park until owned-source data arrives or the poll
+                    # interval lapses; peers' data surfaces via the next
+                    # cycle's allgather either way
+                    wake.wait(0.005)
+                    wake.clear()
+        finally:
+            for src in owned:
+                src.stop()
+
+    def _tick(self, time: int, source_emissions: list[tuple[SourceNode, Delta]]) -> None:
+        import time as _wall
+
+        tracer = self.tracer
+        timed = tracer is not None or self.stats.detailed
+        # tick duration is always histogrammed — two clock reads per tick
+        # against a full topological sweep is noise, and it is the one
+        # distribution that catches hot-path regressions unconditionally
+        tick_t0 = _wall.perf_counter_ns()
+        tick_wall_t0 = _wall.time_ns()
+        ingest_ns = self._next_tick_ingest_ns
+        self._next_tick_ingest_ns = None
+        out_rows_before = self.stats.output_rows
+        inbox: dict[int, dict[int, list[Delta]]] = {}
+        seeded: dict[int, list[Delta]] = {}
+        for src, delta in source_emissions:
+            seeded.setdefault(src.node_id, []).append(delta)
+        self._last_clock = max(self._last_clock, time) if time != END_TIME else self._last_clock
+        for node in self.nodes:
+            if timed:
+                node_t0 = _wall.perf_counter_ns()
+            out_parts: list[Delta] = []
+            released = node.advance_to(time)
+            if released is not None and len(released):
+                out_parts.append(released)
+            ports = inbox.get(node.node_id, {})
+            if node.node_id in seeded:
+                out_parts.extend(d for d in seeded[node.node_id] if len(d))
+            elif ports or not node.inputs or node.always_run:
+                ins: list[Delta | None] = [
+                    concat_deltas(ports.get(p, []), node.inputs[p].column_names)
+                    if p in ports
+                    else None
+                    for p in range(len(node.inputs))
+                ]
+                if any(x is not None for x in ins) or node.always_run:
+                    if node.inputs and not self._consumers.get(node.node_id):
+                        # terminal node (Subscribe/Capture/output writer):
+                        # rows reaching it ARE the pipeline's output
+                        self.stats.output_rows += sum(
+                            len(d) for d in ins if d is not None
+                        )
+                    if node.error_scope is not None:
+                        # errors raised during this node's processing carry
+                        # its table's local_error_log scope (thread-local:
+                        # one worker per thread under sharding)
+                        from .error import set_current_scope
+
+                        set_current_scope(node.error_scope)
+                        try:
+                            out = node.process(time, ins)
+                        finally:
+                            set_current_scope(None)
+                    else:
+                        out = node.process(time, ins)
+                    if out is not None and len(out):
+                        out_parts.append(out)
+            emitted_rows = 0
+            if out_parts:
+                emitted = concat_deltas(out_parts, out_parts[0].columns)
+                emitted_rows = len(emitted)
+                self.stats.note_node(
+                    node, emitted_rows,
+                    is_source=isinstance(node, SourceNode),
+                )
+                self._route(node, emitted, inbox)
+            if timed and (
+                out_parts or ports or node.node_id in seeded or node.always_run
+            ):
+                # record nodes that did work even when they emitted nothing
+                # (an expensive filter/join producing an empty delta is the
+                # exact hot spot a trace exists to show)
+                if tracer is not None:
+                    tracer.complete(
+                        f"{type(node).__name__}#{node.node_id}",
+                        node_t0,
+                        {"rows": emitted_rows},
+                    )
+                if self.stats.detailed and not getattr(
+                    node, "ATTRIBUTES_MEMBERS", False
+                ):
+                    # fused chains self-report per-MEMBER cost splits
+                    # (fusion.py) — recording the chain's own label too
+                    # would double-count it above every member
+                    self.stats.note_node_time(
+                        node, _wall.perf_counter_ns() - node_t0
+                    )
+        self.stats.tick_duration.observe(_wall.perf_counter_ns() - tick_t0)
+        if ingest_ns is not None and self.stats.output_rows > out_rows_before:
+            # rows stamped at connector ingest reached a terminal output
+            # node within this sweep — one ingest→emit observation; the
+            # pre-sweep time counts as the route stage
+            self.stats.note_e2e(
+                ingest_ns, max(0, tick_wall_t0 - ingest_ns), 0, tick_wall_t0
+            )
+        self.stats.note_tick(time)
+        for cb in self._on_time_end:
+            cb(time)
+        if tracer is not None:
+            # after the callbacks, which can dominate a tick and must show
+            # inside its span. Span + counter go in ONE append (worker id in
+            # the counter name: counter tracks merge by (pid, name)).
+            tracer.complete(
+                "tick",
+                tick_t0,
+                {"time": time},
+                counter=(
+                    f"engine_rows.w{self.ctx.worker_id}",
+                    {
+                        "input": self.stats.input_rows,
+                        "output": self.stats.output_rows,
+                    },
+                ),
+            )
+
+    def _route(
+        self, node: Node, delta: Delta, inbox: dict[int, dict[int, list[Delta]]]
+    ) -> None:
+        for consumer, port in self._consumers.get(node.node_id, []):
+            inbox.setdefault(consumer.node_id, {}).setdefault(port, []).append(delta)
+
+    def _finish(self) -> None:
+        inbox: dict[int, dict[int, list[Delta]]] = {}
+        for node in self.nodes:
+            out_parts: list[Delta] = []
+            ports = inbox.get(node.node_id, {})
+            if ports or (node.always_run and node.inputs):
+                ins = [
+                    concat_deltas(ports.get(p, []), node.inputs[p].column_names)
+                    if p in ports
+                    else None
+                    for p in range(len(node.inputs))
+                ]
+                out = node.process(END_TIME, ins)
+                if out is not None and len(out):
+                    out_parts.append(out)
+            flushed = node.on_end()
+            if flushed is not None and len(flushed):
+                out_parts.append(flushed)
+            if out_parts:
+                emitted = concat_deltas(out_parts, out_parts[0].columns)
+                self._route(node, emitted, inbox)
+        for cb in self._on_time_end:
+            cb(END_TIME)
+        self.stats.finished = True

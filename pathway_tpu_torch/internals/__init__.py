@@ -1,0 +1,1 @@
+"""Part of the PyTorch port of pathway_tpu; see the package docstring."""

@@ -11,7 +11,9 @@ neighbours by more than that, equal scores lower row first; encoder embeddings w
 cosine of at least 0.999 against the same weights on the host; the InfoNCE loss and gradient
 within 1e-5 of the value (f32, sums in another order); the training step's parameter gradients
 against the host's with a cosine of at least 0.999; the ring's block step in f32 within 2e-5 plus
-2e-5 of the value (the sums in another order, no TF32); the top-k merge exactly.
+2e-5 of the value (the sums in another order, no TF32); the top-k merge and the bucketed
+exchange exactly (the exchange moves bits), and the engine with its exchange on the card equals
+the engine on the host.
 """
 
 from __future__ import annotations
@@ -41,6 +43,12 @@ from pathway_tpu_torch.ops.knn import (
     topk_scores_plain,
 )
 from pathway_tpu_torch.ops.ring import init_state, ring_block_attention, ring_block_attention_plain
+from pathway_tpu_torch.parallel.exchange import (
+    MAX_SHARDS,
+    bucket_exchange,
+    bucket_exchange_plain,
+    bucketed_all_to_all,
+)
 from torch_topk_checks import assert_topk_equal, topk_tol
 
 pytestmark = pytest.mark.cuda
@@ -434,3 +442,95 @@ def test_sharded_index_at_world_size_one_on_the_card(cuda, world_one):
     s1, i1 = single.query(queries, 10)
     np.testing.assert_array_equal(s, s1)
     np.testing.assert_array_equal(i, i1)
+
+
+def _exchange_case(n_src: int, cap_in: int, w: int, n_dst: int, seed: int):
+    """Words with the high bit set, a fifth of the rows without a destination, the rest skewed to
+    destination 0 so that small buckets overflow."""
+    gen = torch.Generator().manual_seed(seed)
+    words = torch.randint(-2**31, 2**31 - 1, (n_src, cap_in, w), generator=gen,
+                          dtype=torch.int64).to(torch.int32)
+    words[..., 1::2] |= torch.tensor(-2**31, dtype=torch.int32)  # high word of each pair
+    dest = torch.randint(0, n_dst, (n_src, cap_in), generator=gen, dtype=torch.int32)
+    dest[torch.rand((n_src, cap_in), generator=gen) < 0.3] = 0
+    dest[torch.rand((n_src, cap_in), generator=gen) < 0.2] = -1
+    return words, dest
+
+
+@pytest.mark.parametrize("n,cap_in,w,cap_bucket", [
+    (2, 8, 4, 8), (2, 1000, 4, 2), (4, 4096, 6, 4096), (4, 3000, 16, 512),
+    (8, 65536, 10, 65536), (8, 65536, 16, 1024), (8, 1, 4, 1),
+])
+def test_bucket_exchange_kernel_equals_plain_bitwise(cuda, n, cap_in, w, cap_bucket):
+    words, dest = _exchange_case(n, cap_in, w, n, seed=n * cap_in + w)
+    before = bucket_exchange.launches
+    out, valid = bucket_exchange(words.to(cuda), dest.to(cuda), n, cap_bucket)
+    torch.cuda.synchronize()
+    assert bucket_exchange.launches == before + 1
+    want, want_valid = bucket_exchange_plain(words, dest, n, cap_bucket)
+    assert torch.equal(out.cpu(), want) and torch.equal(valid.cpu(), want_valid)
+
+
+def test_bucketed_all_to_all_on_the_card_keeps_64_bit_values(cuda):
+    rng = np.random.default_rng(8)
+    vals = np.stack([(-rng.integers(1, 2**62, 64)).astype(np.int64),
+                     np.full(64, np.nan).view(np.int64) | 5], 1)
+    words = vals.view(np.uint32).reshape(64, 4)
+    dest = rng.integers(-1, 2, 64).astype(np.int32)
+    out, valid = bucketed_all_to_all(words, dest, 2, 2 * 32)
+    got = out.cpu().numpy().view(np.uint32).reshape(2, 64, 4)[valid.cpu().numpy()]
+    want = np.concatenate([words[:32][dest[:32] == 0], words[32:][dest[32:] == 0],
+                           words[:32][dest[:32] == 1], words[32:][dest[32:] == 1]])
+    np.testing.assert_array_equal(got, want)
+
+
+def test_bucket_exchange_kernel_refuses_what_it_does_not_take(cuda):
+    words, dest = _exchange_case(2, 8, 4, 2, seed=0)
+    with pytest.raises(ValueError):
+        bucket_exchange(words.to(cuda).long(), dest.to(cuda), 2, 8)
+    with pytest.raises(ValueError):
+        bucket_exchange(words.to(cuda), dest.to(cuda), MAX_SHARDS + 1, 8)
+
+
+def test_engine_with_the_exchange_on_the_card_equals_the_host(cuda):
+    """A 4-worker groupby whose exchange runs through MeshComm on the card against the same
+    graph on the host: equal tables, and the kernel launched."""
+    import threading
+
+    from pathway_tpu_torch.engine import keys as K, operators as ops
+    from pathway_tpu_torch.engine.delta import Delta
+    from pathway_tpu_torch.engine.executor import Executor
+    from pathway_tpu_torch.engine.reducers import make_reducer
+    from pathway_tpu_torch.parallel.comm import LocalComm, WorkerContext
+    from pathway_tpu_torch.parallel.meshcomm import MeshComm
+
+    rng = np.random.default_rng(9)
+    g = rng.integers(0, 50, 4000).astype(np.int64)
+    v = (-rng.integers(0, 2**40, 4000)).astype(np.int64)
+    word = np.array([f"w{x}" for x in rng.integers(0, 30, 4000)], dtype=object)
+    keys = K.mix_columns([np.arange(4000)], 4000, register=False)
+
+    def run(device):
+        comm = MeshComm(LocalComm(4), device=device)
+        caps, exs = [], []
+        for w in range(4):
+            src = ops.ScheduledSource(["g", "v", "word"], [
+                (2 * t + 2, Delta(keys=keys[s:s + 1000], data={
+                    "g": g[s:s + 1000], "v": v[s:s + 1000], "word": word[s:s + 1000]}))
+                for t, s in enumerate(range(0, 4000, 1000))])
+            gb = ops.GroupByReduce(src, ["g"], [("s", make_reducer("sum"), ["v"]),
+                                                ("w", make_reducer("max"), ["word"])])
+            caps.append(ops.Capture(gb))
+            exs.append(Executor([src, gb, caps[-1]], ctx=WorkerContext(w, 4, comm)))
+        threads = [threading.Thread(target=e.run, daemon=True) for e in exs]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+        assert not any(t.is_alive() for t in threads)
+        return sorted((k, tuple(r)) for k, r in caps[0].state.iter_items())
+
+    before = bucket_exchange.launches
+    on_card = run(cuda)
+    assert bucket_exchange.launches > before
+    assert on_card == run("cpu")

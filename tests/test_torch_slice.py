@@ -166,6 +166,35 @@ _BLOCKED_RUN = textwrap.dedent("""
     assert np.isfinite(s).all()
     vec = pt.TorchEmbedder(emb, device="cpu")("a text")
     assert vec.shape == (32,)
+
+    # the engine core: a 2-worker wordcount whose exchange goes through MeshComm on the CPU
+    import threading
+    from pathway_tpu_torch.engine import keys as K, operators as ops
+    from pathway_tpu_torch.engine.delta import Delta
+    from pathway_tpu_torch.engine.executor import Executor
+    from pathway_tpu_torch.engine.reducers import make_reducer
+    from pathway_tpu_torch.parallel.comm import LocalComm, WorkerContext
+    from pathway_tpu_torch.parallel.meshcomm import MeshComm
+
+    words = np.array(["a", "b", "c", "a", "b", "a"] * 20, dtype=object)
+    comm = MeshComm(LocalComm(2), device="cpu")
+    caps, runs = [], []
+    for w in range(2):
+        src = ops.ScheduledSource(["word"], [
+            (2 * t + 2, Delta(keys=K.mix_columns([np.arange(s, s + 40)], 40, register=False),
+                              data={"word": words[s:s + 40]}))
+            for t, s in enumerate(range(0, 120, 40))])
+        gb = ops.GroupByReduce(src, ["word"], [("c", make_reducer("count"), [])])
+        caps.append(ops.Capture(gb))
+        runs.append(Executor([src, gb, caps[-1]], ctx=WorkerContext(w, 2, comm)))
+    threads = [threading.Thread(target=e.run) for e in runs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(60)
+    counts = {row[0]: row[1] for _, row in caps[0].state.iter_items()}
+    assert counts == {"a": 60, "b": 40, "c": 20}, counts
+    assert comm.comm_stats()["mesh_rows_moved"] > 0
     loaded = sorted(
         m for m, mod in sys.modules.items() if mod is not None
         and (m.startswith("jax") or m == "pathway_tpu" or m.startswith("pathway_tpu."))

@@ -1,5 +1,6 @@
 """One rank of the port's multi-process tests, run without JAX: ring attention, long-context
-embedding and the sharded KNN search over a gloo group of CPU processes.
+embedding, the sharded KNN search and the engine's bucketed all-to-all over a gloo group of CPU
+processes.
 
 The tests spawn one process per rank with :class:`RankRun`; each process runs every case of
 its suite on the inputs the test wrote (made with numpy from a seed, weights from the JAX
@@ -127,6 +128,21 @@ def _knn_suite(inp: dict, mesh, rank: int, world: int) -> dict:
     return out
 
 
+def _exchange_suite(inp: dict, mesh, rank: int, world: int) -> dict:
+    """Each case's rank form: this rank's block of the global rows, bucketed and swapped with
+    ``all_to_all_single``."""
+    from pathway_tpu_torch.parallel.exchange import bucketed_all_to_all
+
+    out = {}
+    for name, (values, dest, cap_out) in inp["cases"].items():
+        cap_in = len(dest) // world
+        mine = slice(rank * cap_in, (rank + 1) * cap_in)
+        words, valid = bucketed_all_to_all(values[mine], dest[mine], world, cap_out,
+                                           group=mesh.get_group("data"), device="cpu")
+        out[f"{name}_out"], out[f"{name}_valid"] = words.numpy(), valid.numpy()
+    return out
+
+
 def main() -> None:
     suite, world, rank, workdir = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4])
     _block_jax_and_reference()
@@ -145,7 +161,8 @@ def main() -> None:
     mesh = make_mesh({"data": world}, device="cpu")
     with open(workdir / "inputs.pkl", "rb") as f:
         inp = pickle.load(f)
-    out = {"ring": _ring_suite, "knn": _knn_suite}[suite](inp, mesh, rank, world)
+    suites = {"ring": _ring_suite, "knn": _knn_suite, "exchange": _exchange_suite}
+    out = suites[suite](inp, mesh, rank, world)
     loaded = sorted(m for m, mod in sys.modules.items() if mod is not None and (
         m.startswith("jax") or m == "pathway_tpu" or m.startswith("pathway_tpu.")))
     out["loaded_reference_modules"] = np.array(loaded, dtype=str)
