@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's RAG ingest and retrieval path, its training step, its parallel paths and
-its dataflow engine on one NVIDIA card.
+"""Drive the PyTorch port's RAG ingest and retrieval path, its training step, its parallel paths, its
+dataflow engine and its Table API on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -55,7 +55,24 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    embedded by a ``Rowwise`` into ``ExternalIndexNode`` over a 1,048,576-row
    ``BruteForceKnnEngine``, 64 text queries at k=10, 2 workers with mesh exchange, the replies
    against a direct search. Each path zeroes the launch counts just before and reads them after.
-10. One JSON line with each kernel's numbers, then the closing JSON line.
+10. The Table API down to ``pw.run()`` (``import pathway_tpu_torch as pw``): first the expression
+   machine's kernel (``csrc/expression_vm.cu``) against its plain version on the card, bitwise
+   (float ``**`` within 2 ulp), over 138 programs at 65,536 rows (every opcode at every operand
+   type it takes, INT64_MIN/MAX with overflow, NaN, +-inf, -0.0, 1e300, a subnormal, shift
+   counts from -3 to 70, negative exponents, casts) and a 3-member chain with two filters; then
+   the phase's fused chain as one program at one commit's shape, timed beside its bound, its
+   plain version, the upload and readback of its bytes and the numpy tier's host time. Then a
+   streaming pipeline through ``pw.run(device="cuda")``: ``pw.io.python.read`` of a
+   ``ConnectorSubject`` that ``next_batch``es 4,194,304 seeded rows in 64 commits of 65,536
+   (``a`` int64, ``g`` int64 over 65,536 groups, ``x`` float64 multiples of 1/16 in [-64, 64)),
+   ``select`` (a lifted ``pw.apply_with_type(lambda a: a * 3 + 7, ...)``, ``x * 2.0 - 1.0``),
+   ``filter``, ``select`` with ``if_else`` and ``cast``, ``groupby(g).reduce(sum, count)``,
+   ``pw.io.subscribe(on_batch=...)``; at 1 worker and at 2 with ``PATHWAY_MESH_EXCHANGE=1``,
+   and again with the lambda written out, which makes the chain one program. Every final table
+   equals a plain numpy computation exactly, and every launch count equals what the reference's
+   gates give for the graph (``gated_launches``); the 1-worker run is profiled for its idle
+   share.
+11. One JSON line with each kernel's numbers, then the closing JSON line.
 
 It needs one CUDA card and exits non-zero, printing no result, without one. It imports nothing
 of JAX and nothing of the ``pathway_tpu`` package.
@@ -68,6 +85,7 @@ import contextlib
 import functools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -1127,11 +1145,13 @@ def launch_counters() -> dict:
     from pathway_tpu_torch.ops.infonce import infonce
     from pathway_tpu_torch.ops.knn import topk_merge, topk_scores
     from pathway_tpu_torch.ops.ring import ring_block_attention
+    from pathway_tpu_torch.ops.expression_kernel import expression_vm
     from pathway_tpu_torch.parallel.exchange import bucket_exchange
 
     return {"masked_attention": masked_attention, "masked_attention_bwd": masked_attention_bwd,
             "knn_topk": topk_scores, "infonce": infonce, "ring_attention": ring_block_attention,
-            "topk_merge": topk_merge, "bucket_exchange": bucket_exchange}
+            "topk_merge": topk_merge, "bucket_exchange": bucket_exchange,
+            "expression_vm": expression_vm}
 
 
 @contextlib.contextmanager
@@ -1513,6 +1533,395 @@ def run_engine(device, *, wc_rows: int = 500_000, wc_commit: int = 10_000,
     return result
 
 
+# -- phase 10: the Table API down to pw.run(), with the expression machine ---------------------
+
+POW_ULP = 2  # float ** against its plain version: within 2 units in the last place
+VM_SCHEMA = dict(a=int, b=int, s=int, e=int, x=float, y=float, px=float, p=bool, q=bool)
+
+
+def vm_columns(n: int, seed: int = 40) -> dict:
+    """Seeded columns with the edge values at their heads: INT64_MIN and INT64_MAX, shift counts
+    from -3 to 70, negative exponents, NaN, +-inf, -0.0, 1e300 and a subnormal."""
+    rng = np.random.default_rng(seed)
+    ints = np.array([-2**63, 2**63 - 1, 0, -1, 1, 2, 3, 63, 64, 70, -3, 1 << 62, -(1 << 62)],
+                    np.int64)
+    floats = np.array([np.nan, np.inf, -np.inf, -0.0, 0.0, 1e300, -1e300, 2.0 ** 63,
+                       -(2.0 ** 63) - 4096, 9.3e18, 0.5, -0.7, 1.5, -2.0, 1e-310])
+    a = rng.integers(-2**62, 2**62, n)
+    a[:len(ints)] = ints
+    b = rng.integers(-1000, 1000, n)
+    b[len(ints):2 * len(ints)] = ints
+    x = rng.standard_normal(n) * 10
+    x[:len(floats)] = floats
+    y = rng.integers(-1024, 1024, n) / 16.0
+    y[len(floats):2 * len(floats)] = floats
+    return {"a": a.astype(np.int64), "b": b.astype(np.int64),
+            "s": rng.integers(-3, 71, n).astype(np.int64),
+            "e": rng.integers(-3, 12, n).astype(np.int64), "x": x, "y": y,
+            "px": np.abs(x) + 0.25, "p": rng.random(n) < 0.5, "q": rng.random(n) < 0.3}
+
+
+def vm_sweep(pw, t) -> list:
+    """(label, expression): every opcode at every operand type it takes, weak constants, the
+    casts among int, float and bool, and the trees udf_lift makes of lambdas."""
+    import operator as o
+
+    fns = {"+": o.add, "-": o.sub, "*": o.mul, "**": o.pow, "==": o.eq, "!=": o.ne, "<": o.lt,
+           "<=": o.le, ">": o.gt, ">=": o.ge, "&": o.and_, "|": o.or_, "^": o.xor,
+           "<<": o.lshift, ">>": o.rshift}
+
+    def v(name):
+        return getattr(t, name) if isinstance(name, str) else name
+
+    pairs = {
+        ("+", "-", "*"): (("a", "b"), ("a", "x"), ("x", "y"), ("x", "p"), ("a", "p"), ("a", 3),
+                          ("x", 2.5), ("a", 2.5), ("p", 1), (3, "a"), (1.5, "x"), ("x", 0.0),
+                          (0.0, "x"), ("x", -0.0), ("p", "q")),
+        ("**",): (("a", "e"), ("b", "e"), ("a", 3), ("a", 0), ("x", 2), ("x", -2), ("px", 0.5),
+                  ("px", "y"), ("px", "e"), ("b", "px"), (2, "s"), (2.0, "e"), ("p", "q")),
+        ("==", "!=", "<", "<=", ">", ">="): (("a", "b"), ("a", "x"), ("x", "y"), ("p", "q"),
+                                             ("a", 2.5), ("x", 1)),
+        ("&", "|", "^"): (("a", "b"), ("p", "q"), ("a", 255)),
+        ("<<", ">>"): (("a", "s"), ("b", "s"), ("a", 3), (1, "s"), ("p", "q")),
+    }
+    out = []
+    for ops_, operands in pairs.items():
+        for op in ops_:
+            for l, r in operands:
+                if op == "-" and (l, r) == ("p", "q"):
+                    continue  # XLA refuses bool subtraction; so does the lowering
+                out.append((f"{l}{op}{r}", fns[op](v(l), v(r))))
+    out += [("-a", -t.a), ("-x", -t.x), ("~a", ~t.a), ("~p", ~t.p), ("abs a", abs(t.a)),
+            ("abs x", abs(t.x)), ("if p a x", pw.if_else(t.p, t.a, t.x)),
+            ("if p 2 a", pw.if_else(t.p, 2, t.a)), ("if a>0 x -x", pw.if_else(t.a > 0, t.x, -t.x)),
+            ("declare float a", pw.declare_type(float, t.a)), ("keys", t.id),
+            ("x*2.0-1.0", t.x * 2.0 - 1.0),
+            ("min", pw.apply_with_type(lambda x, y: min(x, y), float, t.x, t.y)),
+            ("apply a*3+7", pw.apply_with_type(lambda a: a * 3 + 7, int, t.a))]
+    for src in ("a", "x", "y", "p"):
+        for target in (int, float, bool):
+            out.append((f"cast {target.__name__} {src}", pw.cast(target, v(src))))
+    return out
+
+
+def vm_agree(label: str, got: torch.Tensor, want: torch.Tensor, pow_case: bool) -> float:
+    """Kernel against plain: bits equal (every NaN equal to every NaN), or for a float ``**``
+    within ``POW_ULP`` units in the last place. Returns the largest absolute difference."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"expression_vm {label}: {got.dtype}{tuple(got.shape)} against "
+                             f"{want.dtype}{tuple(want.shape)}")
+    if got.dtype != torch.float64:
+        if not torch.equal(got, want):
+            raise AssertionError(f"expression_vm {label}: differs from its plain version")
+        return 0.0
+    nan = torch.isnan(want)
+    if not torch.equal(torch.isnan(got), nan):
+        raise AssertionError(f"expression_vm {label}: NaN rows differ from the plain version")
+    gi, wi = got.view(torch.int64)[~nan], want.view(torch.int64)[~nan]
+    if not pow_case:
+        if not torch.equal(gi, wi):
+            raise AssertionError(f"expression_vm {label}: bits differ from the plain version")
+        return 0.0
+    lo = torch.tensor(-2**63, dtype=torch.int64, device=gi.device)
+    ulp = float((torch.where(gi < 0, lo - gi, gi).double()
+                 - torch.where(wi < 0, lo - wi, wi).double()).abs().max()) if gi.numel() else 0.0
+    if ulp > POW_ULP:
+        raise AssertionError(f"expression_vm {label}: {ulp} ulp from the plain version's pow")
+    fin = torch.isfinite(want)
+    return float((got[fin] - want[fin]).abs().max()) if fin.any() else 0.0
+
+
+def chain_variant(pw, t, lifted: bool):
+    """The phase's pipeline up to the groupby: ``y`` through a lifted lambda (the main path), or
+    written out (``lifted=False``), which gives the chain a structural signature."""
+    y = (pw.apply_with_type(lambda a: a * 3 + 7, int, pw.this.a) if lifted
+         else pw.this.a * 3 + 7)
+    return (t.select(g=pw.this.g, y=y, z=pw.this.x * 2.0 - 1.0)
+            .filter(pw.this.z > -32.0)
+            .select(g=pw.this.g,
+                    w=pw.if_else(pw.this.y > 1000, pw.cast(float, pw.this.y & 1023) * pw.this.z,
+                                 -pw.this.z)))
+
+
+def fused_chain_of(out_table, device):
+    """The ``FusedChain`` that the port's runner makes of ``out_table``'s graph on ``device``."""
+    from pathway_tpu_torch.engine import fusion
+    from pathway_tpu_torch.internals.graph_runner import GraphRunner
+
+    runner = GraphRunner(device)
+    runner.capture(out_table)
+    chains = [n for n in fusion.fuse_graph(runner._nodes) if isinstance(n, fusion.FusedChain)]
+    if len(chains) != 1:
+        raise AssertionError(f"expected one fused chain, found {len(chains)}")
+    return chains[0]
+
+
+def check_expression_vm(device, n: int = 65536) -> tuple[float, int]:
+    """The kernel against its plain version on the card over the sweep at ``n`` rows and over a
+    3-member chain with two filters; bitwise, float ``**`` within ``POW_ULP``. Returns the
+    largest absolute difference (from ``**``) and the number of programs held."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.internals import expression_compiler as ec
+    from pathway_tpu_torch.ops.expression_kernel import run_program, run_program_plain
+
+    pw.G.clear()
+    cols = vm_columns(n)
+    keys = np.random.default_rng(41).integers(0, 2**63, n, dtype=np.uint64)
+    keys[:3] = [0, 2**64 - 1, 2**63]
+    t = pw.debug.table_from_rows(pw.schema_from_types(**VM_SCHEMA), [(0,) * 7 + (False,) * 2])
+    env = ec.ColumnEnv(device=device)
+    env.add_table(t)
+
+    def column(arr):
+        arr = np.ascontiguousarray(arr)
+        return torch.from_numpy(arr.view(np.int64) if arr.dtype == np.uint64 else arr).to(device)
+
+    def held(label, prog, src, pow_case=False):
+        inputs = [column(keys if name is None else src[name]) for name, _ in prog.inputs]
+        got, want = run_program(prog, inputs), run_program_plain(prog, inputs)
+        torch.cuda.synchronize()
+        return max((vm_agree(f"{label} [{name}]", g, w, pow_case)
+                    for (name, _), g, w in zip(prog.outputs, got, want)), default=0.0)
+
+    worst, count = 0.0, 0
+    kinds = ec._input_kinds(list(cols), cols)
+    for label, expr in vm_sweep(pw, t):
+        prog = ec.expression_program(expr, env, kinds, {})
+        worst = max(worst, held(label, prog, cols, "**" in label))
+        count += 1
+    # a 3-member chain with two filters, lowered as the runner lowers it
+    rng = np.random.default_rng(42)
+    rows = [(int(i) * 7 - 300, int(i) % 13, i / 16.0 - 20.0, i % 3 == 0) for i in range(600)]
+    ct = pw.debug.table_from_rows(pw.schema_from_types(a=int, b=int, x=float, p=bool), rows)
+    chain_t = (ct.select(a=pw.this.a, b=pw.this.b * 3 + 1, x=pw.this.x * 2.0 - 1.0, p=pw.this.p)
+               .filter(pw.this.b > 10)
+               .select(c=pw.this.a + pw.this.b, w=pw.if_else(pw.this.p, pw.this.x, -pw.this.x),
+                       p=pw.this.p)
+               .filter(pw.this.w < 8.0))
+    plan = fused_chain_of(chain_t, device)._kernel_plan
+    src = {"a": rng.integers(-2**62, 2**62, n), "b": rng.integers(-10, 30, n),
+           "x": rng.standard_normal(n) * 8, "p": rng.random(n) < 0.5}
+    src["x"][:4] = [np.nan, -0.0, np.inf, -np.inf]
+    prog = ec.chain_program(plan, ec._input_kinds(plan["src_cols"], src))
+    held("3-member chain with two filters", prog, src)
+    pw.G.clear()
+    log(f"expression_vm: {count + 1} programs at {n} rows (every opcode at its operand types, "
+        f"edge values, a 3-member chain with two filters) equal to the plain version bitwise; "
+        f"float ** within {POW_ULP} ulp, largest difference {worst:.3g}")
+    return worst, count + 1
+
+
+def pipeline_columns(n: int, n_groups: int, seed: int = 43) -> dict:
+    """The phase's input: ``a`` int64, ``g`` int64 over ``n_groups`` groups, ``x`` float64 in
+    multiples of 1/16 in [-64, 64), so every product and sum of the pipeline is exact."""
+    rng = np.random.default_rng(seed)
+    return {"a": rng.integers(-2**31, 2**31, n).astype(np.int64),
+            "g": rng.integers(0, n_groups, n).astype(np.int64),
+            "x": rng.integers(-1024, 1024, n) / 16.0}
+
+
+def pipeline_reference(cols: dict) -> dict:
+    """The same pipeline in plain numpy: group -> (sum of w, count)."""
+    z = cols["x"] * 2.0 - 1.0
+    keep = z > -32.0
+    y = cols["a"] * 3 + 7
+    w = np.where(y > 1000, (y & 1023).astype(np.float64) * z, -z)[keep]
+    g = cols["g"][keep]
+    uniq, inv = np.unique(g, return_inverse=True)
+    sums = np.zeros(len(uniq))
+    np.add.at(sums, inv, w)
+    counts = np.bincount(inv, minlength=len(uniq))
+    return {int(k): (float(s_), int(c)) for k, s_, c in zip(uniq, sums, counts)}
+
+
+def time_expression_vm(device, cols: dict, commit: int) -> dict:
+    """The phase's chain as one program at its launch shape (one commit), timed with CUDA events
+    beside its bound and its plain version; the upload and readback of the same bytes through
+    pinned buffers; and the numpy tier's host time on the same batch."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.engine.delta import Delta
+    from pathway_tpu_torch.internals import expression_compiler as ec
+    from pathway_tpu_torch.ops.expression_kernel import (
+        expression_vm, expression_vm_plain, layout,
+    )
+
+    pw.G.clear()
+    t = pw.debug.table_from_rows(pw.schema_from_types(a=int, g=int, x=float), [(0, 0, 0.0)])
+    out = chain_variant(pw, t, lifted=False)
+    res = out.groupby(pw.this.g).reduce(pw.this.g, s=pw.reducers.sum(pw.this.w),
+                                        c=pw.reducers.count())
+    chain = fused_chain_of(res, device)
+    plan = chain._kernel_plan
+    batch = {c: np.ascontiguousarray(cols[c][:commit]) for c in plan["src_cols"]}
+    prog = ec.chain_program(plan, ec._input_kinds(plan["src_cols"], batch))
+    in_offs, in_bytes, out_offs, out_bytes = layout(prog, commit)
+    host_in = torch.empty(in_bytes, dtype=torch.uint8, pin_memory=True)
+    for (name, _), off in zip(prog.inputs, in_offs):
+        host_in.numpy()[off:off + commit * 8] = batch[name].view(np.uint8)
+    dev_in = host_in.to(device)
+    dev_out = torch.empty(out_bytes, dtype=torch.uint8, device=device)
+    host_out = torch.empty(out_bytes, dtype=torch.uint8, pin_memory=True)
+    plain_out = torch.empty_like(dev_out)
+    expression_vm(prog, dev_in, dev_out, commit)
+    expression_vm_plain(prog, dev_in, plain_out, commit)
+    torch.cuda.synchronize()
+    if not torch.equal(dev_out, plain_out):
+        raise AssertionError("expression_vm: the phase's chain differs from its plain version")
+    t_ = {
+        "shape": f"{commit} rows, {len(prog.inputs)} columns in, {len(prog.outputs) - 1} columns "
+                 f"and a mask out, {prog.code.shape[0]} instructions, {prog.n_regs} registers",
+        "ms": cuda_ms(lambda: expression_vm(prog, dev_in, dev_out, commit), 100),
+        "plain_ms": cuda_ms(lambda: expression_vm_plain(prog, dev_in, plain_out, commit), 20),
+        "upload_ms": cuda_ms(lambda: dev_in.copy_(host_in, non_blocking=True), 50),
+        "readback_ms": cuda_ms(lambda: host_out.copy_(dev_out, non_blocking=True), 50),
+        "library_ms": None,  # no single PyTorch call evaluates an expression program
+    }
+    t_["bound_ms"], t_["bound_by"] = bound(in_bytes + out_bytes, 0)
+    # the numpy tier on the same batch: the fused chain's composed member kernels, gates shut
+    saved = ec.JIT_THRESHOLD
+    ec.JIT_THRESHOLD = 1 << 62
+    try:
+        d = Delta(keys=np.arange(commit, dtype=np.uint64), data=batch)
+        times = []
+        for _ in range(7):
+            t0 = time.perf_counter()
+            chain.process(0, [d])
+            times.append((time.perf_counter() - t0) * 1e3)
+        t_["numpy_tier_ms"] = statistics.median(times)
+    finally:
+        ec.JIT_THRESHOLD = saved
+    pw.G.clear()
+    return t_
+
+
+def run_pipeline(device, cols: dict, commit: int, n_groups: int, workers: int, lifted: bool):
+    """``pw.run(device=...)`` of the phase's streaming pipeline: a ``ConnectorSubject`` that
+    ``next_batch``es the columns in commits of ``commit`` rows, the chain, the groupby, and
+    ``pw.io.subscribe(on_batch=...)``. Returns (final table group -> (sum, count), seconds of
+    the run). Each commit is its own tick (``PATHWAY_INGEST_COALESCE_WINDOWS=0``), so every
+    gate sees the same batches in every run."""
+    import pathway_tpu_torch as pw
+
+    n = len(cols["a"])
+
+    class Subject(pw.io.python.ConnectorSubject):
+        def run(self):
+            for s in range(0, n, commit):
+                self.next_batch({c: v[s:s + commit] for c, v in cols.items()})
+                self.commit()
+
+    pw.G.clear()
+    t = pw.io.python.read(Subject(), schema=pw.schema_from_types(a=int, g=int, x=float),
+                          autocommit_duration_ms=None)
+    res = chain_variant(pw, t, lifted).groupby(pw.this.g).reduce(
+        pw.this.g, s=pw.reducers.sum(pw.this.w), c=pw.reducers.count())
+    seen: list = []
+    pw.io.subscribe(res, on_batch=lambda tm, b: seen.append(
+        (b.keys.copy(), b.data["g"].copy(), b.data["s"].copy(), b.data["c"].copy(),
+         b.diffs.copy())))
+    env = {"PATHWAY_THREADS": str(workers), "PATHWAY_MESH_EXCHANGE": "1" if workers > 1 else "0",
+           "PATHWAY_INGEST_COALESCE_WINDOWS": "0", "PATHWAY_FUSION": "1"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        t0 = time.perf_counter()
+        pw.run(device=device)
+        seconds = time.perf_counter() - t0
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        pw.G.clear()
+    keys, g, s_, c, diffs = (np.concatenate(x) for x in zip(*seen))
+    order = np.lexsort((np.arange(len(keys)), keys))  # by row key, then arrival
+    keys, g, s_, c, diffs = keys[order], g[order], s_[order], c[order], diffs[order]
+    starts = np.flatnonzero(np.r_[True, keys[1:] != keys[:-1]])
+    net = np.add.reduceat(diffs, starts)
+    if ((net != 0) & (net != 1)).any():
+        raise AssertionError("the subscribed stream does not consolidate to one row a group")
+    alive = set(keys[starts][net == 1].tolist())
+    pos = np.flatnonzero(diffs > 0)
+    last = pos[np.flatnonzero(np.r_[keys[pos][1:] != keys[pos][:-1], True])]  # newest insert
+    table = {int(g[i]): (float(s_[i]), int(c[i])) for i in last if int(keys[i]) in alive}
+    return table, seconds
+
+
+def gated_launches(n_commits: int, workers: int, lifted: bool, warmup: int = 16) -> int:
+    """What the reference's gates give for the phase's graph when every batch holds at least
+    ``JIT_THRESHOLD`` rows. Compiled expressions are shared by the workers (the compile cache
+    sits on the expression), so each counts the batches of every worker; a fused chain is a node
+    of one worker and counts its own. With the lifted lambda the chain has no structural
+    signature, so its 8 member expressions (select: g, y, z; the filter; select: g, w; the
+    groupby's preamble: its key and the sum's argument) run one program each on every batch.
+    Written out, the chain is one program past its own warm-up; during that warm-up its numpy
+    tier calls the member expressions, whose shared gates open once the workers together have
+    sent more than ``warmup`` batches. The reduce's projection adds 3 expressions (g, s, c)."""
+    shared = n_commits * workers - warmup
+    if lifted:
+        return (8 + 3) * shared
+    return (workers * (n_commits - warmup) + 8 * max(0, workers * min(n_commits, warmup) - warmup)
+            + 3 * shared)
+
+
+def run_table_api(device, *, rows: int = 1 << 22, commit: int = 1 << 16, groups: int = 1 << 16,
+                  threshold: int | None = None) -> dict:
+    """The phase: the kernel against its plain version (on the card), then the pipeline through
+    ``pw.run`` at 1 worker and at 2 with mesh exchange, with the lifted lambda (per-expression
+    programs) and with it written out (one program for the chain); each table equal to the numpy
+    computation and each launch count equal to the gates'. A CPU rehearsal passes small sizes
+    and a lower ``threshold``."""
+    from pathway_tpu_torch.internals import expression_compiler as ec
+    from pathway_tpu_torch.ops.expression_kernel import HostLauncher, expression_vm
+
+    cuda = device.type == "cuda"
+    result: dict = {"launches": {}, "rates": {}}
+    if cuda:
+        result["max_abs_err"], result["programs"] = check_expression_vm(device)
+    saved_threshold = ec.JIT_THRESHOLD
+    ec.JIT_THRESHOLD = threshold or saved_threshold
+    cols = pipeline_columns(rows, groups)
+    want = pipeline_reference(cols)
+    if cuda:
+        result["time"] = time_expression_vm(device, cols, commit)
+    n_commits = -(-rows // commit)
+    for path, workers, lifted in (("table_api_1", 1, True), ("table_api_2", 2, True),
+                                  ("table_api_chain_1", 1, False),
+                                  ("table_api_chain_2", 2, False)):
+        HostLauncher.runs = 0
+        with counted(path, result["launches"]), \
+                device_profile(cuda and path == "table_api_1") as prof:
+            got, sec = run_pipeline(device, cols, commit, groups, workers, lifted)
+        if got != want:
+            raise AssertionError(f"{path}: the table differs from the numpy computation")
+        expected = gated_launches(n_commits, workers, lifted)
+        ran = HostLauncher.runs
+        launched = result["launches"][path]["expression_vm"]
+        if ran != expected or (cuda and launched != expected):
+            raise AssertionError(f"{path}: {ran} programs run, {launched} launched; the gates "
+                                 f"give {expected}")
+        rate = rows / sec
+        result["rates"][path] = rate
+        log(f"Table API {path}: {rows} rows in {n_commits} commits of {commit}, "
+            f"{workers} worker(s){', mesh exchange' if workers > 1 else ''}, "
+            f"{'lifted lambda' if lifted else 'one program for the chain'}: {len(got)} groups "
+            f"equal to numpy; {ran} programs run, {launched} launches (gates: {expected}); "
+            f"{rate:.1f} rows/s")
+        if prof is not None:
+            device_ev = [e for e in prof.key_averages()
+                         if e.device_type == torch.autograd.DeviceType.CUDA]
+            busy_ms = sum(e.self_device_time_total for e in device_ev) / 1e3
+            result["idle_share"] = 1 - busy_ms / (sec * 1e3)
+            log(f"  under the profiler: wall {sec * 1e3:.3f} ms, device busy {busy_ms:.3f} ms "
+                f"(idle share {result['idle_share']:.4f})")
+            for e in sorted(device_ev, key=lambda e: -e.self_device_time_total)[:4]:
+                log(f"  device {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
+                    f"{e.key[:80]}")
+    ec.JIT_THRESHOLD = saved_threshold
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -1520,6 +1929,9 @@ def main() -> int:
     from pathway_tpu_torch import _kernels
 
     device = torch.device("cuda")
+    # the engine keeps one 128-bit conflation registry a process: the engine phase's and the
+    # Table API phase's distinct keys together (about 9 million) pass its default cap of 4,194,304
+    os.environ.setdefault("PATHWAY_KEY_REGISTRY_CAP", str(1 << 25))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
@@ -1610,6 +2022,19 @@ def main() -> int:
     log(f"bucket_exchange at {t['shape']}: {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
         f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}) [{card}]")
 
+    phase("the Table API")
+    torch.cuda.empty_cache()
+    api = run_table_api(device)
+    t = api["time"]
+    times["expression_vm"] = {**t, "err": api["max_abs_err"]}
+    log(f"expression_vm at {t['shape']}: {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+        f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}); upload {t['upload_ms']:.4f} ms, "
+        f"readback {t['readback_ms']:.4f} ms; numpy tier {t['numpy_tier_ms']:.4f} ms (host "
+        f"clock) [{card}]")
+    for name, rate in api["rates"].items():
+        log(f"{name}: {rate:.1f} rows/s [{card}]")
+    log(f"Table API idle share (1 worker, under the profiler): {api['idle_share']:.4f} [{card}]")
+
     phase("done")
     sources = {
         "masked_attention": ("pathway_tpu_torch/csrc/masked_attention.cu",
@@ -1626,6 +2051,8 @@ def main() -> int:
                        max(merge_err, times["topk_merge"]["err"])),
         "bucket_exchange": ("pathway_tpu_torch/csrc/bucket_exchange.cu",
                             "pathway_tpu/parallel/exchange.py:51", engine["exchange_err"]),
+        "expression_vm": ("pathway_tpu_torch/csrc/expression_vm.cu",
+                          "pathway_tpu/internals/expression_compiler.py:272", api["max_abs_err"]),
     }
     kernels = []
     for name, (source, replaces, err) in sources.items():
@@ -1633,12 +2060,14 @@ def main() -> int:
         by_path = {"rag": path["launches"].get(name, 0), "train": train["launches"].get(name, 0),
                    "long": long["launches"].get(name, 0),
                    "sharded": sharded["launches"].get(name, 0),
-                   **{p: c[name] for p, c in engine["launches"].items()}}
+                   **{p: c[name] for p, c in engine["launches"].items()},
+                   **{p: c[name] for p, c in api["launches"].items()}}
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            **{k: t[k] for k in ("upload_ms", "readback_ms", "numpy_tier_ms") if k in t},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,16 +7,65 @@ and the embedder front (``xpacks.llm``); the one-device training step (``models.
 meshes over ``torch.distributed`` (``parallel``), long-context embedding with ring attention
 (``models.ring_attention``) and the sharded KNN search (``ops.knn``); the dataflow engine's core
 (``engine``: executor, operators, keys, external index) sharded over worker threads, with its
-record exchange on the card (``parallel.meshcomm``, ``parallel.exchange``). Hand-written CUDA
-kernels carry their device work: masked attention and its gradient (``ops.attention``), fused
+record exchange on the card (``parallel.meshcomm``, ``parallel.exchange``); the Table API down to
+``run()`` (``internals``: tables, expressions, schemas, the parse graph, the graph runner and the
+expression compiler; ``io.python``, ``io.subscribe``, ``debug``, ``reducers``, ``udfs``), so that
+``import pathway_tpu_torch as pw`` reads like the reference. Hand-written CUDA kernels carry their
+device work: masked attention and its gradient (``ops.attention``), fused
 scoring with top-k and the sharded search's merge (``ops.knn``), the InfoNCE loss with its
-gradient (``ops.infonce``), the ring's block step (``ops.ring``) and the exchange's bucketing
-(``parallel.exchange``). They build from ``csrc/`` at first use (``_kernels``).
+gradient (``ops.infonce``), the ring's block step (``ops.ring``), the exchange's bucketing
+(``parallel.exchange``) and the expression register machine that runs the compiled numeric
+expressions and fused chains (``ops.expression_kernel``). They build from ``csrc/`` at first use (``_kernels``).
 
 Every entry point takes ``device=`` and defaults to ``"cuda"``; with no card it raises unless
 the caller passes ``device="cpu"``, where each kernel's plain PyTorch version runs instead. The
 package imports neither ``jax`` nor anything of ``pathway_tpu``.
 """
+
+from . import reducers, udfs
+from .internals import dtype as _dt
+from .internals.expression import (
+    ColumnExpression,
+    ColumnReference,
+    apply,
+    apply_async,
+    apply_with_type,
+    cast,
+    coalesce,
+    declare_type,
+    fill_error,
+    if_else,
+    make_tuple,
+    require,
+    unwrap,
+)
+from .internals.groupbys import GroupedTable
+from .internals.joins import Joinable, JoinMode, JoinResult
+from .internals.json import Json
+from .internals.parse_graph import G, Universe
+from .internals.run import request_stop, run, run_all
+from .internals.schema import (
+    Schema,
+    SchemaProperties,
+    assert_table_has_schema,
+    column_definition,
+    schema_builder,
+    schema_from_dict,
+    schema_from_types,
+)
+from .internals.table import (
+    Table,
+    TableLike,
+    groupby,
+    join,
+    join_inner,
+    join_left,
+    join_outer,
+    join_right,
+)
+from .internals.thisclass import left, right, this
+from .udfs import UDF, udf, udf_async
+from . import debug, io  # noqa: E402
 
 from .models.embedder import (
     Embedder,
@@ -55,8 +104,87 @@ from .parallel.mesh import data_model_mesh, make_mesh
 from .utils.filters import compile_metadata_filter
 from .xpacks.llm.embedders import TorchEmbedder
 from .xpacks.llm.splitters import TokenCountSplitter
+from .ops.expression_kernel import expression_vm, run_program, run_program_plain
+
+
+class Type:
+    """Engine-level type tags (reference ``PathwayType``)."""
+
+    ANY = _dt.ANY
+    STRING = _dt.STR
+    INT = _dt.INT
+    BOOL = _dt.BOOL
+    FLOAT = _dt.FLOAT
+    POINTER = _dt.POINTER
+    DATE_TIME_NAIVE = _dt.DATE_TIME_NAIVE
+    DATE_TIME_UTC = _dt.DATE_TIME_UTC
+    DURATION = _dt.DURATION
+    JSON = _dt.JSON
+    BYTES = _dt.BYTES
+
+
+Pointer = _dt.Pointer  # pointer typehint (engine keys are 64-bit ints)
+DateTimeNaive = _dt.DATE_TIME_NAIVE
+DateTimeUtc = _dt.DATE_TIME_UTC
+Duration = _dt.DURATION
 
 __all__ = [
+    "ColumnExpression",
+    "ColumnReference",
+    "DateTimeNaive",
+    "DateTimeUtc",
+    "Duration",
+    "G",
+    "GroupedTable",
+    "JoinMode",
+    "JoinResult",
+    "Joinable",
+    "Json",
+    "Pointer",
+    "Schema",
+    "SchemaProperties",
+    "Table",
+    "TableLike",
+    "Type",
+    "UDF",
+    "Universe",
+    "apply",
+    "apply_async",
+    "apply_with_type",
+    "assert_table_has_schema",
+    "cast",
+    "coalesce",
+    "column_definition",
+    "debug",
+    "declare_type",
+    "expression_vm",
+    "fill_error",
+    "groupby",
+    "if_else",
+    "io",
+    "join",
+    "join_inner",
+    "join_left",
+    "join_outer",
+    "join_right",
+    "left",
+    "make_tuple",
+    "reducers",
+    "request_stop",
+    "require",
+    "right",
+    "run",
+    "run_all",
+    "run_program",
+    "run_program_plain",
+    "schema_builder",
+    "schema_from_dict",
+    "schema_from_types",
+    "this",
+    "udf",
+    "udf_async",
+    "udfs",
+    "unwrap",
     "BruteForceKnnEngine",
     "Embedder",
     "EmbedderConfig",

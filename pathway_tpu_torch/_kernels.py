@@ -23,7 +23,7 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parent / "_build"
 SOURCES = (
     "masked_attention", "masked_attention_bwd", "knn_topk", "infonce", "ring_attention",
-    "topk_merge", "bucket_exchange",
+    "topk_merge", "bucket_exchange", "expression_vm",
 )
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

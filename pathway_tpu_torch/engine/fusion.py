@@ -39,10 +39,16 @@ member when detailed stats are on.
 ``PATHWAY_FUSION=0`` is the escape hatch (default on): the graph then
 runs the per-node path unchanged.
 
-Copy of ``pathway_tpu/engine/fusion.py`` with its numpy tier only: the
-whole-chain XLA tier (``FusedChain._try_jit``) is left out. It is entered
-only by chains whose kernels carry ``_pw_jax_ok`` from the Table API's
-expression compiler, which engine-level callables never do.
+Copy of ``pathway_tpu/engine/fusion.py``. In place of its whole-chain XLA
+tier (``FusedChain._try_jit``), chains whose every kernel is a ``jax_ok``
+expression tree with a structural signature lower to ONE program of the
+expression register machine (``ops/expression_kernel.py``, the CUDA kernel
+``csrc/expression_vm.cu``): the members' columns, then the filters' masks
+ANDed, in one launch per batch past the reference's gates (threshold,
+warm-up, no object columns), on the device the runner lowered the chain's
+expressions for. A failure to build or launch the program raises; it does
+not fall back to the numpy tier. The per-operator EWMA attribution of the
+jitted path is left out with the observability hub.
 """
 
 from __future__ import annotations
@@ -90,6 +96,7 @@ FUSION_STATS: dict[str, int] = {
     "preambles_total": 0,     # Rowwise preambles absorbed into groupby/join
     "key_reuse_total": 0,     # batches whose group/join keys reused row keys
     "consolidation_skips_total": 0,  # provably-identity consolidations skipped
+    "jit_chains_total": 0,    # chains that lowered to one machine program
 }
 
 
@@ -298,12 +305,15 @@ class _FuseFallback(Exception):
 class FusedChain(Node):
     """One engine node executing a whole Rowwise/Filter chain.
 
-    Two execution tiers per batch, fastest first:
+    Three execution tiers per batch, fastest first:
 
-    1. composed member kernels over a live column dict — no
+    1. one expression-machine program for the whole chain (pure numeric
+       expression chains, large dense batches — the per-expression
+       gates: threshold, warm-up, dense columns);
+    2. composed member kernels over a live column dict — no
        intermediate Delta, masks deferred across total members, one
        compaction at exit;
-    2. the exact per-node path (``member.process`` in sequence) for any
+    3. the exact per-node path (``member.process`` in sequence) for any
        batch that raises or routes Errors through a deferred mask —
        row-error semantics are identical to the unfused graph.
     """
@@ -335,6 +345,9 @@ class FusedChain(Node):
             total_after[i] = total_after[i + 1] and self._member_total(members[i])
         self._defer_after = total_after[1:]
         self._tracer_box: list = []  # lazily resolved process tracer
+        self._kernel_hot = 0  # large dense batches seen by the program tier
+        self._kernel_plan = self._build_kernel_plan()
+        self._launcher = None  # lazily built HostLauncher of the plan's device
 
     # -- planning helpers ------------------------------------------------
 
@@ -356,6 +369,93 @@ class FusedChain(Node):
                 return False
         return True
 
+    def _build_kernel_plan(self):
+        """(member spec, source cols, composite signature, device) when
+        the whole chain can run as one machine program, else None."""
+        from ..internals import expression_compiler as ec
+
+        spec: list[tuple[str, dict]] = []
+        sigs: list = []
+        src_cols: set[str] = set()
+        devices: set = set()
+        produced: set[str] | None = None  # None until a rowwise ran
+        for m, kind in zip(self.members, self._member_kind):
+            kernels = self._member_kernels(m)
+            entry: dict[str, tuple] = {}
+            for name, fn in kernels.items():
+                expr = getattr(fn, "_pw_expr", None)
+                env = getattr(fn, "_pw_env", None)
+                if (
+                    expr is None or env is None
+                    or not getattr(fn, "_pw_jax_ok", False)
+                ):
+                    return None
+                sig = ec._structural_sig(expr, env)
+                if sig is None:
+                    return None
+                entry[name] = (expr, env)
+                devices.add(env.device)
+                sigs.append((kind, name, sig))
+                _, _, _, refs = ec._build(expr, env)
+                src_cols.update(
+                    c
+                    for c in refs
+                    if c is not None
+                    and (produced is None or c not in produced)
+                )
+            if kind == "rowwise":
+                produced = set(kernels.keys())
+            spec.append((kind, entry))
+        # output producibility: after the LAST rowwise the live dict holds
+        # exactly its outputs; a filter-only chain passes the input dict
+        # through, so its output columns must ride in as source columns
+        if produced is None:
+            src_cols.update(self.column_names)
+        elif not set(self.column_names) <= produced:
+            return None
+        if len(devices) != 1 or None in devices:
+            return None  # expressions lowered for type inference only
+        return {
+            "spec": spec,
+            "src_cols": sorted(src_cols),
+            "out_cols": list(self.column_names),
+            "sig": ("chain", *sigs),
+            "member_sigs": [s[2] for s in sigs],
+            "device": devices.pop(),
+        }
+
+    def _try_kernel(self, d: Delta):
+        """Run the whole chain as one machine program when the plan and the
+        gates allow: (columns, mask or None); None → the composed numpy
+        tier. The gates are the per-expression ones of
+        internals/expression_compiler (threshold, warm-up, columns the
+        machine loads). Past them the launch raises on failure."""
+        from ..internals import expression_compiler as ec
+        from ..ops import expression_kernel as vm
+
+        plan = self._kernel_plan
+        if plan is None:
+            return None
+        n = len(d)
+        if n < ec.JIT_THRESHOLD:
+            return None
+        for c in plan["src_cols"]:
+            a = d.data.get(c)
+            if a is None or vm.column_kind(getattr(a, "dtype", object)) is None:
+                return None
+        self._kernel_hot += 1
+        if self._kernel_hot <= ec.JIT_WARMUP_BATCHES:
+            return None
+        if self._launcher is None:
+            self._launcher = vm.HostLauncher(plan["device"])
+            FUSION_STATS["jit_chains_total"] += 1
+        kinds = ec._input_kinds(plan["src_cols"], d.data)
+        prog = ec.chain_program(plan, kinds)
+        outs = self._launcher.run(prog, ec._program_inputs(prog, d.data, d.keys), n)
+        cols = dict(zip(self.column_names, outs))
+        mask = outs[len(self.column_names)] if len(outs) > len(self.column_names) else None
+        return cols, mask
+
     # -- execution -------------------------------------------------------
 
     def process(self, time: int, ins: list[Delta | None]) -> Delta | None:
@@ -364,6 +464,12 @@ class FusedChain(Node):
         d = ins[0]
         if d is None or not len(d):
             return None
+        # the program tier runs outside the fallback's try: past its gates
+        # a failure raises, it never falls back to the numpy tier
+        kernel_out = self._try_kernel(d)
+        if kernel_out is not None:
+            cols, mask = kernel_out
+            return self._exit(d.keys, cols, d.diffs, mask)
         stats = getattr(self, "_engine_stats", None)
         detailed = stats is not None and stats.detailed
         tracer = self._tracer()

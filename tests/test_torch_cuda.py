@@ -13,7 +13,8 @@ within 1e-5 of the value (f32, sums in another order); the training step's param
 against the host's with a cosine of at least 0.999; the ring's block step in f32 within 2e-5 plus
 2e-5 of the value (the sums in another order, no TF32); the top-k merge and the bucketed
 exchange exactly (the exchange moves bits), and the engine with its exchange on the card equals
-the engine on the host.
+the engine on the host; the expression machine bit for bit against its plain version (float
+``**`` within 2 ulp), and the Table API's ``pw.run(device="cuda")`` equal to numpy.
 """
 
 from __future__ import annotations
@@ -534,3 +535,133 @@ def test_engine_with_the_exchange_on_the_card_equals_the_host(cuda):
     on_card = run(cuda)
     assert bucket_exchange.launches > before
     assert on_card == run("cpu")
+
+
+def _vm_table():
+    import pathway_tpu_torch as pw
+
+    pw.G.clear()
+    return pw, pw.debug.table_from_rows(
+        pw.schema_from_types(a=int, b=int, x=float, y=float, p=bool), [(0, 0, 0.0, 0.0, False)])
+
+
+VM_EXPRESSIONS = {
+    "int arithmetic": lambda pw, t: (t.a * 3 + 7) - (t.b << 2) + (t.a >> t.b),
+    "float arithmetic": lambda pw, t: t.x * 2.0 - 1.0 + t.x * t.y,
+    "mixed and pow": lambda pw, t: t.a * 2.5 + t.x ** 2 + (abs(t.y) + 1.0) ** 0.5,
+    "compare and select": lambda pw, t: pw.if_else((t.a > t.b) & t.p, t.x, -t.y),
+    "casts": lambda pw, t: pw.cast(int, t.x * 1e17) + pw.cast(int, pw.cast(bool, t.y)),
+    "int pow": lambda pw, t: t.a ** (t.b & 7) + 2 ** (t.b & 63),
+}
+
+
+@pytest.mark.parametrize("name", sorted(VM_EXPRESSIONS))
+def test_expression_vm_kernel_equals_plain(cuda, name):
+    """The expression machine's kernel against its plain version on the card: bits equal, float
+    ``**`` within 2 ulp."""
+    from pathway_tpu_torch.internals import expression_compiler as ec
+    from pathway_tpu_torch.ops.expression_kernel import (
+        expression_vm, run_program, run_program_plain,
+    )
+
+    pw, t = _vm_table()
+    rng = np.random.default_rng(12)
+    n = 70001
+    cols = {"a": rng.integers(-2**63, 2**63 - 1, n, dtype=np.int64),
+            "b": rng.integers(-100, 100, n).astype(np.int64),
+            "x": rng.standard_normal(n) * 1e3, "y": rng.standard_normal(n),
+            "p": rng.random(n) < 0.5}
+    cols["x"][:5] = [np.nan, np.inf, -np.inf, -0.0, 1e-310]
+    env = ec.ColumnEnv(device=cuda)
+    env.add_table(t)
+    prog = ec.expression_program(VM_EXPRESSIONS[name](pw, t), env,
+                                 ec._input_kinds(list(cols), cols), {})
+    inputs = [torch.from_numpy(cols[c]).to(cuda) for c, _ in prog.inputs]
+    before = expression_vm.launches
+    (got,) = run_program(prog, inputs)
+    (want,) = run_program_plain(prog, inputs)
+    torch.cuda.synchronize()
+    assert expression_vm.launches == before + 1
+    assert got.dtype == want.dtype
+    if got.dtype == torch.float64:
+        nan = torch.isnan(want)
+        assert torch.equal(torch.isnan(got), nan)
+        gi, wi = got[~nan].view(torch.int64), want[~nan].view(torch.int64)
+        if "pow" in name:
+            assert (gi - wi).abs().max().item() <= 2
+        else:
+            assert torch.equal(gi, wi)
+    else:
+        assert torch.equal(got, want)
+    pw.G.clear()
+
+
+def test_expression_vm_refuses_what_it_does_not_take(cuda):
+    from pathway_tpu_torch.internals import expression_compiler as ec
+    from pathway_tpu_torch.ops.expression_kernel import expression_vm, layout
+
+    pw, t = _vm_table()
+    env = ec.ColumnEnv(device=cuda)
+    env.add_table(t)
+    cols = {"a": np.arange(10, dtype=np.int64)}
+    prog = ec.expression_program(t.a + 1, env, ec._input_kinds(["a"], cols), {})
+    _, in_bytes, _, out_bytes = layout(prog, 10)
+    good_in = torch.zeros(in_bytes, dtype=torch.uint8, device=cuda)
+    good_out = torch.zeros(out_bytes, dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError):
+        expression_vm(prog, good_in[:8], good_out, 10)  # too small
+    with pytest.raises(ValueError):
+        expression_vm(prog, good_in.to(torch.int32), good_out, 10)
+    with pytest.raises(ValueError):
+        expression_vm(prog, good_in, good_out.cpu(), 10)
+    pw.G.clear()
+
+
+def test_table_api_runs_on_the_card(cuda, monkeypatch):
+    """``pw.run(device="cuda")`` of a streaming select/filter/groupby past the expression tier's
+    gates: the table equals numpy's, and the kernel launched."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.internals import expression_compiler as ec
+    from pathway_tpu_torch.ops.expression_kernel import expression_vm
+
+    monkeypatch.setattr(ec, "JIT_THRESHOLD", 64)
+    monkeypatch.setattr(ec, "JIT_WARMUP_BATCHES", 2)
+    rng = np.random.default_rng(13)
+    a = rng.integers(-2**31, 2**31, 8000)
+    g = rng.integers(0, 50, 8000)
+    x = rng.integers(-1024, 1024, 8000) / 16.0
+
+    class Feed(pw.io.python.ConnectorSubject):
+        def run(self):
+            for s in range(0, 8000, 1000):
+                self.next_batch({"a": a[s:s + 1000], "g": g[s:s + 1000], "x": x[s:s + 1000]})
+                self.commit()
+
+    pw.G.clear()
+    src = pw.io.python.read(Feed(), schema=pw.schema_from_types(a=int, g=int, x=float),
+                            autocommit_duration_ms=None)
+    res = (src.select(g=pw.this.g, y=pw.apply_with_type(lambda a: a * 3 + 7, int, pw.this.a),
+                      z=pw.this.x * 2.0 - 1.0)
+           .filter(pw.this.z > -32.0)
+           .select(g=pw.this.g, w=pw.if_else(pw.this.y > 1000,
+                                             pw.cast(float, pw.this.y & 1023) * pw.this.z,
+                                             -pw.this.z))
+           .groupby(pw.this.g).reduce(pw.this.g, s=pw.reducers.sum(pw.this.w)))
+    got = {}
+
+    def on_change(key, row, time, is_addition):
+        if is_addition:
+            got[row["g"]] = row["s"]
+
+    pw.io.subscribe(res, on_change=on_change)
+    before = expression_vm.launches
+    pw.run(device="cuda")
+    pw.G.clear()
+    assert expression_vm.launches > before
+    z = x * 2.0 - 1.0
+    y = a * 3 + 7
+    w = np.where(y > 1000, (y & 1023) * z, -z)
+    want = {}
+    for gg, ww in zip(g[z > -32.0], w[z > -32.0]):
+        want[int(gg)] = want.get(int(gg), 0.0) + ww
+    assert got == want

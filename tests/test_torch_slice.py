@@ -118,6 +118,16 @@ def test_entry_points_default_to_the_card():
             make()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TorchEmbedder(embedder=object())
+    # the Table API: pw.run(), the graph runner and the debug entry points
+    import pathway_tpu_torch as pt
+    from pathway_tpu_torch.internals.graph_runner import GraphRunner
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        GraphRunner()
+    t = pt.debug.table_from_rows(pt.schema_from_types(a=int), [(1,)])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pt.debug.table_to_dicts(t)
+    pt.G.clear()
 
 
 _IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|pathway_tpu)(?:[.\s]|$)", re.M)
@@ -195,6 +205,40 @@ _BLOCKED_RUN = textwrap.dedent("""
     counts = {row[0]: row[1] for _, row in caps[0].state.iter_items()}
     assert counts == {"a": 60, "b": 40, "c": 20}, counts
     assert comm.comm_stats()["mesh_rows_moved"] > 0
+
+    # the Table API through pw.run on the CPU, past the expression tier's gates, at 2 workers
+    import os
+    from pathway_tpu_torch.internals import expression_compiler as ec
+    from pathway_tpu_torch.ops.expression_kernel import HostLauncher
+
+    ec.JIT_THRESHOLD, ec.JIT_WARMUP_BATCHES = 8, 1
+    os.environ.update(PATHWAY_THREADS="2", PATHWAY_MESH_EXCHANGE="1")
+
+    class Feed(pt.io.python.ConnectorSubject):
+        def run(self):
+            for s in range(0, 600, 100):
+                self.next_batch({"a": list(range(s, s + 100)), "g": [i % 7 for i in range(100)]})
+                self.commit()
+
+    src = pt.io.python.read(Feed(), schema=pt.schema_from_types(a=int, g=int),
+                            autocommit_duration_ms=None)
+    res = (src.select(g=pt.this.g, y=pt.apply_with_type(lambda a: a * 3 + 7, int, pt.this.a))
+           .filter(pt.this.y > 100)
+           .groupby(pt.this.g).reduce(pt.this.g, s=pt.reducers.sum(pt.this.y)))
+    sums = {}
+
+    def on_change(key, row, time, is_addition):
+        if is_addition:
+            sums[row["g"]] = row["s"]
+
+    pt.io.subscribe(res, on_change=on_change)
+    pt.run(device="cpu")
+    want = {}
+    for a in range(600):
+        if a * 3 + 7 > 100:
+            want[(a % 100) % 7] = want.get((a % 100) % 7, 0) + a * 3 + 7
+    assert sums == want, (sums, want)
+    assert HostLauncher.runs > 0
     loaded = sorted(
         m for m, mod in sys.modules.items() if mod is not None
         and (m.startswith("jax") or m == "pathway_tpu" or m.startswith("pathway_tpu."))
