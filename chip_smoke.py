@@ -6,10 +6,15 @@ dataflow engine and its Table API on one NVIDIA card.
 Phases, in order; any failure ends the run with a non-zero exit code:
 
 1. The card's name and power limit (``nvidia-smi``), then the build of every kernel of the path
-   from ``pathway_tpu_torch/csrc`` (one ``nvcc`` per source, all started together).
+   from ``pathway_tpu_torch/csrc`` (one ``nvcc`` per source, all started together), with ptxas's
+   registers, shared memory and spills for each kernel by name (the attention's two routes among
+   them).
 2. Each kernel against its plain PyTorch version on the card, at the shapes the main path gives
    it, with the tolerance stated beside each check; then its time (CUDA events) beside its bound,
-   the plain version's time and one PyTorch library call's time.
+   the plain version's time and one PyTorch library call's time. The attention on contiguous
+   inputs and on the encoder's fused-qkv views, at S = 16 and 128 (the persistent route) and 512
+   (the per-head route); timed at B=1024 S=128 on both layouts and with every key real, beside
+   SDPA on the same inputs, with the persistent grid's CTAs per SM.
 3. The main path at full width: the default encoder (6 layers, 384 wide, 12 heads of 32, bf16,
    seeded init) embeds 16,384 chunks of a seeded corpus into ``BruteForceKnnEngine`` in ticks
    of 1024, seeded unit vectors fill the index to 1,048,576 rows, and 8 searches of 64 text
@@ -29,10 +34,13 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 6. Ring attention's block step (``ops/ring.py``) against its plain version: one call over
    B=1, S=4096, H=12, D=32 in bf16, the same sequence folded as 4 blocks of 1024 in the order
    rank 0 of a 4-rank ring meets them, D=8 in f32, D=64, and a fully masked first block; the
-   top-k merge (``ops/knn.py::topk_merge``) after the scorer over 4 slices of the 1,048,576-row
-   index, against the scorer over the whole index (exact); then both kernels at the new paths'
-   shapes (the block step at one layer of the long forward, B=4 x 8192 x 8192, the merge at a
-   sharded search's), each against its plain version on the same inputs and timed.
+   top-k merge (``ops/knn.py::topk_merge`` on the concatenated rows and ``topk_merge_shards`` on
+   the stacked lists) after the scorer over 4 slices of the 1,048,576-row index, against the
+   scorer over the whole index (exact); then both kernels at the new paths' shapes (the block step
+   at one layer of the long forward, B=4 x 8192 x 8192; the merge as the sharded search launches
+   it at world size 1, m=10, and from synthetic buffers of 8 shards, m=80 and m=8192 at k=1024),
+   each against its plain version on the same inputs and timed, the merge also by the profiler
+   (the kernel's device time beside the time a call takes).
 7. The long-context path (``models/ring_attention.py::embed_tokens_long``) on a
    ``torch.distributed`` group of world size 1 (NCCL): the default encoder on B=4 seeded
    documents of S=8192 tokens (16x the position table, so positions wrap) with padded tails of
@@ -41,7 +49,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    against the plain route on the card.
 8. The sharded index (``ShardedKnnIndex(mesh=...)``) on that group over 1,048,576 seeded unit
    rows of 384, added from the host 65,536 rows at a time (each add timed), then 8 searches of 64 queries
-   at k=10 with the counts zeroed just before, against the unsharded index (exact).
+   at k=10 with the counts zeroed just before, against the unsharded index (exact). A search is
+   4 launches: the scorer, two all-gathers, the merge reading their output.
 9. The dataflow engine (``pathway_tpu_torch/engine``) on worker threads, as the JAX package's
    graph runner runs executors, over ``LocalComm`` and over ``MeshComm`` on the card (the record
    exchange's dense columns through the ``bucket_exchange`` kernel): the reference's streaming
@@ -86,6 +95,7 @@ import functools
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -164,40 +174,54 @@ def bound(n_bytes: float, n_ops: float, ops_per_s: float = BF16_OPS_PER_S) -> tu
 # -- phase 2: kernels against their plain versions ---------------------------------------------
 
 
-def attention_inputs(B: int, S: int, gen: torch.Generator, device, H: int = 12, D: int = 32):
-    def t():
-        return torch.randn((B, H, S, D), generator=gen, device=device).to(torch.bfloat16)
-
+def attention_inputs(B: int, S: int, gen: torch.Generator, device, H: int = 12, D: int = 32,
+                     fused: bool = False):
+    """q, k, v [B, H, S, D] in bf16, contiguous or (``fused``) as the encoder passes them: views
+    of one [B, S, 3 H D] product (``models/embedder.py::_block``), a row stride of 3 H D values;
+    and a key mask of random lengths with one all-pad row."""
+    if fused:
+        qkv = torch.randn((B, S, 3 * H * D), generator=gen, device=device).to(torch.bfloat16)
+        q, k, v = (t.view(B, S, H, D).transpose(1, 2) for t in qkv.split(H * D, dim=-1))
+    else:
+        q, k, v = (torch.randn((B, H, S, D), generator=gen, device=device).to(torch.bfloat16)
+                   for _ in range(3))
     lengths = torch.randint(1, S + 1, (B,), generator=gen, device=device)
     lengths[0] = 0  # one all-pad row: uniform attention, never NaN
     mask = torch.arange(S, device=device)[None, :] < lengths[:, None]
-    return t(), t(), t(), mask
+    return q, k, v, mask
 
 
 def check_attention(B: int, seqs: tuple[int, ...], device) -> float:
-    from pathway_tpu_torch.ops.attention import masked_attention, masked_attention_plain
-
+    """The kernel against its plain version at B x S, H=12, D=32, on contiguous inputs and on
+    the encoder's fused-qkv views: S <= 128 takes the persistent route, a longer S the per-head
+    one."""
     gen = torch.Generator(device=device).manual_seed(11)
     worst = 0.0
-    for S in seqs:
-        q, k, v, mask = attention_inputs(B, S, gen, device)
-        got = masked_attention(q, k, v, mask).float()
-        want = masked_attention_plain(q, k, v, mask).float()
-        if device.type == "cuda":
-            torch.cuda.synchronize()
-        if not torch.isfinite(got).all():
-            raise AssertionError(f"masked_attention S={S}: non-finite output")
-        err = (got - want).abs()
-        limit = ATTN_ATOL + ATTN_RTOL * want.abs()
-        if (err > limit).any():
-            raise AssertionError(
-                f"masked_attention S={S}: max |err| {err.max().item()} over atol {ATTN_ATOL} "
-                f"+ rtol {ATTN_RTOL}"
-            )
-        worst = max(worst, err.max().item())
-        log(f"masked_attention B={B} S={S}: max |kernel - plain| = {err.max().item():.3e} "
-            f"(atol {ATTN_ATOL} + rtol {ATTN_RTOL})")
+    for S, fused in ((S, fused) for S in seqs for fused in (False, True)):
+        q, k, v, mask = attention_inputs(B, S, gen, device, fused=fused)
+        label = f"B={B} S={S} {'fused-qkv views' if fused else 'contiguous'}"
+        worst = max(worst, attention_error(label, q, k, v, mask))
     return worst
+
+
+def attention_error(label: str, q, k, v, mask) -> float:
+    """The kernel's output against its plain version's on the same inputs: max |kernel - plain|;
+    it raises on a non-finite value or a miss of ATTN_ATOL + ATTN_RTOL |plain|."""
+    from pathway_tpu_torch.ops.attention import masked_attention, masked_attention_plain
+
+    got = masked_attention(q, k, v, mask).float()
+    want = masked_attention_plain(q, k, v, mask).float()
+    if q.device.type == "cuda":
+        torch.cuda.synchronize()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"masked_attention {label}: non-finite output")
+    err = (got - want).abs()
+    if (err > ATTN_ATOL + ATTN_RTOL * want.abs()).any():
+        raise AssertionError(f"masked_attention {label}: max |err| {err.max().item()} over atol "
+                             f"{ATTN_ATOL} + rtol {ATTN_RTOL}")
+    log(f"masked_attention {label}: max |kernel - plain| = {err.max().item():.3e} (atol "
+        f"{ATTN_ATOL} + rtol {ATTN_RTOL})")
+    return err.max().item()
 
 
 def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
@@ -270,27 +294,66 @@ def check_knn(Q: int, N: int, d: int, ks: tuple[int, ...], device) -> tuple[floa
     return worst, ties
 
 
+def time_attention(device, B: int = 1024, H: int = 12, S: int = 128, D: int = 32) -> dict:
+    """The forward kernel at an ingest tick's shape, on the encoder's fused-qkv views (``ms``) and
+    on contiguous [B, H, S, D] inputs, with keys of random lengths (the timing mask) and with every
+    key real (``ms_full_mask``: the forward timed below, and 94% of the ingest corpus's keys); SDPA
+    on the same inputs each time. Every key tile is computed under either mask: the timing mask
+    differs from the full one only in the masked keys' -1e30 and the pad's -inf. Each of the three
+    input sets is first held against the plain version (``err``: each CTA walks about 46 tiles
+    here, so the ring of stages is refilled). The bound is the same for all: the bytes of q, k, v,
+    o and the mask."""
+    import torch.nn.functional as F
+
+    from pathway_tpu_torch.ops.attention import (
+        masked_attention, masked_attention_plain, persistent_ctas_per_sm, shared_memory_bytes,
+    )
+
+    gen = torch.Generator(device=device).manual_seed(13)
+    q, k, v, mask = attention_inputs(B, S, gen, device, fused=True)
+    full = torch.ones_like(mask)
+    qc, kc, vc = (t.contiguous() for t in (q, k, v))
+    times = {"err": 0.0}
+    for key, args in (("", (q, k, v, mask)), ("_contiguous", (qc, kc, vc, mask)),
+                      ("_full_mask", (q, k, v, full))):
+        label = f"B={B} H={H} S={S} D={D} " + {"": "fused-qkv views", "_contiguous": "contiguous",
+                                                "_full_mask": "fused-qkv views, every key real"}[key]
+        times["err"] = max(times["err"], attention_error(label, *args))
+        sdpa_mask = args[3][:, None, None, :]
+        times["ms" + key] = cuda_ms(lambda: masked_attention(*args), 20)
+        times["library_ms" + key] = cuda_ms(
+            lambda: F.scaled_dot_product_attention(*args[:3], attn_mask=sdpa_mask), 20)
+    times["plain_ms"] = cuda_ms(lambda: masked_attention_plain(q, k, v, mask), 5)
+    n_bytes = 4 * B * H * S * D * 2 + B * S
+    times["bound_ms"], times["bound_by"] = bound(n_bytes, 4 * B * H * S * S * D)
+    times["tb_per_s"] = n_bytes / (times["ms"] * 1e-3) / 1e12
+    times["ctas_per_sm"] = persistent_ctas_per_sm(D, S)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    times["grid"] = min(B * H, times["ctas_per_sm"] * sms)
+    times["shape"] = f"B={B} H={H} S={S} D={D}, fused-qkv views"
+    real = mask.float().mean().item()
+    log(f"masked_attention at B={B} H={H} S={S} D={D}: persistent grid of {times['grid']} CTAs "
+        f"({times['ctas_per_sm']} a SM on {sms} SMs) over {B * H} (b, h) tiles; the timing mask "
+        f"holds {real:.3f} real keys")
+    log("  shared memory a block (dynamic), by route: " + ", ".join(
+        f"D={d} persistent {shared_memory_bytes(d, S)} B, per-head at S=512 "
+        f"{shared_memory_bytes(d, 512)} B" for d in (16, 32, 64)))
+    for key, label in (("", "fused-qkv views"), ("_contiguous", "contiguous"),
+                       ("_full_mask", "fused-qkv views, every key real")):
+        ms = times["ms" + key]
+        log(f"  {label}: {ms:.4f} ms ({n_bytes / (ms * 1e-3) / 1e12:.3f} TB/s, "
+            f"{times['bound_ms'] / ms:.3f} of the bound), SDPA {times['library_ms' + key]:.4f} ms")
+    del q, k, v, qc, kc, vc
+    return times
+
+
 def time_kernels(device) -> dict:
     """Times at the main path's shapes: attention at an ingest tick (B=1024, S=128), scoring at
     a search (q=64 against 2^20 rows of 384, k=10)."""
-    import torch.nn.functional as F
-
-    from pathway_tpu_torch.ops.attention import masked_attention, masked_attention_plain
     from pathway_tpu_torch.ops.knn import topk_scores, topk_scores_plain
 
     gen = torch.Generator(device=device).manual_seed(13)
-    B, H, S, D = 1024, 12, 128, 32
-    q, k, v, mask = attention_inputs(B, S, gen, device)
-    sdpa_mask = mask[:, None, None, :]
-    attn = {
-        "ms": cuda_ms(lambda: masked_attention(q, k, v, mask), 20),
-        "plain_ms": cuda_ms(lambda: masked_attention_plain(q, k, v, mask), 5),
-        "library_ms": cuda_ms(
-            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask), 20
-        ),
-    }
-    attn["bound_ms"], attn["bound_by"] = bound(4 * B * H * S * D * 2 + B * S, 4 * B * H * S * S * D)
-    attn["shape"] = f"B={B} H={H} S={S} D={D}"
+    attn = time_attention(device)
 
     Q, N, d, kk = 64, 1 << 20, 384, 10
     queries, index, valid = knn_inputs(Q, N, d, gen, device)
@@ -306,7 +369,7 @@ def time_kernels(device) -> dict:
     )
     knn["shape"] = f"q={Q} n={N} d={d} k={kk} cos"
     # the bulk of the timing inputs is freed before the main path
-    del q, k, v, mask, sdpa_mask, queries, index, valid
+    del queries, index, valid
     torch.cuda.empty_cache()
     return {"masked_attention": attn, "knn_topk": knn}
 
@@ -904,7 +967,7 @@ def check_sharded_merge(device, Q: int = 64, N: int = 1 << 20, d: int = 384,
     """The scorer over ``shards`` slices of the index, ids shifted to global rows, candidates
     gathered shard-major and merged, against the scorer over the whole index: equal exactly.
     Returns the largest score difference seen (0)."""
-    from pathway_tpu_torch.ops.knn import topk_merge, topk_scores
+    from pathway_tpu_torch.ops.knn import topk_merge, topk_merge_shards, topk_scores
 
     gen = torch.Generator(device=device).manual_seed(12)
     queries, index, valid = knn_inputs(Q, N, d, gen, device)
@@ -917,15 +980,20 @@ def check_sharded_merge(device, Q: int = 64, N: int = 1 << 20, d: int = 384,
             all_s = torch.cat([s for s, _ in parts], dim=1)
             all_i = torch.cat([i + r * rows for r, (_, i) in enumerate(parts)], dim=1)
             s_m, i_m = topk_merge(all_s, all_i, k)
+            # the shard-major entry on the lists as an all-gather stacks them, local ids
+            s_g, i_g = topk_merge_shards(torch.stack([s for s, _ in parts]),
+                                         torch.stack([i for _, i in parts]), k, rows)
             s_w, i_w = topk_scores(queries, index, k, metric, valid=valid)
-            if not (torch.equal(s_m, s_w) and torch.equal(i_m, i_w)):
-                bad = (i_m != i_w).sum().item()
-                raise AssertionError(f"topk_merge over {shards} slices, {metric} k={k}: {bad} ids "
-                                     f"differ from the unsharded scorer")
+            for entry, (s_x, i_x) in (("topk_merge", (s_m, i_m)),
+                                      ("topk_merge_shards", (s_g, i_g))):
+                if not (torch.equal(s_x, s_w) and torch.equal(i_x, i_w)):
+                    bad = (i_x != i_w).sum().item()
+                    raise AssertionError(f"{entry} over {shards} slices, {metric} k={k}: {bad} "
+                                         f"ids differ from the unsharded scorer")
             n_ties = int((s_w[:, 1:] == s_w[:, :-1]).sum().item())
             worst = max(worst, (s_m - s_w).abs().max().item())
-            log(f"topk_merge of {shards} slices of {N} x {d}, q={Q} {metric} k={k}: equal to the "
-                f"unsharded scorer exactly ({n_ties} exact ties in order)")
+            log(f"topk_merge and topk_merge_shards of {shards} slices of {N} x {d}, q={Q} {metric} "
+                f"k={k}: equal to the unsharded scorer exactly ({n_ties} exact ties in order)")
     del queries, index, valid
     return worst
 
@@ -934,12 +1002,12 @@ def time_parallel_kernels(device, B: int = 4, S: int = 8192, H: int = 12, D: int
                           Q: int = 64, k: int = 10) -> dict:
     """Both kernels at the new paths' shapes: the block step at the long-context forward's (one
     layer: B=4, 8192 queries against 8192 keys at world size 1, q/k/v laid out as the layer gives
-    them, ragged key lengths), the merge at a sharded search's at world size 1 (64 queries,
-    1 x 10 candidates, k=10). Each is first held against its plain version on the same inputs
-    (the block step from a fresh state, within ``RING_TOL``; the merge exactly), then timed."""
+    them, ragged key lengths), the merge at a sharded search's (``time_merge``: 64 queries at
+    world size 1 and at 8 shards). Each is first held against its plain version on the same
+    inputs (the block step from a fresh state, within ``RING_TOL``; the merge exactly), then
+    timed."""
     import torch.nn.functional as F
 
-    from pathway_tpu_torch.ops.knn import topk_merge, topk_merge_plain
     from pathway_tpu_torch.ops.ring import (
         init_state, ring_block_attention, ring_block_attention_plain,
     )
@@ -975,24 +1043,100 @@ def time_parallel_kernels(device, B: int = 4, S: int = 8192, H: int = 12, D: int
     del qkv, q, k_, v, qh, kh, vh, o, m, l, out, qf, kf, vf
     torch.cuda.empty_cache()
 
-    values = torch.tensor([0.5, 0.25, 0.0, -0.25], device=device)
-    scores = values[torch.randint(0, 4, (Q, k), generator=gen, device=device)]
-    scores = scores.sort(dim=1, descending=True).values
-    ids = torch.randint(0, 1 << 20, (Q, k), generator=gen, device=device)
-    got, want = topk_merge(scores, ids, k), topk_merge_plain(scores, ids, k)
-    if not all(torch.equal(g, w) for g, w in zip(got, want)):
-        raise AssertionError(f"topk_merge at q={Q} m={k} k={k}: differs from its plain version")
-    log(f"topk_merge at q={Q} m={k} k={k} (scores of four values, ties in every row): equal to "
-        f"its plain version exactly")
-    merge = {
-        "err": (got[0] - want[0]).abs().max().item(),
-        "ms": cuda_ms(lambda: topk_merge(scores, ids, k), 50),
-        "plain_ms": cuda_ms(lambda: topk_merge_plain(scores, ids, k), 50),
-        "library_ms": cuda_ms(lambda: torch.topk(scores, k, dim=1), 50),
-    }
-    merge["bound_ms"], merge["bound_by"] = bound(2 * Q * k * (4 + 8), Q * k * 11)
-    merge["shape"] = f"q={Q} m={k} k={k}"
+    merge = time_merge(device, gen, Q, k)
     return {"ring_attention": ring, "topk_merge": merge}
+
+
+def merge_case(P: int, Q: int, kk: int, gen: torch.Generator, device):
+    """Candidates as the sharded search's all-gather lands them: [P, q, kk] scores, each shard's
+    list best-first, from a few values (ties in every row, -0 beside +0) with -inf tails, and
+    each shard's local ids."""
+    values = torch.tensor([0.5, 0.25, 0.0, -0.0, -0.25], device=device)
+    scores = values[torch.randint(0, len(values), (P, Q, kk), generator=gen, device=device)]
+    scores[torch.rand((P, Q, kk), generator=gen, device=device) < 0.1] = -math.inf
+    scores = scores.sort(dim=2, descending=True).values
+    ids = torch.randint(0, 1 << 17, (P, Q, kk), generator=gen, device=device)
+    return scores, ids
+
+
+def fmt_ms(ms: float | None) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def profile_step(fn):
+    """The profiler's record of one call of ``fn`` (synchronised), after a warm-up call in the same
+    session: the tracer misses the first launches of a session, so the warm-up takes them."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    warm_then_record = torch.profiler.schedule(wait=0, warmup=1, active=1)
+    with torch.profiler.profile(activities=acts, schedule=warm_then_record) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()  # the warm-up ends; the next call is recorded until the session closes
+        fn()
+        torch.cuda.synchronize()
+    return prof
+
+
+def device_ms(fn, name: str, iters: int = 50, sessions: int = 3) -> float | None:
+    """The device time of one launch of the kernel whose name holds ``name``, from the profiler
+    over ``iters`` calls: the kernel alone, without the host's wrapper and launch. The tracer
+    sometimes records nothing of a session; after ``sessions`` such sessions the time is not
+    measured (None). It is a measurement, not a check: the run goes on."""
+    def calls():
+        for _ in range(iters):
+            fn()
+
+    for _ in range(sessions):
+        events = [e for e in profile_step(calls).key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA and name in e.key]
+        count = sum(e.count for e in events)
+        if count:
+            if count != iters:
+                log(f"  (the profiler recorded {count} of {iters} launches of {name}; the mean "
+                    f"is theirs)")
+            return sum(e.self_device_time_total for e in events) / count / 1e3
+    log(f"  (the profiler recorded no launch of {name} in {sessions} sessions: not measured)")
+    return None
+
+
+MERGE_CASES = (  # (P, kk, k): the sharded search at world size 1, at 8 shards, at the limit
+    (1, 10, 10), (8, 10, 10), (8, 1024, 1024))
+
+
+def time_merge(device, gen: torch.Generator, Q: int = 64, k: int = 10) -> dict:
+    """The merge as the sharded search launches it (``topk_merge_shards`` on the all-gather's
+    [P, q, kk] buffers) at world size 1 (m=10), and from synthetic buffers of 8 shards on the one
+    card (m=80, and m=8192 at k=1024): each exactly against its plain version (``topk_merge_plain``
+    on the reshaped buffers), then timed by CUDA events over 50 back-to-back calls (what a caller
+    waits, the host's wrapper and launch included) and by the profiler (the kernel alone), beside
+    the plain version, ``torch.topk`` on the reshaped scores, and the bound (the bytes)."""
+    from pathway_tpu_torch.ops.knn import topk_merge_shards, topk_merge_shards_plain
+
+    cases = []
+    for P, kk, kq in MERGE_CASES:
+        scores, ids = merge_case(P, Q, kk, gen, device)
+        got = topk_merge_shards(scores, ids, kq, 1 << 17)
+        want = topk_merge_shards_plain(scores, ids, kq, 1 << 17)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"topk_merge_shards at P={P} q={Q} kk={kk} k={kq}: differs from "
+                                 "its plain version")
+        flat = scores.transpose(0, 1).reshape(Q, P * kk)
+        case = {
+            "shape": f"P={P} q={Q} m={P * kk} k={kq}", "err": 0.0,  # equal, -inf included
+            "ms": cuda_ms(lambda: topk_merge_shards(scores, ids, kq, 1 << 17), 50),
+            "device_ms": device_ms(lambda: topk_merge_shards(scores, ids, kq, 1 << 17),
+                                   "topk_merge"),
+            "plain_ms": cuda_ms(lambda: topk_merge_shards_plain(scores, ids, kq, 1 << 17), 50),
+            "library_ms": cuda_ms(lambda: torch.topk(flat, kq, dim=1), 50),
+        }
+        case["bound_ms"], case["bound_by"] = bound(P * Q * kk * (4 + 8) + Q * kq * (4 + 8),
+                                                   Q * P * kk)
+        log(f"topk_merge_shards at {case['shape']} (ties, -0 and -inf in every row): equal to its "
+            f"plain version; {case['ms']:.4f} ms a call (CUDA events), {fmt_ms(case['device_ms'])} "
+            f"on the device (profiler), plain {case['plain_ms']:.4f} ms, torch.topk "
+            f"{case['library_ms']:.4f} ms, bound {case['bound_ms']:.7f} ms ({case['bound_by']})")
+        cases.append(case)
+    return {**cases[0], "err": max(c["err"] for c in cases), "cases": cases}
 
 
 @contextlib.contextmanager
@@ -1123,6 +1267,11 @@ def run_sharded_search(device, *, n_rows: int = 1 << 20, dim: int = 384, n_queri
     log(f"launches over {searches} sharded searches: {counts}")
     if device.type == "cuda" and min(counts.values()) == 0:
         raise AssertionError(f"a kernel was not launched on the sharded path: {counts}")
+    if device.type == "cuda":  # what one search runs on the card, copies apart
+        prof = profile_step(lambda: sharded.query(queries, k))
+        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                 and not e.name.lower().startswith(("memcpy", "memset", "profilerstep"))]
+        log(f"one sharded search launches {len(names)} kernels: {[n[:60] for n in names]}")
     s1, i1 = single.query(queries, k)
     if not (np.array_equal(s, s1) and np.array_equal(i, i1)):
         raise AssertionError("the sharded index disagrees with the unsharded one")
@@ -1949,8 +2098,12 @@ def main() -> int:
     log(f"built {list(build_logs) or 'nothing (cached)'} in {time.perf_counter() - t0:.1f} s")
     for name, text in build_logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                log(f"  {name}: {line.strip()}")
+            entry = re.search(r"entry function '[^']*?(\d+)([a-z_]+kernel)(ILi(\d+)E)?", line)
+            if entry:  # the kernel of the lines below: its name, and its template argument
+                arg = f"<{entry.group(4)}>" if entry.group(4) else ""
+                log(f"  {name}: {entry.group(2)}{arg}")
+            elif "registers" in line or "spill" in line or "smem" in line:
+                log(f"  {name}:   {line.strip()}")
 
     phase("kernels of the RAG path")
     attn_err = check_attention(64, (16, 128, 512), device)
@@ -1965,9 +2118,11 @@ def main() -> int:
                          n_searches=8, k=10)
     log(f"ingest: {path['ingest_docs_per_s']:.1f} docs/s over 16384 chunks [{card}]")
     log(f"embed forward: {path['embed_tokens_per_s']:.1f} tokens/s at B=1024 S=128 [{card}]")
-    outside = encoder_outside_attention(path["fwd_ms"], times["masked_attention"]["ms"])
+    # the forward's tokens are all real, so its six launches take the full-mask time
+    outside = encoder_outside_attention(path["fwd_ms"], times["masked_attention"]["ms_full_mask"])
     log(f"embed_tokens outside attention at B=1024 S=128: {outside['ms']:.4f} ms (the forward's "
-        f"{path['fwd_ms']:.4f} ms less 6 x masked_attention), bound {outside['bound_ms']:.4f} ms "
+        f"{path['fwd_ms']:.4f} ms less 6 x masked_attention with every key real), bound "
+        f"{outside['bound_ms']:.4f} ms "
         f"({outside['bound_by']}) [{card}]")
     log(f"search: p50 {path['search_p50_ms']:.3f} ms for 64 text queries, k=10, over "
         f"{path['index_rows']} rows (each: {[round(x, 3) for x in path['search_ms']]}) [{card}]")
@@ -1999,6 +2154,9 @@ def main() -> int:
         t = times[name]
         log(f"{name} at {t['shape']}: {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
             f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}) [{card}]")
+    for c in times["topk_merge"]["cases"]:
+        log(f"topk_merge at {c['shape']}: {c['ms']:.4f} ms a call (CUDA events), "
+            f"{fmt_ms(c['device_ms'])} on the device (profiler) [{card}]")
     torch.cuda.empty_cache()
     long = run_long_context(device)
     log(f"long context: {long['fwd_ms']:.3f} ms a forward of 4 x 8192 tokens (CUDA events; host "
@@ -2038,7 +2196,8 @@ def main() -> int:
     phase("done")
     sources = {
         "masked_attention": ("pathway_tpu_torch/csrc/masked_attention.cu",
-                             "pathway_tpu/models/embedder.py:90", attn_err),
+                             "pathway_tpu/models/embedder.py:90",
+                             max(attn_err, times["masked_attention"]["err"])),
         "masked_attention_bwd": ("pathway_tpu_torch/csrc/masked_attention_bwd.cu",
                                  "pathway_tpu/models/pipeline.py:72", bwd_err),
         "knn_topk": ("pathway_tpu_torch/csrc/knn_topk.cu", "pathway_tpu/ops/knn.py:46", knn_err),
@@ -2067,7 +2226,9 @@ def main() -> int:
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            **{k: t[k] for k in ("upload_ms", "readback_ms", "numpy_tier_ms") if k in t},
+            **{k: t[k] for k in ("upload_ms", "readback_ms", "numpy_tier_ms", "device_ms", "cases",
+                                 "ms_contiguous", "library_ms_contiguous", "ms_full_mask",
+                                 "library_ms_full_mask", "ctas_per_sm", "grid") if k in t},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -94,6 +94,8 @@ from .ops.knn import (
     sharded_knn_search,
     topk_merge,
     topk_merge_plain,
+    topk_merge_shards,
+    topk_merge_shards_plain,
     topk_scores,
     topk_scores_plain,
 )
@@ -222,6 +224,8 @@ __all__ = [
     "tokenize_batch",
     "topk_merge",
     "topk_merge_plain",
+    "topk_merge_shards",
+    "topk_merge_shards_plain",
     "topk_scores",
     "topk_scores_plain",
 ]

@@ -17,7 +17,9 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["SOURCES", "build_all", "check", "load"]
+import torch
+
+__all__ = ["SOURCES", "build_all", "check", "load", "stream"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parent / "_build"
@@ -96,3 +98,10 @@ def check(err: int, name: str) -> None:
     """Raise if a launcher returned a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def stream(device: torch.device) -> int:
+    """The raw handle of the current CUDA stream on ``device``, for a launcher's stream argument
+    (PyTorch's own binding: no stream object is built for it)."""
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if device.index is None else device.index)

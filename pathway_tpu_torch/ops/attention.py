@@ -23,13 +23,17 @@ from .. import _kernels
 
 __all__ = [
     "masked_attention", "masked_attention_plain", "masked_attention_bwd",
-    "masked_attention_bwd_plain", "MAX_SEQ", "HEAD_DIMS",
+    "masked_attention_bwd_plain", "persistent_ctas_per_sm", "shared_memory_bytes", "MAX_SEQ",
+    "HEAD_DIMS", "PERSISTENT_MAX_SEQ",
 ]
 
 #: the kernels keep one head's K and V (or Q and dO) in shared memory
 MAX_SEQ = 512
 #: head widths the kernels are built for (a template on D)
 HEAD_DIMS = (16, 32, 64)
+#: the forward's persistent route (TMA-fed stages, scores in registers) takes S up to this; a
+#: longer S takes its per-head route (kTmaMaxSeq in csrc/masked_attention.cu)
+PERSISTENT_MAX_SEQ = 128
 
 
 def masked_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -65,6 +69,27 @@ def _launcher():
 
 
 @functools.cache
+def _query(name: str):
+    fn = getattr(_kernels.load("masked_attention"), name)
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def persistent_ctas_per_sm(D: int, S: int) -> int:
+    """CTAs per SM of the forward's persistent route at head width D and sequence length
+    S <= ``PERSISTENT_MAX_SEQ`` on the current card (its grid is this times the SM count, or
+    B * H where that is smaller); 0 for a longer S."""
+    return _query("masked_attention_ctas_per_sm")(D, S)
+
+
+def shared_memory_bytes(D: int, S: int) -> int:
+    """The dynamic shared memory a block of the forward asks for at head width D and sequence
+    length S, on the route S takes (the persistent one up to ``PERSISTENT_MAX_SEQ``)."""
+    return _query("masked_attention_smem_bytes")(D, S)
+
+
+@functools.cache
 def _bwd_launcher():
     fn = _kernels.load("masked_attention_bwd").masked_attention_bwd
     fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [
@@ -76,9 +101,11 @@ def _bwd_launcher():
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t`` as the kernels read it, 16 bytes (8 values of a row) at a time: d contiguous, the
-    other strides divisible by 8 and the base 16-byte aligned; other layouts are copied first."""
+    other strides divisible by 8 (and above 0 where the dimension steps) and the base 16-byte
+    aligned; other layouts are copied first."""
     if (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
-            and all(st % 8 == 0 for st in t.stride()[:3])):
+            and all(st % 8 == 0 and (st > 0 or n == 1)
+                    for st, n in zip(t.stride()[:3], t.shape[:3]))):
         return t
     return t.contiguous()
 
@@ -117,7 +144,7 @@ def _forward(q, k, v, mask, with_stat: bool):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
         None if stat is None else stat.data_ptr(), B, H, S, D,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-        mask.stride(0), torch.cuda.current_stream(q.device).cuda_stream,
+        mask.stride(0), _kernels.stream(q.device),
     )
     _kernels.check(err, "masked_attention")
     masked_attention.launches += 1
@@ -149,7 +176,7 @@ def masked_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), mask.data_ptr(),
         stat.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         B, H, S, D, ctypes.addressof(strides), mask.stride(0),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        _kernels.stream(q.device),
     )
     _kernels.check(err, "masked_attention_bwd")
     masked_attention_bwd.launches += 1
@@ -179,7 +206,9 @@ def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     On CUDA tensors it launches the kernel, which takes bf16 q, k, v of shape ``[B, H, S, D]``
     with D in ``HEAD_DIMS`` and S <= 512, in any layout whose rows are 16-byte aligned (the heads
     may be views of the fused qkv product; other layouts are copied first), and a bool mask
-    ``[B, S]``. It returns ``[B, H, S, D]`` laid out as ``[B, S, H, D]`` in memory, so that
+    ``[B, S]``. S <= ``PERSISTENT_MAX_SEQ`` (every launch of the encoder's main paths) takes the
+    kernel's persistent route, a longer S its per-head route; nothing else chooses. It returns
+    ``[B, H, S, D]`` laid out as ``[B, S, H, D]`` in memory, so that
     merging the heads back is free. Where autograd records (grad mode on and q, k or v requiring a
     gradient) the result is part of the graph, and its backward launches
     :func:`masked_attention_bwd`. On CPU tensors it runs the plain version."""

@@ -701,7 +701,7 @@ def expression_vm(program: Program, in_buf: torch.Tensor, out_buf: torch.Tensor,
         code.data_ptr(), program.code.shape[0], consts.data_ptr(), consts.numel(),
         in_buf.data_ptr(), ctypes.addressof(in_off), len(in_offs),
         out_buf.data_ptr(), ctypes.addressof(out_off), len(out_offs), n,
-        torch.cuda.current_stream(in_buf.device).cuda_stream,
+        _kernels.stream(in_buf.device),
     )
     _kernels.check(err, "expression_vm")
     with _count_lock:  # worker threads launch concurrently

@@ -49,7 +49,7 @@ class _InfoNCE(torch.autograd.Function):
         loss = torch.empty((), dtype=torch.float32, device=logits.device)
         err = _launcher()(
             logits.data_ptr(), B, lse.data_ptr(), grad.data_ptr(), loss.data_ptr(),
-            torch.cuda.current_stream(logits.device).cuda_stream,
+            _kernels.stream(logits.device),
         )
         _kernels.check(err, "infonce")
         infonce.launches += 1

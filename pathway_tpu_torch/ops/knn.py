@@ -7,9 +7,12 @@ version, which computes the same function step by step.
 
 ``sharded_knn_search`` is the index split by rows over a ``torch.distributed`` mesh axis: each
 rank scores its rows with that kernel, the ranks all-gather their candidates, and
-``topk_merge`` (kernel ``csrc/topk_merge.cu``, or its plain version on CPU tensors) keeps the
-global top k in ``lax.top_k``'s order. ``ShardedKnnIndex`` holds the index on one device, or
-with ``mesh=`` one shard of it on each rank.
+``topk_merge_shards`` (kernel ``csrc/topk_merge.cu``, or its plain version on CPU tensors) keeps
+the global top k in ``lax.top_k``'s order, reading the gathered buffers as they land.
+
+Every entry takes k as ``lax.top_k`` does: k = 0 gives ``[q, 0]`` without a launch, and a k below
+0 or above the candidates raises ``ValueError`` on every device. ``ShardedKnnIndex`` holds the
+index on one device, or with ``mesh=`` one shard of it on each rank.
 """
 
 from __future__ import annotations
@@ -28,8 +31,8 @@ from .._device import resolve_device
 
 __all__ = [
     "topk_scores", "topk_scores_plain", "knn_search", "ShardedKnnIndex", "merge_shard_topk",
-    "sharded_knn_search", "topk_merge", "topk_merge_plain", "MAX_K", "MAX_DIM",
-    "MAX_CANDIDATES",
+    "sharded_knn_search", "topk_merge", "topk_merge_plain", "topk_merge_shards",
+    "topk_merge_shards_plain", "MAX_K", "MAX_DIM", "MAX_CANDIDATES",
 ]
 
 #: largest k the kernel keeps per query: its per-query lists live in shared memory, and longer
@@ -43,6 +46,15 @@ MAX_DIM = 1024
 MAX_CANDIDATES = 8192
 _ROWS_PER_TILE = 64  # kR in csrc/knn_topk.cu
 _BLOCKS_PER_SM = 4
+
+
+def _check_k(name: str, k: int, n: int) -> None:
+    """Refuse k as ``lax.top_k`` does: below 0, or above the ``n`` values along the axis."""
+    if k < 0:
+        raise ValueError(f"{name}: k argument to top_k must be nonnegative, got {k}")
+    if k > n:
+        raise ValueError(f"{name}: k argument to top_k must be no larger than size along axis; "
+                         f"got k={k} with {n} candidates")
 
 
 def _merge_topk(
@@ -82,7 +94,9 @@ def topk_scores_plain(
     cos / ip: the dot product of the bf16-rounded vectors, itself rounded to bf16 (JAX's
     bf16 @ bf16 is bf16) before the cast to f32. l2: ``-((|q|^2 - 2 dot) + |i|^2)``, the norms
     in f32. Rows where ``valid`` is False score -inf. The order is that of ``lax.top_k``: higher
-    score first, the lower row first among equal scores (a stable descending sort)."""
+    score first, the lower row first among equal scores (a stable descending sort). k as
+    ``lax.top_k`` takes it: 0 <= k <= n."""
+    _check_k("topk_scores", k, index.shape[0])
     qb = queries.to(torch.bfloat16)
     ib = index.to(torch.bfloat16)
     dots = (qb @ ib.T).float()
@@ -129,7 +143,12 @@ def topk_scores(
     """Best k rows of ``index`` per query, as :func:`topk_scores_plain` computes them.
 
     On CUDA tensors it launches the fused score + top-k kernel (rows of any width, cast to f32,
-    and 1 <= k <= min(n, ``MAX_K``)); on CPU tensors it runs the plain version."""
+    and k <= ``MAX_K``); on CPU tensors it runs the plain version. On every device k = 0 gives
+    ``[q, 0]`` without a launch and k above the rows raises, as ``lax.top_k`` does."""
+    _check_k("topk_scores", k, index.shape[0])
+    if k == 0:
+        return (torch.empty((queries.shape[0], 0), dtype=torch.float32, device=queries.device),
+                torch.empty((queries.shape[0], 0), dtype=torch.int64, device=queries.device))
     if queries.device.type == "cpu":
         return topk_scores_plain(queries, index, k, metric, valid)
     if queries.device.type != "cuda":
@@ -139,8 +158,8 @@ def topk_scores(
     (Q, d), (N, d_index) = queries.shape, index.shape
     if d != d_index or index.device != queries.device:
         raise ValueError("topk_scores: queries and index differ in width or device")
-    if not 1 <= k <= min(N, MAX_K):
-        raise ValueError(f"topk_scores: kernel takes 1 <= k <= min(rows, {MAX_K}), got k={k}")
+    if k > MAX_K:
+        raise ValueError(f"topk_scores: kernel takes k <= {MAX_K}, got k={k}")
     if d < 1:
         raise ValueError("topk_scores: kernel takes widths of at least 1")
     if valid is not None:
@@ -163,7 +182,7 @@ def topk_scores(
         queries.data_ptr(), index.data_ptr(), None if valid is None else valid.data_ptr(),
         cand_s.data_ptr(), cand_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
         Q, N, d, k, 0 if metric in ("cos", "ip") else 1, qc, ranges, tiles_per_range,
-        torch.cuda.current_stream(dev).cuda_stream,
+        _kernels.stream(dev),
     )
     _kernels.check(err, "knn_topk")
     topk_scores.launches += 1
@@ -188,15 +207,29 @@ def topk_merge_plain(scores: torch.Tensor, ids: torch.Tensor,
                      k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """scores f32 ``[q, m]``, ids int64 ``[q, m]`` -> the k best (scores, ids) per row in
     ``lax.top_k``'s order: higher score first, the lower position first among equal scores (a
-    stable descending sort)."""
+    stable descending sort). k as ``lax.top_k`` takes it: 0 <= k <= m."""
+    _check_k("topk_merge", k, scores.shape[1])
     s, pos = torch.sort(scores, dim=1, descending=True, stable=True)
     return s[:, :k], torch.gather(ids, 1, pos[:, :k])
 
 
+def topk_merge_shards_plain(scores: torch.Tensor, ids: torch.Tensor, k: int,
+                            rows_per_shard: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """scores f32 ``[P, q, kk]`` and local ids int64 ``[P, q, kk]``, shard-major as the all-gather
+    of the shards' lists lands -> the k best of each query's ``P * kk`` candidates, as the JAX
+    search merges them (``pathway_tpu/ops/knn.py:121-126``): shard p's ids shifted by
+    ``p * rows_per_shard``, the rows gathered shard-major, then ``lax.top_k``."""
+    P, q, kk = scores.shape
+    shift = torch.arange(P, dtype=ids.dtype, device=ids.device).view(P, 1, 1) * rows_per_shard
+    return topk_merge_plain(scores.transpose(0, 1).reshape(q, P * kk),
+                            (ids + shift).transpose(0, 1).reshape(q, P * kk), k)
+
+
 @functools.cache
 def _merge_launcher():
-    fn = _kernels.load("topk_merge").topk_merge
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
+    fn = _kernels.load("topk_merge").topk_merge_shards
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_longlong] + [
+        ctypes.c_void_p] * 3
     fn.restype = ctypes.c_int
     return fn
 
@@ -204,30 +237,51 @@ def _merge_launcher():
 def topk_merge(scores: torch.Tensor, ids: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """The top k of gathered candidates, as :func:`topk_merge_plain` computes them.
 
-    On CUDA tensors (f32 scores and int64 ids ``[q, m]``, 1 <= k <= m <= ``MAX_CANDIDATES``) one
-    launch of the merge kernel does it; on CPU tensors it runs the plain version."""
+    Scores f32 and ids int64 ``[q, m]``: the candidates of one shard, so
+    :func:`topk_merge_shards` with P = 1 and no id shift. On CUDA tensors (k <= m <=
+    ``MAX_CANDIDATES``) that is one launch of the merge kernel; on CPU tensors the plain
+    version. k = 0 gives ``[q, 0]`` without a launch, and k above m raises, on every device."""
+    if scores.dim() != 2:
+        raise ValueError("topk_merge: scores and ids must be [q, m]")
+    return topk_merge_shards(scores[None], ids[None], k, 0)
+
+
+def topk_merge_shards(scores: torch.Tensor, ids: torch.Tensor, k: int,
+                      rows_per_shard: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The global top k of the shards' gathered lists, as :func:`topk_merge_shards_plain`
+    computes it: scores f32 and local ids int64 ``[P, q, kk]``, shard-major as the all-gather
+    lands them, ids shifted by ``shard * rows_per_shard``.
+
+    On CUDA tensors (``P * kk <= MAX_CANDIDATES``) one launch of the merge kernel reads the
+    buffers where they lie, with no copy before it; on CPU tensors it runs the plain version.
+    It counts its launches in ``topk_merge.launches`` (the same kernel). k = 0 gives ``[q, 0]``
+    without a launch, and k above ``P * kk`` raises, on every device."""
+    if scores.dim() != 3:
+        raise ValueError("topk_merge_shards: scores and ids must be [P, q, kk]")
+    P, Q, KK = scores.shape
+    _check_k("topk_merge_shards", k, P * KK)
     if scores.device.type == "cpu":
-        return topk_merge_plain(scores, ids, k)
+        return topk_merge_shards_plain(scores, ids, k, rows_per_shard)
     if scores.device.type != "cuda":
-        raise ValueError(f"topk_merge: no kernel for device {scores.device}")
-    if (scores.dtype != torch.float32 or ids.dtype != torch.int64 or scores.dim() != 2
-            or ids.shape != scores.shape or ids.device != scores.device):
-        raise ValueError("topk_merge: kernel takes f32 scores and int64 ids of one shape [q, m] "
+        raise ValueError(f"topk_merge_shards: no kernel for device {scores.device}")
+    if (scores.dtype != torch.float32 or ids.dtype != torch.int64 or ids.shape != scores.shape
+            or ids.device != scores.device):
+        raise ValueError("topk_merge_shards: kernel takes f32 scores and int64 ids of one shape "
                          "on one device")
-    Q, M = scores.shape
-    if not 1 <= k <= M <= MAX_CANDIDATES:
-        raise ValueError(f"topk_merge: kernel takes 1 <= k <= m <= {MAX_CANDIDATES}, got k={k}, "
-                         f"m={M}")
+    if P * KK > MAX_CANDIDATES:
+        raise ValueError(f"topk_merge_shards: kernel takes P * kk <= {MAX_CANDIDATES}, got "
+                         f"{P} x {KK}")
+    scores = scores if scores.is_contiguous() else scores.contiguous()
+    ids = ids if ids.is_contiguous() else ids.contiguous()
     out_s = torch.empty((Q, k), dtype=torch.float32, device=scores.device)
     out_i = torch.empty((Q, k), dtype=torch.int64, device=scores.device)
-    if Q == 0:
+    if Q == 0 or k == 0:
         return out_s, out_i
-    scores, ids = scores.contiguous(), ids.contiguous()
     err = _merge_launcher()(
-        scores.data_ptr(), ids.data_ptr(), Q, M, k, out_s.data_ptr(), out_i.data_ptr(),
-        torch.cuda.current_stream(scores.device).cuda_stream,
+        scores.data_ptr(), ids.data_ptr(), P, Q, KK, k, rows_per_shard, out_s.data_ptr(),
+        out_i.data_ptr(), _kernels.stream(scores.device),
     )
-    _kernels.check(err, "topk_merge")
+    _kernels.check(err, "topk_merge_shards")
     topk_merge.launches += 1
     return out_s, out_i
 
@@ -255,11 +309,12 @@ def sharded_knn_search(
     Torch has no global sharded array: ``index_sharded`` ``[rows_per_shard, d]`` and
     ``valid_sharded`` ``[rows_per_shard]`` are this rank's rows, rank r holding the global rows
     ``[r * rows_per_shard, (r + 1) * rows_per_shard)``. Each rank takes its local top k with
-    :func:`topk_scores`, shifts the ids to global rows, all-gathers scores and ids over the axis
-    and keeps the global top k with :func:`topk_merge`. Every rank returns the same (scores f32
-    ``[q, k]``, global ids int64 ``[q, k]``). k must be at most the rows per shard."""
+    :func:`topk_scores`, all-gathers scores and local ids over the axis and keeps the global top
+    k with :func:`topk_merge_shards`, which shifts the ids to global rows as it reads the gathered
+    buffers. Every rank returns the same (scores f32 ``[q, k]``, global ids int64 ``[q, k]``).
+    k must be at most the rows per shard; k = 0 gives ``[q, 0]`` with no collective."""
     group = mesh.get_group(axis)
-    n_shards, rank = dist.get_world_size(group), dist.get_rank(group)
+    n_shards = dist.get_world_size(group)
     rows_per_shard = index_sharded.shape[0]
     if k > rows_per_shard:
         raise ValueError(
@@ -267,16 +322,16 @@ def sharded_knn_search(
             "raise index capacity or lower k"
         )
     s, i = topk_scores(queries, index_sharded, k, metric, valid=valid_sharded)
-    i = i + rank * rows_per_shard
+    if k == 0:  # every rank takes this branch: k is the same on all of them
+        return s, i
     q = s.shape[0]
+    # [P * q, k]: rank p's [q, k] block at p, shard-major as the JAX all_gather(axis=1) reads
     all_s = torch.empty((n_shards * q, k), dtype=s.dtype, device=s.device)
     all_i = torch.empty((n_shards * q, k), dtype=i.dtype, device=i.device)
-    _all_gather(all_s, s.contiguous(), group=group)
-    _all_gather(all_i, i.contiguous(), group=group)
-    # [P, q, k] -> [q, P * k]: shard-major within each query's row, as the JAX all_gather(axis=1)
-    all_s = all_s.view(n_shards, q, k).transpose(0, 1).reshape(q, n_shards * k)
-    all_i = all_i.view(n_shards, q, k).transpose(0, 1).reshape(q, n_shards * k)
-    return topk_merge(all_s, all_i, k)
+    _all_gather(all_s, s, group=group)
+    _all_gather(all_i, i, group=group)
+    return topk_merge_shards(all_s.view(n_shards, q, k), all_i.view(n_shards, q, k), k,
+                             rows_per_shard)
 
 
 class ShardedKnnIndex:

@@ -118,7 +118,7 @@ def ring_block_attention(q: torch.Tensor, k_blk: torch.Tensor, v_blk: torch.Tens
         m.data_ptr(), l.data_ptr(), None if out is None else out.data_ptr(),
         int(q.dtype == torch.bfloat16), B, H, s, s_blk, D, float(scale),
         *q.stride()[:3], *k_blk.stride()[:3], *v_blk.stride()[:3], *out_strides,
-        mask_blk.stride(0), torch.cuda.current_stream(q.device).cuda_stream,
+        mask_blk.stride(0), _kernels.stream(q.device),
     )
     _kernels.check(err, "ring_block_attention")
     ring_block_attention.launches += 1

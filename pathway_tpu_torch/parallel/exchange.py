@@ -98,7 +98,7 @@ def bucket_exchange(
     valid = torch.empty((n_dst, n_src * cap_bucket), dtype=torch.bool, device=values.device)
     err = _launcher()(
         values.data_ptr(), dest.data_ptr(), n_src, cap_in, w, n_dst, cap_bucket,
-        out.data_ptr(), valid.data_ptr(), torch.cuda.current_stream(values.device).cuda_stream,
+        out.data_ptr(), valid.data_ptr(), _kernels.stream(values.device),
     )
     _kernels.check(err, "bucket_exchange")
     bucket_exchange.launches += 1

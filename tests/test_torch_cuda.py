@@ -5,7 +5,8 @@ with a card and without JAX, run them without the repository's conftest, which i
 
     python -m pytest --noconftest tests/test_torch_cuda.py
 
-Tolerances: attention output and its gradients within 1e-2 plus one bf16 ulp of the value; top-k
+Tolerances: attention output and its gradients within 1e-2 plus one bf16 ulp of the value (both
+routes of the forward: the persistent one for S <= 128, the per-head one above); top-k
 scores within one bf16 ulp of the dot product, ids equal wherever a score is clear of its
 neighbours by more than that, equal scores lower row first; encoder embeddings within 3e-2 with a
 cosine of at least 0.999 against the same weights on the host; the InfoNCE loss and gradient
@@ -26,10 +27,13 @@ import torch
 from pathway_tpu_torch.models import pipeline
 from pathway_tpu_torch.models.embedder import Embedder, EmbedderConfig, embed_tokens, init_params
 from pathway_tpu_torch.ops.attention import (
+    PERSISTENT_MAX_SEQ,
     masked_attention,
     masked_attention_bwd,
     masked_attention_bwd_plain,
     masked_attention_plain,
+    persistent_ctas_per_sm,
+    shared_memory_bytes,
 )
 from pathway_tpu_torch.ops.infonce import infonce, infonce_plain
 from pathway_tpu_torch.ops.index_engines import BruteForceKnnEngine
@@ -40,6 +44,8 @@ from pathway_tpu_torch.ops.knn import (
     ShardedKnnIndex,
     topk_merge,
     topk_merge_plain,
+    topk_merge_shards,
+    topk_merge_shards_plain,
     topk_scores,
     topk_scores_plain,
 )
@@ -91,6 +97,106 @@ def test_masked_attention_kernel_matches_plain(cuda, S):
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
     assert ((got - want).abs() <= 1e-2 + 2.0 ** -7 * want.abs()).all()
+
+
+def _fused_views(B, H, S, D, device, seed):
+    """q, k, v as the encoder passes them: views of one [B, S, 3 H D] product."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    qkv = torch.randn((B, S, 3 * H * D), generator=gen, device=device).to(torch.bfloat16)
+    return tuple(t.view(B, S, H, D).transpose(1, 2) for t in qkv.split(H * D, dim=-1))
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "fused"])
+@pytest.mark.parametrize("D", [16, 32, 64])
+@pytest.mark.parametrize("S", [1, 16, 33, 128])
+def test_masked_attention_persistent_route_matches_plain(cuda, S, D, layout):
+    """S <= 128 takes the persistent route (TMA-fed stages, scores in registers), on contiguous
+    inputs and on views of the fused qkv product; ragged lengths and an all-pad row."""
+    q, k, v, mask = _attention_inputs(4, 6, S, cuda, seed=S + D, D=D)
+    if layout == "fused":
+        q, k, v = _fused_views(4, 6, S, D, cuda, seed=S * D)
+    before = masked_attention.launches
+    got = masked_attention(q, k, v, mask)
+    assert masked_attention.launches == before + 1
+    want = masked_attention_plain(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all() and _close(got, want)
+
+
+@pytest.mark.parametrize("B,H", [(37, 11), (300, 7)])
+def test_masked_attention_persistent_grid_walks_any_tile_count(cuda, B, H):
+    """B * H not a multiple of the persistent grid (CTAs per SM times the SMs): every (b, h)
+    tile is computed once."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert (B * H) % (persistent_ctas_per_sm(32, 128) * sms) != 0
+    q, k, v = _fused_views(B, H, 128, 32, cuda, seed=B)
+    _, _, _, mask = _attention_inputs(B, 1, 128, cuda, seed=H)
+    got = masked_attention(q, k, v, mask)
+    want = masked_attention_plain(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert _close(got, want)
+
+
+@pytest.mark.parametrize("D", [16, 32, 64])
+def test_masked_attention_all_pad_and_scattered_keys(cuda, D):
+    """All-pad rows (uniform weights over the masked keys, none over the pad past S), a row with
+    one real key, keys masked at random (tiles that mix real and masked keys), and a row whose
+    real keys end early (every key tile is still computed, the masked keys at -1e30): all as the
+    plain version."""
+    B, H, S = 6, 3, 120
+    q, k, v = _fused_views(B, H, S, D, cuda, seed=D)
+    gen = torch.Generator(device=cuda).manual_seed(D)
+    mask = torch.rand((B, S), generator=gen, device=cuda) > 0.5
+    mask[0] = False
+    mask[1] = False
+    mask[1, 77] = True
+    mask[2, 20:] = False
+    mask[3] = True
+    got = masked_attention(q, k, v, mask)
+    want = masked_attention_plain(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all() and _close(got, want)
+    uniform = v[0].float().mean(dim=1, keepdim=True).expand(H, S, D)
+    assert _close(got[0], uniform)
+
+
+def test_masked_attention_statistic_on_the_persistent_route(cuda):
+    """The gradient through autograd at S = 128 on fused-qkv views, with an all-pad row and
+    scattered keys: the persistent forward writes the row statistic, and the backward kernel's
+    recomputation from it agrees with autograd of the plain version."""
+    B, H, S, D = 4, 4, 128, 32
+    qkv = torch.randn((B, S, 3 * H * D), device=cuda).to(torch.bfloat16).requires_grad_()
+    q, k, v = (t.view(B, S, H, D).transpose(1, 2) for t in qkv.split(H * D, dim=-1))
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    mask = torch.rand((B, S), generator=gen, device=cuda) > 0.3
+    mask[0] = False
+    mask[1, 40:] = False
+    dout = torch.randn((B, H, S, D), device=cuda).to(torch.bfloat16)
+    fwd, bwd = masked_attention.launches, masked_attention_bwd.launches
+    (got,) = torch.autograd.grad(masked_attention(q, k, v, mask), qkv, dout)
+    assert (masked_attention.launches, masked_attention_bwd.launches) == (fwd + 1, bwd + 1)
+    want = torch.cat([g.transpose(1, 2).reshape(B, S, H * D) for g in
+                      masked_attention_bwd_plain(q, k, v, dout, mask)], dim=-1)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all() and _close(got, want)
+
+
+@pytest.mark.parametrize("S,route", [(PERSISTENT_MAX_SEQ, "masked_attention_tma_kernel"),
+                                     (PERSISTENT_MAX_SEQ + 1, "masked_attention_kernel"),
+                                     (512, "masked_attention_kernel")])
+def test_masked_attention_route_by_sequence_length(cuda, S, route):
+    """S up to 128 launches the persistent kernel, a longer S (to 512) the per-head one: the
+    profiler's kernel names, and the output as the plain version's."""
+    q, k, v, mask = _attention_inputs(2, 3, S, cuda, seed=S, D=64)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        got = masked_attention(q, k, v, mask)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA and "masked_attention" in e.key]
+    assert len(names) == 1 and f"{route}<" in names[0], names
+    assert _close(got, masked_attention_plain(q, k, v, mask))
+    assert 0 < shared_memory_bytes(64, S) <= 232448  # within a block's limit on sm_90
 
 
 def test_masked_attention_kernel_takes_strided_heads(cuda):
@@ -391,6 +497,63 @@ def test_topk_merge_kernel_matches_plain(cuda, q, m, k):
     s_p, i_p = topk_merge_plain(scores, ids, k)
     torch.cuda.synchronize()
     assert torch.equal(s_k, s_p) and torch.equal(i_k, i_p)
+
+
+@pytest.mark.parametrize("m", [2, 32, 33, 64, 65, 128, 129, 256, 257])
+def test_topk_merge_warp_route_matches_plain(cuda, m):
+    """Up to 256 candidates a warp sorts a query's keys in registers (8 a lane at most), above
+    it a block in shared memory: both sides of each register count, and k of 1, m / 2 and m."""
+    scores, ids = _merge_inputs(9, m, cuda, seed=m + 1)
+    for k in sorted({1, max(1, m // 2), m}):
+        got = topk_merge(scores, ids, k)
+        want = topk_merge_plain(scores, ids, k)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), k
+
+
+@pytest.mark.parametrize("P,q,kk,k", [(1, 64, 10, 10), (1, 3, 1024, 1024), (2, 5, 16, 7),
+                                      (2, 4, 128, 200), (8, 64, 10, 10), (8, 7, 32, 32),
+                                      (8, 3, 1024, 1024)])
+def test_topk_merge_shards_matches_plain(cuda, P, q, kk, k):
+    """The shard-major entry on [P, q, kk] buffers as the all-gather lands them (each shard's
+    list best-first, ties, -0 and -inf), against ``topk_merge_plain`` on the reshaped buffers
+    with the ids shifted by shard: equal exactly, one launch."""
+    scores, ids = _merge_inputs(P * q, kk, cuda, seed=P * kk + k)
+    scores = scores.sort(dim=1, descending=True).values.view(P, q, kk)
+    ids = ids.view(P, q, kk)
+    before = topk_merge.launches
+    got = topk_merge_shards(scores, ids, k, 4096)
+    assert topk_merge.launches == before + 1
+    shift = torch.arange(P, device=cuda).view(P, 1, 1) * 4096
+    want = topk_merge_plain(scores.transpose(0, 1).reshape(q, P * kk),
+                            (ids + shift).transpose(0, 1).reshape(q, P * kk), k)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert all(torch.equal(g, w) for g, w in zip(got, topk_merge_shards_plain(scores, ids, k,
+                                                                             4096)))
+
+
+def test_k_zero_launches_nothing_and_k_past_the_candidates_raises(cuda, world_one):
+    """k = 0 gives [q, 0] from the scorer, both merge entries and the sharded index, and no
+    kernel runs; k above the rows or the candidates raises, as ``lax.top_k`` does."""
+    index = torch.randn((50, 16), device=cuda)
+    queries = index[:3]
+    scores, ids = _merge_inputs(3, 20, cuda, seed=4)
+    sharded = ShardedKnnIndex(16, capacity=64, mesh=world_one, device=cuda)
+    sharded.add(index.cpu().numpy())
+    counts = (topk_scores.launches, topk_merge.launches)
+    outs = [topk_scores(queries, index, 0), topk_merge(scores, ids, 0),
+            topk_merge_shards(scores.view(1, 3, 20), ids.view(1, 3, 20), 0, 64),
+            sharded.query(queries.cpu().numpy(), 0)]
+    torch.cuda.synchronize()
+    assert (topk_scores.launches, topk_merge.launches) == counts
+    assert all(tuple(x.shape) == (3, 0) for out in outs for x in out)
+    with pytest.raises(ValueError, match="no larger than"):
+        topk_scores(queries, index, 51)
+    with pytest.raises(ValueError, match="no larger than"):
+        topk_merge(scores, ids, 21)
+    with pytest.raises(ValueError, match="no larger than"):
+        topk_merge_shards(scores.view(1, 3, 20), ids.view(1, 3, 20), 21, 64)
 
 
 def test_topk_merge_kernel_refuses_what_it_does_not_take(cuda):

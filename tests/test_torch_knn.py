@@ -146,3 +146,44 @@ def test_knn_search_default_device_needs_a_card():
         tknn.knn_search(np.zeros((1, 4), np.float32), np.zeros((2, 4), np.float32), 1)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tknn.ShardedKnnIndex(4, capacity=8)
+
+
+@pytest.mark.parametrize("metric", ["cos", "l2"])
+def test_k_zero_gives_no_column_as_lax_top_k(metric):
+    """k = 0: ``[q, 0]`` scores and ids from ``topk_scores``, its plain version, ``knn_search``
+    and ``ShardedKnnIndex.query``, as the JAX package's ``lax.top_k`` gives."""
+    queries, index, valid = _data(seed=5, n=100, metric=metric)
+    js, ji = jknn.topk_scores(jnp.asarray(queries), jnp.asarray(index), 0, metric,
+                              valid=jnp.asarray(valid))
+    for fn in (tknn.topk_scores, tknn.topk_scores_plain):
+        ts, ti = fn(torch.from_numpy(queries), torch.from_numpy(index), 0, metric,
+                    valid=torch.from_numpy(valid))
+        assert ts.shape == ti.shape == np.asarray(js).shape == np.asarray(ji).shape == (7, 0)
+        assert ts.dtype == torch.float32 and ti.dtype == torch.int64
+    ks, ki = tknn.knn_search(queries, index, 0, metric, device="cpu")
+    assert ks.shape == ki.shape == jknn.knn_search(queries, index, 0, metric)[0].shape
+    ours = tknn.ShardedKnnIndex(index.shape[1], capacity=128, metric=metric, device="cpu")
+    theirs = jknn.ShardedKnnIndex(index.shape[1], capacity=128, metric=metric)
+    ours.add(index)
+    theirs.add(index)
+    assert ours.query(queries, 0)[0].shape == np.asarray(theirs.query(queries, 0)[0]).shape
+
+
+def test_k_past_the_rows_raises_as_lax_top_k():
+    """k above the rows: ``ValueError`` from the JAX package and from every entry of the port;
+    a negative k too. Before, the plain version returned n columns."""
+    queries, index, _ = _data(seed=6, n=80)
+    index = index[:4]
+    with pytest.raises(ValueError, match="no larger than"):
+        jknn.topk_scores(jnp.asarray(queries), jnp.asarray(index), 5)
+    with pytest.raises(ValueError, match="no larger than"):
+        jknn.knn_search(queries, index, 5)
+    for fn in (tknn.topk_scores, tknn.topk_scores_plain):
+        with pytest.raises(ValueError, match="no larger than"):
+            fn(torch.from_numpy(queries), torch.from_numpy(index), 5)
+        with pytest.raises(ValueError, match="nonnegative"):
+            fn(torch.from_numpy(queries), torch.from_numpy(index), -1)
+    with pytest.raises(ValueError, match="no larger than"):
+        tknn.knn_search(queries, index, 5, device="cpu")
+    s, _ = tknn.knn_search(queries, index, 4, device="cpu")  # k = n is taken
+    assert s.shape == (7, 4)

@@ -23,9 +23,13 @@ import numpy as np
 import pytest
 import torch
 from jax.sharding import Mesh
+from jax.sharding import PartitionSpec as P
 
+from pathway_tpu.internals.jax_compat import shard_map
 from pathway_tpu.ops import knn as jknn
-from pathway_tpu_torch.ops.knn import topk_merge, topk_merge_plain
+from pathway_tpu_torch.ops.knn import (
+    topk_merge, topk_merge_plain, topk_merge_shards, topk_merge_shards_plain,
+)
 from torch_dist_child import RankRun
 from torch_topk_checks import assert_topk_equal, topk_tol
 
@@ -133,6 +137,22 @@ def test_k_clamp(ranks):
     assert_topk_equal(s, i, s_j, i_j, topk_tol(s_j, case["queries"], case["batches"][0], "cos"))
 
 
+def test_k_zero_gives_no_column_on_every_rank(ranks):
+    """k = 0 through ``ShardedKnnIndex(mesh=...).query``: [q, 0] on every rank, as the JAX
+    index's ``lax.top_k(..., 0)`` gives."""
+    world, results = ranks
+    case = _inputs()["index"]["match"]
+    mesh = Mesh(np.array(jax.devices()[:world]), ("data",))
+    idx = jknn.ShardedKnnIndex(dim=case["dim"], capacity=case["capacity"],
+                               metric=case["metric"], mesh=mesh)
+    for batch in case["batches"]:
+        idx.add(batch)
+    s_j, i_j = (np.asarray(x) for x in idx.query(case["queries"], 0))
+    for r in results:
+        assert r["match_k0_s"].shape == s_j.shape == (len(case["queries"]), 0)
+        assert r["match_k0_i"].shape == i_j.shape
+
+
 def test_what_the_mesh_refuses(ranks):
     _, results = ranks
     for r in results:
@@ -177,3 +197,65 @@ def test_init_from_env_reads_the_pathway_layout(monkeypatch):
     monkeypatch.delenv("PATHWAY_PROCESSES")
     monkeypatch.setenv("PATHWAY_PROCESS_ID", "x")
     assert (_Layout().processes, _Layout().process_id) == (1, 0)
+
+
+@pytest.mark.parametrize("k", [0, 3])
+def test_merge_k_zero_and_k_past_the_candidates_as_lax_top_k(k):
+    """k = 0 gives [q, 0]; k above the candidates raises ``ValueError``, as ``lax.top_k`` does."""
+    s, ids = _candidates(5, 4, 2, 3)
+    js, jpos = jax.lax.top_k(jnp.asarray(s), k)
+    ts, ti = topk_merge(torch.from_numpy(s), torch.from_numpy(ids), k)
+    assert ts.shape == ti.shape == js.shape == (4, k)
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(ti.numpy(), np.take_along_axis(ids, np.asarray(jpos), axis=1))
+    with pytest.raises(ValueError, match="no larger than"):
+        jax.lax.top_k(jnp.asarray(s), 7)
+    for merge in (topk_merge, topk_merge_plain):
+        with pytest.raises(ValueError, match="no larger than"):
+            merge(torch.from_numpy(s), torch.from_numpy(ids), 7)
+        with pytest.raises(ValueError, match="nonnegative"):
+            merge(torch.from_numpy(s), torch.from_numpy(ids), -1)
+    shard_s = torch.from_numpy(s).view(4, 2, 3).transpose(0, 1).contiguous()
+    shard_i = torch.from_numpy(ids).view(4, 2, 3).transpose(0, 1).contiguous()
+    with pytest.raises(ValueError, match="no larger than"):
+        topk_merge_shards(shard_s, shard_i, 7, 100)
+    assert topk_merge_shards(shard_s, shard_i, 0, 100)[0].shape == (4, 0)
+
+
+@functools.cache
+def _jax_gather_merge(world: int, k: int, rows_per_shard: int):
+    """Lines 121-126 of ``pathway_tpu/ops/knn.py::sharded_knn_search`` inside a ``shard_map``
+    over ``world`` CPU devices, from each shard's local (scores, ids) [q, kk]: ids shifted to
+    global rows, both all-gathered shard-major, ``lax.top_k`` and ``take_along_axis``."""
+    mesh = Mesh(np.array(jax.devices()[:world]), ("data",))
+
+    @functools.partial(shard_map, mesh=mesh, in_specs=(P("data"), P("data")),
+                       out_specs=(P(), P()), check_vma=False)
+    def merge(s, i):
+        s, i = s[0], i[0]
+        i = i + jax.lax.axis_index("data") * rows_per_shard
+        all_s = jax.lax.all_gather(s, "data", axis=1).reshape(s.shape[0], -1)
+        all_i = jax.lax.all_gather(i, "data", axis=1).reshape(s.shape[0], -1)
+        gs, gpos = jax.lax.top_k(all_s, k)
+        return gs, jnp.take_along_axis(all_i, gpos, axis=1)
+
+    return jax.jit(merge)
+
+
+@pytest.mark.parametrize("world,q,kk,k", [(1, 5, 10, 10), (2, 6, 5, 5), (4, 4, 16, 9),
+                                          (8, 3, 7, 7), (8, 2, 1, 1)])
+def test_shard_major_merge_matches_the_jax_gather_and_top_k(world, q, kk, k):
+    """``topk_merge_shards`` (its plain version on CPU tensors) on [P, q, kk] buffers as the
+    all-gather lands them, against the JAX search's own gather-and-merge on the same numpy
+    inputs: equal exactly, ties lower shard first."""
+    rows_per_shard = 1000
+    flat_s, flat_i = _candidates(world * 13 + q + kk, q, world, kk)
+    s = np.ascontiguousarray(flat_s.reshape(q, world, kk).transpose(1, 0, 2))  # [P, q, kk]
+    ids = np.ascontiguousarray(flat_i.reshape(q, world, kk).transpose(1, 0, 2) % rows_per_shard)
+    js, ji = _jax_gather_merge(world, k, rows_per_shard)(
+        jnp.asarray(s), jnp.asarray(ids.astype(np.int32)))
+    for merge in (topk_merge_shards, topk_merge_shards_plain):
+        ts, ti = merge(torch.from_numpy(s), torch.from_numpy(ids), k, rows_per_shard)
+        np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+        np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    assert topk_merge.launches == 0  # CPU tensors run the plain version

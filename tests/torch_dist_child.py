@@ -113,6 +113,8 @@ def _knn_suite(inp: dict, mesh, rank: int, world: int) -> dict:
         out[f"{name}_s"], out[f"{name}_i"] = sharded.query(case["queries"], case["k"])
         out[f"{name}_single_s"], out[f"{name}_single_i"] = single.query(case["queries"],
                                                                          case["k"])
+        if name == "match":  # k = 0: [q, 0] on every rank, with no collective
+            out["match_k0_s"], out["match_k0_i"] = sharded.query(case["queries"], 0)
     for name, call in (
         ("k_over_shard", lambda: sharded_knn_search(
             mesh, "data", torch.zeros((1, 8)), torch.zeros((4, 8)), 5)),
