@@ -7,8 +7,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 
 1. The card's name and power limit (``nvidia-smi``), then the build of every kernel of the path
    from ``pathway_tpu_torch/csrc`` (one ``nvcc`` per source, all started together), with ptxas's
-   registers, shared memory and spills for each kernel by name (the attention's two routes among
-   them).
+   registers, shared memory and spills for each kernel by name (the attention's two routes, the
+   backward's fused kernel and its two-kernel route, and the ring's two routes among them).
 2. Each kernel against its plain PyTorch version on the card, at the shapes the main path gives
    it, with the tolerance stated beside each check; then its time (CUDA events) beside its bound,
    the plain version's time and one PyTorch library call's time. The attention on contiguous
@@ -27,20 +27,26 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    B=256 pairs at S=128 (tokens of the seeded corpus; the second view as the reference augments
    it), an index of 1,048,576 x 384 f32 rows, 64 queries at S=32, k=10. First the attention
    backward against autograd of the plain attention at head widths 16, 32 and 64, the InfoNCE
-   kernel against its plain version, and both kernels' times; then the gradient and one whole
+   kernel against its plain version, and both kernels' times (the backward at B=256, H=12, S=128,
+   D=32, its fused route, on inputs held against the plain version first, beside SDPA's backward
+   and with its blocks a SM); then the gradient and one whole
    step on the kernel route against the plain route from the same parameters; then 2 warm-up and
    8 timed steps with the launch counts zeroed just before and read just after, one more step
    under the profiler, and the step on the plain route timed beside its bound.
 6. Ring attention's block step (``ops/ring.py``) against its plain version: one call over
-   B=1, S=4096, H=12, D=32 in bf16, the same sequence folded as 4 blocks of 1024 in the order
-   rank 0 of a 4-rank ring meets them, D=8 in f32, D=64, and a fully masked first block; the
+   B=1, S=4096, H=12, D=32 in bf16 (the tensor-core route), the same sequence folded as 4 blocks
+   of 1024 in the order rank 0 of a 4-rank ring meets them, D=8 in f32 (the CUDA-core route) and
+   in bf16, D=16 with blocks of 1000 keys (a partial key tile), D=64, and a fully masked first
+   block; the
    top-k merge (``ops/knn.py::topk_merge`` on the concatenated rows and ``topk_merge_shards`` on
    the stacked lists) after the scorer over 4 slices of the 1,048,576-row index, against the
    scorer over the whole index (exact); then both kernels at the new paths' shapes (the block step
    at one layer of the long forward, B=4 x 8192 x 8192; the merge as the sharded search launches
    it at world size 1, m=10, and from synthetic buffers of 8 shards, m=80 and m=8192 at k=1024),
-   each against its plain version on the same inputs and timed, the merge also by the profiler
-   (the kernel's device time beside the time a call takes).
+   each against its plain version on the same inputs and timed (the block step's error logged
+   beside its time, its bound that of the tensor cores and the exponentials, the f32 route's
+   bound beside it), the merge also by the profiler (the kernel's device time beside the time a
+   call takes).
 7. The long-context path (``models/ring_attention.py::embed_tokens_long``) on a
    ``torch.distributed`` group of world size 1 (NCCL): the default encoder on B=4 seeded
    documents of S=8192 tokens (16x the position table, so positions wrap) with padded tails of
@@ -110,6 +116,9 @@ import torch  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12
 BF16_OPS_PER_S = 989e12
 F32_OPS_PER_S = 67e12  # outside the tensor cores
+# exponentials (MUFU.EX2, one an expf): 16 a clock an SM (CUDA C++ Programming Guide, arithmetic
+# instruction throughput, compute capability 9.0), 132 SMs at the 1,980 MHz boost clock
+SFU_OPS_PER_S = 132 * 16 * 1.98e9
 
 ATTN_ATOL, ATTN_RTOL = 1e-2, 2.0 ** -7  # bf16 output: 1e-2 plus one bf16 ulp of the value
 EMB_ATOL, EMB_MIN_COS = 3e-2, 0.999  # unit vectors: card (kernel) against host (plain), bf16
@@ -668,7 +677,8 @@ def check_infonce(sizes, device) -> float:
 
 def time_training_kernels(device) -> dict:
     """Times at the training step's shapes: the attention backward at B=256, H=12, S=128, D=32
-    (one layer of one view), InfoNCE at B=256."""
+    (one layer of one view), first held against its plain version on the same inputs within
+    ``ATTN_ATOL``/``ATTN_RTOL``; InfoNCE at B=256."""
     import torch.nn.functional as F
 
     from pathway_tpu_torch.ops import attention
@@ -679,6 +689,23 @@ def time_training_kernels(device) -> dict:
     q, k, v, mask = attention_inputs(B, S, gen, device, H=H, D=D)
     dout = torch.randn(q.shape, generator=gen, device=device).to(torch.bfloat16)
     _, stat = attention._forward(q, k, v, mask, with_stat=True)
+    # the timed inputs, held against the plain version first (the fused route, S = 128)
+    got = attention.masked_attention_bwd(q, k, v, dout, mask, stat)
+    want = attention.masked_attention_bwd_plain(q, k, v, dout, mask)
+    torch.cuda.synchronize()
+    bwd_err = 0.0
+    for name, g, w in zip("qkv", got, want):
+        err = (g.float() - w.float()).abs()
+        if not torch.isfinite(g.float()).all() or (
+                err > ATTN_ATOL + ATTN_RTOL * w.float().abs()).any():
+            raise AssertionError(f"masked_attention_bwd d{name} at the timed inputs: max |err| "
+                                 f"{err.max().item()} over atol {ATTN_ATOL} + rtol {ATTN_RTOL}")
+        bwd_err = max(bwd_err, err.max().item())
+    del got, want
+    log(f"masked_attention_bwd B={B} H={H} S={S} D={D}, the timed inputs: max |kernel - plain| "
+        f"over dq, dk, dv = {bwd_err:.3e} (atol {ATTN_ATOL} + rtol {ATTN_RTOL}); "
+        f"{attention.backward_blocks_per_sm(D, S)} blocks a SM of "
+        f"{attention.backward_shared_memory_bytes(D, S)} bytes of shared memory")
     sdpa = [t.clone().requires_grad_() for t in (q, k, v)]
     sdpa_out = F.scaled_dot_product_attention(*sdpa, attn_mask=mask[:, None, None, :])
     bwd = {
@@ -691,6 +718,8 @@ def time_training_kernels(device) -> dict:
     bwd["bound_ms"], bwd["bound_by"] = bound(
         7 * B * H * S * D * 2 + B * H * S * 8 + B * S, 10 * B * H * S * S * D)
     bwd["shape"] = f"B={B} H={H} S={S} D={D}"
+    bwd["err"] = bwd_err
+    bwd["ctas_per_sm"] = attention.backward_blocks_per_sm(D, S)
 
     n = 256
     logits = infonce_inputs(n, gen, device)
@@ -935,6 +964,8 @@ RING_CASES = (  # (B, H, S, D, dtype, a fully masked first block)
     (1, 12, 4096, 32, torch.bfloat16, False),
     (2, 4, 1024, 8, torch.float32, True),
     (2, 6, 1024, 64, torch.bfloat16, True),
+    (2, 4, 4000, 16, torch.bfloat16, True),  # blocks of 1000 keys: a partial tile of 64
+    (2, 4, 1024, 8, torch.bfloat16, False),
 )
 
 
@@ -1037,9 +1068,16 @@ def time_parallel_kernels(device, B: int = 4, S: int = 8192, H: int = 12, D: int
     bool_mask = mask.bool()[:, None, None, :]
     ring["library_ms"] = cuda_ms(
         lambda: F.scaled_dot_product_attention(qf, kf, vf, attn_mask=bool_mask), 5)
-    ring["bound_ms"], ring["bound_by"] = bound(
-        3 * B * H * S * D * 2 + B * S + 2 * B * H * S * (D + 2) * 4 + B * H * S * D * 4,
-        4 * B * H * S * S * D, F32_OPS_PER_S)
+    # the bf16 route: 1 + 3 bf16 products on the tensor cores, one exponential a score; the
+    # bound is the larger of those two times and the bytes. Beside it, the f32 route's bound:
+    # its 4 B H s s_blk D f32 operations on the CUDA cores
+    n_bytes = 3 * B * H * S * D * 2 + B * S + 2 * B * H * S * (D + 2) * 4 + B * H * S * D * 4
+    ring["bound_ms"], ring["bound_by"] = bound(n_bytes, 8 * B * H * S * S * D)
+    exp_ms = B * H * S * S / SFU_OPS_PER_S * 1e3
+    if exp_ms > ring["bound_ms"]:
+        ring["bound_ms"], ring["bound_by"] = exp_ms, "operations"
+    ring["bound_ms_exponentials"] = exp_ms
+    ring["bound_ms_f32_cores"], _ = bound(n_bytes, 4 * B * H * S * S * D, F32_OPS_PER_S)
     del qkv, q, k_, v, qh, kh, vh, o, m, l, out, qf, kf, vf
     torch.cuda.empty_cache()
 
@@ -2153,7 +2191,12 @@ def main() -> int:
     for name in ("ring_attention", "topk_merge"):
         t = times[name]
         log(f"{name} at {t['shape']}: {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
-            f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}) [{card}]")
+            f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}), max "
+            f"|kernel - plain| {t['err']:.3e} [{card}]")
+    t = times["ring_attention"]
+    log(f"ring_attention bounds: tensor cores or exponentials {t['bound_ms']:.4f} ms "
+        f"(exponentials alone {t['bound_ms_exponentials']:.4f} ms); the f32 route's on the CUDA "
+        f"cores {t['bound_ms_f32_cores']:.4f} ms [{card}]")
     for c in times["topk_merge"]["cases"]:
         log(f"topk_merge at {c['shape']}: {c['ms']:.4f} ms a call (CUDA events), "
             f"{fmt_ms(c['device_ms'])} on the device (profiler) [{card}]")
@@ -2199,7 +2242,8 @@ def main() -> int:
                              "pathway_tpu/models/embedder.py:90",
                              max(attn_err, times["masked_attention"]["err"])),
         "masked_attention_bwd": ("pathway_tpu_torch/csrc/masked_attention_bwd.cu",
-                                 "pathway_tpu/models/pipeline.py:72", bwd_err),
+                                 "pathway_tpu/models/pipeline.py:72",
+                                 max(bwd_err, times["masked_attention_bwd"]["err"])),
         "knn_topk": ("pathway_tpu_torch/csrc/knn_topk.cu", "pathway_tpu/ops/knn.py:46", knn_err),
         "infonce": ("pathway_tpu_torch/csrc/infonce.cu", "pathway_tpu/models/pipeline.py:61",
                     nce_err),
@@ -2228,7 +2272,8 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             **{k: t[k] for k in ("upload_ms", "readback_ms", "numpy_tier_ms", "device_ms", "cases",
                                  "ms_contiguous", "library_ms_contiguous", "ms_full_mask",
-                                 "library_ms_full_mask", "ctas_per_sm", "grid") if k in t},
+                                 "library_ms_full_mask", "ctas_per_sm", "grid",
+                                 "bound_ms_exponentials", "bound_ms_f32_cores") if k in t},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -21,18 +21,42 @@
 // Bound on the H100 at the training shape B=256, H=12, S=128, D=32: memory. q, k, v, do, dq, dk
 // and dv are 7 * B*H*S*D * 2 bytes, 176 MB, plus the 3.1 MB statistic: about 53 us at 3.35 TB/s.
 // The five products (s, dp, dv, dq, dk), 10 * B*H*S*S*D = 1.6e10 operations, would take about
-// 16 us at 989 TFLOP/s in bf16.
+// 16 us at 989 TFLOP/s in bf16. What a launch pays for in practice is the per-score arithmetic
+// (the accurate expf, the bf16 roundings, the division), as in the forward.
 //
-// Design: two kernels, one block per (b, h) each, four warps, all products on the tensor cores
-// (mma.sync m16n8k16, bf16 in, f32 accumulated). The first puts the head's K and V in shared memory
-// and gives each warp 16 query rows at a time: it walks the keys once to get delta (recomputing s
-// and dp), and once more to form ds and accumulate dq; it writes dq and delta. The second puts the
-// head's Q and do in shared memory with the per-row m, l and delta, and gives each warp 16 key rows
-// at a time: it walks the queries, recomputes s, y, dp and ds transposed, and accumulates dk and
-// dv. So nothing of size S x S reaches device memory, and no sum needs atomics: each output row is
-// summed by one warp, in one order. The C fragments of two 8-column tiles of ds or bf16(y) are the
-// A fragment of the next product, as in the forward; the B operands that run along the summed index
-// (k for dq, q for dk, do for dv) come transposed through ldmatrix.
+// Two routes, chosen by S alone. Every product runs on the tensor cores (mma.sync m16n8k16, bf16
+// in, f32 accumulated); the C fragments of two 8-column tiles of ds are the A fragment of the next
+// product, as in the forward; the B operands that run along the summed index come transposed
+// through ldmatrix. Nothing of size S x S reaches device memory, and no sum needs atomics: each
+// output row is summed by one warp, in one order.
+//
+// S <= 128 (every launch of the training path): one kernel that computes each score once. One
+// block of eight warps a (b, h), two blocks a SM at D <= 32 (one at D = 64: shared memory). The
+// head's Q, K, V and dO go into shared memory with cp.async, K and V as 128 rows (zeros past S),
+// rows kD + 8 apart so that the operand loads hit distinct banks. Phase 1, warp w owning query
+// rows 16 w .. 16 w + 15: the loop over the 16 key tiles of 8, of compile-time length, forms s
+// and dp once on the tensor cores, keeps y in registers in f32 (64 a lane), writes bf16(y) and
+// bf16(dp) to shared memory and sums delta; then it forms ds once from y and the dp it reads
+// back, accumulates dq += ds . K, and writes ds over its dp. bf16(y) and ds are each a 128 x 136
+// bf16 matrix (34,816 bytes). After one barrier, phase 2, warp w owning key rows 16 w ..: the A
+// fragments of ds^T and bf16(y)^T come from those matrices by ldmatrix.trans, and dk += ds^T . Q
+// and dv += bf16(y)^T . dO. One accurate expf, one division and five products a score. The
+// division by sqrt(D) is correctly rounded without the IEEE division's range check and branch
+// (Markstein's correction of x * (1 / sqrt(D)) by one fma; it equals the division outside f32's
+// subnormal range, where a ds of 1e-38 would then round to bf16 anyway), which kept the compiler
+// from interleaving the scores' arithmetic; at D = 16 and 64 it is a multiply by a power of two.
+// The per-score formulas and every sum's order are those of the two-kernel route, so the two
+// give the same bits (the sums past S add zeros; the same SHA-256 of dq, dk and dv at the
+// training shape, scripts/torch_attention_pair.py). ptxas (sm_90a): 128 registers at D = 16 and
+// 32, 186 at D = 64, no spill; 110,720 bytes of dynamic shared memory a block at D = 32.
+//
+// 128 < S <= 512 (tests and long bert inputs; ds does not fit in shared memory there): two
+// kernels, one block per (b, h) each, four warps. The first puts the head's K and V in shared
+// memory and gives each warp 16 query rows at a time: it walks the keys once to get delta
+// (recomputing s and dp), and once more to form ds and accumulate dq; it writes dq and delta to
+// a scratch in device memory. The second puts the head's Q and do in shared memory with the
+// per-row m, l and delta, and gives each warp 16 key rows at a time: it walks the queries,
+// recomputes s, y, dp and ds transposed, and accumulates dk and dv.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -94,10 +118,10 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_b
 }
 
 // The head's S rows of width kD into shared memory rows kD + 8 apart, zeros past S up to S16.
-template <int kD>
+template <int kD, int kN = kThreads>
 __device__ __forceinline__ void rows_to_smem(__nv_bfloat16* dst, const __nv_bfloat16* src,
                                              long long stride, int S, int S16) {
-  for (int e = threadIdx.x; e < S16 * (kD / 8); e += kThreads) {
+  for (int e = threadIdx.x; e < S16 * (kD / 8); e += kN) {
     const int j = e / (kD / 8), c = (e % (kD / 8)) * 8;
     cp_async16(dst + j * (kD + 8) + c, src + (j < S ? j : 0) * stride + c, j < S);
   }
@@ -344,12 +368,222 @@ attention_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
   }
 }
 
+// ---- the fused route, S <= 128 -------------------------------------------------------------
+
+constexpr int kFusedMaxSeq = 128;             // the keys a warp's y holds in registers
+constexpr int kFusedWarps = kFusedMaxSeq / 16;  // a 16-row tile each
+constexpr int kFusedThreads = kFusedWarps * 32;
+constexpr int kFusedTiles = kFusedMaxSeq / 8;  // key tiles of 8
+constexpr int kSqLd = kFusedMaxSeq + 8;        // row stride of bf16(y) and ds in shared memory
+
+// x / d rounded to nearest without the division's range check and its branch: rd = RN(1 / d),
+// q = RN(x rd), the remainder x - q d exact by an fma, then RN(q + r rd) (Markstein's correction;
+// the IEEE quotient wherever x, q and the remainder are normal floats).
+__device__ __forceinline__ float div_rn(float x, float d, float rd) {
+  const float q = x * rd;
+  return fmaf(fmaf(-q, d, x), rd, q);
+}
+
+__device__ __forceinline__ float bf16_lo(uint32_t pair) { return __uint_as_float(pair << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t pair) {
+  return __uint_as_float(pair & 0xffff0000u);
+}
+
+// Byte offsets of one block's shared memory: Q, K, V and dO of 128 rows kD + 8 apart, bf16(y) and
+// ds of 128 rows kSqLd apart, the key kinds.
+template <int kD>
+struct FusedLayout {
+  static constexpr int kHead = kFusedMaxSeq * (kD + 8) * 2;
+  static constexpr int kSq = kFusedMaxSeq * kSqLd * 2;
+  static constexpr int kY = 4 * kHead, kDs = kY + kSq, kKind = kDs + kSq;
+  static constexpr int kTotal = kKind + kFusedMaxSeq;
+};
+
+template <int kD>
+__global__ void __launch_bounds__(kFusedThreads, kD == 64 ? 1 : 2)
+attention_bwd_fused_kernel(const __nv_bfloat16* __restrict__ q,
+                           const __nv_bfloat16* __restrict__ k,
+                           const __nv_bfloat16* __restrict__ v,
+                           const __nv_bfloat16* __restrict__ dout,
+                           const uint8_t* __restrict__ mask, const float* __restrict__ stat,
+                           __nv_bfloat16* __restrict__ dq, __nv_bfloat16* __restrict__ dk,
+                           __nv_bfloat16* __restrict__ dv, int H, int S, Strides sq, Strides sk,
+                           Strides sv, Strides sdo, Strides sdq, Strides sdk, Strides sdv,
+                           long long mask_b) {
+  using L = FusedLayout<kD>;
+  constexpr int kLd = kD + 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* ks = qs + kFusedMaxSeq * kLd;
+  __nv_bfloat16* vs = ks + kFusedMaxSeq * kLd;
+  __nv_bfloat16* dos = vs + kFusedMaxSeq * kLd;
+  __nv_bfloat16* ys = reinterpret_cast<__nv_bfloat16*>(smem + L::kY);    // [query][key]
+  __nv_bfloat16* dss = reinterpret_cast<__nv_bfloat16*>(smem + L::kDs);  // [query][key]
+  uint8_t* kind = smem + L::kKind;                                       // [128]
+
+  const int S16 = (S + 15) & ~15;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  // K and V as all 128 rows, zeros past S: the loops below run over every key tile; Q and dO as
+  // the S16 rows that phase 2 reads
+  rows_to_smem<kD, kFusedThreads>(ks, k + b * sk.b + h * sk.h, sk.s, S, kFusedMaxSeq);
+  rows_to_smem<kD, kFusedThreads>(vs, v + b * sv.b + h * sv.h, sv.s, S, kFusedMaxSeq);
+  rows_to_smem<kD, kFusedThreads>(qs, q + b * sq.b + h * sq.h, sq.s, S, S16);
+  rows_to_smem<kD, kFusedThreads>(dos, dout + b * sdo.b + h * sdo.h, sdo.s, S, S16);
+  asm volatile("cp.async.commit_group;\n" ::);
+  for (int j = threadIdx.x; j < kFusedMaxSeq; j += kFusedThreads)
+    kind[j] = j >= S ? kAbsent : (mask[b * mask_b + j] ? kReal : kMasked);
+  asm volatile("cp.async.wait_all;\n" ::);
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;  // mma fragment coordinates
+  const float inv_scale = 1.f / sqrtf(static_cast<float>(kD));  // as the forward scales
+  const float sqrt_d = sqrtf(static_cast<float>(kD));            // the VJP divides by it
+  const float inv_sqrt_d = 1.f / sqrt_d;
+  const float2* stb = reinterpret_cast<const float2*>(stat) + static_cast<long long>(bh) * S;
+
+  // phase 1: warp w owns query rows 16 w .. 16 w + 15
+  const int r0 = warp * 16;
+  if (r0 < S) {
+    const int r_lo = r0 + g, r_hi = r0 + g + 8;
+    uint32_t qa[kD / 16][4], da[kD / 16][4];
+    rows_to_frags<kD>(qa, qs, kLd, r_lo, S, t);
+    rows_to_frags<kD>(da, dos, kLd, r_lo, S, t);
+    // rows past S get m = 0 and 1/l = 0: their q is zero, so y = exp(0) * 0 = 0
+    const float2 st_lo = r_lo < S ? stb[r_lo] : make_float2(0.f, INFINITY);
+    const float2 st_hi = r_hi < S ? stb[r_hi] : make_float2(0.f, INFINITY);
+    const float m[2] = {st_lo.x, st_hi.x};
+    const float inv_l[2] = {1.f / st_lo.y, 1.f / st_hi.y};
+
+    // s and dp once: y kept in registers in f32; dp, rounded to bf16, and bf16(y) to shared
+    // memory (dp where ds goes: the lane that writes it reads it back and overwrites it); delta
+    // summed in key order
+    float y[kFusedTiles][4];
+    float dsum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < kFusedTiles; ++j) {
+      float c[4] = {0.f, 0.f, 0.f, 0.f}, p[4] = {0.f, 0.f, 0.f, 0.f};
+      tile_dot<kD>(c, qa, ks, j * 8, g, t);
+      tile_dot<kD>(p, da, vs, j * 8, g, t);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        y[j][i] = prob(c[i], kind[j * 8 + t * 2 + (i & 1)], m[i >> 1], inv_l[i >> 1], inv_scale);
+        dsum[i >> 1] += bf16_round(p[i]) * y[j][i];
+      }
+      *reinterpret_cast<uint32_t*>(dss + r_lo * kSqLd + j * 8 + t * 2) = pack_bf16(p[0], p[1]);
+      *reinterpret_cast<uint32_t*>(dss + r_hi * kSqLd + j * 8 + t * 2) = pack_bf16(p[2], p[3]);
+      *reinterpret_cast<uint32_t*>(ys + r_lo * kSqLd + j * 8 + t * 2) = pack_bf16(y[j][0], y[j][1]);
+      *reinterpret_cast<uint32_t*>(ys + r_hi * kSqLd + j * 8 + t * 2) = pack_bf16(y[j][2], y[j][3]);
+    }
+    const float dl[2] = {quad_sum(dsum[0]), quad_sum(dsum[1])};
+
+    // ds once, rounded to bf16: the A fragment of dq += ds . k over 16 keys at a time, and into
+    // shared memory for phase 2
+    float acc[kD / 8][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < kFusedTiles / 2; ++kk) {
+      const int c = kk * 16 + t * 2;
+      uint32_t* const slot[4] = {
+          reinterpret_cast<uint32_t*>(dss + r_lo * kSqLd + c),
+          reinterpret_cast<uint32_t*>(dss + r_hi * kSqLd + c),
+          reinterpret_cast<uint32_t*>(dss + r_lo * kSqLd + c + 8),
+          reinterpret_cast<uint32_t*>(dss + r_hi * kSqLd + c + 8),
+      };
+      const uint32_t dp[2][2] = {{*slot[0], *slot[1]}, {*slot[2], *slot[3]}};
+      uint32_t a[4];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int j = kk * 2 + half;
+        float ds[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const uint8_t kk_kind = kind[j * 8 + t * 2 + (i & 1)];
+          const uint32_t pair = dp[half][i >> 1];
+          const float dpv = (i & 1) ? bf16_hi(pair) : bf16_lo(pair);
+          ds[i] = kk_kind == kReal ? div_rn(y[j][i] * (dpv - dl[i >> 1]), sqrt_d, inv_sqrt_d)
+                                   : 0.f;
+        }
+        a[half * 2] = pack_bf16(ds[0], ds[1]);
+        a[half * 2 + 1] = pack_bf16(ds[2], ds[3]);
+      }
+      accumulate_rows<kD>(acc, a, ks, kk * 16, lane);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) *slot[i] = a[i];
+    }
+    store_rows<kD>(dq + b * sdq.b + h * sdq.h, sdq.s, acc, r_lo, S, t);
+  }
+  __syncthreads();
+
+  // phase 2: warp w owns key rows 16 w .. 16 w + 15; the A fragments of ds^T and bf16(y)^T for
+  // keys c0 .. c0 + 15 and queries i0 .. i0 + 15 are the four 8 x 8 blocks of rows
+  // i0 + 8 (mi >> 1) .. and columns c0 + 8 (mi & 1) .., read transposed
+  const int mi = lane >> 3, c0 = warp * 16;
+  if (c0 < S) {
+    float acc_k[kD / 8][4] = {}, acc_v[kD / 8][4] = {};
+    for (int i0 = 0; i0 < S16; i0 += 16) {
+      const int off = (i0 + (mi >> 1) * 8 + (lane & 7)) * kSqLd + c0 + (mi & 1) * 8;
+      uint32_t a_ds[4], a_y[4];
+      ldmatrix_x4_trans(a_ds, dss + off);
+      ldmatrix_x4_trans(a_y, ys + off);
+      accumulate_rows<kD>(acc_k, a_ds, qs, i0, lane);
+      accumulate_rows<kD>(acc_v, a_y, dos, i0, lane);
+    }
+    store_rows<kD>(dk + b * sdk.b + h * sdk.h, sdk.s, acc_k, c0 + g, S, t);
+    store_rows<kD>(dv + b * sdv.b + h * sdv.h, sdv.s, acc_v, c0 + g, S, t);
+  }
+}
+
+constexpr int kMaxDevices = 64;
+
+int current_device() {
+  int dev = 0;
+  return cudaGetDevice(&dev) == cudaSuccess && dev >= 0 && dev < kMaxDevices ? dev : -1;
+}
+
+// Blocks of the fused route that fit on one SM (0 if none) at head width kD, computed once per
+// device; that first call also raises the kernel's dynamic shared memory limit to what it needs.
+template <int kD>
+int fused_blocks_per_sm(int dev) {
+  static int per_sm[kMaxDevices] = {};
+  int& n = per_sm[dev];
+  if (n == 0 &&
+      (cudaFuncSetAttribute(attention_bwd_fused_kernel<kD>,
+                            cudaFuncAttributeMaxDynamicSharedMemorySize,
+                            FusedLayout<kD>::kTotal) != cudaSuccess ||
+       cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, attention_bwd_fused_kernel<kD>,
+                                                     kFusedThreads,
+                                                     FusedLayout<kD>::kTotal) != cudaSuccess))
+    n = 0;
+  return n;
+}
+
+template <int kD>
+int launch_fused(const void* q, const void* k, const void* v, const void* dout, const void* mask,
+                 const void* stat, void* dq, void* dk, void* dv, int B, int H, int S, Strides sq,
+                 Strides sk, Strides sv, Strides sdo, Strides sdq, Strides sdk, Strides sdv,
+                 long long mask_b, cudaStream_t stream) {
+  using bf = __nv_bfloat16;
+  const int dev = current_device();
+  if (dev < 0) return static_cast<int>(cudaErrorInvalidDevice);
+  if (fused_blocks_per_sm<kD>(dev) < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  attention_bwd_fused_kernel<kD><<<B * H, kFusedThreads, FusedLayout<kD>::kTotal, stream>>>(
+      static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
+      static_cast<const bf*>(dout), static_cast<const uint8_t*>(mask),
+      static_cast<const float*>(stat), static_cast<bf*>(dq), static_cast<bf*>(dk),
+      static_cast<bf*>(dv), H, S, sq, sk, sv, sdo, sdq, sdk, sdv, mask_b);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int kD>
 int launch(const void* q, const void* k, const void* v, const void* dout, const void* mask,
            const void* stat, void* delta, void* dq, void* dk, void* dv, int B, int H, int S,
            Strides sq, Strides sk, Strides sv, Strides sdo, Strides sdq, Strides sdk, Strides sdv,
            long long mask_b, cudaStream_t stream) {
   using bf = __nv_bfloat16;
+  if (S <= kFusedMaxSeq)
+    return launch_fused<kD>(q, k, v, dout, mask, stat, dq, dk, dv, B, H, S, sq, sk, sv, sdo, sdq,
+                            sdk, sdv, mask_b, stream);
+  if (delta == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const size_t S16 = (static_cast<size_t>(S) + 15) & ~static_cast<size_t>(15);
   const size_t heads = sizeof(bf) * 2 * S16 * (kD + 8);
   const size_t smem1 = heads + S16, smem2 = heads + sizeof(float) * 3 * S16;
@@ -380,8 +614,9 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
 // q, k, v, dout, dq, dk, dv: bf16 [B, H, S, D], D in {16, 32, 64}, S <= 512, each with its own
 // element strides (the b, h and s strides in that order; d contiguous, strides divisible by 8,
 // 16-byte aligned bases); mask: bool [B, S] with row stride mask_b; stat: the forward's f32
-// [B, H, S, 2] (row max, row sum), contiguous; delta: f32 scratch of B*H*S. Launches both kernels
-// on `stream` and returns cudaGetLastError().
+// [B, H, S, 2] (row max, row sum), contiguous; delta: f32 scratch of B*H*S for S > 128, unused
+// (may be null) for S <= 128. S <= 128 launches the fused kernel, a longer S the two kernels, on
+// `stream`; returns cudaGetLastError() (or the error that kept it from launching).
 extern "C" int masked_attention_bwd(const void* q, const void* k, const void* v, const void* dout,
                                     const void* mask, const void* stat, void* delta, void* dq,
                                     void* dk, void* dv, int B, int H, int S, int D,
@@ -403,5 +638,32 @@ extern "C" int masked_attention_bwd(const void* q, const void* k, const void* v,
                         sdq, sdk, sdv, mask_b, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The dynamic shared memory a block asks for at head width D and length S on the route S takes
+// (0 for another D).
+extern "C" int masked_attention_bwd_smem_bytes(int D, int S) {
+  const int S16 = (S + 15) & ~15;
+  // the larger of the two kernels' blocks: two heads and the per-row m, 1/l and delta
+  const auto two_kernels = [S16](int d) { return 2 * 2 * S16 * (d + 8) + 3 * 4 * S16; };
+  switch (D) {
+    case 16: return S <= kFusedMaxSeq ? FusedLayout<16>::kTotal : two_kernels(16);
+    case 32: return S <= kFusedMaxSeq ? FusedLayout<32>::kTotal : two_kernels(32);
+    case 64: return S <= kFusedMaxSeq ? FusedLayout<64>::kTotal : two_kernels(64);
+    default: return 0;
+  }
+}
+
+// Blocks a SM of the fused route at head width D and S <= 128 on the current card (0 where it
+// does not fit or S is longer).
+extern "C" int masked_attention_bwd_blocks_per_sm(int D, int S) {
+  const int dev = current_device();
+  if (dev < 0 || S < 1 || S > kFusedMaxSeq) return 0;
+  switch (D) {
+    case 16: return fused_blocks_per_sm<16>(dev);
+    case 32: return fused_blocks_per_sm<32>(dev);
+    case 64: return fused_blocks_per_sm<64>(dev);
+    default: return 0;
   }
 }

@@ -23,8 +23,9 @@ from .. import _kernels
 
 __all__ = [
     "masked_attention", "masked_attention_plain", "masked_attention_bwd",
-    "masked_attention_bwd_plain", "persistent_ctas_per_sm", "shared_memory_bytes", "MAX_SEQ",
-    "HEAD_DIMS", "PERSISTENT_MAX_SEQ",
+    "masked_attention_bwd_plain", "persistent_ctas_per_sm", "shared_memory_bytes",
+    "backward_blocks_per_sm", "backward_shared_memory_bytes", "MAX_SEQ", "HEAD_DIMS",
+    "PERSISTENT_MAX_SEQ", "FUSED_BWD_MAX_SEQ",
 ]
 
 #: the kernels keep one head's K and V (or Q and dO) in shared memory
@@ -34,6 +35,10 @@ HEAD_DIMS = (16, 32, 64)
 #: the forward's persistent route (TMA-fed stages, scores in registers) takes S up to this; a
 #: longer S takes its per-head route (kTmaMaxSeq in csrc/masked_attention.cu)
 PERSISTENT_MAX_SEQ = 128
+#: the backward's fused route (one kernel, each score's s, dp and exponential once) takes S up to
+#: this; a longer S takes its two-kernel route, which needs a delta scratch (kFusedMaxSeq in
+#: csrc/masked_attention_bwd.cu)
+FUSED_BWD_MAX_SEQ = 128
 
 
 def masked_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -69,8 +74,8 @@ def _launcher():
 
 
 @functools.cache
-def _query(name: str):
-    fn = getattr(_kernels.load("masked_attention"), name)
+def _query(lib: str, name: str):
+    fn = getattr(_kernels.load(lib), name)
     fn.argtypes = [ctypes.c_int, ctypes.c_int]
     fn.restype = ctypes.c_int
     return fn
@@ -80,13 +85,26 @@ def persistent_ctas_per_sm(D: int, S: int) -> int:
     """CTAs per SM of the forward's persistent route at head width D and sequence length
     S <= ``PERSISTENT_MAX_SEQ`` on the current card (its grid is this times the SM count, or
     B * H where that is smaller); 0 for a longer S."""
-    return _query("masked_attention_ctas_per_sm")(D, S)
+    return _query("masked_attention", "masked_attention_ctas_per_sm")(D, S)
 
 
 def shared_memory_bytes(D: int, S: int) -> int:
     """The dynamic shared memory a block of the forward asks for at head width D and sequence
     length S, on the route S takes (the persistent one up to ``PERSISTENT_MAX_SEQ``)."""
-    return _query("masked_attention_smem_bytes")(D, S)
+    return _query("masked_attention", "masked_attention_smem_bytes")(D, S)
+
+
+def backward_blocks_per_sm(D: int, S: int) -> int:
+    """Blocks per SM of the backward's fused route at head width D and sequence length
+    S <= ``FUSED_BWD_MAX_SEQ`` on the current card (one block per (b, h)); 0 for a longer S."""
+    return _query("masked_attention_bwd", "masked_attention_bwd_blocks_per_sm")(D, S)
+
+
+def backward_shared_memory_bytes(D: int, S: int) -> int:
+    """The dynamic shared memory a block of the backward asks for at head width D and sequence
+    length S, on the route S takes (the fused one up to ``FUSED_BWD_MAX_SEQ``, else the larger
+    of the two kernels')."""
+    return _query("masked_attention_bwd", "masked_attention_bwd_smem_bytes")(D, S)
 
 
 @functools.cache
@@ -157,7 +175,10 @@ def masked_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout
     :func:`masked_attention_bwd_plain` computes them, from the forward's row statistic ``stat``.
 
     CUDA tensors only: q, k, v, dout bf16 ``[B, H, S, D]`` as the forward takes them, mask bool
-    ``[B, S]``, stat f32 ``[B, H, S, 2]``. The gradients come laid out as ``[B, S, H, D]``."""
+    ``[B, S]``, stat f32 ``[B, H, S, 2]``. The gradients come laid out as ``[B, S, H, D]``.
+    S <= ``FUSED_BWD_MAX_SEQ`` (every launch of the training path) takes the fused kernel, a
+    longer S the two-kernel route with its delta scratch; nothing else chooses. One launch of the
+    wrapper counts once either way."""
     if q.device.type != "cuda":
         raise ValueError(f"masked_attention_bwd: no kernel for device {q.device}")
     _check("masked_attention_bwd", q, (("k", k), ("v", v), ("dout", dout)), mask)
@@ -168,13 +189,15 @@ def masked_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout
     if mask.stride(1) != 1:
         mask = mask.contiguous()
     dq, dk, dv = _heads_out(q), _heads_out(q), _heads_out(q)
-    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    delta = (None if S <= FUSED_BWD_MAX_SEQ
+             else torch.empty((B, H, S), dtype=torch.float32, device=q.device))
     strides = (ctypes.c_longlong * 21)(
         *(st for t in (q, k, v, dout, dq, dk, dv) for st in t.stride()[:3])
     )
     err = _bwd_launcher()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), mask.data_ptr(),
-        stat.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        stat.data_ptr(), None if delta is None else delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(),
         B, H, S, D, ctypes.addressof(strides), mask.stride(0),
         _kernels.stream(q.device),
     )

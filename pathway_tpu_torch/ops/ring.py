@@ -4,8 +4,10 @@
 The kernel replaces ``accumulate`` inside ``pathway_tpu/models/ring_attention.py``
 ``ring_attention`` (lines 80-91) and the division after the ring's last step (line 111): it folds
 one block of keys and values into the running online-softmax state (o, m, l) of this rank's
-queries, in f32 throughout, in place. On CUDA tensors :func:`ring_block_attention` launches it;
-on CPU tensors it runs :func:`ring_block_attention_plain`, the JAX expression step by step.
+queries, in f32 throughout, in place. On CUDA tensors :func:`ring_block_attention` launches it:
+bf16 inputs take its tensor-core route (exact bf16 products, the weights split into three bf16
+parts), f32 inputs its CUDA-core route; the dtype alone chooses. On CPU tensors it runs
+:func:`ring_block_attention_plain`, the JAX expression step by step.
 """
 
 from __future__ import annotations
@@ -67,6 +69,17 @@ def _launcher():
     return fn
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """A bf16 ``t`` as the tensor-core route reads it, 16 bytes (8 values of a row) at a time:
+    d contiguous, the other strides divisible by 8 and the base 16-byte aligned; other layouts
+    are copied first. f32 tensors are returned as they are (that route takes any strides)."""
+    if t.dtype != torch.bfloat16 or (
+            t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(st % 8 == 0 for st in t.stride()[:3])):
+        return t
+    return t.contiguous()
+
+
 def _check(q, k_blk, v_blk, mask_blk, o, m, l, out) -> None:
     B, H, s, D = q.shape
     s_blk = k_blk.shape[2]
@@ -103,13 +116,15 @@ def ring_block_attention(q: torch.Tensor, k_blk: torch.Tensor, v_blk: torch.Tens
     computes it; with ``out``, also write the normalised output.
 
     On CUDA tensors one launch of the kernel does it (q, k_blk and v_blk bf16 or f32 of one dtype
-    with head widths ``HEAD_DIMS``, any strides with the last dim contiguous); on CPU tensors it
-    runs the plain version."""
+    with head widths ``HEAD_DIMS``, any strides with the last dim contiguous; bf16 rows that are
+    not 16-byte aligned are copied first); bf16 takes the kernel's tensor-core route, f32 its
+    CUDA-core route. On CPU tensors it runs the plain version."""
     if q.device.type == "cpu":
         return ring_block_attention_plain(q, k_blk, v_blk, mask_blk, o, m, l, scale, out)
     if q.device.type != "cuda":
         raise ValueError(f"ring_block_attention: no kernel for device {q.device}")
     _check(q, k_blk, v_blk, mask_blk, o, m, l, out)
+    q, k_blk, v_blk = (_aligned(t) for t in (q, k_blk, v_blk))
     B, H, s, D = q.shape
     s_blk = k_blk.shape[2]
     out_strides = out.stride()[:3] if out is not None else (0, 0, 0)

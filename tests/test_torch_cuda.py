@@ -6,13 +6,15 @@ with a card and without JAX, run them without the repository's conftest, which i
     python -m pytest --noconftest tests/test_torch_cuda.py
 
 Tolerances: attention output and its gradients within 1e-2 plus one bf16 ulp of the value (both
-routes of the forward: the persistent one for S <= 128, the per-head one above); top-k
+routes of the forward: the persistent one for S <= 128, the per-head one above; both routes of the
+backward: the fused one for S <= 128, the two kernels above); top-k
 scores within one bf16 ulp of the dot product, ids equal wherever a score is clear of its
 neighbours by more than that, equal scores lower row first; encoder embeddings within 3e-2 with a
 cosine of at least 0.999 against the same weights on the host; the InfoNCE loss and gradient
 within 1e-5 of the value (f32, sums in another order); the training step's parameter gradients
 against the host's with a cosine of at least 0.999; the ring's block step in f32 within 2e-5 plus
-2e-5 of the value (the sums in another order, no TF32); the top-k merge and the bucketed
+2e-5 of the value on both routes (bf16 inputs on the tensor cores, f32 on the CUDA cores; every
+product exact, the sums in another order, no TF32); the top-k merge and the bucketed
 exchange exactly (the exchange moves bits), and the engine with its exchange on the card equals
 the engine on the host; the expression machine bit for bit against its plain version (float
 ``**`` within 2 ulp), and the Table API's ``pw.run(device="cuda")`` equal to numpy.
@@ -26,8 +28,12 @@ import torch
 
 from pathway_tpu_torch.models import pipeline
 from pathway_tpu_torch.models.embedder import Embedder, EmbedderConfig, embed_tokens, init_params
+from pathway_tpu_torch.ops import attention as attention_ops
 from pathway_tpu_torch.ops.attention import (
+    FUSED_BWD_MAX_SEQ,
     PERSISTENT_MAX_SEQ,
+    backward_blocks_per_sm,
+    backward_shared_memory_bytes,
     masked_attention,
     masked_attention_bwd,
     masked_attention_bwd_plain,
@@ -85,6 +91,22 @@ def _attention_inputs(B, H, S, device, seed=0, D=32):
     lengths = torch.randint(1, S + 1, (B,), generator=gen, device=device)
     lengths[0] = 0
     return q, k, v, torch.arange(S, device=device)[None, :] < lengths[:, None]
+
+
+def _kernel_names(fn, part: str, sessions: int = 3):
+    """The names of the CUDA kernels whose name holds ``part`` that one call of ``fn`` launches,
+    from the profiler; and fn's result. The tracer sometimes records none of a session's kernels,
+    so a session that records none is run again, up to ``sessions`` times."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(sessions):
+        with torch.profiler.profile(activities=acts) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        names = sorted(e.key for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA and part in e.key)
+        if names:
+            break
+    return names, out
 
 
 @pytest.mark.parametrize("S", [1, 16, 33, 128, 512])
@@ -188,12 +210,7 @@ def test_masked_attention_route_by_sequence_length(cuda, S, route):
     """S up to 128 launches the persistent kernel, a longer S (to 512) the per-head one: the
     profiler's kernel names, and the output as the plain version's."""
     q, k, v, mask = _attention_inputs(2, 3, S, cuda, seed=S, D=64)
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        got = masked_attention(q, k, v, mask)
-        torch.cuda.synchronize()
-    names = [e.key for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA and "masked_attention" in e.key]
+    names, got = _kernel_names(lambda: masked_attention(q, k, v, mask), "masked_attention")
     assert len(names) == 1 and f"{route}<" in names[0], names
     assert _close(got, masked_attention_plain(q, k, v, mask))
     assert 0 < shared_memory_bytes(64, S) <= 232448  # within a block's limit on sm_90
@@ -331,6 +348,92 @@ def test_masked_attention_backward_kernel_takes_strided_heads(cuda):
     assert _close(got, want)
 
 
+def _backward_against_plain(q, k, v, mask, dout):
+    """The backward kernel from the forward's statistic against autograd of the plain version;
+    one launch of the wrapper; returns the kernel's (dq, dk, dv)."""
+    _, stat = attention_ops._forward(q, k, v, mask, with_stat=True)
+    before = masked_attention_bwd.launches
+    got = masked_attention_bwd(q, k, v, dout, mask, stat)
+    assert masked_attention_bwd.launches == before + 1
+    want = masked_attention_bwd_plain(q, k, v, dout, mask)
+    torch.cuda.synchronize()
+    for name, g, w in zip("qkv", got, want):
+        assert torch.isfinite(g.float()).all(), name
+        assert _close(g, w), (name, (g.float() - w.float()).abs().max().item())
+    return got
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "fused"])
+@pytest.mark.parametrize("D", [16, 32, 64])
+@pytest.mark.parametrize("S", [1, 16, 33, 128])
+def test_masked_attention_backward_fused_route_matches_plain(cuda, S, D, layout):
+    """S <= 128 takes the fused backward (each score's s, dp and exponential once), on contiguous
+    heads and on views of the fused qkv product; ragged lengths and an all-pad row, whose score
+    gradients are zero."""
+    q, k, v, mask = _attention_inputs(4, 6, S, cuda, seed=3 * S + D, D=D)
+    if layout == "fused":
+        q, k, v = _fused_views(4, 6, S, D, cuda, seed=S * D + 1)
+    dout = torch.randn(q.shape, device=cuda).to(torch.bfloat16)
+    dq, dk, dv = _backward_against_plain(q, k, v, mask, dout)
+    assert not dq[0].any() and not dk[0].any()
+    if S > 1:
+        assert all(g[1:].float().abs().max() > 0 for g in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("B,H", [(37, 11), (300, 7)])
+def test_masked_attention_backward_fused_route_at_any_head_count(cuda, B, H):
+    """B * H blocks, more than the card holds at once and not a multiple of its SMs: every
+    (b, h) head's gradient is computed once, on fused-qkv views."""
+    q, k, v = _fused_views(B, H, 128, 32, cuda, seed=B + H)
+    _, _, _, mask = _attention_inputs(B, 1, 128, cuda, seed=H)
+    dout = torch.randn(q.shape, device=cuda).to(torch.bfloat16)
+    _backward_against_plain(q, k, v, mask, dout)
+
+
+@pytest.mark.parametrize("D", [16, 32, 64])
+def test_masked_attention_backward_all_pad_and_scattered_keys(cuda, D):
+    """All-pad rows (uniform weights over the masked keys: dv gets them, dq and dk nothing), a
+    row with one real key, keys masked at random, a row whose real keys end early, and a row with
+    every key real; S = 120, so the pad from S to 128 is in the last key tile."""
+    B, H, S = 6, 3, 120
+    q, k, v = _fused_views(B, H, S, D, cuda, seed=D + 5)
+    gen = torch.Generator(device=cuda).manual_seed(D + 5)
+    mask = torch.rand((B, S), generator=gen, device=cuda) > 0.5
+    mask[0] = False
+    mask[1] = False
+    mask[1, 77] = True
+    mask[2, 20:] = False
+    mask[3] = True
+    dout = torch.randn(q.shape, device=cuda).to(torch.bfloat16)
+    dq, dk, dv = _backward_against_plain(q, k, v, mask, dout)
+    assert not dq[0].any() and not dk[0].any() and dv[0].float().abs().max() > 0
+    assert not dq[1].any() and not dk[1].any()
+
+
+@pytest.mark.parametrize("S,kernels", [
+    (FUSED_BWD_MAX_SEQ, ["attention_bwd_fused_kernel"]),
+    (FUSED_BWD_MAX_SEQ + 1, ["attention_bwd_dkv_kernel", "attention_bwd_dq_kernel"]),
+])
+def test_masked_attention_backward_route_by_sequence_length(cuda, S, kernels):
+    """S up to 128 launches the fused backward kernel alone, a longer S the two kernels: the
+    profiler's kernel names, and the gradients as the plain version's. The fused route's block
+    fits twice on an SM at D = 32."""
+    q, k, v, mask = _attention_inputs(2, 3, S, cuda, seed=S + 2, D=32)
+    dout = torch.randn(q.shape, device=cuda).to(torch.bfloat16)
+    _, stat = attention_ops._forward(q, k, v, mask, with_stat=True)
+    torch.cuda.synchronize()
+    names, got = _kernel_names(lambda: masked_attention_bwd(q, k, v, dout, mask, stat),
+                               "attention_bwd")
+    assert len(names) == len(kernels) and all(f"{n}<" in x for n, x in zip(kernels, names)), names
+    for g, w in zip(got, masked_attention_bwd_plain(q, k, v, dout, mask)):
+        assert _close(g, w)
+    assert 0 < backward_shared_memory_bytes(32, S) <= 232448  # within a block's limit on sm_90
+    if S <= FUSED_BWD_MAX_SEQ:
+        assert backward_blocks_per_sm(32, S) == 2 and backward_blocks_per_sm(64, S) >= 1
+    else:
+        assert backward_blocks_per_sm(32, S) == 0
+
+
 def test_masked_attention_without_grad_launches_no_statistic(cuda):
     q, k, v, mask = _attention_inputs(2, 2, 16, cuda)
     out = masked_attention(q.requires_grad_(), k, v, mask)
@@ -447,6 +550,52 @@ def test_ring_block_kernel_matches_plain(cuda, dtype, D, order):
         (got - want).abs().max().item())
     assert ((l - l_p).abs() <= RING_TOL * l_p.abs()).all()
     assert ((m - m_p).abs() <= RING_TOL * (1 + m_p.abs())).all()
+
+
+@pytest.mark.parametrize("D", [8, 16, 32, 64])
+@pytest.mark.parametrize("order", [(0,), (0, 3, 2, 1)], ids=["1block", "4blocks"])
+def test_ring_block_tensor_core_route_matches_plain(cuda, D, order):
+    """bf16 takes the tensor-core route: S = 4000, so blocks of 1000 keys end in a partial tile
+    of 64 and the 4000 query rows in a partial block of 128; row 0 has no real key and row 1's
+    first block of four is fully masked."""
+    q, k, v, mask = _ring_inputs(2, 3, 4000, D, torch.bfloat16, cuda, seed=D + 40)
+    before = ring_block_attention.launches
+    got, (o, m, l) = _fold(ring_block_attention, q, k, v, mask, order)
+    assert ring_block_attention.launches == before + len(order)
+    want, (o_p, m_p, l_p) = _fold(ring_block_attention_plain, q, k, v, mask, order)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert ((got - want).abs() <= RING_TOL + RING_TOL * want.abs()).all(), (
+        (got - want).abs().max().item())
+    assert ((l - l_p).abs() <= RING_TOL * l_p.abs()).all()
+    assert ((m - m_p).abs() <= RING_TOL * (1 + m_p.abs())).all()
+
+
+@pytest.mark.parametrize("dtype,kernel", [(torch.bfloat16, "ring_block_tc_kernel"),
+                                          (torch.float32, "ring_block_kernel")],
+                         ids=["bf16", "f32"])
+def test_ring_block_route_by_dtype(cuda, dtype, kernel):
+    """bf16 inputs launch the tensor-core kernel, f32 inputs the CUDA-core one: the profiler's
+    kernel names, and the output as the plain version's."""
+    q, k, v, mask = _ring_inputs(2, 2, 300, 32, dtype, cuda, seed=7)
+    names, (got, _) = _kernel_names(lambda: _fold(ring_block_attention, q, k, v, mask, (0,)),
+                                    "ring_block")
+    assert len(names) == 1 and f"{kernel}<" in names[0], names
+    want, _ = _fold(ring_block_attention_plain, q, k, v, mask, (0,))
+    assert ((got - want).abs() <= RING_TOL + RING_TOL * want.abs()).all()
+
+
+def test_ring_block_tensor_core_route_copies_unaligned_rows(cuda):
+    """bf16 rows that do not start 16 bytes apart (a row stride of 33 values) are copied before
+    the launch: the output as the plain version's."""
+    B, H, S, D = 2, 3, 200, 32
+    wide = [torch.randn((B, H, S, D + 1), device=cuda).to(torch.bfloat16) for _ in range(3)]
+    q, k, v = (t[..., :D] for t in wide)
+    mask = torch.ones((B, S), dtype=torch.bool, device=cuda)
+    mask[1, 150:] = False
+    got, _ = _fold(ring_block_attention, q, k, v, mask, (0, 1))
+    want, _ = _fold(ring_block_attention_plain, q, k, v, mask, (0, 1))
+    assert ((got - want).abs() <= RING_TOL + RING_TOL * want.abs()).all()
 
 
 def test_ring_block_kernel_takes_strided_heads(cuda):
