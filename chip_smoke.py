@@ -63,20 +63,25 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    wordcount (500,000 rows, 997 words, commits of 10,000) at 1, 2 and 8 workers; a dense
    groupby-and-join (4,194,304 rows over 65,536 groups in commits of 65,536, joined to a
    65,536-row dimension table) at 1 worker and at 8 with each comm; every multi-worker table equal
-   to the 1-worker table exactly. The kernel against its plain version bitwise (n = 2, 4, 8,
-   cap_in 8 to 65,536, w 4 to 16, rows without a destination, overflowing buckets, words with the
-   high bit set, and the dense path's largest launch), timed there; the driver's exchange ticks
-   under the profiler. Then RAG through the engine: 16,384 corpus chunks in commits of 1024
-   embedded by a ``Rowwise`` into ``ExternalIndexNode`` over a 1,048,576-row
+   to the 1-worker table exactly. The kernel (buckets, validity and per-bucket counts) against
+   its plain version bitwise (n = 2, 4, 8, cap_in 8 to 65,536, w 4 to 16, rows without a
+   destination, overflowing buckets, words with the high bit set, and the dense path's largest
+   launch), timed there by CUDA events and the profiler; the driver's exchange ticks under the
+   profiler, with each worker's readback of the rows that arrived and the device-to-host copies by
+   destination (pageable or pinned). Then RAG through the engine: 16,384 corpus chunks in commits
+   of 1024 embedded by a ``Rowwise`` into ``ExternalIndexNode`` over a 1,048,576-row
    ``BruteForceKnnEngine``, 64 text queries at k=10, 2 workers with mesh exchange, the replies
-   against a direct search. Each path zeroes the launch counts just before and reads them after.
+   against a direct search. Each path zeroes the launch counts just before and reads them after,
+   and runs under the profiler, which sums the kernel's device time over the path.
 10. The Table API down to ``pw.run()`` (``import pathway_tpu_torch as pw``): first the expression
    machine's kernel (``csrc/expression_vm.cu``) against its plain version on the card, bitwise
    (float ``**`` within 2 ulp), over 138 programs at 65,536 rows (every opcode at every operand
    type it takes, INT64_MIN/MAX with overflow, NaN, +-inf, -0.0, 1e300, a subnormal, shift
    counts from -3 to 70, negative exponents, casts) and a 3-member chain with two filters; then
-   the phase's fused chain as one program at one commit's shape, timed beside its bound, its
-   plain version, the upload and readback of its bytes and the numpy tier's host time. Then a
+   the phase's fused chain as one program at one commit's shape, timed (CUDA events, and the
+   profiler for the kernel alone) beside its bound, an empty kernel on the same grid (the
+   launch's own cost), its plain version, the upload and readback of its bytes and the numpy
+   tier's host time. Then a
    streaming pipeline through ``pw.run(device="cuda")``: ``pw.io.python.read`` of a
    ``ConnectorSubject`` that ``next_batch``es 4,194,304 seeded rows in 64 commits of 65,536
    (``a`` int64, ``g`` int64 over 65,536 groups, ``x`` float64 multiples of 1/16 in [-64, 64)),
@@ -85,9 +90,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    ``pw.io.subscribe(on_batch=...)``; at 1 worker and at 2 with ``PATHWAY_MESH_EXCHANGE=1``,
    and again with the lambda written out, which makes the chain one program. Every final table
    equals a plain numpy computation exactly, and every launch count equals what the reference's
-   gates give for the graph (``gated_launches``); the 1-worker run is profiled for its idle
-   share.
-11. One JSON line with each kernel's numbers, then the closing JSON line.
+   gates give for the graph (``gated_launches``); every run is profiled for the kernel's summed
+   device time, the 1-worker run also for its idle share.
+11. Each engine-path kernel's launches and summed device time per path, one JSON line with each
+   kernel's numbers, then the closing JSON line.
 
 It needs one CUDA card and exits non-zero, printing no result, without one. It imports nothing
 of JAX and nothing of the ``pathway_tpu`` package.
@@ -1115,11 +1121,13 @@ def profile_step(fn):
     return prof
 
 
-def device_ms(fn, name: str, iters: int = 50, sessions: int = 3) -> float | None:
-    """The device time of one launch of the kernel whose name holds ``name``, from the profiler
-    over ``iters`` calls: the kernel alone, without the host's wrapper and launch. The tracer
-    sometimes records nothing of a session; after ``sessions`` such sessions the time is not
-    measured (None). It is a measurement, not a check: the run goes on."""
+def device_ms(fn, name: str, iters: int = 50, sessions: int = 3,
+              per_call: int = 1) -> float | None:
+    """The device time of one call of ``fn`` in the kernels whose names hold ``name`` (``per_call``
+    of them a call), from the profiler over ``iters`` calls: the kernels alone, without the host's
+    wrapper and launch. The tracer sometimes records nothing of a session; after ``sessions`` such
+    sessions the time is not measured (None). It is a measurement, not a check: the run goes
+    on."""
     def calls():
         for _ in range(iters):
             fn()
@@ -1129,10 +1137,10 @@ def device_ms(fn, name: str, iters: int = 50, sessions: int = 3) -> float | None
                   if e.device_type == torch.autograd.DeviceType.CUDA and name in e.key]
         count = sum(e.count for e in events)
         if count:
-            if count != iters:
-                log(f"  (the profiler recorded {count} of {iters} launches of {name}; the mean "
-                    f"is theirs)")
-            return sum(e.self_device_time_total for e in events) / count / 1e3
+            if count != iters * per_call:
+                log(f"  (the profiler recorded {count} of {iters * per_call} launches of {name}; "
+                    f"the mean is theirs)")
+            return sum(e.self_device_time_total for e in events) / (count / per_call) / 1e3
     log(f"  (the profiler recorded no launch of {name} in {sessions} sessions: not measured)")
     return None
 
@@ -1494,8 +1502,9 @@ EXCHANGE_CASES = (  # (n, cap_in, w, cap_bucket): buckets that hold every row, a
 
 
 def check_bucket_exchange(device, recorded) -> int:
-    """The kernel against its plain version on the card, bitwise, on ``EXCHANGE_CASES`` and on
-    the inputs the dense path gave it. Returns the largest word difference seen (0)."""
+    """The kernel (buckets, validity and counts) against its plain version on the card, bitwise,
+    on ``EXCHANGE_CASES`` and on the inputs the dense path gave it. Returns the largest word
+    difference seen (0)."""
     from pathway_tpu_torch.parallel.exchange import bucket_exchange, bucket_exchange_plain
 
     cases = [(f"n={n} cap_in={c} w={w} cap_bucket={b}", *exchange_case(n, c, w, n * c + w, device),
@@ -1504,11 +1513,13 @@ def check_bucket_exchange(device, recorded) -> int:
                   f"{recorded[3]}", *recorded))
     worst = 0
     for label, words, dest, n, cap_bucket in cases:
-        out, valid = bucket_exchange(words, dest, n, cap_bucket)
-        want, want_valid = bucket_exchange_plain(words, dest, n, cap_bucket)
+        out, valid, counts = bucket_exchange(words, dest, n, cap_bucket, return_counts=True)
+        want, want_valid, want_counts = bucket_exchange_plain(words, dest, n, cap_bucket,
+                                                              return_counts=True)
         torch.cuda.synchronize()
         kept, rows = int(want_valid.sum()), int((dest >= 0).sum())
-        if not (torch.equal(out, want) and torch.equal(valid, want_valid)):
+        if not (torch.equal(out, want) and torch.equal(valid, want_valid)
+                and torch.equal(counts, want_counts)):
             raise AssertionError(f"bucket_exchange at {label}: differs from its plain version")
         worst = max(worst, int((out.long() - want.long()).abs().max()))
         log(f"bucket_exchange at {label}: equal to its plain version bitwise ({kept} of {rows} "
@@ -1526,40 +1537,61 @@ def time_bucket_exchange(recorded) -> dict:
     t = {
         "shape": f"n_src={n_src} cap_in={cap_in} w={w} n_dst={n_dst} cap_bucket={cap_bucket}",
         "ms": cuda_ms(lambda: bucket_exchange(words, dest, n_dst, cap_bucket), 50),
+        # the count pass and the scatter, on the device alone
+        "device_ms": device_ms(lambda: bucket_exchange(words, dest, n_dst, cap_bucket),
+                               "bucket_", per_call=2),
         "plain_ms": cuda_ms(lambda: bucket_exchange_plain(words, dest, n_dst, cap_bucket), 10),
         "library_ms": None,  # no PyTorch call buckets rows in source order
     }
-    # each input word read once, each output word and validity byte written once
+    # each input word read once, each output word, validity byte and count written once
     t["bound_ms"], t["bound_by"] = bound(words.numel() * 4 + dest.numel() * 4
-                                         + out_rows * w * 4 + out_rows, 0)
+                                         + out_rows * w * 4 + out_rows + n_dst * n_src * 4, 0)
     return t
 
 
 @contextlib.contextmanager
 def record_largest_exchange(into: list):
     """Keep a copy of the bucketing inputs of the exchange made in the block that moves the most
-    words (read plus written). The engine's runner reaches ``bucketed_all_to_all`` through
-    ``parallel.exchange``'s module attribute, which the block wraps."""
+    words (read plus written). The engine's runner reaches ``bucket_exchange`` through
+    ``parallel.exchange``'s module attribute, which the block wraps; the wrapper counts its
+    launches on that attribute, so the recording function carries the count and hands it back."""
     from pathway_tpu_torch.parallel import exchange
 
-    original = exchange.bucketed_all_to_all
+    original = exchange.bucket_exchange
     most = [0]
 
-    def recording(values, dest, n_shards, cap_out, **kw):
-        rows, w = values.shape
-        words = values.numel() + n_shards * cap_out * w
+    def recording(values, dest, n_dst, cap_bucket, **kw):
+        n_src, _, w = values.shape
+        words = values.numel() + n_dst * n_src * cap_bucket * w
         if words > most[0]:
             most[0] = words
-            into[:] = [values.reshape(n_shards, rows // n_shards, w).clone(),
-                       dest.reshape(n_shards, rows // n_shards).clone(), n_shards,
-                       cap_out // n_shards]
-        return original(values, dest, n_shards, cap_out, **kw)
+            into[:] = [values.clone(), dest.clone(), n_dst, cap_bucket]
+        return original(values, dest, n_dst, cap_bucket, **kw)
 
-    exchange.bucketed_all_to_all = recording
+    recording.launches = original.launches
+    exchange.bucket_exchange = recording
     try:
         yield
     finally:
-        exchange.bucketed_all_to_all = original
+        exchange.bucket_exchange = original
+        original.launches = recording.launches
+
+
+#: the profiler's names of the kernels that each engine-path wrapper launches
+PATH_KERNELS = {"bucket_exchange": ("bucket_count_kernel", "bucket_scatter_kernel"),
+                "expression_vm": ("expression_vm_kernel",)}
+
+
+def kernel_sums(prof) -> dict:
+    """Each engine-path wrapper's device time summed over one profiled run (ms), beside the
+    kernels the profiler recorded (two a ``bucket_exchange`` launch, one an ``expression_vm``)."""
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    out = {}
+    for name, parts in PATH_KERNELS.items():
+        mine = [e for e in events if any(part in e.key for part in parts)]
+        out[name] = {"device_ms": sum(e.self_device_time_total for e in mine) / 1e3,
+                     "kernels_recorded": sum(e.count for e in mine)}
+    return out
 
 
 @contextlib.contextmanager
@@ -1577,8 +1609,9 @@ def device_profile(on: bool):
 def exchange_split(prof, stats: dict, seconds: float, label: str) -> None:
     """The driver's exchange ticks of one engine run: the host time of its steps (the runner's
     counters: pack, the upload's enqueue, the kernel's enqueue with the wait for it, and the
-    workers' readbacks), the device time by kernel and copy (the profiler, which records the
-    card's work of every thread), and the idle share of the run."""
+    readback of the rows that arrived with its wait), the device time by kernel and copy (the
+    profiler, which records the card's work of every thread), the device-to-host copies by
+    destination (pageable or pinned memory), and the idle share of the run."""
     device_ev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in device_ev) / 1e3
     wall_ms = seconds * 1e3
@@ -1590,6 +1623,11 @@ def exchange_split(prof, stats: dict, seconds: float, label: str) -> None:
         f"{int(stats['mesh_rows_moved'])} rows [{card}]")
     log("  host, summed over the run: " + ", ".join(
         f"{k} {v:.3f} ms ({v / n:.4f} a collective)" for k, v in split.items()) + f" [{card}]")
+    log(f"  mesh_readback_ms {stats['mesh_readback_ms']:.3f} (host, the driver's readback of the "
+        f"rows that arrived, with its wait); device-to-host copies on the device: " + ", ".join(
+            f"{kind} {sum(e.self_device_time_total for e in device_ev if kind in e.key) / 1e3:.3f}"
+            f" ms x{sum(e.count for e in device_ev if kind in e.key)}"
+            for kind in ("Device -> Pageable", "Device -> Pinned")) + f" [{card}]")
     for e in sorted(device_ev, key=lambda e: -e.self_device_time_total)[:6]:
         log(f"  device {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:80]} "
             f"[{card}]")
@@ -1618,9 +1656,12 @@ def run_engine(device, *, wc_rows: int = 500_000, wc_commit: int = 10_000,
     want = table(base)
     if sum(r[1] for _, r in want) != wc_rows or len(want) != min(997, wc_rows):
         raise AssertionError("wordcount: the counts do not add up to the rows")
+    sums: dict = {}
     for n in (2, workers):
-        with counted(f"engine_wordcount_{n}", launches):
+        with counted(f"engine_wordcount_{n}", launches), device_profile(cuda) as prof:
             cap, sec, stats = run_workers(build, n, True, device)
+        if cuda:
+            sums[f"engine_wordcount_{n}"] = kernel_sums(prof)
         if table(cap) != want:
             raise AssertionError(f"wordcount at {n} workers with mesh exchange differs from 1")
         rates[f"wordcount {n} workers, mesh exchange"] = wc_rows / sec
@@ -1640,6 +1681,7 @@ def run_engine(device, *, wc_rows: int = 500_000, wc_commit: int = 10_000,
         cap, sec, stats = run_workers(build, workers, True, device)
     if cuda:
         exchange_split(prof, stats, sec, f"dense groupby-join at {workers} workers, mesh exchange,")
+        sums["engine_dense"] = kernel_sums(prof)
     if table(cap) != want:
         raise AssertionError(f"dense groupby-join at {workers} workers with mesh exchange "
                              f"differs from 1 worker")
@@ -1653,7 +1695,7 @@ def run_engine(device, *, wc_rows: int = 500_000, wc_commit: int = 10_000,
     rates[f"dense {workers} workers, LocalComm"] = dense_rows / sec
     del base, cap, want
 
-    result = {"rates": rates, "launches": launches}
+    result = {"rates": rates, "launches": launches, "device_ms_by_path": sums}
     if cuda:
         result["exchange_err"] = check_bucket_exchange(device, recorded)
         result["exchange"] = time_bucket_exchange(recorded)
@@ -1693,8 +1735,10 @@ def run_engine(device, *, wc_rows: int = 500_000, wc_commit: int = 10_000,
         return [docs, embedded, qs, node, cap], cap
 
     emb.embed_texts(list(texts[:8]))  # first use: kernel libraries load, cuBLAS warms up
-    with counted("engine_rag", launches):
+    with counted("engine_rag", launches), device_profile(cuda) as prof:
         cap, sec, stats = run_workers(build_rag, 2, True, device)
+    if cuda:
+        sums["engine_rag"] = kernel_sums(prof)
     rates["rag 2 workers, mesh exchange (chunks/s)"] = rag_chunks / sec
     replies = {int(k_): row[0] for k_, row in cap.state.iter_items()}
     q_keys = row_keys(rag_queries, 5)
@@ -1923,13 +1967,14 @@ def pipeline_reference(cols: dict) -> dict:
 
 def time_expression_vm(device, cols: dict, commit: int) -> dict:
     """The phase's chain as one program at its launch shape (one commit), timed with CUDA events
-    beside its bound and its plain version; the upload and readback of the same bytes through
-    pinned buffers; and the numpy tier's host time on the same batch."""
+    (a call) and the profiler (the kernel alone) beside its bound, its plain version and an empty
+    kernel on the same grid (the launch's own cost); the upload and readback of the same bytes
+    through pinned buffers; and the numpy tier's host time on the same batch."""
     import pathway_tpu_torch as pw
     from pathway_tpu_torch.engine.delta import Delta
     from pathway_tpu_torch.internals import expression_compiler as ec
     from pathway_tpu_torch.ops.expression_kernel import (
-        expression_vm, expression_vm_plain, layout,
+        expression_vm, expression_vm_empty, expression_vm_plain, layout,
     )
 
     pw.G.clear()
@@ -1958,6 +2003,12 @@ def time_expression_vm(device, cols: dict, commit: int) -> dict:
         "shape": f"{commit} rows, {len(prog.inputs)} columns in, {len(prog.outputs) - 1} columns "
                  f"and a mask out, {prog.code.shape[0]} instructions, {prog.n_regs} registers",
         "ms": cuda_ms(lambda: expression_vm(prog, dev_in, dev_out, commit), 100),
+        "device_ms": device_ms(lambda: expression_vm(prog, dev_in, dev_out, commit),
+                               "expression_vm_kernel"),
+        # the floor: an empty kernel on the same grid, timed the same two ways
+        "empty_ms": cuda_ms(lambda: expression_vm_empty(prog, device, commit), 100),
+        "empty_device_ms": device_ms(lambda: expression_vm_empty(prog, device, commit),
+                                     "expression_vm_empty_kernel"),
         "plain_ms": cuda_ms(lambda: expression_vm_plain(prog, dev_in, plain_out, commit), 20),
         "upload_ms": cuda_ms(lambda: dev_in.copy_(host_in, non_blocking=True), 50),
         "readback_ms": cuda_ms(lambda: host_out.copy_(dev_out, non_blocking=True), 50),
@@ -2063,7 +2114,7 @@ def run_table_api(device, *, rows: int = 1 << 22, commit: int = 1 << 16, groups:
     from pathway_tpu_torch.ops.expression_kernel import HostLauncher, expression_vm
 
     cuda = device.type == "cuda"
-    result: dict = {"launches": {}, "rates": {}}
+    result: dict = {"launches": {}, "rates": {}, "device_ms_by_path": {}}
     if cuda:
         result["max_abs_err"], result["programs"] = check_expression_vm(device)
     saved_threshold = ec.JIT_THRESHOLD
@@ -2077,9 +2128,10 @@ def run_table_api(device, *, rows: int = 1 << 22, commit: int = 1 << 16, groups:
                                   ("table_api_chain_1", 1, False),
                                   ("table_api_chain_2", 2, False)):
         HostLauncher.runs = 0
-        with counted(path, result["launches"]), \
-                device_profile(cuda and path == "table_api_1") as prof:
+        with counted(path, result["launches"]), device_profile(cuda) as prof:
             got, sec = run_pipeline(device, cols, commit, groups, workers, lifted)
+        if prof is not None:
+            result["device_ms_by_path"][path] = kernel_sums(prof)
         if got != want:
             raise AssertionError(f"{path}: the table differs from the numpy computation")
         expected = gated_launches(n_commits, workers, lifted)
@@ -2095,7 +2147,7 @@ def run_table_api(device, *, rows: int = 1 << 22, commit: int = 1 << 16, groups:
             f"{'lifted lambda' if lifted else 'one program for the chain'}: {len(got)} groups "
             f"equal to numpy; {ran} programs run, {launched} launches (gates: {expected}); "
             f"{rate:.1f} rows/s")
-        if prof is not None:
+        if prof is not None and path == "table_api_1":
             device_ev = [e for e in prof.key_averages()
                          if e.device_type == torch.autograd.DeviceType.CUDA]
             busy_ms = sum(e.self_device_time_total for e in device_ev) / 1e3
@@ -2220,21 +2272,36 @@ def main() -> int:
         log(f"engine {name}: {rate:.1f} rows/s [{card}]")
     t = engine["exchange"]
     times["bucket_exchange"] = {**t, "err": engine["exchange_err"]}
-    log(f"bucket_exchange at {t['shape']}: {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
-        f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}) [{card}]")
+    log(f"bucket_exchange at {t['shape']}: {t['ms']:.4f} ms ({fmt_ms(t['device_ms'])} on the "
+        f"device), plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}) "
+        f"[{card}]")
 
     phase("the Table API")
     torch.cuda.empty_cache()
     api = run_table_api(device)
     t = api["time"]
     times["expression_vm"] = {**t, "err": api["max_abs_err"]}
-    log(f"expression_vm at {t['shape']}: {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+    log(f"expression_vm at {t['shape']}: {t['ms']:.4f} ms ({fmt_ms(t['device_ms'])} on the "
+        f"device), an empty kernel on its grid {t['empty_ms']:.4f} ms "
+        f"({fmt_ms(t['empty_device_ms'])} on the device), plain {t['plain_ms']:.4f} ms, "
         f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}); upload {t['upload_ms']:.4f} ms, "
         f"readback {t['readback_ms']:.4f} ms; numpy tier {t['numpy_tier_ms']:.4f} ms (host "
         f"clock) [{card}]")
     for name, rate in api["rates"].items():
         log(f"{name}: {rate:.1f} rows/s [{card}]")
     log(f"Table API idle share (1 worker, under the profiler): {api['idle_share']:.4f} [{card}]")
+
+    by_path = {**engine["device_ms_by_path"], **api["device_ms_by_path"]}
+    all_launches = {**engine["launches"], **api["launches"]}
+    for name in PATH_KERNELS:
+        for p_, sums in by_path.items():
+            if all_launches[p_][name]:
+                log(f"{name} on the {p_} path: {all_launches[p_][name]} launches, "
+                    f"{sums[name]['device_ms']:.3f} ms on the device summed (profiler, "
+                    f"{sums[name]['kernels_recorded']} kernels recorded) [{card}]")
+        times[name]["device_ms_by_path"] = {p_: sums[name]["device_ms"]
+                                            for p_, sums in by_path.items()
+                                            if all_launches[p_][name]}
 
     phase("done")
     sources = {
@@ -2271,6 +2338,7 @@ def main() -> int:
             "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             **{k: t[k] for k in ("upload_ms", "readback_ms", "numpy_tier_ms", "device_ms", "cases",
+                                 "empty_ms", "empty_device_ms", "device_ms_by_path",
                                  "ms_contiguous", "library_ms_contiguous", "ms_full_mask",
                                  "library_ms_full_mask", "ctas_per_sm", "grid",
                                  "bound_ms_exponentials", "bound_ms_f32_cores") if k in t},

@@ -10,11 +10,9 @@
 // nothing is cached per expression on disk.
 //
 // A program is rows of five int32 (op, dst, a, b, c) over 64-bit registers, with 64-bit
-// constants. Each thread walks rows in a grid-stride loop and runs the whole program for its
-// row: loads read the packed input columns (8-byte values, or bool bytes), stores write the
-// output columns in their dtypes and the chain's mask as bytes. Every thread of a warp runs the
-// same instruction at once, so the switch over opcodes does not diverge.
-//
+// constants: loads read the packed input columns (8-byte values, or bool bytes), stores write the
+// output columns in their dtypes and the chain's mask as bytes.
+
 // Semantics follow XLA with x64 where C++ leaves them open: integer arithmetic wraps (computed
 // unsigned); a shift by a count outside [0, 64) gives 0 for << and the sign for >>; float to
 // int64 truncates, saturates, and maps NaN to 0; float + - * / are the _rn intrinsics, so no
@@ -23,17 +21,43 @@
 // JAX package pins its expression kernels there); pow is the CUDA math library's.
 //
 // Bound on the H100: bytes. Each input value is read once and each output written once, and a
-// program does a few dozen register operations per row at most. On the engine's path the columns
-// come from the host, so the upload and readback around the launch take longer than the kernel.
+// program does a few dozen register operations per row at most. At the engine's batch sizes the
+// bytes take under a microsecond, so what is left is the launch's own cost (time an empty kernel
+// on the same grid: `expression_vm_empty`) and the interpretation. An interpreter's time is the
+// length of one warp's chain of dispatched instructions, whatever the rows: every warp walks the
+// whole program, the warps run side by side, and one step (operand loads, the dispatch's
+// branches, the operation, the store) costs some 350-450 cycles of latency that more warps do not
+// shorten (scripts/torch_engine_kernels_pair.py's chains of 8 and 16 dependent adds, on an NVIDIA
+// H100 80GB HBM3 at 700 W). So the design cuts the steps and the branches of each step. On the engine's path the columns come from the
+// host, so the upload and readback around the launch take longer than the kernel.
 //
-// Design: the program and its constants are copied into shared memory by each block; the
-// register file is a per-thread array of MAX_REGS (local memory, cached in L1). A first, simple
-// kernel: a program of k instructions costs k dispatches per row.
+// Design:
+// - The launch form (launch_form, on the host): every CONST, LD8 and LDB is folded into the
+//   operands that read its register, so the kernel dispatches only the instructions that compute
+//   or store (the Table API chain's program: 14 of its 24).
+// - The program, its constants and the column offsets travel in the launch's parameters, each
+//   instruction packed in 8 bytes (3,128 bytes in all): every thread reads the same instruction
+//   from the constant bank, the next one while this one runs, and nothing copies the program
+//   into the block first.
+// - Shared memory holds the register file, laid out [register][row of the block] and sized to the
+//   program's own register count (Program.n_regs), then the input columns at the block's rows,
+//   staged at the start with up to 8 columns' loads in flight (a program's loads would wait for
+//   one at a time), and the constants. So an operand is one shared-memory load from an address
+//   chosen by a uniform select, with no branch, and nothing is in local memory.
+// - Each thread evaluates kRows = 2 rows for every instruction it decodes, blockDim.x apart, so a
+//   warp's loads and stores of a column are consecutive values. One or four rows a thread were
+//   slower on that card (four rows: one warp per scheduler, and a longer step). The long
+//   operations (pow, the integer powers) take the rows one after the other, so their code is
+//   emitted once.
+// - A block takes 128 threads while the register file and columns fit in 96 KB (n_regs + n_in
+//   <= 48) and 64 threads up to MAX_REGS + MAX_COLS, so every program the lowering accepts runs
+//   on the one route.
 
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -41,7 +65,10 @@ constexpr int MAX_INSNS = 256;
 constexpr int MAX_REGS = 64;
 constexpr int MAX_CONSTS = 64;
 constexpr int MAX_COLS = 32;
-constexpr int kThreads = 256;
+constexpr int kRows = 2;                 // rows a thread evaluates per decoded instruction
+constexpr int kMaxThreads = 128;         // threads a block, fewer for large register files
+constexpr int kRegBytes = 96 * 1024;     // the register file's budget of shared memory a block
+constexpr int kStaged = 8;               // input columns loaded at once
 
 // in the order of OPS in ops/expression_kernel.py
 enum Op {
@@ -59,10 +86,59 @@ enum Op {
   I2F, F2I, I2B, F2B, B2F,
 };
 
-struct Offsets {
-  long long in[MAX_COLS];
-  long long out[MAX_COLS];
+// One launch's program in its launch form (below), constants and column offsets, passed by value
+// among the kernel's parameters (3,128 bytes). An instruction is packed in two words: op | d << 8
+// (d of a store is unused), and a | b << 10 | c << 20, each operand in 10 bits (-1 as 1023).
+struct Launch {
+  int2 code[MAX_INSNS + 1];  // one more, zero: the fetch of the next instruction
+  long long consts[MAX_CONSTS];
+  long long in[MAX_COLS];           // byte offset of each input column inside `in`
+  long long out[MAX_COLS];          // byte offset of each output column inside `out`
+  unsigned char in_size[MAX_COLS];  // bytes a row of each input column: 8, 1 for bools, 0 unread
+  int n_insns, n_in, n_regs, n_consts;
 };
+
+// Which register operands an instruction reads: a for the stores and every operation, b for the
+// binary operations (not the integer powers, whose b is a constant's index), c for SEL.
+__host__ __device__ __forceinline__ bool reads_a(int op) { return op >= ST8; }
+__host__ __device__ __forceinline__ bool reads_b(int op) {
+  return op >= ADD_I && (op < IPOW_I || (op > IPOW_F && op < NEG_I) || op == SEL);
+}
+
+// Operands of the launch form: r < n_regs + n_in a row of the register file (the program's
+// registers, then its input columns at the block's rows), r >= kConstOperand a constant.
+constexpr int kConstOperand = MAX_REGS + MAX_COLS;
+
+// The launch form: each CONST, LD8 and LDB is folded into the operands that read its register
+// until the register is written again (the operand then names the constant, or the input
+// column's row of the register file: the same bits the register would hold), and dropped, so
+// the kernel dispatches only the instructions that compute or store. Also notes each input
+// column's row size, for the staging. Returns the instructions kept, or -1 for an opcode the
+// machine does not have or a load or constant out of range.
+int launch_form(const int* code, int n_insns, int n_regs, Launch* p) {
+  int holds[MAX_REGS];  // the operand a register stands for, or -1
+  for (int r = 0; r < MAX_REGS; ++r) holds[r] = -1;
+  int m = 0;
+  for (int i = 0; i < n_insns; ++i) {
+    const int* ins = code + i * 5;
+    int op = ins[0], d = ins[1], a = ins[2], b = ins[3], c = ins[4];
+    if (op < LD8 || op > B2F) return -1;
+    if (op == CONST || op == LD8 || op == LDB) {
+      if (d < 0 || d >= n_regs || a < 0 || a >= (op == CONST ? MAX_CONSTS : MAX_COLS)) return -1;
+      if (op != CONST) p->in_size[a] = op == LD8 ? 8 : 1;
+      holds[d] = op == CONST ? kConstOperand + a : n_regs + a;
+      continue;
+    }
+    auto fold = [&](int r) { return r >= 0 && r < MAX_REGS && holds[r] >= 0 ? holds[r] : r; };
+    if (reads_a(op)) a = fold(a);
+    if (reads_b(op)) b = fold(b);
+    if (op == SEL) c = fold(c);
+    if (op != ST8 && op != STB && d >= 0 && d < MAX_REGS) holds[d] = -1;
+    p->code[m++] = make_int2(op | (d & 0xff) << 8, (a & 0x3ff) | (b & 0x3ff) << 10 |
+                                                       (c & 0x3ff) << 20);
+  }
+  return m;
+}
 
 // XLA's CPU backend runs with FTZ and DAZ: a subnormal operand of float arithmetic or of a
 // comparison reads as a zero of its sign, and a subnormal result is written as one. Moves,
@@ -135,111 +211,228 @@ __device__ __forceinline__ double ipow_float(double x, long long e) {
   return recip ? as_f(as_i(__ddiv_rn(1.0, acc))) : acc;
 }
 
-__global__ void __launch_bounds__(kThreads)
-expression_vm_kernel(const int* __restrict__ code, int n_insns,
-                     const long long* __restrict__ consts, int n_consts,
-                     const uint8_t* __restrict__ in, uint8_t* __restrict__ out, Offsets off,
-                     long long n) {
-  __shared__ int prog[MAX_INSNS * 5];
-  __shared__ long long cst[MAX_CONSTS];
-  for (int i = threadIdx.x; i < n_insns * 5; i += blockDim.x) prog[i] = code[i];
-  for (int i = threadIdx.x; i < n_consts; i += blockDim.x) cst[i] = consts[i];
-  __syncthreads();
+// v[k] = EXPR for each of the thread's rows (EXPR reads x[k], y[k])
+#define EACH(EXPR)                                  \
+  _Pragma("unroll") for (int k = 0; k < kRows; ++k) \
+    v[k] = (EXPR);                                  \
+  break
 
-  long long r[MAX_REGS];
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long row = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; row < n;
-       row += stride) {
-    for (int pc = 0; pc < n_insns; ++pc) {
-      const int* ins = prog + pc * 5;
-      const int op = ins[0], d = ins[1], a = ins[2], b = ins[3], c = ins[4];
-      // operands are read before the destination is written: a register may be both
-      const long long x = (op == LD8 || op == LDB || op == CONST) ? 0 : r[a];
-      const bool binary = !(op == LD8 || op == LDB || op == CONST || op == ST8 || op == STB ||
-                            op == IPOW_I || op == IPOW_F || op >= NEG_I) || op == SEL;
-      const long long y = binary ? r[b] : 0;
-      long long v = 0;
-      switch (op) {
-        case LD8: v = reinterpret_cast<const long long*>(in + off.in[a])[row]; break;
-        case LDB: v = in[off.in[a] + row] != 0; break;
-        case CONST: v = cst[a]; break;
-        case ST8: reinterpret_cast<long long*>(out + off.out[b])[row] = x; continue;
-        case STB: out[off.out[b] + row] = x != 0; continue;
-        case ADD_I: v = static_cast<long long>(static_cast<unsigned long long>(x) +
-                                               static_cast<unsigned long long>(y)); break;
-        case SUB_I: v = static_cast<long long>(static_cast<unsigned long long>(x) -
-                                               static_cast<unsigned long long>(y)); break;
-        case MUL_I: v = static_cast<long long>(wmul(x, y)); break;
-        case ADD_F: v = as_i(__dadd_rn(as_f(x), as_f(y))); break;
-        case SUB_F: v = as_i(__dsub_rn(as_f(x), as_f(y))); break;
-        case MUL_F: v = as_i(__dmul_rn(as_f(x), as_f(y))); break;
-        case DIV_F: v = as_i(__ddiv_rn(as_f(x), as_f(y))); break;
-        case POW_I: v = pow_int(x, y); break;
-        case POW_F: v = as_i(pow(as_f(x), as_f(y))); break;
-        case IPOW_I: v = ipow_int(x, cst[b]); break;
-        case IPOW_F: v = as_i(ipow_float(as_f(x), cst[b])); break;
-        case EQ_I: v = x == y; break;
-        case NE_I: v = x != y; break;
-        case LT_I: v = x < y; break;
-        case LE_I: v = x <= y; break;
-        case EQ_F: v = as_f(x) == as_f(y); break;
-        case NE_F: v = as_f(x) != as_f(y); break;
-        case LT_F: v = as_f(x) < as_f(y); break;
-        case LE_F: v = as_f(x) <= as_f(y); break;
-        case LT_U: v = static_cast<unsigned long long>(x) < static_cast<unsigned long long>(y);
-          break;
-        case LE_U: v = static_cast<unsigned long long>(x) <= static_cast<unsigned long long>(y);
-          break;
-        case AND: v = x & y; break;
-        case OR: v = x | y; break;
-        case XOR: v = x ^ y; break;
-        case SHL: v = (y >= 0 && y < 64)
-                          ? static_cast<long long>(static_cast<unsigned long long>(x) << y)
-                          : 0;
-          break;
-        case SHR: v = (y >= 0 && y < 64) ? (x >> y) : (x < 0 ? -1 : 0); break;
-        case NEG_I: v = static_cast<long long>(0ull - static_cast<unsigned long long>(x)); break;
-        case NEG_F: v = x ^ LLONG_MIN; break;  // flip the sign bit, as negation does
-        case NOT_I: v = ~x; break;
-        case NOT_B: v = x ^ 1; break;
-        case ABS_I: v = x < 0 ? static_cast<long long>(0ull - static_cast<unsigned long long>(x))
-                              : x;
-          break;
-        case ABS_F: v = x & LLONG_MAX; break;  // clear the sign bit, as fabs does
-        case SEL: v = x != 0 ? y : r[c]; break;
-        case I2F: v = as_i(__ll2double_rn(x)); break;
-        case F2I: v = f2i(as_f(x)); break;
-        case I2B: v = x != 0; break;
-        case F2B: v = as_f(x) != 0.0; break;  // NaN != 0
-        case B2F: v = as_i(x != 0 ? 1.0 : 0.0); break;
-        default: v = 0; break;
+// The long operations (pow and the integer powers' loops) one row after the other, straight from
+// and to the register file: their code is emitted once, not kRows times, which keeps the
+// kernel's hot cases together in the instruction cache.
+#define ROLLED(EXPR)                                                     \
+  _Pragma("unroll 1") for (int k = 0; k < kRows; ++k) {                  \
+    const long long xk = OPERAND(a, k);                                  \
+    const long long yk = reads_b(op) ? OPERAND(b, k) : 0;                \
+    (void)yk; /* the integer powers take a constant */                    \
+    mine[d * rb + k * T] = (EXPR);                                       \
+  }                                                                      \
+  write = false;                                                         \
+  break
+
+__device__ __forceinline__ long long column(const uint8_t* in, long long off, int size,
+                                            long long row, bool live) {
+  if (!live) return 0;
+  return size == 8 ? reinterpret_cast<const long long*>(in + off)[row] : in[off + row] != 0;
+}
+
+__global__ void __launch_bounds__(kMaxThreads)
+expression_vm_kernel(const __grid_constant__ Launch p, const uint8_t* __restrict__ in,
+                     uint8_t* __restrict__ out, long long n) {
+  // [n_regs + n_in][blockDim.x * kRows]: the registers, then the input columns
+  extern __shared__ long long regs[];
+  __shared__ long long cst[MAX_CONSTS];
+  for (int i = threadIdx.x; i < p.n_consts; i += blockDim.x) cst[i] = p.consts[i];
+  __syncthreads();
+  const int T = blockDim.x;
+  const int rb = T * kRows;                 // rows a block takes per step
+  long long* const mine = regs + threadIdx.x;  // register q, row k: mine[q * rb + k * T]
+  long long* const cols = mine + p.n_regs * rb;  // input column i, row k: cols[i * rb + k * T]
+// operand r of row k (see launch_form): one shared-memory load from an address chosen by a
+// uniform select, a row of the register file or a constant, with no branch
+#define OPERAND(r, k)                                                 \
+  ((r) < kConstOperand ? mine + (r) * rb : cst + ((r) - kConstOperand)) \
+      [(k) * ((r) < kConstOperand ? T : 0)]
+  for (long long row0 = static_cast<long long>(blockIdx.x) * rb; row0 < n;
+       row0 += static_cast<long long>(gridDim.x) * rb) {
+    long long row[kRows];
+    bool live[kRows];
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) {
+      row[k] = row0 + k * T + threadIdx.x;
+      live[k] = row[k] < n;
+    }
+    // the input columns the program reads, at the thread's rows, into shared memory first: up to
+    // kStaged columns' loads in flight at once, where the program would wait for one at a time
+    for (int i0 = 0; i0 < p.n_in; i0 += kStaged) {
+      const int count = min(kStaged, p.n_in - i0);
+      long long staged[kStaged][kRows] = {};
+#pragma unroll
+      for (int j = 0; j < kStaged; ++j) {
+        if (j < count && p.in_size[i0 + j]) {
+#pragma unroll
+          for (int k = 0; k < kRows; ++k)
+            staged[j][k] = column(in, p.in[i0 + j], p.in_size[i0 + j], row[k], live[k]);
+        }
       }
-      r[d] = v;
+#pragma unroll
+      for (int j = 0; j < kStaged; ++j) {
+        if (j < count) {
+#pragma unroll
+          for (int k = 0; k < kRows; ++k) cols[(i0 + j) * rb + k * T] = staged[j][k];
+        }
+      }
+    }
+    // every thread reads the same instruction from the constant bank; the next one is fetched
+    // while this one runs
+    int2 ins = p.code[0];
+    for (int pc = 0; pc < p.n_insns; ++pc) {
+      const int2 next = p.code[pc + 1];
+      const int op = ins.x & 0xff, d = ins.x >> 8, a = ins.y & 0x3ff, b = (ins.y >> 10) & 0x3ff,
+                c = ins.y >> 20;
+      // operands are read before the destination is written: a register may be both
+      long long x[kRows], y[kRows], v[kRows];
+#pragma unroll
+      for (int k = 0; k < kRows; ++k) {
+        x[k] = reads_a(op) ? OPERAND(a, k) : 0;
+        y[k] = reads_b(op) ? OPERAND(b, k) : 0;
+      }
+      bool write = true;
+      switch (op) {
+        case ST8: {
+          long long* col = reinterpret_cast<long long*>(out + p.out[b]);
+#pragma unroll
+          for (int k = 0; k < kRows; ++k)
+            if (live[k]) col[row[k]] = x[k];
+          write = false;
+          break;
+        }
+        case STB: {
+          uint8_t* col = out + p.out[b];
+#pragma unroll
+          for (int k = 0; k < kRows; ++k)
+            if (live[k]) col[row[k]] = x[k] != 0;
+          write = false;
+          break;
+        }
+        case ADD_I: EACH(static_cast<long long>(static_cast<unsigned long long>(x[k]) +
+                                                static_cast<unsigned long long>(y[k])));
+        case SUB_I: EACH(static_cast<long long>(static_cast<unsigned long long>(x[k]) -
+                                                static_cast<unsigned long long>(y[k])));
+        case MUL_I: EACH(static_cast<long long>(wmul(x[k], y[k])));
+        case ADD_F: EACH(as_i(__dadd_rn(as_f(x[k]), as_f(y[k]))));
+        case SUB_F: EACH(as_i(__dsub_rn(as_f(x[k]), as_f(y[k]))));
+        case MUL_F: EACH(as_i(__dmul_rn(as_f(x[k]), as_f(y[k]))));
+        case DIV_F: EACH(as_i(__ddiv_rn(as_f(x[k]), as_f(y[k]))));
+        case POW_I: ROLLED(pow_int(xk, yk));
+        case POW_F: ROLLED(as_i(pow(as_f(xk), as_f(yk))));
+        case IPOW_I: ROLLED(ipow_int(xk, p.consts[b]));
+        case IPOW_F: ROLLED(as_i(ipow_float(as_f(xk), p.consts[b])));
+        case EQ_I: EACH(x[k] == y[k]);
+        case NE_I: EACH(x[k] != y[k]);
+        case LT_I: EACH(x[k] < y[k]);
+        case LE_I: EACH(x[k] <= y[k]);
+        case EQ_F: EACH(as_f(x[k]) == as_f(y[k]));
+        case NE_F: EACH(as_f(x[k]) != as_f(y[k]));
+        case LT_F: EACH(as_f(x[k]) < as_f(y[k]));
+        case LE_F: EACH(as_f(x[k]) <= as_f(y[k]));
+        case LT_U: EACH(static_cast<unsigned long long>(x[k]) <
+                        static_cast<unsigned long long>(y[k]));
+        case LE_U: EACH(static_cast<unsigned long long>(x[k]) <=
+                        static_cast<unsigned long long>(y[k]));
+        case AND: EACH(x[k] & y[k]);
+        case OR: EACH(x[k] | y[k]);
+        case XOR: EACH(x[k] ^ y[k]);
+        case SHL: EACH((y[k] >= 0 && y[k] < 64)
+                           ? static_cast<long long>(static_cast<unsigned long long>(x[k]) << y[k])
+                           : 0);
+        case SHR: EACH((y[k] >= 0 && y[k] < 64) ? (x[k] >> y[k]) : (x[k] < 0 ? -1 : 0));
+        case NEG_I: EACH(static_cast<long long>(0ull - static_cast<unsigned long long>(x[k])));
+        case NEG_F: EACH(x[k] ^ LLONG_MIN);  // flip the sign bit, as negation does
+        case NOT_I: EACH(~x[k]);
+        case NOT_B: EACH(x[k] ^ 1);
+        case ABS_I: EACH(x[k] < 0
+                             ? static_cast<long long>(0ull - static_cast<unsigned long long>(x[k]))
+                             : x[k]);
+        case ABS_F: EACH(x[k] & LLONG_MAX);  // clear the sign bit, as fabs does
+        case SEL: EACH(x[k] != 0 ? y[k] : OPERAND(c, k));
+        case I2F: EACH(as_i(__ll2double_rn(x[k])));
+        case F2I: EACH(f2i(as_f(x[k])));
+        case I2B: EACH(x[k] != 0);
+        case F2B: EACH(as_f(x[k]) != 0.0);  // NaN != 0
+        case B2F: EACH(as_i(x[k] != 0 ? 1.0 : 0.0));
+        default: EACH(0LL);  // launch_form refuses any other opcode
+      }
+      if (write) {
+#pragma unroll
+        for (int k = 0; k < kRows; ++k) mine[d * rb + k * T] = v[k];
+      }
+      ins = next;
     }
   }
 }
 
+#undef OPERAND
+#undef ROLLED
+#undef EACH
+
+__global__ void expression_vm_empty_kernel() {}
+
+// Threads a block for a program of `slots` = n_regs + n_in rows of shared memory: 128 while they
+// fit the budget, halved below that (64 at MAX_REGS + MAX_COLS).
+int threads_for(int slots) {
+  int threads = kMaxThreads;
+  while (threads > 32 && static_cast<long long>(slots) * threads * kRows * 8 > kRegBytes)
+    threads /= 2;
+  return threads;
+}
+
+int blocks_for(long long n, int threads) {
+  const long long rb = static_cast<long long>(threads) * kRows;
+  const long long blocks = (n + rb - 1) / rb;
+  return static_cast<int>(blocks < 132 * 16 ? blocks : 132 * 16);
+}
+
 }  // namespace
 
-// code: int32 [n_insns * 5] and consts: int64 [n_consts] on the device; in_off / out_off: host
-// arrays of the byte offset of each input and output column inside in / out. Returns a CUDA
+// code: int32 [n_insns * 5] and consts: int64 [n_consts] in host memory (copied into the
+// launch's parameters); n_regs the program's register count; in_off / out_off: host arrays of the
+// byte offset of each input and output column inside in / out (device buffers). Returns a CUDA
 // error code (0 on success); the launch is asynchronous on `stream`.
 extern "C" int expression_vm(const int* code, int n_insns, const long long* consts,
-                             int n_consts, const uint8_t* in, const long long* in_off, int n_in,
-                             uint8_t* out, const long long* out_off, int n_out, long long n,
-                             cudaStream_t stream) {
+                             int n_consts, int n_regs, const uint8_t* in, const long long* in_off,
+                             int n_in, uint8_t* out, const long long* out_off, int n_out,
+                             long long n, cudaStream_t stream) {
   if (n_insns < 0 || n_insns > MAX_INSNS || n_consts < 0 || n_consts > MAX_CONSTS ||
-      n_in < 0 || n_in > MAX_COLS || n_out < 0 || n_out > MAX_COLS)
+      n_regs < 1 || n_regs > MAX_REGS || n_in < 0 || n_in > MAX_COLS || n_out < 0 ||
+      n_out > MAX_COLS)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0 || n_insns == 0) return 0;
-  Offsets off;
-  for (int i = 0; i < MAX_COLS; ++i) {
-    off.in[i] = i < n_in ? in_off[i] : 0;
-    off.out[i] = i < n_out ? out_off[i] : 0;
-  }
-  long long blocks = (n + kThreads - 1) / kThreads;
-  if (blocks > 132 * 16) blocks = 132 * 16;
-  expression_vm_kernel<<<static_cast<int>(blocks), kThreads, 0, stream>>>(
-      code, n_insns, consts, n_consts, in, out, off, n);
+  // once per process: the register file may take more than the default 48 KB
+  static const cudaError_t opened = cudaFuncSetAttribute(
+      expression_vm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kRegBytes);
+  if (opened != cudaSuccess) return static_cast<int>(opened);
+  Launch p{};
+  p.n_insns = launch_form(code, n_insns, n_regs, &p);
+  if (p.n_insns < 0) return static_cast<int>(cudaErrorInvalidValue);
+  memcpy(p.consts, consts, sizeof(long long) * n_consts);
+  p.n_consts = n_consts;
+  memcpy(p.in, in_off, sizeof(long long) * n_in);
+  memcpy(p.out, out_off, sizeof(long long) * n_out);
+  p.n_in = n_in;
+  p.n_regs = n_regs;
+  const int threads = threads_for(n_regs + n_in);
+  const size_t smem = static_cast<size_t>(n_regs + n_in) * threads * kRows * sizeof(long long);
+  expression_vm_kernel<<<blocks_for(n, threads), threads, smem, stream>>>(p, in, out, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// An empty kernel on the grid expression_vm takes for n rows and a program of `slots` = n_regs +
+// n_in rows of shared memory: the launch's own cost, the floor of the machine's time there.
+extern "C" int expression_vm_empty(long long n, int slots, cudaStream_t stream) {
+  if (n <= 0 || slots < 1 || slots > MAX_REGS + MAX_COLS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = threads_for(slots);
+  expression_vm_empty_kernel<<<blocks_for(n, threads), threads, 0, stream>>>();
   return static_cast<int>(cudaGetLastError());
 }

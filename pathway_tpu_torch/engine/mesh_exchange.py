@@ -18,7 +18,12 @@ NaN floats come back unchanged.
 
 Protocol cost per channel and tick: ONE driver-side pack of every worker's rows into a pinned
 staging buffer (values and destinations in one allocation), ONE non-blocking upload, one launch
-of the bucketing kernel, then each worker copies back its own destination block.
+of the bucketing kernel, ONE small copy of its per-(destination, source) counts inside the
+driver's wait, then the readback of only the rows that arrived (the head of each source bucket)
+into each destination worker's pinned buffer, reused across ticks, and one more wait; nothing is
+copied for a worker with no arrivals. The driver issues the row copies while the peers wait at
+the barrier: eight threads each issuing their own would trade the interpreter's lock on every
+call.
 
 Copy of ``pathway_tpu/engine/mesh_exchange.py`` (``local_signature``, ``agree_kinds``,
 ``_pack_words`` / ``_unpack_words``, ``MeshExchangeRunner``) with the device collective on
@@ -85,7 +90,8 @@ def _pack_words(arr: np.ndarray, kind: str) -> np.ndarray:
 
 
 def _unpack_words(words: np.ndarray, kind: str) -> np.ndarray:
-    raw = np.ascontiguousarray(words).view(_CANON[kind]).reshape(-1)
+    # a copy, always: the words lie in a readback buffer that the next tick overwrites
+    raw = np.array(words, order="C").view(_CANON[kind]).reshape(-1)
     if kind == "b":
         return raw != 0
     return raw
@@ -107,27 +113,32 @@ class _Staging:
 
 
 class MeshExchangeRunner:
-    """Driver-side packing + the device collective.
+    """Driver-side packing + the device collective, and each worker's readback.
 
     One instance per MeshComm. The staging buffers are cached per
     (blocks, cap_in, width) shape class; caps are rounded to powers of two so
     streaming ticks reuse a handful of buffers and never reallocate.
     Staging rows beyond each worker's count are left as-is — their
     destination is -1 and the kernel drops them, so stale payload words can
-    never surface.
+    never surface. The driver reads each worker's arrivals back into a host
+    buffer kept for that worker (pinned on the card), grown to a power of two
+    and reused.
     """
 
     def __init__(self, n: int, device: torch.device):
         self.n = n
         self.device = device
         self._staging: dict[tuple, _Staging] = {}
+        pin = device.type == "cuda"
+        self._counts_host = torch.empty((n, n), dtype=torch.int32, pin_memory=pin)
+        self._readback: list[torch.Tensor | None] = [None] * n  # each worker's arrivals
         # observability counters (read via Comm.comm_stats)
         self.collectives = 0
         self.rows_moved = 0
         #: host ns of the driver's steps, summed over its ticks: pack, the upload's enqueue, the
-        #: kernel's enqueue with the wait for it (upload included), and each worker's readback
-        self.step_ns = {"pack": 0, "upload": 0, "kernel": 0}
-        self.readback_ns = [0] * n  # one slot per worker thread: no shared read-modify-write
+        #: kernel's enqueue with the wait for it (upload and the counts' copy included), and the
+        #: readback of the arrived rows with its wait
+        self.step_ns = {"pack": 0, "upload": 0, "kernel": 0, "readback": 0}
         # cached like every other instrumented site — the per-tick hot
         # path must not pay module lookups when tracing is off
         from ..internals.tracing import get_tracer
@@ -143,7 +154,6 @@ class MeshExchangeRunner:
             "mesh_collectives": float(self.collectives),
             "mesh_rows_moved": float(self.rows_moved),
             **{f"mesh_{k}_ms": v / 1e6 for k, v in self.step_ns.items()},
-            "mesh_readback_ms": sum(self.readback_ns) / 1e6,
         }
 
     def width(self, kinds: list[str]) -> int:
@@ -157,14 +167,16 @@ class MeshExchangeRunner:
         column_names: list[str],
     ) -> tuple | None:
         """Pack every worker's rows into one staging buffer, upload it with
-        one non-blocking copy and run the bucketed all-to-all. Returns
-        (kinds, cap_bucket, out words [n, n * cap_bucket, width], out valid
-        [n, n * cap_bucket]) on the device, complete when this returns (the
-        peers read it after the caller's next barrier), or None when the
-        tick moves no rows."""
+        one non-blocking copy, run the bucketing kernel and read back the rows
+        that arrived. Returns (kinds, cap_bucket, rows, arrived): ``rows[d]``
+        the rows that arrived at worker ``d``, source-major, uint32 ``[sum of
+        arrived[d], width]`` on the host (valid until the next tick), and
+        ``arrived`` ``[n_dst, n_src]`` the rows from each source; complete when
+        this returns (the peers read it after the caller's next barrier), or
+        None when the tick moves no rows."""
         import time as _time
 
-        from ..parallel.exchange import bucketed_all_to_all
+        from ..parallel import exchange
 
         counts_all = [p[1] for p in payloads]
         total_rows = sum(int(c.sum()) for c in counts_all)
@@ -189,16 +201,26 @@ class MeshExchangeRunner:
             stage.uploaded.record()
         t2 = _time.perf_counter_ns()
         rows = self.n * cap_in
-        out_vals, out_valid = bucketed_all_to_all(
-            stage.dev[: rows * width].view(rows, width), stage.dev[rows * width:],
-            self.n, self.n * cap_bucket, device=self.device,
+        out_vals, _, counts = exchange.bucket_exchange(
+            stage.dev[: rows * width].view(self.n, cap_in, width),
+            stage.dev[rows * width:].view(self.n, cap_in), self.n, cap_bucket,
+            return_counts=True,
         )
         if self.device.type == "cuda":
-            # peers copy their blocks back on their own threads after the
-            # caller's barrier: the result is complete before it
+            # the counts come back inside the wait for the kernel
+            self._counts_host.copy_(counts, non_blocking=True)
             torch.cuda.current_stream(self.device).synchronize()
+            counts = self._counts_host
+        arrived = counts.numpy().astype(np.int64)
+        # every row sent must have arrived: cap_bucket holds the largest (source, destination)
+        # count, so a difference is a fault of the bucketing, not an overflow
+        if not np.array_equal(arrived, np.stack(counts_all, axis=1)):
+            raise RuntimeError("mesh exchange: the buckets' counts differ from the rows sent")
         t3 = _time.perf_counter_ns()
-        for step, ns in (("pack", t1 - t0), ("upload", t2 - t1), ("kernel", t3 - t2)):
+        rows = self._read_back(out_vals, arrived, cap_bucket)
+        t4 = _time.perf_counter_ns()
+        for step, ns in (("pack", t1 - t0), ("upload", t2 - t1), ("kernel", t3 - t2),
+                         ("readback", t4 - t3)):
             self.step_ns[step] += ns
         if tracer is not None:
             # the driver-side pack+ship+collective — the one span that
@@ -209,7 +231,7 @@ class MeshExchangeRunner:
                 {"rows": total_rows, "cap_in": cap_in,
                  "cap_bucket": cap_bucket},
             )
-        return (kinds, cap_bucket, out_vals, out_valid)
+        return (kinds, cap_bucket, rows, arrived)
 
     def pack_blocks(
         self,
@@ -252,44 +274,64 @@ class MeshExchangeRunner:
             stage.uploaded.synchronize()
         return stage
 
-    # -- per-worker arrival unpacking ------------------------------------
+    # -- the readback and each worker's unpacking ------------------------
 
-    def my_shard(self, garr: torch.Tensor, worker_id: int) -> np.ndarray:
-        """This worker's destination block of a run_tick output, copied to the host."""
-        import time as _time
-
-        t0 = _time.perf_counter_ns()
-        block = garr[worker_id].cpu().numpy()
-        self.readback_ns[worker_id] += _time.perf_counter_ns() - t0
-        return block
+    def _read_back(self, out_vals: torch.Tensor, arrived: np.ndarray,
+                   cap_bucket: int) -> list[np.ndarray]:
+        """Each destination's arrived rows, source-major, copied from its block of ``out_vals``
+        into that worker's host buffer (pinned on the card, grown to a power of two and reused):
+        the first ``arrived[d, s]`` slots of each source's bucket, one copy per run of adjacent
+        buckets (a full bucket ends where the next begins), then one wait for them all. A worker
+        with no arrivals gets an empty array and nothing is copied for it."""
+        width = out_vals.shape[-1]
+        rows = []
+        for d in range(self.n):
+            per_src = arrived[d]
+            total = int(per_src.sum())
+            if total == 0:
+                rows.append(np.empty((0, width), dtype=np.uint32))
+                continue
+            buf = self._readback[d]
+            if buf is None or buf.numel() < total * width:
+                buf = self._readback[d] = torch.empty(
+                    _pow2(total * width), dtype=torch.int32,
+                    pin_memory=self.device.type == "cuda")
+            block, at = out_vals[d], 0
+            for start, length in _runs(per_src, cap_bucket):
+                buf[at * width:(at + length) * width].view(length, width).copy_(
+                    block[start:start + length], non_blocking=True)
+                at += length
+            rows.append(buf[: total * width].numpy().view(np.uint32).reshape(total, width))
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        return rows
 
     def unpack_arrivals(
         self,
-        vals: np.ndarray,  # [n * cap_bucket, width] this worker's shard
-        valid: np.ndarray,  # [n * cap_bucket]
+        rows: np.ndarray,  # [sum of arrived, width] this worker's arrivals, source-major
+        arrived: np.ndarray,  # [n_src] rows from each source
         kinds: list[str],
         column_names: list[str],
         host_cols: dict[int, dict[str, np.ndarray]],  # src -> {col: values}
     ) -> list[Delta]:
         """Per-source arrival blocks → Deltas, re-zipping host-path columns
         (same source order on both paths)."""
-        cap_bucket = len(valid) // self.n
         out: list[Delta] = []
+        at = 0
         for src in range(self.n):
-            block = slice(src * cap_bucket, (src + 1) * cap_bucket)
-            ok = valid[block]
-            n_rows = int(ok.sum())
+            n_rows = int(arrived[src])
             hcols = host_cols.get(src, {})
             if n_rows == 0 and not hcols:
                 continue
-            rows = vals[block][ok]
-            keys = _unpack_words(rows[:, 0:2], "u")
-            diffs = _unpack_words(rows[:, 2:4], "i")
+            blk = rows[at:at + n_rows]
+            at += n_rows
+            keys = _unpack_words(blk[:, 0:2], "u")
+            diffs = _unpack_words(blk[:, 2:4], "i")
             data: dict[str, np.ndarray] = {}
             w = 4
             for c, k in zip(column_names, kinds):
                 if k != HOST:
-                    data[c] = _unpack_words(rows[:, w : w + 2], k)
+                    data[c] = _unpack_words(blk[:, w : w + 2], k)
                     w += 2
                 else:
                     hv = hcols.get(c)
@@ -303,3 +345,18 @@ class MeshExchangeRunner:
                     data[c] = hv
             out.append(Delta(keys=keys, data=data, diffs=diffs))
         return out
+
+
+def _runs(per_src: np.ndarray, cap_bucket: int) -> list[list[int]]:
+    """[first slot, rows] of each source's arrivals in a destination block, in source order;
+    a run that ends where the next source's bucket starts (a full bucket) takes it in."""
+    runs: list[list[int]] = []
+    for src, count in enumerate(per_src.tolist()):
+        if not count:
+            continue
+        start = src * cap_bucket
+        if runs and runs[-1][0] + runs[-1][1] == start:
+            runs[-1][1] += count
+        else:
+            runs.append([start, count])
+    return runs

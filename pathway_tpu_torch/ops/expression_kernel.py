@@ -6,7 +6,9 @@ Replaces the JAX package's fused expression kernels (``internals/expression_comp
 Rowwise/Filter chain, is traced into ``jax.jit`` and XLA compiles it. Here the expression compiler
 lowers the same tree (``internals/expression_compiler.py::lower_exprs``) through
 :class:`ProgramBuilder` into a typed :class:`Program` for one CUDA kernel that is built once,
-``csrc/expression_vm.cu``: each thread walks rows and runs the program over 64-bit registers.
+``csrc/expression_vm.cu``: the program travels in the launch's parameters, with its constants and
+loads folded into the operands, and each thread runs it over two rows at a time, its 64-bit
+registers and input columns in shared memory sized to the program.
 
 The builder applies ``jax.numpy``'s promotion with x64 (Python constants are weak types; a bool
 constant is not), and XLA's semantics where C++ leaves them open: integer arithmetic wraps, a
@@ -40,7 +42,7 @@ from .. import _kernels
 __all__ = [
     "OPS", "MAX_INSNS", "MAX_REGS", "MAX_CONSTS", "MAX_COLS", "KEYS",
     "Program", "ProgramBuilder", "Val", "layout", "expression_vm", "expression_vm_plain",
-    "run_program", "run_program_plain", "HostLauncher",
+    "run_program", "run_program_plain", "HostLauncher", "expression_vm_empty",
 ]
 
 #: the machine's capacity (the same numbers stand in csrc/expression_vm.cu)
@@ -118,18 +120,8 @@ class Program:
     inputs: list[tuple[object, str]]
     outputs: list[tuple[str, np.dtype]]
     n_regs: int
-    _device_copies: dict = field(default_factory=dict, repr=False, compare=False)
-    _lock: threading.Lock = field(default_factory=threading.Lock, repr=False, compare=False)
-
-    def on_device(self, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
-        """The program's code and constants on ``device``, uploaded once and kept."""
-        with self._lock:
-            hit = self._device_copies.get(device)
-            if hit is None:
-                hit = (torch.from_numpy(self.code.reshape(-1)).to(device),
-                       torch.from_numpy(self.consts).to(device))
-                self._device_copies[device] = hit
-            return hit
+    _layouts: dict = field(default_factory=dict, repr=False, compare=False)  # n -> layout
+    _checked: bool = field(default=False, repr=False, compare=False)
 
 
 def _bits(v: float | int, t: str) -> int:
@@ -378,17 +370,7 @@ class ProgramBuilder:
     def finish(self) -> Program:
         """Drop dead instructions, map values onto reused registers, check capacity."""
         code = self._code
-        srcs = []
-        for op, d, a, b, c in code:
-            name = _OP_NAMES[op]
-            if name in ("LD8", "LDB", "CONST"):
-                srcs.append(())
-            elif name in ("ST8", "STB", "IPOW_I", "IPOW_F") or name in _UNARY:
-                srcs.append((a,))
-            elif name == "SEL":
-                srcs.append((a, b, c))
-            else:
-                srcs.append((a, b))
+        srcs = [_sources(_OP_NAMES[op], a, b, c) for op, d, a, b, c in code]
         live: set[int] = set()
         keep = [False] * len(code)
         for i in range(len(code) - 1, -1, -1):
@@ -457,6 +439,36 @@ class ProgramBuilder:
 _OP_NAMES = {v: k for k, v in OPS.items()}
 _UNARY = {"NEG_I", "NEG_F", "NOT_I", "NOT_B", "ABS_I", "ABS_F", "I2F", "F2I", "I2B", "F2B",
           "B2F"}
+
+
+def _sources(name: str, a: int, b: int, c: int) -> tuple[int, ...]:
+    """The registers an instruction reads."""
+    if name in ("LD8", "LDB", "CONST"):
+        return ()
+    if name in ("ST8", "STB", "IPOW_I", "IPOW_F") or name in _UNARY:
+        return (a,)
+    if name == "SEL":
+        return (a, b, c)
+    return (a, b)
+
+
+def _check_registers(program: Program) -> None:
+    """Raise unless the program is what the kernel reads from its launch parameters (int32 code
+    rows, int64 constants, both C-contiguous) and every register it reads or writes is below its
+    ``n_regs``: the kernel sizes its register file by that count."""
+    if (program.code.dtype != np.int32 or program.consts.dtype != np.int64
+            or not program.code.flags.c_contiguous or not program.consts.flags.c_contiguous):
+        raise ValueError("expression program: code must be C-contiguous int32 and constants "
+                         "C-contiguous int64")
+    for op, d, a, b, c in program.code.tolist():
+        name = _OP_NAMES.get(op)
+        if name is None:
+            raise ValueError(f"expression program: unknown opcode {op}")
+        used = _sources(name, a, b, c) + (() if name in ("ST8", "STB") else (d,))
+        if not 1 <= program.n_regs <= MAX_REGS or any(
+                not 0 <= r < program.n_regs for r in used):
+            raise ValueError(f"expression program: {name} uses a register outside "
+                             f"[0, {program.n_regs}) (at most {MAX_REGS})")
 
 
 # -- the plain version ------------------------------------------------------------------------
@@ -631,8 +643,17 @@ _ALIGN = 16
 
 def layout(program: Program, n: int) -> tuple[list[int], int, list[int], int]:
     """Byte offsets of each input and output column in one packed buffer of ``n`` rows, and the
-    two buffers' sizes. Each column starts on a 16-byte boundary."""
+    two buffers' sizes. Each column starts on a 16-byte boundary. Kept on the program for the
+    last few row counts: a launch's host cost is part of what the engine waits for."""
+    hit = program._layouts.get(n)
+    if hit is None:
+        if len(program._layouts) >= 16:
+            program._layouts.clear()
+        hit = program._layouts[n] = _layout(program, n)
+    return hit
 
+
+def _layout(program: Program, n: int) -> tuple[list[int], int, list[int], int]:
     def offsets(itemsizes):
         offs, at = [], 0
         for size in itemsizes:
@@ -666,7 +687,7 @@ def expression_vm_plain(program: Program, in_buf: torch.Tensor, out_buf: torch.T
 @functools.cache
 def _launcher():
     fn = _kernels.load("expression_vm").expression_vm
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                     ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -677,14 +698,15 @@ def expression_vm(program: Program, in_buf: torch.Tensor, out_buf: torch.Tensor,
     """Run ``program`` over ``n`` rows: the input columns packed in the uint8 buffer ``in_buf``
     and the output columns written into ``out_buf``, at the offsets of :func:`layout`.
 
-    On CUDA buffers one launch of the kernel of ``csrc/expression_vm.cu`` on the current stream;
-    on CPU buffers the plain version runs."""
+    On CUDA buffers one launch of the kernel of ``csrc/expression_vm.cu`` on the current stream,
+    the program among its parameters (checked once first: :func:`_check_registers`); on CPU
+    buffers the plain version runs."""
     if in_buf.device.type == "cpu":
         expression_vm_plain(program, in_buf, out_buf, n)
         return
     if in_buf.device.type != "cuda":
         raise ValueError(f"expression_vm: no kernel for device {in_buf.device}")
-    _, in_bytes, _, out_bytes = layout(program, n)
+    in_offs, in_bytes, out_offs, out_bytes = layout(program, n)
     if (in_buf.dtype != torch.uint8 or out_buf.dtype != torch.uint8
             or out_buf.device != in_buf.device or not in_buf.is_contiguous()
             or not out_buf.is_contiguous() or in_buf.numel() < in_bytes
@@ -693,14 +715,16 @@ def expression_vm(program: Program, in_buf: torch.Tensor, out_buf: torch.Tensor,
                          f"of at least {in_bytes} and {out_bytes} bytes")
     if in_buf.data_ptr() % _ALIGN or out_buf.data_ptr() % _ALIGN:
         raise ValueError("expression_vm: buffers must start on a 16-byte boundary")
-    in_offs, _, out_offs, _ = layout(program, n)
-    code, consts = program.on_device(in_buf.device)
+    if not program._checked:
+        _check_registers(program)
+        program._checked = True
     in_off = (ctypes.c_longlong * max(len(in_offs), 1))(*in_offs)
     out_off = (ctypes.c_longlong * max(len(out_offs), 1))(*out_offs)
+    # the code and constants are read from host memory into the launch's parameters
     err = _launcher()(
-        code.data_ptr(), program.code.shape[0], consts.data_ptr(), consts.numel(),
-        in_buf.data_ptr(), ctypes.addressof(in_off), len(in_offs),
-        out_buf.data_ptr(), ctypes.addressof(out_off), len(out_offs), n,
+        program.code.ctypes.data, program.code.shape[0], program.consts.ctypes.data,
+        program.consts.size, program.n_regs, in_buf.data_ptr(), ctypes.addressof(in_off),
+        len(in_offs), out_buf.data_ptr(), ctypes.addressof(out_off), len(out_offs), n,
         _kernels.stream(in_buf.device),
     )
     _kernels.check(err, "expression_vm")
@@ -710,6 +734,17 @@ def expression_vm(program: Program, in_buf: torch.Tensor, out_buf: torch.Tensor,
 
 expression_vm.launches = 0
 _count_lock = threading.Lock()
+
+
+def expression_vm_empty(program: Program, device: torch.device, n: int) -> None:
+    """Launch an empty kernel on the grid :func:`expression_vm` takes for ``program`` over ``n``
+    rows, on the current stream: the launch's own cost, the yardstick of the machine's floor.
+    Not a launch of the machine: nothing counts it."""
+    fn = _kernels.load("expression_vm").expression_vm_empty
+    fn.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(n, program.n_regs + len(program.inputs), _kernels.stream(device))
+    _kernels.check(err, "expression_vm_empty")
 
 
 def _pack(program: Program, inputs: list[torch.Tensor], n: int, device) -> tuple:

@@ -30,6 +30,10 @@ __all__ = [
 
 #: destinations the kernel buckets in shared memory (kMaxDst in csrc/bucket_exchange.cu)
 MAX_SHARDS = 32
+#: source rows a block of the kernel takes (kTileRows), and the grid's other limits
+TILE_ROWS = 1024
+MAX_SOURCES = 65535
+MAX_WORDS = (1 << 21) - 1
 
 
 def shard_rows(keys: np.ndarray, n_shards: int) -> np.ndarray:
@@ -38,10 +42,13 @@ def shard_rows(keys: np.ndarray, n_shards: int) -> np.ndarray:
 
 
 def bucket_exchange_plain(
-    values: torch.Tensor, dest: torch.Tensor, n_dst: int, cap_bucket: int
-) -> tuple[torch.Tensor, torch.Tensor]:
+    values: torch.Tensor, dest: torch.Tensor, n_dst: int, cap_bucket: int, *,
+    return_counts: bool = False,
+) -> tuple[torch.Tensor, ...]:
     """values ``[n_src, cap_in, w]``, dest int ``[n_src, cap_in]`` -> (out ``[n_dst, n_src *
-    cap_bucket, w]`` of values' dtype, valid bool ``[n_dst, n_src * cap_bucket]``).
+    cap_bucket, w]`` of values' dtype, valid bool ``[n_dst, n_src * cap_bucket]``), and with
+    ``return_counts`` also counts int32 ``[n_dst, n_src]``: the rows of each source kept in each
+    destination's bucket, which fill its first slots.
 
     A row's slot is the running count of the earlier rows of its source block with the same
     destination (one_hot + cumsum, as ``exchange.py:55-58`` of the JAX package); rows with a
@@ -61,27 +68,30 @@ def bucket_exchange_plain(
     valid = torch.zeros((n_dst, n_src * cap_bucket), dtype=torch.bool, device=values.device)
     out.index_put_((d[ok], slot[ok]), values[ok])
     valid.index_put_((d[ok], slot[ok]), torch.ones((), dtype=torch.bool, device=values.device))
-    return out, valid
+    if not return_counts:
+        return out, valid
+    return out, valid, valid.view(n_dst, n_src, cap_bucket).sum(-1, dtype=torch.int32)
 
 
 @functools.cache
 def _launcher():
     fn = _kernels.load("bucket_exchange").bucket_exchange
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 5
     fn.restype = ctypes.c_int
     return fn
 
 
 def bucket_exchange(
-    values: torch.Tensor, dest: torch.Tensor, n_dst: int, cap_bucket: int
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """The buckets of :func:`bucket_exchange_plain`.
+    values: torch.Tensor, dest: torch.Tensor, n_dst: int, cap_bucket: int, *,
+    return_counts: bool = False,
+) -> tuple[torch.Tensor, ...]:
+    """The buckets of :func:`bucket_exchange_plain` (and its counts with ``return_counts``).
 
     On CUDA tensors (int32 words ``[n_src, cap_in, w]`` and int32 destinations, ``n_dst`` at
-    most ``MAX_SHARDS``) one launch of the bucketing kernel computes them; on CPU tensors the
-    plain version runs."""
+    most ``MAX_SHARDS``) the bucketing kernel computes them, in two launches (the count pass and
+    the scatter); on CPU tensors the plain version runs."""
     if values.device.type == "cpu":
-        return bucket_exchange_plain(values, dest, n_dst, cap_bucket)
+        return bucket_exchange_plain(values, dest, n_dst, cap_bucket, return_counts=return_counts)
     if values.device.type != "cuda":
         raise ValueError(f"bucket_exchange: no kernel for device {values.device}")
     if (values.dtype != torch.int32 or dest.dtype != torch.int32 or values.dim() != 3
@@ -89,20 +99,29 @@ def bucket_exchange(
         raise ValueError("bucket_exchange: kernel takes int32 words [n_src, cap_in, w] and int32 "
                          "destinations [n_src, cap_in] on one device")
     n_src, cap_in, w = values.shape
-    if not 1 <= n_dst <= MAX_SHARDS or cap_bucket < 1 or min(n_src, cap_in, w) < 1:
+    if (not 1 <= n_dst <= MAX_SHARDS or cap_bucket < 1 or min(n_src, cap_in, w) < 1
+            or n_src > MAX_SOURCES or w > MAX_WORDS):
         raise ValueError(f"bucket_exchange: kernel takes 1 <= n_dst <= {MAX_SHARDS}, "
-                         f"cap_bucket >= 1 and no empty dimension, got n_dst={n_dst}, "
-                         f"cap_bucket={cap_bucket}, shape {tuple(values.shape)}")
+                         f"cap_bucket >= 1, n_src <= {MAX_SOURCES}, w <= {MAX_WORDS} and no "
+                         f"empty dimension, got n_dst={n_dst}, cap_bucket={cap_bucket}, shape "
+                         f"{tuple(values.shape)}")
     values, dest = values.contiguous(), dest.contiguous()
-    out = torch.empty((n_dst, n_src * cap_bucket, w), dtype=torch.int32, device=values.device)
-    valid = torch.empty((n_dst, n_src * cap_bucket), dtype=torch.bool, device=values.device)
+    dev = values.device
+    out = torch.empty((n_dst, n_src * cap_bucket, w), dtype=torch.int32, device=dev)
+    valid = torch.empty((n_dst, n_src * cap_bucket), dtype=torch.bool, device=dev)
+    # the counts [n_dst, n_src], then the count pass's scratch [n_src, tiles, n_dst]
+    tiles = -(-cap_in // TILE_ROWS)
+    ints = torch.empty(n_dst * n_src * (1 + tiles), dtype=torch.int32, device=dev)
     err = _launcher()(
         values.data_ptr(), dest.data_ptr(), n_src, cap_in, w, n_dst, cap_bucket,
-        out.data_ptr(), valid.data_ptr(), _kernels.stream(values.device),
+        out.data_ptr(), valid.data_ptr(), ints.data_ptr(), ints.data_ptr() + 4 * n_dst * n_src,
+        _kernels.stream(dev),
     )
     _kernels.check(err, "bucket_exchange")
     bucket_exchange.launches += 1
-    return out, valid
+    if not return_counts:
+        return out, valid
+    return out, valid, ints[: n_dst * n_src].view(n_dst, n_src)
 
 
 bucket_exchange.launches = 0

@@ -14,10 +14,12 @@ Per tick + exchange channel, the protocol is:
    barrier;
 2. the driver thread (worker 0) agrees dtype kinds + power-of-two caps,
    packs ALL workers' dense rows into one pinned staging buffer, uploads
-   it with one non-blocking copy, runs the bucketing kernel, waits for
-   it, and publishes the result; second barrier;
-3. every worker copies back only its own destination block and re-zips
-   any host-path (object) columns straight from the deposited Deltas.
+   it with one non-blocking copy, runs the bucketing kernel, brings its
+   per-(destination, source) counts back inside the wait, copies only the
+   rows that arrived into each destination worker's pinned buffer, waits,
+   and publishes the result; second barrier;
+3. every worker unpacks its arrived rows and re-zips any host-path
+   (object) columns straight from the deposited Deltas.
 
 Total host synchronization: 2 barriers per channel-tick.
 
@@ -197,10 +199,7 @@ class MeshComm(Comm):
             )
         if result is None:
             return []
-        kinds, cap_bucket, gvals, gvalid = result
-
-        my_vals = self.runner.my_shard(gvals, worker_id)
-        my_valid = self.runner.my_shard(gvalid, worker_id)
+        kinds, _, rows, arrived = result
 
         host_cols: dict[int, dict[str, np.ndarray]] = {}
         host_names = [c for c, k in zip(column_names, kinds) if k == HOST]
@@ -217,8 +216,8 @@ class MeshComm(Comm):
                     }
 
         return self.runner.unpack_arrivals(
-            vals=my_vals,
-            valid=my_valid,
+            rows=rows[worker_id],
+            arrived=arrived[worker_id],
             kinds=kinds,
             column_names=column_names,
             host_cols=host_cols,

@@ -15,8 +15,9 @@ within 1e-5 of the value (f32, sums in another order); the training step's param
 against the host's with a cosine of at least 0.999; the ring's block step in f32 within 2e-5 plus
 2e-5 of the value on both routes (bf16 inputs on the tensor cores, f32 on the CUDA cores; every
 product exact, the sums in another order, no TF32); the top-k merge and the bucketed
-exchange exactly (the exchange moves bits), and the engine with its exchange on the card equals
-the engine on the host; the expression machine bit for bit against its plain version (float
+exchange exactly, its per-bucket counts included (the exchange moves bits), the runner's readback
+of only the arrived rows into pinned buffers equal to the host's, and the engine with its exchange
+on the card equals the engine on the host; the expression machine bit for bit against its plain version (float
 ``**`` within 2 ulp), and the Table API's ``pw.run(device="cuda")`` equal to numpy.
 """
 
@@ -784,6 +785,106 @@ def test_bucket_exchange_kernel_equals_plain_bitwise(cuda, n, cap_in, w, cap_buc
     assert torch.equal(out.cpu(), want) and torch.equal(valid.cpu(), want_valid)
 
 
+def _exchange_held(cuda, words, dest, n_dst, cap_bucket):
+    """The kernel (buckets, validity and counts) against its plain version, bitwise, with the
+    launch count moved by one; returns the plain counts."""
+    before = bucket_exchange.launches
+    got = bucket_exchange(words.to(cuda), dest.to(cuda), n_dst, cap_bucket, return_counts=True)
+    torch.cuda.synchronize()
+    assert bucket_exchange.launches == before + 1
+    want = bucket_exchange_plain(words, dest, n_dst, cap_bucket, return_counts=True)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+    return want[2]
+
+
+@pytest.mark.parametrize("n_src,cap_in,w,n_dst,cap_bucket", [
+    (3, 1000, 4, 3, 1000),      # under one tile of 1024 rows
+    (2, 3000, 6, 2, 4096),      # three tiles, the last one partial
+    (5, 2500, 2, 1, 1024),      # one destination, overflowing
+    (4, 5000, 8, 32, 512),      # 32 destinations
+    (8, 4096, 7, 8, 4096),      # odd width: single words
+    (2, 2049, 5, 4, 16),        # odd width, tiny buckets
+    (1, 65536, 16, 8, 65536),   # the rank form's one source
+])
+def test_bucket_exchange_kernel_at_edge_shapes(cuda, n_src, cap_in, w, n_dst, cap_bucket):
+    words, dest = _exchange_case(n_src, cap_in, w, n_dst, seed=n_src * cap_in + w + n_dst)
+    _exchange_held(cuda, words, dest, n_dst, cap_bucket)
+
+
+def test_bucket_exchange_kernel_every_row_to_one_destination_overflows(cuda):
+    words, _ = _exchange_case(4, 3000, 4, 4, seed=3)
+    dest = torch.full((4, 3000), 2, dtype=torch.int32)
+    counts = _exchange_held(cuda, words, dest, 4, 1024)
+    assert counts[2].tolist() == [1024] * 4 and not counts[[0, 1, 3]].any()
+
+
+def test_bucket_exchange_kernel_with_no_destination_writes_zeros(cuda):
+    words, _ = _exchange_case(3, 2000, 6, 3, seed=4)
+    dest = torch.full((3, 2000), -1, dtype=torch.int32)
+    dest[0, ::7] = 3  # past n_dst: dropped too
+    counts = _exchange_held(cuda, words, dest, 3, 512)
+    assert not counts.any()
+
+
+def test_bucket_exchange_kernel_on_the_capture_gather_shape(cuda):
+    """The dense path's largest launch: 8 sources of up to 16,384 rows of 14 words, nearly every
+    row to destination 0 (a Capture's gather), buckets of 16,384 slots."""
+    gen = torch.Generator().manual_seed(14)
+    words = torch.randint(-2**31, 2**31 - 1, (8, 16384, 14), generator=gen,
+                          dtype=torch.int64).to(torch.int32)
+    dest = torch.zeros((8, 16384), dtype=torch.int32)
+    dest[torch.rand((8, 16384), generator=gen) < 0.01] = 5
+    for s, rows in enumerate((16384, 9000, 8191, 8192, 1, 0, 12000, 16383)):
+        dest[s, rows:] = -1
+    counts = _exchange_held(cuda, words, dest, 8, 16384)
+    assert int(counts.sum()) == int((dest >= 0).sum())
+
+
+def test_bucket_exchange_kernel_reads_unaligned_words(cuda):
+    """Words whose base is 4 bytes past a 16-byte boundary: the copy takes single words."""
+    words, dest = _exchange_case(4, 1500, 8, 4, seed=6)
+    flat = torch.empty(words.numel() + 1, dtype=torch.int32, device=cuda)
+    shifted = flat[1:].view(words.shape)
+    shifted.copy_(words.to(cuda))
+    assert shifted.data_ptr() % 16 == 4
+    before = bucket_exchange.launches
+    got = bucket_exchange(shifted, dest.to(cuda), 4, 2048, return_counts=True)
+    torch.cuda.synchronize()
+    assert bucket_exchange.launches == before + 1
+    for g, w in zip(got, bucket_exchange_plain(words, dest, 4, 2048, return_counts=True)):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_runner_readback_on_the_card_equals_the_host(cuda):
+    """The mesh exchange's driver tick with its readback of the arrived rows (pinned buffers) on
+    the card against the same on the host: the same counts and the same rows; nothing is read
+    back for a worker with no arrivals."""
+    from pathway_tpu_torch.engine import mesh_exchange as tmx
+    from pathway_tpu_torch.engine.delta import Delta
+
+    rng = np.random.default_rng(15)
+    n, cols = 4, ["i", "f"]
+    payloads = []
+    for w in range(n):
+        m = 300 + 50 * w
+        d = Delta(keys=rng.integers(0, 2**64, m, dtype=np.uint64),
+                  data={"i": rng.integers(-2**62, 2**62, m), "f": rng.standard_normal(m)},
+                  diffs=rng.integers(-2, 3, m))
+        dest = rng.choice([0, 1, 3], m).astype(np.int32)  # none to worker 2
+        payloads.append((tmx.local_signature(d, cols), np.bincount(dest, minlength=n), d, dest))
+    results = []
+    for device in (cuda, torch.device("cpu")):
+        runner = tmx.MeshExchangeRunner(n, device)
+        kinds, _, rows, arrived = runner.run_tick(payloads, cols)
+        results.append((arrived, [r.copy() for r in rows]))
+    (arrived, rows), (host_arrived, host_rows) = results
+    np.testing.assert_array_equal(arrived, host_arrived)
+    assert rows[2].shape[0] == 0 and not arrived[2].any()
+    for g, w in zip(rows, host_rows):
+        np.testing.assert_array_equal(g, w)
+
+
 def test_bucketed_all_to_all_on_the_card_keeps_64_bit_values(cuda):
     rng = np.random.default_rng(8)
     vals = np.stack([(-rng.integers(1, 2**62, 64)).astype(np.int64),
@@ -906,6 +1007,85 @@ def test_expression_vm_kernel_equals_plain(cuda, name):
     else:
         assert torch.equal(got, want)
     pw.G.clear()
+
+
+def _vm_held(cuda, prog, cols: dict, n: int):
+    """``prog`` over ``n`` rows of ``cols`` through the kernel against its plain version, bitwise,
+    with the launch count moved by one."""
+    from pathway_tpu_torch.ops.expression_kernel import expression_vm, run_program, run_program_plain
+
+    inputs = [torch.from_numpy(np.ascontiguousarray(cols[c][:n])).to(cuda) for c, _ in prog.inputs]
+    before = expression_vm.launches
+    got = run_program(prog, inputs)
+    want = run_program_plain(prog, inputs)
+    torch.cuda.synchronize()
+    assert expression_vm.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == (n,)
+        assert torch.equal(g.view(torch.int64) if g.dtype == torch.float64 else g,
+                           w.view(torch.int64) if w.dtype == torch.float64 else w)
+
+
+def _vm_columns(n: int) -> dict:
+    rng = np.random.default_rng(16)
+    x = rng.standard_normal(n) * 1e3
+    x[:4] = [np.nan, -0.0, np.inf, 1e-310][:min(4, n)]
+    return {"a": rng.integers(-2**63, 2**63 - 1, n, dtype=np.int64),
+            "b": rng.integers(-100, 100, n).astype(np.int64), "x": x,
+            "y": rng.standard_normal(n), "p": rng.random(n) < 0.5}
+
+
+@pytest.mark.parametrize("n", [1, 3, 511, 513, 4097, 65537])
+def test_expression_vm_kernel_at_any_row_count(cuda, n):
+    """Row counts of one, below and past one block's 512 rows and past four rows a thread."""
+    from pathway_tpu_torch.internals import expression_compiler as ec
+
+    pw, t = _vm_table()
+    cols = _vm_columns(n)
+    env = ec.ColumnEnv(device=cuda)
+    env.add_table(t)
+    expr = pw.if_else((t.a > t.b) & t.p, t.x * 2.0 - 1.0, -t.y) + pw.cast(float, t.b << 3)
+    prog = ec.expression_program(expr, env, ec._input_kinds(list(cols), cols), {})
+    _vm_held(cuda, prog, cols, n)
+    pw.G.clear()
+
+
+def test_expression_vm_kernel_at_the_register_limit(cuda):
+    """A program that needs all MAX_REGS registers (its register file at 32 threads a block)."""
+    from pathway_tpu_torch.ops.expression_kernel import MAX_REGS, ProgramBuilder
+
+    def build(k):
+        b = ProgramBuilder({"a": "I", "x": "F"})
+        a, x = b.load("a"), b.load("x")
+        vals = [b.binop("+", a, b.const(i + 1)) for i in range(k)]
+        vals.append(b.convert(b.binop("*", x, b.const(3.0)), "I"))
+        acc = vals[0]
+        for v in vals[1:]:
+            acc = b.binop("^", b.binop("*", acc, v), v)
+        b.store("out", acc)
+        return b.finish()
+
+    prog = next(p for p in map(build, range(MAX_REGS)) if p.n_regs == MAX_REGS)
+    _vm_held(cuda, prog, _vm_columns(70001), 70001)
+
+
+def test_expression_vm_kernel_near_the_instruction_limit(cuda):
+    """A program of close to MAX_INSNS instructions, every one of them live."""
+    from pathway_tpu_torch.ops.expression_kernel import MAX_INSNS, ProgramBuilder
+
+    b = ProgramBuilder({"a": "I", "x": "F", "p": "B"})
+    acc, f, p = b.load("a"), b.load("x"), b.load("p")
+    step = 0
+    while len(b._code) < MAX_INSNS - 8:
+        acc = b.binop("^", b.binop("+", b.binop("*", acc, b.const(3)), b.const(step % 5)),
+                      b.binop(">>", acc, b.const(7)))
+        f = b.where(p, b.binop("-", b.binop("*", f, b.const(0.5)), b.const(1.25)), f)
+        step += 1
+    b.store("i", acc)
+    b.store("f", f)
+    prog = b.finish()
+    assert MAX_INSNS - 16 <= prog.code.shape[0] <= MAX_INSNS
+    _vm_held(cuda, prog, _vm_columns(70001), 70001)
 
 
 def test_expression_vm_refuses_what_it_does_not_take(cuda):

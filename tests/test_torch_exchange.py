@@ -158,22 +158,56 @@ def _delta(rng, n: int, with_host: bool) -> Delta:
     return Delta(keys=keys, data=data, diffs=rng.integers(-3, 4, n))
 
 
-@pytest.mark.parametrize("with_host", [False, True])
-def test_runner_round_trips_bits_and_host_columns(with_host):
-    """Three workers' deltas through the port's runner (the driver's pack, the plain bucketing,
-    each worker's unpack): every worker's arrivals equal the rows sent to it, in source order,
-    with bits unchanged; the packed words equal the JAX runner's."""
-    rng = np.random.default_rng(5 + with_host)
-    cols = ["i", "u", "f", "b"] + (["s"] if with_host else [])
-    n = 3
-    runner = tmx.MeshExchangeRunner(n, torch.device("cpu"))
+def _payloads(rng, n: int, cols: list[str], with_host: bool, skip: int | None = None):
+    """n workers' deltas with random destinations (none to worker ``skip``), as deposited."""
     payloads = []
     for w in range(n):
         d = _delta(rng, 20 + 7 * w, with_host)
         dest = rng.integers(0, n, len(d)).astype(np.int32)
+        if skip is not None:
+            dest[dest == skip] = (skip + 1) % n
         counts = np.bincount(dest, minlength=n).astype(np.int64)
         payloads.append((tmx.local_signature(d, cols), counts, d, dest))
-    kinds, cap_bucket, gvals, gvalid = runner.run_tick(payloads, cols)
+    return payloads
+
+
+def _host_cols(payloads, me: int, with_host: bool) -> dict:
+    host_cols = {}
+    if with_host:
+        for src, (_, _, d, dest) in enumerate(payloads):
+            ix = np.flatnonzero(dest == me)
+            if len(ix):
+                host_cols[src] = {"s": d.data["s"][ix]}
+    return host_cols
+
+
+def _assert_arrivals(got, payloads, me: int, cols: list[str]) -> None:
+    want = [p[2].take(np.flatnonzero(p[3] == me)) for p in payloads]
+    want = [d for d in want if len(d)]
+    assert len(got) == len(want)
+    for g, wd in zip(got, want):
+        np.testing.assert_array_equal(g.keys, wd.keys)
+        np.testing.assert_array_equal(g.diffs, wd.diffs)
+        for c in cols:
+            if c == "f":
+                np.testing.assert_array_equal(g.data[c].view(np.uint64),
+                                              wd.data[c].view(np.uint64))
+            else:
+                np.testing.assert_array_equal(g.data[c], wd.data[c])
+
+
+@pytest.mark.parametrize("with_host", [False, True])
+def test_runner_round_trips_bits_and_host_columns(with_host):
+    """Three workers' deltas through the port's runner (the driver's pack, the plain bucketing,
+    the readback of each worker's arrived rows, each worker's unpack): every worker's arrivals
+    equal the rows sent to it, in source order, with bits unchanged; the packed words equal the
+    JAX runner's."""
+    rng = np.random.default_rng(5 + with_host)
+    cols = ["i", "u", "f", "b"] + (["s"] if with_host else [])
+    n = 3
+    runner = tmx.MeshExchangeRunner(n, torch.device("cpu"))
+    payloads = _payloads(rng, n, cols, with_host)
+    kinds, cap_bucket, rows, arrived = runner.run_tick(payloads, cols)
     assert kinds == jmx.agree_kinds([p[0] for p in payloads], len(cols))
     cap_in = tmx._pow2(max(len(p[2]) for p in payloads))
     stage = runner.pack_blocks([(p[2], p[3]) for p in payloads], kinds, cols, cap_in)
@@ -183,26 +217,58 @@ def test_runner_round_trips_bits_and_host_columns(with_host):
     np.testing.assert_array_equal(stage.vals, jv)
     np.testing.assert_array_equal(stage.dst, jd)
     for me in range(n):
-        host_cols = {}
-        if with_host:
-            for src, (_, _, d, dest) in enumerate(payloads):
-                ix = np.flatnonzero(dest == me)
-                if len(ix):
-                    host_cols[src] = {"s": d.data["s"][ix]}
-        got = runner.unpack_arrivals(runner.my_shard(gvals, me), runner.my_shard(gvalid, me),
-                                     kinds, cols, host_cols)
-        want = [p[2].take(np.flatnonzero(p[3] == me)) for p in payloads]
-        want = [d for d in want if len(d)]
-        assert len(got) == len(want)
-        for g, wd in zip(got, want):
-            np.testing.assert_array_equal(g.keys, wd.keys)
-            np.testing.assert_array_equal(g.diffs, wd.diffs)
-            for c in cols:
-                if c == "f":
-                    np.testing.assert_array_equal(g.data[c].view(np.uint64),
-                                                  wd.data[c].view(np.uint64))
-                else:
-                    np.testing.assert_array_equal(g.data[c], wd.data[c])
+        got = runner.unpack_arrivals(rows[me], arrived[me], kinds, cols,
+                                     _host_cols(payloads, me, with_host))
+        _assert_arrivals(got, payloads, me, cols)
+
+
+@pytest.mark.parametrize("with_host", [False, True])
+def test_runner_readback_skips_a_worker_with_no_arrivals(with_host):
+    """Four workers, none sending to worker 2: nothing is read back for it and it unpacks to no
+    delta; the others' arrivals (host-path columns re-zipped) equal the rows sent to them, read
+    back tick after tick into the same reused buffers."""
+    rng = np.random.default_rng(11 + with_host)
+    cols = ["i", "u", "f", "b"] + (["s"] if with_host else [])
+    n = 4
+    runner = tmx.MeshExchangeRunner(n, torch.device("cpu"))
+    buffers = set()
+    for _ in range(3):
+        payloads = _payloads(rng, n, cols, with_host, skip=2)
+        kinds, _, rows, arrived = runner.run_tick(payloads, cols)
+        assert not arrived[2].any()
+        for me in range(n):
+            assert rows[me].shape == (int(arrived[me].sum()), runner.width(kinds))
+            got = runner.unpack_arrivals(rows[me], arrived[me], kinds, cols,
+                                         _host_cols(payloads, me, with_host))
+            if me == 2:
+                assert got == [] and runner._readback[2] is None
+            _assert_arrivals(got, payloads, me, cols)
+        buffers.update(id(b) for b in runner._readback if b is not None)
+    assert len(buffers) <= 2 * (n - 1)  # grown at most once a worker, then reused
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_readback_counts_equal_the_jax_validity_mask(name):
+    """The counts the readback uses (the bucketing's, one per destination and source) equal what
+    the JAX function's validity mask holds in each bucket, and each bucket's valid slots are its
+    first ones."""
+    n, cap_in, w, cap_bucket = CASES[name]
+    values, dest, cap_out, _, j_valid = _jax(name)
+    v = torch.from_numpy(values.view(np.int32)).reshape(n, cap_in, w)
+    _, _, counts = bucket_exchange(v, torch.from_numpy(dest).reshape(n, cap_in), n, cap_bucket,
+                                   return_counts=True)
+    buckets = j_valid.reshape(n, n, cap_bucket)
+    np.testing.assert_array_equal(counts.numpy(), buckets.sum(-1))
+    assert counts.dtype == torch.int32
+    for d in range(n):
+        for s in range(n):
+            assert buckets[d, s, :counts[d, s]].all() and not buckets[d, s, counts[d, s]:].any()
+
+
+def test_runs_merge_full_buckets():
+    assert tmx._runs(np.array([4, 4, 0, 2, 4, 1]), 4) == [[0, 8], [12, 2], [16, 5]]
+    assert tmx._runs(np.array([0, 4, 4, 1]), 4) == [[4, 9]]
+    assert tmx._runs(np.array([0, 0, 0]), 4) == []
 
 
 @pytest.mark.parametrize("n", [1, 3, 8])

@@ -390,6 +390,38 @@ def test_kernel_source_agrees_with_the_opcode_table():
         assert re.search(rf"constexpr int {cap} = (\d+);", src).group(1) == str(getattr(vm, cap))
 
 
+def test_every_program_keeps_to_its_register_count():
+    """The kernel sizes its register file by ``Program.n_regs``: every program of the sweep reads
+    and writes registers below it (the check the wrapper makes before a program's first launch),
+    and a program that reaches past it, names an unknown opcode or is not laid out as the launch
+    parameters take it, is refused."""
+    cols, keys, _, tt = _tables()
+    env = tec.ColumnEnv(device=CPU)
+    env.add_table(tt)
+    kinds = tec._input_kinds(list(cols), cols)
+    checked = 0
+    for param in CASES:
+        (build,) = param.values
+        try:
+            prog = tec.expression_program(build(tpw, tt), env, kinds, {})
+        except TypeError:  # refused while lowering, as XLA refuses it
+            continue
+        vm._check_registers(prog)
+        checked += 1
+    assert checked > len(CASES) // 2
+    bad = vm.Program(code=prog.code.copy(), consts=prog.consts, inputs=prog.inputs,
+                     outputs=prog.outputs, n_regs=prog.n_regs)
+    bad.code[0, 1] = prog.n_regs  # the first instruction writes one register too far
+    with pytest.raises(ValueError, match="outside"):
+        vm._check_registers(bad)
+    bad.code[0, 0] = len(vm.OPS)
+    with pytest.raises(ValueError, match="unknown opcode"):
+        vm._check_registers(bad)
+    bad.code = prog.code.astype(np.int64)
+    with pytest.raises(ValueError, match="int32"):
+        vm._check_registers(bad)
+
+
 def test_plain_version_on_packed_buffers_matches_columns():
     """``expression_vm`` on CPU buffers (the plain version) equals ``run_program_plain`` over the
     columns, and counts no launch."""

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from pathway_tpu_torch.ops import attention, ring
+from pathway_tpu_torch.parallel import exchange
 
 CSRC = Path(attention.__file__).resolve().parent.parent / "csrc"
 
@@ -18,6 +19,8 @@ CSRC = Path(attention.__file__).resolve().parent.parent / "csrc"
 @pytest.mark.parametrize("source,constant,value", [
     ("masked_attention.cu", "kTmaMaxSeq", attention.PERSISTENT_MAX_SEQ),
     ("masked_attention_bwd.cu", "kFusedMaxSeq", attention.FUSED_BWD_MAX_SEQ),
+    ("bucket_exchange.cu", "kTileRows", exchange.TILE_ROWS),
+    ("bucket_exchange.cu", "kMaxDst", exchange.MAX_SHARDS),
 ])
 def test_route_limits_match_the_kernel_sources(source, constant, value):
     found = re.search(rf"constexpr int {constant} = (\d+);", (CSRC / source).read_text())
