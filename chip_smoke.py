@@ -14,7 +14,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    the plain version's time and one PyTorch library call's time. The attention on contiguous
    inputs and on the encoder's fused-qkv views, at S = 16 and 128 (the persistent route) and 512
    (the per-head route); timed at B=1024 S=128 on both layouts and with every key real, beside
-   SDPA on the same inputs, with the persistent grid's CTAs per SM.
+   SDPA on the same inputs, with the persistent grid's CTAs per SM. The scorer at q=64, n=2^20,
+   d=384 for k = 1, 10 (its stream route) and 100 (its tile route), each route logged; its plan
+   held to one wave against the occupancy API at k=10 and at ``MAX_K``; and its device time
+   (profiler) by pass beside the CUDA-event time a call.
 3. The main path at full width: the default encoder (6 layers, 384 wide, 12 heads of 32, bf16,
    seeded init) embeds 16,384 chunks of a seeded corpus into ``BruteForceKnnEngine`` in ticks
    of 1024, seeded unit vectors fill the index to 1,048,576 rows, and 8 searches of 64 text
@@ -27,7 +30,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    B=256 pairs at S=128 (tokens of the seeded corpus; the second view as the reference augments
    it), an index of 1,048,576 x 384 f32 rows, 64 queries at S=32, k=10. First the attention
    backward against autograd of the plain attention at head widths 16, 32 and 64, the InfoNCE
-   kernel against its plain version, and both kernels' times (the backward at B=256, H=12, S=128,
+   kernel against its plain version (B=256 on its cluster route, B=1000 on its one-block route),
+   InfoNCE's device time (profiler) beside an empty kernel on the same cluster launch, and both
+   kernels' times (the backward at B=256, H=12, S=128,
    D=32, its fused route, on inputs held against the plain version first, beside SDPA's backward
    and with its blocks a SM); then the gradient and one whole
    step on the kernel route against the plain route from the same parameters; then 2 warm-up and
@@ -289,9 +294,13 @@ def knn_inputs(Q: int, N: int, d: int, gen: torch.Generator, device):
 def check_knn(Q: int, N: int, d: int, ks: tuple[int, ...], device) -> tuple[float, int]:
     from pathway_tpu_torch.ops.knn import topk_scores, topk_scores_plain
 
+    from pathway_tpu_torch.ops.knn import plan
+
     gen = torch.Generator(device=device).manual_seed(12)
     queries, index, valid = knn_inputs(Q, N, d, gen, device)
     worst, ties = 0.0, 0
+    sms = torch.cuda.get_device_properties(device).multi_processor_count \
+        if device.type == "cuda" else 132
     for metric in ("cos", "ip", "l2"):
         for k in ks:
             s_k, i_k = topk_scores(queries, index, k, metric, valid=valid)
@@ -302,8 +311,9 @@ def check_knn(Q: int, N: int, d: int, ks: tuple[int, ...], device) -> tuple[floa
             n_ties = check_topk_against_plain(s_k, i_k, s_p, i_p, tol)
             err = (s_k - s_p[:, :k]).abs().max().item()
             worst, ties = max(worst, err), ties + n_ties
-            log(f"knn_topk q={Q} n={N} d={d} {metric} k={k}: max |score err| = {err:.3e}, "
-                f"{n_ties} exact ties in order (tolerance one bf16 ulp of the dot)")
+            log(f"knn_topk q={Q} n={N} d={d} {metric} k={k} ({plan(Q, N, d, k, sms).route} route): "
+                f"max |score err| = {err:.3e}, {n_ties} exact ties in order (tolerance one bf16 "
+                f"ulp of the dot)")
     if ties == 0:
         raise AssertionError("knn_topk: the duplicated rows produced no tie to check")
     return worst, ties
@@ -383,10 +393,55 @@ def time_kernels(device) -> dict:
         Q * d * 4 + N * d * 4 + N + Q * kk * (4 + 8), 2 * Q * N * d
     )
     knn["shape"] = f"q={Q} n={N} d={d} k={kk} cos"
+    knn.update(knn_route_times(lambda: topk_scores(queries, index, kk, "cos", valid=valid),
+                               Q, N, d, kk, device))
     # the bulk of the timing inputs is freed before the main path
     del queries, index, valid
     torch.cuda.empty_cache()
     return {"masked_attention": attn, "knn_topk": knn}
+
+
+def knn_one_wave(Q: int, N: int, d: int, k: int, device) -> dict:
+    """The plan of the scorer at this shape against the card: its layout is the source's
+    (``knn_topk_smem_bytes``), and its blocks a SM are no more than the occupancy API gives with
+    registers counted, so every block of a launch is resident at once. Raises otherwise."""
+    import ctypes
+
+    from pathway_tpu_torch import _kernels
+    from pathway_tpu_torch.ops.knn import plan, shared_memory_bytes
+
+    lib = _kernels.load("knn_topk")
+    for name in ("knn_topk_smem_bytes", "knn_topk_blocks_per_sm"):
+        getattr(lib, name).argtypes = [ctypes.c_int] * 4
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    p = plan(Q, N, d, k, sms)
+    route = 1 if p.route == "stream" else 0
+    smem = shared_memory_bytes(p.route, p.qc, d, k)
+    resident = lib.knn_topk_blocks_per_sm(route, p.qc, d, k)
+    chunks = -(-Q // p.qc)
+    if lib.knn_topk_smem_bytes(route, p.qc, d, k) != smem or not (
+            1 <= p.blocks_per_sm <= resident) or p.grid * chunks > resident * sms:
+        raise AssertionError(f"knn_topk plan {p} at q={Q} n={N} d={d} k={k}: {smem} bytes of "
+                             f"shared memory, {resident} blocks a SM resident: not one wave")
+    log(f"knn_topk plan at q={Q} n={N} d={d} k={k}: {p.route} route, {p.grid * chunks} blocks "
+        f"of {smem} bytes of shared memory, {p.blocks_per_sm} a SM by the plan and {resident} by "
+        f"the occupancy API on {sms} SMs: one wave")
+    return {"route": p.route, "blocks": p.grid * chunks, "blocks_per_sm": p.blocks_per_sm,
+            "smem_bytes": smem}
+
+
+def knn_route_times(call, Q: int, N: int, d: int, k: int, device) -> dict:
+    """The scorer's route at this shape (one wave, checked) and the device time of each of its
+    passes by the profiler, beside the CUDA-event time a call that ``time_kernels`` takes."""
+    wave = knn_one_wave(Q, N, d, k, device)
+    first = "knn_stream_kernel" if wave["route"] == "stream" else "knn_score_topk_kernel"
+    second = "knn_stream_merge_kernel" if wave["route"] == "stream" else "knn_merge_kernel"
+    passes = {"pass 1": device_ms(call, f"::{first}", iters=10),
+              "pass 2": device_ms(call, f"::{second}", iters=10)}
+    total = None if None in passes.values() else sum(passes.values())
+    log(f"knn_topk {wave['route']} route on the device (profiler): pass 1 "
+        f"{fmt_ms(passes['pass 1'])} ({first}), pass 2 {fmt_ms(passes['pass 2'])} ({second})")
+    return {**wave, "device_ms": total, "device_ms_by_pass": passes}
 
 
 # -- phase 3: the main path ---------------------------------------------------------------------
@@ -688,7 +743,7 @@ def time_training_kernels(device) -> dict:
     import torch.nn.functional as F
 
     from pathway_tpu_torch.ops import attention
-    from pathway_tpu_torch.ops.infonce import infonce, infonce_plain
+    from pathway_tpu_torch.ops.infonce import CLUSTER_MAX_B, infonce, infonce_empty, infonce_plain
 
     gen = torch.Generator(device=device).manual_seed(16)
     B, H, S, D = 256, 12, 128, 32
@@ -731,7 +786,13 @@ def time_training_kernels(device) -> dict:
     logits = infonce_inputs(n, gen, device)
     live = logits.clone().requires_grad_()
     labels = torch.arange(n, device=device)
+    route = "cluster" if n <= CLUSTER_MAX_B else "block"
+    kernel = "::infonce_cluster_kernel" if route == "cluster" else "::infonce_kernel"
     nce = {
+        "route": route,
+        "device_ms": device_ms(lambda: infonce(logits), kernel),
+        "empty_ms": cuda_ms(lambda: infonce_empty(n, device), 50),
+        "empty_device_ms": device_ms(lambda: infonce_empty(n, device), "infonce_empty_kernel"),
         "ms": cuda_ms(lambda: infonce(logits), 50),
         "plain_ms": cuda_ms(lambda: torch.autograd.grad(infonce_plain(live), live), 20),
         "library_ms": cuda_ms(lambda: torch.autograd.grad(
@@ -2198,10 +2259,16 @@ def main() -> int:
     phase("kernels of the RAG path")
     attn_err = check_attention(64, (16, 128, 512), device)
     knn_err, _ = check_knn(64, 1 << 20, 384, (1, 10, 100), device)
+    from pathway_tpu_torch.ops.knn import MAX_K
+
+    knn_one_wave(64, 1 << 20, 384, MAX_K, device)  # the tile route at its largest k
     times = time_kernels(device)
     for name, t in times.items():
         log(f"{name} at {t['shape']}: {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
             f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}) [{card}]")
+    t = times["knn_topk"]
+    log(f"knn_topk at {t['shape']}: {t['route']} route, {fmt_ms(t['device_ms'])} on the device "
+        f"(profiler, both passes), {t['ms']:.4f} ms a call (CUDA events) [{card}]")
 
     phase("the RAG path")
     path = run_main_path(device, n_chunks=16384, n_rows=1 << 20, tick=1024, n_queries=64,
@@ -2228,6 +2295,10 @@ def main() -> int:
         t = times[name]
         log(f"{name} at {t['shape']}: {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
             f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}) [{card}]")
+    t = times["infonce"]
+    log(f"infonce at {t['shape']}: {t['route']} route, {fmt_ms(t['device_ms'])} on the device "
+        f"(profiler); an empty kernel on the same launch {fmt_ms(t['empty_device_ms'])} on the "
+        f"device, {t['empty_ms']:.4f} ms a call [{card}]")
     torch.cuda.empty_cache()
     train = run_training(device)
     log(f"training step: {train['step_ms']:.3f} ms (CUDA events; host clock {train['wall_ms']:.3f}"
@@ -2337,7 +2408,9 @@ def main() -> int:
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            **{k: t[k] for k in ("upload_ms", "readback_ms", "numpy_tier_ms", "device_ms", "cases",
+            **{k: t[k] for k in ("route", "device_ms_by_pass", "blocks", "blocks_per_sm",
+                                 "smem_bytes", "upload_ms", "readback_ms", "numpy_tier_ms",
+                                 "device_ms", "cases",
                                  "empty_ms", "empty_device_ms", "device_ms_by_path",
                                  "ms_contiguous", "library_ms_contiguous", "ms_full_mask",
                                  "library_ms_full_mask", "ctas_per_sm", "grid",

@@ -3,7 +3,10 @@
 ``topk_scores`` scores queries against the whole index and keeps the best k per query. On CUDA
 tensors it launches the hand-written kernel ``csrc/knn_topk.cu``, which fuses the scoring with the
 top-k and never builds the ``[queries, rows]`` score matrix; on CPU tensors it runs the plain
-version, which computes the same function step by step.
+version, which computes the same function step by step. The kernel has two routes, chosen by
+shape alone (:func:`plan`): the stream route (k <= ``STREAM_MAX_K``, d <= ``STREAM_MAX_DIM`` and
+a multiple of 4: every launch of the main paths), a persistent grid of one block an SM fed by
+TMA; and the tile route for the rest, the kernel of the first versions.
 
 ``sharded_knn_search`` is the index split by rows over a ``torch.distributed`` mesh axis: each
 rank scores its rows with that kernel, the ranks all-gather their candidates, and
@@ -20,7 +23,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Any, Iterable, Sequence
+from typing import Any, Iterable, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -32,7 +35,8 @@ from .._device import resolve_device
 __all__ = [
     "topk_scores", "topk_scores_plain", "knn_search", "ShardedKnnIndex", "merge_shard_topk",
     "sharded_knn_search", "topk_merge", "topk_merge_plain", "topk_merge_shards",
-    "topk_merge_shards_plain", "MAX_K", "MAX_DIM", "MAX_CANDIDATES",
+    "topk_merge_shards_plain", "MAX_K", "MAX_DIM", "MAX_CANDIDATES", "STREAM_MAX_K",
+    "STREAM_MAX_DIM", "Plan", "plan", "shared_memory_bytes", "blocks_per_sm",
 ]
 
 #: largest k the kernel keeps per query: its per-query lists live in shared memory, and longer
@@ -44,8 +48,32 @@ MAX_DIM = 1024
 #: candidates per query the merge kernel sorts in shared memory (kMaxCandidates in
 #: csrc/topk_merge.cu): 8 shards of ``MAX_K``
 MAX_CANDIDATES = 8192
-_ROWS_PER_TILE = 64  # kR in csrc/knn_topk.cu
-_BLOCKS_PER_SM = 4
+#: largest k of the stream route (kStreamMaxK in csrc/knn_topk.cu): each of its warps keeps a list
+#: of k entries for each of the 64 queries of its block in shared memory
+STREAM_MAX_K = 16
+#: widest index of the stream route (kStreamMaxDim): its queries fit in shared memory beside the
+#: ring of index tiles. The route also takes only widths divisible by 4 (16-byte rows for TMA).
+STREAM_MAX_DIM = 384
+
+# the layouts of csrc/knn_topk.cu, for the launch plan (tests/test_torch_kernel_routes.py holds
+# each against the source)
+_ROWS_PER_TILE = 64  # kR: the tile route's rows a tile
+_TILE_THREADS = 256  # kThreads
+_TILE_MIN_BLOCKS = 2  # kTileMinBlocks: the blocks an SM its registers are bounded for
+_TILE_DK = 128  # kDK: its columns a load step
+_TILE_XS = 136  # kXS: its padded bf16 tile row
+_STREAM_QC = 64  # kStreamQC: queries a block of the stream route
+_STREAM_ROWS = 128  # kStreamRows: rows a stage, the stride of a block's walk
+_STREAM_COLS = 64  # kStreamCols: f32 columns a stage
+_STREAM_STAGES = 4  # kStreamStages
+_STREAM_CONSUMERS = 4  # kStreamConsumers: consumer warps, and one producer warp
+_STREAM_QPAD = 8  # kQPad
+_STREAM_STAGING = 256  # kStaging
+_STREAM_GROUPS = 32  # kGroups: the group maxima a query the blocks share
+#: an SM's shared memory and what the card keeps of it for each block (H100: 228 KB, 1 KB)
+_SMEM_PER_SM = 233472
+_SMEM_PER_BLOCK_RESERVED = 1024
+_THREADS_PER_SM = 2048
 
 
 def _check_k(name: str, k: int, n: int) -> None:
@@ -121,16 +149,95 @@ def _launcher():
     return fn
 
 
-def plan(n_queries: int, n_rows: int, k: int, sm_count: int) -> tuple[int, int, int]:
-    """The kernel's launch shape: (query chunk of pass 1, number of row ranges, tiles of 64 rows
-    per range). Large k or few queries take chunks of 16 queries, so the per-query lists fit in
-    shared memory; the row ranges give about ``_BLOCKS_PER_SM`` blocks per SM."""
+@functools.cache
+def _stream_launcher():
+    fn = _kernels.load("knn_topk").knn_topk_stream
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _device_limits(index: int) -> tuple[int, int]:
+    """(SMs, shared memory bytes a SM) of card ``index``, read once."""
+    props = torch.cuda.get_device_properties(index)
+    return props.multi_processor_count, props.shared_memory_per_multiprocessor
+
+
+def _align16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+def shared_memory_bytes(route: str, qc: int, d: int, k: int) -> int:
+    """The dynamic shared memory a block of pass 1 asks for, as ``csrc/knn_topk.cu`` lays it out
+    (``stream_layout`` and ``layout``; ``knn_topk_smem_bytes`` there returns the same)."""
+    if route == "stream":
+        dpad = -(-d // _STREAM_COLS) * _STREAM_COLS
+        at = _STREAM_STAGES * _STREAM_ROWS * _STREAM_COLS * 4  # the ring
+        at = _align16(at + 2 * _STREAM_QC * (dpad + _STREAM_QPAD))  # bf16 queries
+        at = _align16(at + 4 * _STREAM_QC)  # |q|^2
+        at = _align16(at + 4 * _STREAM_CONSUMERS * _STREAM_QC * k)  # each warp's list scores
+        at = _align16(at + 4 * _STREAM_CONSUMERS * _STREAM_QC * k)  # and rows
+        at = _align16(at + 8 * _STREAM_QC)  # the block's thresholds
+        at = _align16(at + 8 * _STREAM_STAGING * _STREAM_CONSUMERS)  # staging
+        at = _align16(at + 8 * 2 * _STREAM_STAGES)  # mbarriers
+        return at + 128  # aligning the base
+    dpad = -(-d // _TILE_DK) * _TILE_DK
+    qw = min(dpad, MAX_DIM)
+    at = _align16(2 * qc * (qw + 8))  # bf16 queries
+    at = _align16(at + 2 * _ROWS_PER_TILE * _TILE_XS)  # bf16 tile
+    at = _align16(at + 4 * qc)  # |q|^2
+    at = _align16(at + 4 * _ROWS_PER_TILE)  # |x|^2
+    at = _align16(at + 4 * qc * _ROWS_PER_TILE)  # scores
+    at = _align16(at + 4 * qc * k)  # list scores
+    return _align16(at + 4 * qc * k)  # list rows
+
+
+def blocks_per_sm(route: str, qc: int, d: int, k: int, smem_per_sm: int = _SMEM_PER_SM) -> int:
+    """Blocks of pass 1 that one SM holds at once by their shared memory and threads, and for
+    the tile route no more than its launch bounds leave registers for (on the card,
+    ``knn_topk_blocks_per_sm`` asks the occupancy API, which counts the registers used)."""
+    smem = shared_memory_bytes(route, qc, d, k) + _SMEM_PER_BLOCK_RESERVED
+    if route == "stream":
+        return max(1, min(smem_per_sm // smem, _THREADS_PER_SM // ((_STREAM_CONSUMERS + 1) * 32)))
+    return max(1, min(smem_per_sm // smem, _THREADS_PER_SM // _TILE_THREADS, _TILE_MIN_BLOCKS))
+
+
+class Plan(NamedTuple):
+    """The kernel's launch shape: the route, the query chunk, the blocks a chunk (the stream
+    route's persistent grid, or the tile route's row ranges), the tile route's 64-row tiles a
+    range (0 on the stream route), and the blocks an SM holds."""
+
+    route: str
+    qc: int
+    grid: int
+    tiles_per_range: int
+    blocks_per_sm: int
+
+
+def plan(n_queries: int, n_rows: int, d: int, k: int, sm_count: int,
+         smem_per_sm: int = _SMEM_PER_SM) -> Plan:
+    """The route and launch shape of ``topk_scores`` on a card of ``sm_count`` SMs with
+    ``smem_per_sm`` bytes of shared memory each, from the shape alone. k <= ``STREAM_MAX_K`` and
+    d <= ``STREAM_MAX_DIM``, divisible by 4, take the stream route: chunks of 64 queries, and a
+    persistent grid of as many blocks as the SMs hold at once, each walking 128-row tiles with a
+    stride of the grid. The rest take the tile route: chunks of 64 queries, or of 16 where k is
+    large or the queries few (the lists fit in shared memory), and row ranges of 64-row tiles, as
+    many as the SMs hold at once. Either way the blocks of all chunks go in one wave, unless the
+    chunks alone outnumber what the SMs hold."""
+    if k <= STREAM_MAX_K and d <= STREAM_MAX_DIM and d % 4 == 0:
+        per_sm = blocks_per_sm("stream", _STREAM_QC, d, k, smem_per_sm)
+        tiles = -(-n_rows // _STREAM_ROWS)
+        chunks = -(-n_queries // _STREAM_QC)
+        grid = max(1, min(tiles, per_sm * sm_count // chunks))
+        return Plan("stream", _STREAM_QC, grid, 0, per_sm)
     qc = 64 if (k <= 128 and n_queries > 16) else 16
+    per_sm = blocks_per_sm("tile", qc, d, k, smem_per_sm)
     tiles = -(-n_rows // _ROWS_PER_TILE)
     chunks = -(-n_queries // qc)
-    ranges = max(1, min(tiles, _BLOCKS_PER_SM * sm_count // chunks))
+    ranges = max(1, min(tiles, per_sm * sm_count // chunks))
     tiles_per_range = -(-tiles // ranges)
-    return qc, -(-tiles // tiles_per_range), tiles_per_range
+    return Plan("tile", qc, -(-tiles // tiles_per_range), tiles_per_range, per_sm)
 
 
 def topk_scores(
@@ -142,9 +249,10 @@ def topk_scores(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Best k rows of ``index`` per query, as :func:`topk_scores_plain` computes them.
 
-    On CUDA tensors it launches the fused score + top-k kernel (rows of any width, cast to f32,
-    and k <= ``MAX_K``); on CPU tensors it runs the plain version. On every device k = 0 gives
-    ``[q, 0]`` without a launch and k above the rows raises, as ``lax.top_k`` does."""
+    On CUDA tensors it launches the fused score + top-k kernel on the route :func:`plan` gives
+    the shape (rows of any width, cast to f32, and k <= ``MAX_K``); on CPU tensors it runs the
+    plain version. On every device k = 0 gives ``[q, 0]`` without a launch and k above the rows
+    raises, as ``lax.top_k`` does."""
     _check_k("topk_scores", k, index.shape[0])
     if k == 0:
         return (torch.empty((queries.shape[0], 0), dtype=torch.float32, device=queries.device),
@@ -172,18 +280,22 @@ def topk_scores(
                 torch.empty((0, k), dtype=torch.int64, device=dev))
     if index.data_ptr() % 16:  # the kernel reads rows 16 bytes at a time
         index = index.clone()
-    sm_count = torch.cuda.get_device_properties(queries.device).multi_processor_count
-    qc, ranges, tiles_per_range = plan(Q, N, k, sm_count)
-    cand_s = torch.empty((Q, ranges, k), dtype=torch.float32, device=dev)
-    cand_i = torch.empty((Q, ranges, k), dtype=torch.int32, device=dev)
+    p = plan(Q, N, d, k, *_device_limits(
+        torch.cuda.current_device() if dev.index is None else dev.index))
+    lists = p.grid * (_STREAM_CONSUMERS if p.route == "stream" else 1)  # lists a query
+    cand_s = torch.empty((Q, lists, k), dtype=torch.float32, device=dev)
+    cand_i = torch.empty((Q, lists, k), dtype=torch.int32, device=dev)
     out_s = torch.empty((Q, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((Q, k), dtype=torch.int64, device=dev)
-    err = _launcher()(
-        queries.data_ptr(), index.data_ptr(), None if valid is None else valid.data_ptr(),
-        cand_s.data_ptr(), cand_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
-        Q, N, d, k, 0 if metric in ("cos", "ip") else 1, qc, ranges, tiles_per_range,
-        _kernels.stream(dev),
-    )
+    ptrs = (queries.data_ptr(), index.data_ptr(), None if valid is None else valid.data_ptr())
+    outs = (cand_s.data_ptr(), cand_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
+            Q, N, d, k, 0 if metric in ("cos", "ip") else 1)
+    if p.route == "stream":
+        # what the blocks share per query: a threshold, a count of candidates, group maxima
+        shared = torch.zeros((Q * (2 + _STREAM_GROUPS),), dtype=torch.int64, device=dev)
+        err = _stream_launcher()(*ptrs, shared.data_ptr(), *outs, p.grid, _kernels.stream(dev))
+    else:
+        err = _launcher()(*ptrs, *outs, p.qc, p.grid, p.tiles_per_range, _kernels.stream(dev))
     _kernels.check(err, "knn_topk")
     topk_scores.launches += 1
     return out_s, out_i

@@ -42,12 +42,15 @@ from pathway_tpu_torch.ops.attention import (
     persistent_ctas_per_sm,
     shared_memory_bytes,
 )
-from pathway_tpu_torch.ops.infonce import infonce, infonce_plain
+from pathway_tpu_torch.ops import knn as knn_ops
+from pathway_tpu_torch.ops.infonce import CLUSTER_MAX_B, infonce, infonce_plain
 from pathway_tpu_torch.ops.index_engines import BruteForceKnnEngine
 from pathway_tpu_torch.models import ring_attention as ring_model
 from pathway_tpu_torch.ops.knn import (
     MAX_CANDIDATES,
     MAX_K,
+    STREAM_MAX_DIM,
+    STREAM_MAX_K,
     ShardedKnnIndex,
     topk_merge,
     topk_merge_plain,
@@ -453,8 +456,9 @@ def test_masked_attention_bwd_refuses_what_it_does_not_take(cuda):
         masked_attention_bwd(bad, bad, bad, bad, mask, stat)
 
 
-@pytest.mark.parametrize("B", [1, 7, 256, 1100])
+@pytest.mark.parametrize("B", [1, 7, 256, 1100, 8, 255, 257, CLUSTER_MAX_B, CLUSTER_MAX_B + 1])
 def test_infonce_kernel_matches_plain(cuda, B):
+    """Both routes: the cluster route up to ``CLUSTER_MAX_B``, the one-block route past it."""
     gen = torch.Generator(device=cuda).manual_seed(B)
     ea = torch.nn.functional.normalize(torch.randn((B, 64), generator=gen, device=cuda), dim=1)
     eb = torch.nn.functional.normalize(ea + 0.3 * torch.randn((B, 64), generator=gen,
@@ -504,6 +508,146 @@ def test_knn_topk_kernel_at_any_width(cuda, d):
         s_p = s_p.cpu().numpy()
         assert_topk_equal(s_k.cpu().numpy(), i_k.cpu().numpy(), s_p, i_p.cpu().numpy(),
                           topk_tol(s_p, queries.cpu().numpy(), index.cpu().numpy(), metric))
+
+
+def _knn_held(cuda, queries, index, k, metric, valid=None):
+    """One call of the scorer against its plain version on the same inputs, one launch counted;
+    returns the pairs of tied duplicates it saw in order."""
+    before = topk_scores.launches
+    s_k, i_k = topk_scores(queries, index, k, metric, valid=valid)
+    assert topk_scores.launches == before + 1
+    s_p, i_p = topk_scores_plain(queries, index, min(k + 1, index.shape[0]), metric, valid=valid)
+    s_p = s_p.cpu().numpy()
+    return assert_topk_equal(s_k.cpu().numpy(), i_k.cpu().numpy(), s_p, i_p.cpu().numpy(),
+                             topk_tol(s_p, queries.cpu().numpy(), index.cpu().numpy(), metric))
+
+
+def _knn_data(cuda, Q, N, d, seed):
+    """Index rows of width d, the first half of them copied to rows N // 2 on (exact ties), and
+    queries near copied rows."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    index = torch.randn((N, d), generator=gen, device=cuda)
+    dup = min(N // 2, 500)
+    index[N // 2 : N // 2 + dup] = index[:dup]
+    pick = torch.randint(0, max(dup, 1), (Q,), generator=gen, device=cuda)
+    queries = index[pick] + 0.05 * torch.randn((Q, d), generator=gen, device=cuda)
+    return queries.contiguous(), index
+
+
+@pytest.mark.parametrize("metric", ["cos", "ip", "l2"])
+@pytest.mark.parametrize("Q,N,d,k", [
+    (64, 50, 384, 10),  # fewer rows than one tile of either route
+    (65, 16973, 96, STREAM_MAX_K),  # rows not a multiple of a tile or of the grid's stride
+    (1, 20000, 4, 1),
+    (63, 3000, STREAM_MAX_DIM, STREAM_MAX_K + 1),  # the first k of the tile route
+    (130, 5000, 384, 10),
+    (64, 20000, 1, 10),
+    (64, 20000, 3, 10),
+    (64, 4000, 1030, 10),
+    (20, 3000, STREAM_MAX_DIM + 4, 10),  # the first width past the stream route
+    (64, 3000, 384, MAX_K),
+])
+def test_knn_topk_routes_match_plain(cuda, metric, Q, N, d, k):
+    queries, index = _knn_data(cuda, Q, N, d, seed=Q + N + d + k)
+    valid = torch.rand((N,), generator=torch.Generator(device=cuda).manual_seed(d),
+                       device=cuda) > 0.1
+    _knn_held(cuda, queries, index, k, metric, valid)
+    _knn_held(cuda, queries, index, k, metric)
+
+
+@pytest.mark.parametrize("k", [1, 10, STREAM_MAX_K, STREAM_MAX_K + 1])
+def test_knn_topk_mask_that_empties_whole_tiles(cuda, k):
+    """The valid mask drops whole 128-row tiles of the stream route (and whole 64-row tiles of
+    the tile route), all of one block's first tile, and all but a few rows of the rest."""
+    queries, index = _knn_data(cuda, 64, 40000, 384, seed=k)
+    valid = torch.ones((40000,), dtype=torch.bool, device=cuda)
+    valid[: 128 * 3] = False
+    valid[128 * 132 : 128 * 140] = False
+    valid[30000:] = False
+    valid[30000::997] = True
+    _knn_held(cuda, queries, index, k, "cos", valid)
+    _knn_held(cuda, queries, index, k, "l2", valid)
+
+
+@pytest.mark.parametrize("metric", ["cos", "ip", "l2"])
+@pytest.mark.parametrize("k", [10, STREAM_MAX_K, STREAM_MAX_K + 1])
+def test_knn_topk_ties_across_blocks_come_lower_row_first(cuda, metric, k):
+    """Rows copied 128 rows and one grid's stride of tiles apart, so that a row and its copies
+    lie in other blocks' tiles (and in other tile-route ranges): each query is one of them, and
+    every copy ties in the kernel's order, the lower row first."""
+    gen = torch.Generator(device=cuda).manual_seed(k)
+    N, d = 128 * 132 * 3, 384
+    index = torch.randn((N, d), generator=gen, device=cuda)
+    src = torch.arange(0, 64, device=cuda) * 97
+    for shift in (128, 128 * 132, 128 * 133 + 5):
+        index[src + shift] = index[src]
+    queries = index[src].clone()
+    _knn_held(cuda, queries, index, k, metric)
+    s, i = topk_scores(queries, index, 4, metric)
+    want = torch.stack([src, src + 128, src + 128 * 132, src + 128 * 133 + 5], dim=1)
+    assert torch.equal(i, want)
+    assert (s[:, 1:] == s[:, :1]).all()
+
+
+@pytest.mark.parametrize("d,k,route,kernels", [
+    (384, 10, "stream", ("knn_stream_kernel", "knn_stream_merge_kernel")),
+    (384, STREAM_MAX_K, "stream", ("knn_stream_kernel", "knn_stream_merge_kernel")),
+    (384, STREAM_MAX_K + 1, "tile", ("knn_score_topk_kernel", "knn_merge_kernel")),
+    (STREAM_MAX_DIM + 4, 10, "tile", ("knn_score_topk_kernel", "knn_merge_kernel")),
+    (98, 10, "tile", ("knn_score_topk_kernel", "knn_merge_kernel")),
+])
+def test_knn_topk_route_by_shape(cuda, d, k, route, kernels):
+    """The plan's route is the pair of kernels that runs (the profiler's names)."""
+    queries, index = _knn_data(cuda, 64, 5000, d, seed=d + k)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert knn_ops.plan(64, 5000, d, k, sms).route == route
+    names, _ = _kernel_names(lambda: topk_scores(queries, index, k), "knn_")
+    assert len(names) == 2 and all(any(f"::{kn}" in n for n in names) for kn in kernels), names
+
+
+@pytest.mark.parametrize("Q,d,k", [(64, 384, 10), (130, 384, 10), (64, 384, STREAM_MAX_K),
+                                   (64, 384, 100), (64, 384, MAX_K), (1, 3, 10),
+                                   (64, 1030, 10)])
+def test_knn_topk_plan_fits_one_wave_on_the_card(cuda, Q, d, k):
+    """The plan's blocks per SM, from the layout, are no more than the occupancy API gives with
+    registers counted, and its layout is the source's: every block of a launch is resident at
+    once."""
+    import ctypes
+
+    from pathway_tpu_torch import _kernels
+
+    lib = _kernels.load("knn_topk")
+    for name in ("knn_topk_smem_bytes", "knn_topk_blocks_per_sm"):
+        getattr(lib, name).argtypes = [ctypes.c_int] * 4
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    p = knn_ops.plan(Q, 1 << 20, d, k, sms)
+    route = 1 if p.route == "stream" else 0
+    assert lib.knn_topk_smem_bytes(route, p.qc, d, k) == knn_ops.shared_memory_bytes(
+        p.route, p.qc, d, k)
+    resident = lib.knn_topk_blocks_per_sm(route, p.qc, d, k)
+    assert 1 <= p.blocks_per_sm <= resident
+    assert p.grid * -(-Q // p.qc) <= resident * sms
+
+
+@pytest.mark.parametrize("B,kernel", [(256, "infonce_cluster_kernel"),
+                                      (CLUSTER_MAX_B, "infonce_cluster_kernel"),
+                                      (CLUSTER_MAX_B + 1, "infonce_kernel")])
+def test_infonce_route_by_batch(cuda, B, kernel):
+    logits = torch.randn((B, B), generator=torch.Generator(device=cuda).manual_seed(1),
+                         device=cuda)
+    names, loss = _kernel_names(lambda: infonce(logits), "infonce")
+    assert len(names) == 1 and f"{kernel}(" in names[0], names
+    assert torch.isfinite(loss)
+
+
+def test_infonce_takes_an_unaligned_view(cuda):
+    """A [B, B] view 4 bytes past a 16-byte boundary: the wrapper copies it, the loss agrees."""
+    flat = torch.randn((256 * 256 + 1,), generator=torch.Generator(device=cuda).manual_seed(2),
+                       device=cuda)
+    logits = flat[1:].view(256, 256)
+    assert logits.data_ptr() % 16
+    assert abs(infonce(logits).item() - infonce_plain(logits).item()) <= 1e-5 * max(
+        1.0, abs(infonce_plain(logits).item()))
 
 
 RING_TOL = 2e-5

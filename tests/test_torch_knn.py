@@ -128,13 +128,15 @@ def test_merge_shard_topk_matches_jax():
 
 
 def test_kernel_plan_and_limits():
-    qc, ranges, tiles = tknn.plan(64, 1 << 20, 10, 132)
-    assert qc == 64 and ranges * tiles * 64 >= 1 << 20 and (ranges - 1) * tiles * 64 < 1 << 20
-    assert ranges == 512  # 16384 tiles in ranges of 32, near 4 blocks on each of 132 SMs
-    assert tknn.plan(1, 1000, 10, 132)[0] == 16  # one query: small chunks
-    assert tknn.plan(64, 1000, 1024, 132)[0] == 16  # large k: lists fit in shared memory
-    qc, ranges, tiles = tknn.plan(64, 100, 5, 132)
-    assert ranges == 2 and tiles == 1  # two tiles of 64 rows, one block each
+    p = tknn.plan(64, 1 << 20, 384, 10, 132)
+    assert p.route == "stream" and p.qc == 64 and p.tiles_per_range == 0
+    assert p.grid == 132 and p.blocks_per_sm == 1  # one persistent block on each of 132 SMs
+    assert tknn.plan(1, 1000, 3, 10, 132).qc == 16  # the tile route, one query: small chunks
+    assert tknn.plan(64, 1000, 384, 1024, 132).qc == 16  # large k: lists fit in shared memory
+    p = tknn.plan(64, 100, 8, 5, 132)
+    assert p.route == "stream" and p.grid == 1  # one tile of 128 rows, one block
+    p = tknn.plan(64, 100, 3, 5, 132)
+    assert p.route == "tile" and p.grid == 2 and p.tiles_per_range == 1  # two tiles of 64 rows
     with pytest.raises(ValueError, match="no kernel"):
         tknn.topk_scores(torch.zeros((1, 8), device="meta"), torch.zeros((4, 8), device="meta"), 1)
 
@@ -187,3 +189,43 @@ def test_k_past_the_rows_raises_as_lax_top_k():
         tknn.knn_search(queries, index, 5, device="cpu")
     s, _ = tknn.knn_search(queries, index, 4, device="cpu")  # k = n is taken
     assert s.shape == (7, 4)
+
+
+def _edge_data(n: int, d: int, seed: int):
+    """Rows of width d with copies that tie across the 64-row and 128-row tile borders of the
+    two routes (rows 63/64, 127/128 and 255/256 equal), and queries equal to those rows."""
+    rng = np.random.default_rng(seed)
+    index = rng.standard_normal((n, d)).astype(np.float32)
+    pairs = [(63, 64), (127, 128), (255, 256)]
+    for a, b in pairs:
+        if b < n:
+            index[b] = index[a]
+    queries = np.stack([index[a] for a, b in pairs if b < n] + [index[n - 1]])
+    return queries.astype(np.float32), index
+
+
+@pytest.mark.parametrize("metric", ["cos", "ip", "l2"])
+@pytest.mark.parametrize("n,d,k", [(300, 1, 5), (1077, 1030, 10), (100, 8, 3), (2000, 96, 16),
+                                   (16973, 12, 17)])
+def test_plain_scorer_matches_jax_at_the_routes_edges(metric, n, d, k):
+    """Rows not a multiple of either route's tile, widths 1 and past ``MAX_DIM``, k at and past
+    the stream route's limit, and exact ties across tile borders (lower row first)."""
+    queries, index = _edge_data(n, d, seed=n + d)
+    valid = np.random.default_rng(d).random(n) > 0.1
+    for a, b in [(63, 64), (127, 128), (255, 256)]:
+        if b < n:
+            valid[[a, b]] = True
+    js, ji = jknn.topk_scores(jnp.asarray(queries), jnp.asarray(index), k + 1, metric,
+                              valid=jnp.asarray(valid))
+    ts, ti = tknn.topk_scores(torch.from_numpy(queries), torch.from_numpy(index), k, metric,
+                              valid=torch.from_numpy(valid))
+    js = np.asarray(js)
+    assert_topk_equal(ts.numpy(), ti.numpy(), js, np.asarray(ji),
+                      topk_tol(js, queries, index, metric))
+    seen = 0  # the copied rows tie: where both are in the answer, the lower row comes first
+    for r, (a, b) in enumerate(p for p in [(63, 64), (127, 128), (255, 256)] if p[1] < n):
+        got = ti[r].tolist()
+        if a in got and b in got:
+            assert got.index(a) < got.index(b)
+            seen += 1
+    assert seen > 0 or metric != "l2"  # under l2 a query's copies are its nearest rows
