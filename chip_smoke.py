@@ -8,7 +8,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 1. The card's name and power limit (``nvidia-smi``), then the build of every kernel of the path
    from ``pathway_tpu_torch/csrc`` (one ``nvcc`` per source, all started together), with ptxas's
    registers, shared memory and spills for each kernel by name (the attention's two routes, the
-   backward's fused kernel and its two-kernel route, and the ring's two routes among them).
+   backward's fused kernel and its two-kernel route, and the ring's two routes among them), and
+   the build of the engine's native keyspace module (``pathway_tpu_torch/native``, the host C
+   compiler), each with its time.
 2. Each kernel against its plain PyTorch version on the card, at the shapes the main path gives
    it, with the tolerance stated beside each check; then its time (CUDA events) beside its bound,
    the plain version's time and one PyTorch library call's time. The attention on contiguous
@@ -97,7 +99,22 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    equals a plain numpy computation exactly, and every launch count equals what the reference's
    gates give for the graph (``gated_launches``); every run is profiled for the kernel's summed
    device time, the 1-worker run also for its idle share.
-11. Each engine-path kernel's launches and summed device time per path, one JSON line with each
+11. The indexing stdlib through ``pw.run()``: ``pw.indexing.DataIndex`` over
+   ``BruteForceKnnFactory(dimensions=384, reserved_space=2^20)`` with the default encoder as its
+   embedder; its data table from a ``ConnectorSubject``: the RAG cell's 16,384 chunk texts in
+   commits of 1024, then 1,032,192 seeded unit vectors in commits of 65,536 (1,048,576 rows);
+   then 64 text queries at k=10 in a commit of their own through ``query_as_of_now`` with
+   collapsed answers (each commit is its own tick); at 1 worker and at 2 with
+   ``PATHWAY_MESH_EXCHANGE=1``. Every answer is held against
+   ``BruteForceKnnEngine.search`` called directly on an engine filled with the same rows (scores
+   within one bf16 ulp, ids equal where the scores are clear). The fill rate (until the run's
+   engine holds every row), the query tick's host time (commit to the last answer's callback)
+   and its idle share (a trace of the run's device activity, between two marker kernels launched
+   at the commit and at the last answer) are logged. Then a ``HybridIndex`` of BM25 with the
+   brute-force index (reciprocal-rank fusion) over the 16,384 chunks, the same queries, held
+   against ``HybridEngine.search`` called directly on the run's engine (untraced). The launch
+   counts are zeroed just before each run and read just after.
+12. Each engine-path kernel's launches and summed device time per path, one JSON line with each
    kernel's numbers, then the closing JSON line.
 
 It needs one CUDA card and exits non-zero, printing no result, without one. It imports nothing
@@ -2093,6 +2110,21 @@ def time_expression_vm(device, cols: dict, commit: int) -> dict:
     return t_
 
 
+@contextlib.contextmanager
+def scoped_env(env: dict):
+    """The environment variables ``env`` set for the block, the old values back after it."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def run_pipeline(device, cols: dict, commit: int, n_groups: int, workers: int, lifted: bool):
     """``pw.run(device=...)`` of the phase's streaming pipeline: a ``ConnectorSubject`` that
     ``next_batch``es the columns in commits of ``commit`` rows, the chain, the groupby, and
@@ -2120,19 +2152,13 @@ def run_pipeline(device, cols: dict, commit: int, n_groups: int, workers: int, l
          b.diffs.copy())))
     env = {"PATHWAY_THREADS": str(workers), "PATHWAY_MESH_EXCHANGE": "1" if workers > 1 else "0",
            "PATHWAY_INGEST_COALESCE_WINDOWS": "0", "PATHWAY_FUSION": "1"}
-    saved = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
-    try:
-        t0 = time.perf_counter()
-        pw.run(device=device)
-        seconds = time.perf_counter() - t0
-    finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
-        pw.G.clear()
+    with scoped_env(env):
+        try:
+            t0 = time.perf_counter()
+            pw.run(device=device)
+            seconds = time.perf_counter() - t0
+        finally:
+            pw.G.clear()
     keys, g, s_, c, diffs = (np.concatenate(x) for x in zip(*seen))
     order = np.lexsort((np.arange(len(keys)), keys))  # by row key, then arrival
     keys, g, s_, c, diffs = keys[order], g[order], s_[order], c[order], diffs[order]
@@ -2222,11 +2248,287 @@ def run_table_api(device, *, rows: int = 1 << 22, commit: int = 1 << 16, groups:
     return result
 
 
+# -- phase 11: the indexing stdlib through pw.run() --------------------------------------------
+
+
+_wall = time.perf_counter  # for the subscribe callbacks, whose ``time`` argument hides the module
+
+
+def index_data(n_chunks: int, n_rows: int, dim: int, n_queries: int, seed: int = 31):
+    """The RAG cell's rows: its chunk texts, then seeded unit vectors up to ``n_rows``; and its
+    text queries (the first sentence of seeded chunks)."""
+    texts = [c for c, _ in make_corpus(n_chunks, 256, seed=1)]
+    rng = np.random.default_rng(seed)
+    vecs = rng.standard_normal((n_rows - n_chunks, dim), dtype=np.float32)
+    vecs /= np.linalg.norm(vecs, axis=1, keepdims=True)
+    queries = [texts[i].split(".")[0] for i in rng.integers(0, n_chunks, n_queries)]
+    return texts, vecs, queries
+
+
+def rows_held(engine) -> int:
+    """The rows an index engine holds (a hybrid: the fewest of its sub-engines')."""
+    subs = getattr(engine, "engines", None)
+    if subs is not None:
+        return min(rows_held(e) for e in subs)
+    return engine._slots.high if hasattr(engine, "_slots") else len(engine._doc_len)
+
+
+def run_index_pipeline(device, *, factory, texts, vecs, queries, k: int, chunk_commit: int,
+                       vec_commit: int, workers: int, trace: bool = True) -> dict:
+    """``pw.run(device=...)`` of an index over a ``ConnectorSubject``'s rows (``rid``, ``data``:
+    the chunk texts in commits of ``chunk_commit``, then the vectors in commits of
+    ``vec_commit``), then the queries (``qid``, ``q``) in one commit of their own once every row
+    is in: a second subject polls the run's engines until one holds every row. Each commit is its
+    own tick. On the card with ``trace`` the run is traced (device activity only), and the query
+    tick is marked on the device by an empty spin kernel at the queries' commit and another at
+    the last answer's callback. Returns the answers by query id (a list of (rid, score)), the
+    matched row keys by query id, the engines the run built, and its times."""
+    import threading
+
+    import pathway_tpu_torch as pw
+
+    cuda = device.type == "cuda"
+    n_rows = len(texts) + len(vecs)
+    answered = threading.Event()
+    marks: dict = {}
+    engines: list = []
+
+    class Rows(pw.io.python.ConnectorSubject):
+        def run(self):
+            for s in range(0, len(texts), chunk_commit):
+                part = texts[s:s + chunk_commit]
+                self.next_batch({"rid": list(range(s, s + len(part))), "data": part})
+                self.commit()
+            for s in range(0, len(vecs), vec_commit):
+                part = vecs[s:s + vec_commit]
+                start = len(texts) + s
+                self.next_batch({"rid": list(range(start, start + len(part))),
+                                 "data": list(part)})
+                self.commit()
+
+    class Queries(pw.io.python.ConnectorSubject):
+        def run(self):
+            deadline = _wall() + 1200
+            while not engines or max(rows_held(e) for e in engines) < n_rows:
+                if _wall() > deadline:
+                    raise AssertionError("the index did not take every row within 1200 s")
+                time.sleep(0.005)
+            marks["filled"] = _wall()
+            if cuda and trace:
+                torch.cuda._sleep(1000)  # the query tick's start on the device's timeline
+            marks["query"] = _wall()
+            self.next_batch({"qid": list(range(len(queries))), "q": list(queries)})
+            self.commit()
+
+    pw.G.clear()
+    data = pw.io.python.read(Rows(), schema=pw.schema_from_types(rid=int, data=object),
+                             autocommit_duration_ms=None)
+    qt = pw.io.python.read(Queries(), schema=pw.schema_from_types(qid=int, q=str),
+                           autocommit_duration_ms=None)
+    index = factory.build_index(data.data, data)
+    make_engine = index.inner_index._make_engine
+
+    def keep_engine(dev):
+        engines.append(make_engine(dev))
+        return engines[-1]
+
+    index.inner_index._make_engine = keep_engine  # the run's engines, for the direct search
+    res = index.query_as_of_now(qt.q, number_of_matches=k).select(
+        qid=pw.left.qid, rid=pw.right.rid, score=pw.right._pw_index_reply_score,
+        ids=pw.right._pw_index_reply_id)
+    answers: dict = {}
+    matched: dict = {}
+
+    def on_answer(key, row, time, is_addition):
+        if is_addition:
+            answers[row["qid"]] = list(zip((int(r) for r in row["rid"]),
+                                           (float(s) for s in row["score"])))
+            matched[row["qid"]] = [int(i) for i in row["ids"]]
+            if len(answers) == len(queries):
+                marks["answered"] = _wall()
+                if cuda and trace:
+                    torch.cuda._sleep(1000)  # the query tick's end
+                answered.set()
+
+    pw.io.subscribe(res, on_change=on_answer)
+    env = {"PATHWAY_THREADS": str(workers), "PATHWAY_MESH_EXCHANGE": "1" if workers > 1 else "0",
+           "PATHWAY_INGEST_COALESCE_WINDOWS": "0"}
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with scoped_env(env), (torch.profiler.profile(activities=acts) if cuda and trace
+                           else contextlib.nullcontext()) as prof:
+        try:
+            t0 = time.perf_counter()
+            pw.run(device=device)
+            seconds = time.perf_counter() - t0
+        finally:
+            pw.G.clear()
+        if prof is not None:
+            torch.cuda.synchronize()
+    if not answered.is_set():
+        raise AssertionError("the run ended before every query was answered")
+    out = {"answers": answers, "matched": matched, "engines": engines, "seconds": seconds,
+           "query_ms": (marks["answered"] - marks["query"]) * 1e3,
+           "fill_rows_per_s": n_rows / (marks["filled"] - t0), "idle_share": None}
+    if prof is not None:
+        out.update(query_tick_device(prof))
+    return out
+
+
+def query_tick_device(prof) -> dict:
+    """The query tick on the device's timeline, between the two spin kernels that mark it: its
+    span, the device's busy time inside it (kernels and copies), its idle share, and the largest
+    device events in it."""
+    ev = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                key=lambda e: e.time_range.start)
+    spins = [e for e in ev if "spin_kernel" in e.name]
+    if len(spins) < 2:
+        log(f"  the query tick's markers: {len(spins)} of 2 recorded; its idle share is not "
+            f"measured")
+        return {}
+    lo, hi = spins[-2].time_range.end, spins[-1].time_range.start
+    inside = [e for e in ev if lo <= e.time_range.start and e.time_range.end <= hi]
+    span_ms = (hi - lo) / 1e3
+    busy_ms = sum(e.time_range.elapsed_us() for e in inside) / 1e3
+    by_name = collections.Counter()
+    counts = collections.Counter()
+    for e in inside:
+        by_name[e.name[:80]] += e.time_range.elapsed_us() / 1e3
+        counts[e.name[:80]] += 1
+    return {"idle_share": 1 - busy_ms / span_ms, "busy_ms": busy_ms, "span_ms": span_ms,
+            "top": [(ms, counts[name], name) for name, ms in by_name.most_common(4)]}
+
+
+def check_answers(label: str, got: dict, want: dict) -> int:
+    """Each query's answer through ``pw.run`` against the direct search's on the same rows, by
+    query id: the same length, scores within one bf16 ulp, ids equal wherever the direct score is
+    more than one ulp from its neighbours'. Returns the number of ids that differ inside such
+    near ties."""
+    if got.keys() != want.keys():
+        raise AssertionError(f"{label}: answers for {len(got)} queries, direct {len(want)}")
+    swapped = 0
+    for q, w in want.items():
+        g = got[q]
+        if len(g) != len(w):
+            raise AssertionError(f"{label}: {len(g)} matches, the direct search {len(w)}")
+        ws = torch.tensor([s for _, s in w], dtype=torch.float64)
+        tol = bf16_ulp(ws)
+        if (torch.tensor([s for _, s in g], dtype=torch.float64) - ws).abs().gt(tol).any():
+            raise AssertionError(f"{label}: a score differs from the direct search's by more "
+                                 f"than one bf16 ulp")
+        for i, ((gi, _), (wi, _)) in enumerate(zip(g, w)):
+            near = any(abs(ws[i] - ws[j]) <= tol[i] for j in (i - 1, i + 1) if 0 <= j < len(w))
+            if gi != wi:
+                if not near:
+                    raise AssertionError(f"{label}: id {gi} where the direct search has {wi}, "
+                                         f"with clear scores")
+                swapped += 1
+    return swapped
+
+
+def run_indexing(device, *, n_chunks: int = 16384, n_rows: int = 1 << 20, chunk_commit: int = 1024,
+                 vec_commit: int = 1 << 16, n_queries: int = 64, k: int = 10, cfg=None) -> dict:
+    """The phase; sizes as the defaults say on the card (a CPU rehearsal passes small ones).
+    Returns each run's launch counts, rates and times."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.models.embedder import Embedder
+    from pathway_tpu_torch.ops.index_engines import BruteForceKnnEngine
+
+    cuda = device.type == "cuda"
+    emb = Embedder(cfg, seed=0, device=device)
+    dim = emb.cfg.dim
+    texts, vecs, queries = index_data(n_chunks, n_rows, dim, n_queries)
+    emb.embed_texts(texts[:8])  # first use: kernel libraries load, cuBLAS warms up
+
+    t0 = time.perf_counter()
+    direct = BruteForceKnnEngine(dim, reserved_space=n_rows, embedder=emb, device=device)
+    for s in range(0, n_chunks, chunk_commit):
+        part = texts[s:s + chunk_commit]
+        direct.add_batch(list(range(s, s + len(part))), part, [None] * len(part))
+    for s in range(0, len(vecs), vec_commit):
+        part = vecs[s:s + vec_commit]
+        direct.add_batch(list(range(n_chunks + s, n_chunks + s + len(part))), list(part),
+                         [None] * len(part))
+    want = dict(enumerate(direct.search(queries, [k] * n_queries, [None] * n_queries)))
+    log(f"the direct engine: {direct._slots.high} rows and {n_queries} searches in "
+        f"{time.perf_counter() - t0:.1f} s")
+    del direct
+
+    result: dict = {"launches": {}, "rates": {}}
+    factory = pw.indexing.BruteForceKnnFactory(dimensions=dim, reserved_space=n_rows,
+                                               embedder=emb)
+    card = card_line() if cuda else "cpu"
+    for path, workers in (("indexing", 1), ("indexing_2", 2)):
+        with counted(path, result["launches"]):
+            run = run_index_pipeline(device, factory=factory, texts=texts, vecs=vecs,
+                                     queries=queries, k=k, chunk_commit=chunk_commit,
+                                     vec_commit=vec_commit, workers=workers)
+        swapped = check_answers(path, run["answers"], want)
+        held = max(e._slots.high for e in run["engines"])
+        if held != n_rows:
+            raise AssertionError(f"{path}: the index holds {held} rows, not {n_rows}")
+        result["rates"][path] = {k_: run[k_] for k_ in ("fill_rows_per_s", "query_ms",
+                                                        "idle_share", "seconds")}
+        log(f"pw.indexing {path}: {n_rows} rows ({n_chunks} chunks in commits of "
+            f"{chunk_commit}, then vectors in commits of {vec_commit}) at {workers} worker(s)"
+            f"{', mesh exchange' if workers > 1 else ''}: {run['fill_rows_per_s']:.1f} rows/s "
+            f"filled; {n_queries} answers equal to the direct search ({swapped} ids swapped "
+            f"inside near ties); the query tick {run['query_ms']:.3f} ms (host, commit to the "
+            f"last answer), idle share {fmt_share(run['idle_share'])}; the run "
+            f"{run['seconds']:.1f} s; launches {result['launches'][path]} [{card}]")
+        log_query_tick(run, card)
+        del run
+
+    # the hybrid: BM25 fused with the brute-force index over the chunks, held against the run's
+    # own engine searched directly
+    factory = pw.indexing.HybridIndexFactory([
+        pw.indexing.TantivyBM25Factory(),
+        pw.indexing.BruteForceKnnFactory(dimensions=dim, embedder=emb)])
+    with counted("indexing_hybrid", result["launches"]):
+        # untraced: the per-chunk embeds (about 100 kernels each) would make a trace of some
+        # 1.6 million device events, minutes to read
+        run = run_index_pipeline(device, factory=factory, texts=texts, vecs=vecs[:0],
+                                 queries=queries, k=k, chunk_commit=chunk_commit,
+                                 vec_commit=vec_commit, workers=1, trace=False)
+    direct = run["engines"][0].search(queries, [k] * n_queries, [None] * n_queries)
+    for q, rows in enumerate(direct):
+        got = list(zip(run["matched"][q], (s for _, s in run["answers"][q])))
+        # equal fused scores may come in another order: each score's set of keys must agree
+        if sorted(got) != sorted(rows) or [s for _, s in got] != [s for _, s in rows]:
+            raise AssertionError("the hybrid's answer differs from HybridEngine.search")
+    result["rates"]["indexing_hybrid"] = {k_: run[k_] for k_ in ("fill_rows_per_s", "query_ms",
+                                                                 "idle_share", "seconds")}
+    log(f"pw.indexing hybrid (BM25 + brute force, RRF k=60): {n_chunks} chunks at 1 worker, "
+        f"{run['fill_rows_per_s']:.1f} rows/s filled; {n_queries} answers equal to "
+        f"HybridEngine.search; the query tick {run['query_ms']:.3f} ms, idle share "
+        f"{fmt_share(run['idle_share'])}; launches {result['launches']['indexing_hybrid']} "
+        f"[{card}]")
+    log_query_tick(run, card)
+    if cuda:
+        for path in ("indexing", "indexing_2", "indexing_hybrid"):
+            missing = [n for n in ("masked_attention", "knn_topk")
+                       if result["launches"][path][n] == 0]
+            if missing:
+                raise AssertionError(f"{missing} not launched on the {path} path")
+    return result
+
+
+def log_query_tick(run: dict, card: str) -> None:
+    if "span_ms" in run:
+        log(f"  query tick on the device: {run['span_ms']:.3f} ms between its markers, busy "
+            f"{run['busy_ms']:.3f} ms [{card}]")
+    for dev_ms, count, name in run.get("top", []):
+        log(f"  query tick, device {dev_ms:9.3f} ms  x{count:<5d} {name} [{card}]")
+
+
+def fmt_share(x: float | None) -> str:
+    return "not measured" if x is None else f"{x:.4f}"
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
         return 2
-    from pathway_tpu_torch import _kernels
+    from pathway_tpu_torch import _kernels, native
 
     device = torch.device("cuda")
     # the engine keeps one 128-bit conflation registry a process: the engine phase's and the
@@ -2244,6 +2546,12 @@ def main() -> int:
     log(card)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
 
+    t0 = time.perf_counter()
+    cc_out = native.build()
+    name = os.path.basename(native.load().__file__)
+    log(f"native keyspace module {name}: " + ("built before" if cc_out is None else
+        f"built with the host C compiler in {time.perf_counter() - t0:.1f} s") +
+        (f"; the compiler said: {cc_out.strip()}" if cc_out and cc_out.strip() else ""))
     t0 = time.perf_counter()
     build_logs = _kernels.build_all()
     log(f"built {list(build_logs) or 'nothing (cached)'} in {time.perf_counter() - t0:.1f} s")
@@ -2362,6 +2670,10 @@ def main() -> int:
         log(f"{name}: {rate:.1f} rows/s [{card}]")
     log(f"Table API idle share (1 worker, under the profiler): {api['idle_share']:.4f} [{card}]")
 
+    phase("the indexing stdlib")
+    torch.cuda.empty_cache()
+    indexing = run_indexing(device)
+
     by_path = {**engine["device_ms_by_path"], **api["device_ms_by_path"]}
     all_launches = {**engine["launches"], **api["launches"]}
     for name in PATH_KERNELS:
@@ -2402,7 +2714,8 @@ def main() -> int:
                    "long": long["launches"].get(name, 0),
                    "sharded": sharded["launches"].get(name, 0),
                    **{p: c[name] for p, c in engine["launches"].items()},
-                   **{p: c[name] for p, c in api["launches"].items()}}
+                   **{p: c[name] for p, c in api["launches"].items()},
+                   **{p: c[name] for p, c in indexing["launches"].items()}}
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,

@@ -10,7 +10,9 @@ meshes over ``torch.distributed`` (``parallel``), long-context embedding with ri
 record exchange on the card (``parallel.meshcomm``, ``parallel.exchange``); the Table API down to
 ``run()`` (``internals``: tables, expressions, schemas, the parse graph, the graph runner and the
 expression compiler; ``io.python``, ``io.subscribe``, ``debug``, ``reducers``, ``udfs``), so that
-``import pathway_tpu_torch as pw`` reads like the reference. Hand-written CUDA kernels carry their
+``import pathway_tpu_torch as pw`` reads like the reference; the native keyspace module under the
+engine (``native``, built with the host C compiler at first use); ``pw.indexing`` (KNN, BM25,
+hybrid and sorted indexes) and ``Table.sort``. Hand-written CUDA kernels carry their
 device work: masked attention and its gradient (``ops.attention``), fused
 scoring with top-k and the sharded search's merge (``ops.knn``), the InfoNCE loss with its
 gradient (``ops.infonce``), the ring's block step (``ops.ring``), the exchange's bucketing
@@ -66,6 +68,7 @@ from .internals.table import (
 from .internals.thisclass import left, right, this
 from .udfs import UDF, udf, udf_async
 from . import debug, io  # noqa: E402
+from .stdlib import indexing  # noqa: E402
 
 from .models.embedder import (
     Embedder,
@@ -163,6 +166,7 @@ __all__ = [
     "fill_error",
     "groupby",
     "if_else",
+    "indexing",
     "io",
     "join",
     "join_inner",

@@ -24,10 +24,14 @@ are not re-registered. The registry is bounded
 unknown key raises, unless ``PATHWAY_KEY_REGISTRY_OVERFLOW=allow`` lets new
 keys pass unchecked.
 
-Copy of ``pathway_tpu/engine/keys.py`` with its pure-Python hashing path
-only: the reference computes the same bits in its C extension
-(``pathway_tpu/native``) where that is built. The spill tier of the key
-registry (``PATHWAY_KEY_REGISTRY_SPILL_DIR``) is left out.
+Copy of ``pathway_tpu/engine/keys.py``. Object columns, row tuples and
+ingest columns hash in the port's native module (``pathway_tpu_torch/native``,
+a copy of the reference's C extension), and the registry's table is its
+``KeyRegistry``, where the reference takes them when its extension is built.
+The pure-Python versions stay beside them as the plain versions that the
+tests hold the native paths against, bit for bit (``*_plain``); nothing else
+calls them. The spill tier of the key registry
+(``PATHWAY_KEY_REGISTRY_SPILL_DIR``) is left out.
 """
 
 from __future__ import annotations
@@ -38,12 +42,15 @@ from typing import Any, Iterable
 
 import numpy as np
 
+from ..native import load as _native
+
 __all__ = [
     "KeyArray",
     "KeyCollisionError",
     "SHARD_BITS",
     "shard_of",
     "mix_columns",
+    "mix_columns_fused",
     "hash_values",
     "pointer_from_ints",
     "derive",
@@ -106,6 +113,13 @@ _OBJ_HASH_CACHE: dict[int, tuple] = {}
 _OBJ_HASH_CACHE_MIN_ROWS = 128
 _OBJ_HASH_CACHE_MAX = 64
 
+#: value-level string digest memos consumed by the native kernels: the
+#: stream hot path hashes the same (equal-valued) words every tick, and a
+#: dict probe replaces the BLAKE2b digest(s). Bounded in C (cleared at
+#: 64k entries).
+_STR_MEMO: dict = {}
+_STR_MEMO2: dict = {}
+
 
 def _hash_object_column(col: np.ndarray) -> np.ndarray:
     cache_key = None
@@ -115,7 +129,8 @@ def _hash_object_column(col: np.ndarray) -> np.ndarray:
         if hit is not None and hit[0]() is col:
             return hit[1]
 
-    out = np.fromiter((_hash_scalar(v) for v in col), np.uint64, len(col))
+    out = np.empty(len(col), dtype=np.uint64)
+    _native().hash_scalars(list(col), _hash_scalar, out, _STR_MEMO)
     if cache_key is not None:
         try:
             # callback evicts promptly when the column is collected — no
@@ -132,11 +147,17 @@ def _hash_object_column(col: np.ndarray) -> np.ndarray:
     return out
 
 
+def _hash_object_column_plain(col: np.ndarray) -> np.ndarray:
+    """The plain version of :func:`_hash_object_column` (no cache, no memo)."""
+    return np.fromiter((_hash_scalar(v) for v in col), np.uint64, len(col))
+
+
 _OBJ_HASH2_CACHE: dict[int, tuple] = {}
 
 
 def _hash_object_column2(col: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-    """Both lanes of the 128-bit hash for an object column."""
+    """Both lanes of the 128-bit hash for an object column (one native
+    pass; strings memoized value-wise)."""
     cache_key = None
     if len(col) >= _OBJ_HASH_CACHE_MIN_ROWS:
         cache_key = id(col)
@@ -144,8 +165,9 @@ def _hash_object_column2(col: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
         if hit is not None and hit[0]() is col:
             return hit[1], hit[2]
 
-    lo = np.fromiter((_hash_scalar(v) for v in col), np.uint64, len(col))
-    hi = np.fromiter((_hash_scalar_hi(v) for v in col), np.uint64, len(col))
+    lo = np.empty(len(col), dtype=np.uint64)
+    hi = np.empty(len(col), dtype=np.uint64)
+    _native().hash_scalars2(list(col), _hash_scalar, _hash_scalar_hi, _STR_MEMO2, lo, hi)
     if cache_key is not None:
         try:
             ref = weakref.ref(
@@ -158,6 +180,13 @@ def _hash_object_column2(col: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
         lo.flags.writeable = False
         hi.flags.writeable = False
         _OBJ_HASH2_CACHE[cache_key] = (ref, lo, hi)
+    return lo, hi
+
+
+def _hash_object_column2_plain(col: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """The plain version of :func:`_hash_object_column2`."""
+    lo = np.fromiter((_hash_scalar(v) for v in col), np.uint64, len(col))
+    hi = np.fromiter((_hash_scalar_hi(v) for v in col), np.uint64, len(col))
     return lo, hi
 
 
@@ -326,14 +355,52 @@ class KeyRegistryOverflowError(RuntimeError):
     to let new keys pass unchecked explicitly."""
 
 
-class _KeyRegistry:
-    """The process-wide LO -> HI lane map, bounded at ``cap`` entries.
+def _overflow_error(cap: int) -> KeyRegistryOverflowError:
+    return KeyRegistryOverflowError(
+        f"key registry is full ({cap} keys, "
+        "PATHWAY_KEY_REGISTRY_CAP): refusing to silently degrade "
+        "128-bit conflation detection. Raise the cap, or set "
+        "PATHWAY_KEY_REGISTRY_OVERFLOW=allow to let new keys pass "
+        "unchecked."
+    )
 
-    Locked: registration runs concurrently from sharded worker threads —
-    an unlocked get-then-insert could let two racing threads insert two
-    different HI lanes for one LO lane and silently miss the very
-    conflation this registry exists to catch. Once full, a batch with an
-    unknown key raises :class:`KeyRegistryOverflowError` unless ``allow``."""
+
+class _KeyRegistry:
+    """The process-wide LO -> HI lane map, bounded at ``cap`` entries: the
+    native ``KeyRegistry``, driven as the reference's ``_TwoTierRegistry``
+    drives it without a spill tier (``register_overflow`` flags the keys a
+    full table does not hold).
+
+    Registration runs concurrently from sharded worker threads. One native
+    ``register_overflow`` call never releases the interpreter's lock, so it
+    is one critical section: no two threads can insert two different HI
+    lanes for one LO lane. Once full, a batch with an unknown key raises
+    :class:`KeyRegistryOverflowError` unless ``allow``."""
+
+    def __init__(self, cap: int, allow: bool):
+        self._hot = _native().KeyRegistry(cap)
+        self._cap = cap
+        self._allow = allow
+
+    @property
+    def frozen(self) -> bool:
+        return bool(self._hot.stats()[1])
+
+    def register(self, lo: np.ndarray, hi: np.ndarray) -> int:
+        """Index of the first pair whose LO lane is known under another HI
+        lane, or -1. ``lo`` and ``hi`` are contiguous uint64."""
+        miss = np.zeros(len(lo), dtype=np.uint8)
+        idx = self._hot.register_overflow(lo, hi, miss)
+        if idx >= 0:
+            return int(idx)
+        if miss.any() and not self._allow:
+            raise _overflow_error(self._cap)
+        return -1
+
+
+class _KeyRegistryPlain:
+    """The plain version of :class:`_KeyRegistry`: a dict under a lock, with
+    the same insert, freeze and overflow behaviour."""
 
     def __init__(self, cap: int, allow: bool):
         self._map: dict[int, int] = {}
@@ -343,8 +410,6 @@ class _KeyRegistry:
         self._lock = _threading.Lock()
 
     def register(self, lo: np.ndarray, hi: np.ndarray) -> int:
-        """Index of the first pair whose LO lane is known under another HI
-        lane, or -1."""
         missed = False
         with self._lock:
             m = self._map
@@ -360,19 +425,20 @@ class _KeyRegistry:
                 elif cur != h:
                     return i
         if missed and not self._allow:
-            raise KeyRegistryOverflowError(
-                f"key registry is full ({self._cap} keys, "
-                "PATHWAY_KEY_REGISTRY_CAP): refusing to silently degrade "
-                "128-bit conflation detection. Raise the cap, or set "
-                "PATHWAY_KEY_REGISTRY_OVERFLOW=allow to let new keys pass "
-                "unchecked."
-            )
+            raise _overflow_error(self._cap)
         return -1
+
+
+_REGISTRY_LOCK = _threading.Lock()
 
 
 def _get_registry() -> _KeyRegistry:
     global _REGISTRY
-    if _REGISTRY is None:
+    if _REGISTRY is not None:
+        return _REGISTRY
+    with _REGISTRY_LOCK:  # worker threads may ask for it first at once
+        if _REGISTRY is not None:
+            return _REGISTRY
         import os
 
         cap = int(os.environ.get("PATHWAY_KEY_REGISTRY_CAP", 1 << 22))
@@ -431,6 +497,34 @@ def mix_columns(
     return acc
 
 
+def mix_columns_fused(
+    cols: list[np.ndarray], n: int, salt: int = 0, register: bool = True
+) -> KeyArray:
+    """Ingest-path variant of :func:`mix_columns`: when every key column
+    is an OBJECT column (string-heavy sources — wordcount lines, str
+    CSV keys), fold all of them through the native ``mix_cols2`` kernel
+    in ONE pass: no per-column lane arrays, no row tuples, strings
+    memoized value-wise. Bit-identical to ``mix_columns`` (same
+    per-scalar lanes, same splitmix fold per column), which takes dense
+    columns and unregistered keys. Ingest columns are freshly parsed
+    buffers, so the per-array lane cache is deliberately skipped — it
+    could never hit."""
+    if register and _registration_suspended_here():
+        register = False
+    arrs = [np.asarray(c) for c in cols]
+    if not register or not arrs or any(a.dtype != object for a in arrs):
+        return mix_columns(arrs, n, salt, register)
+    lo = np.empty(n, dtype=np.uint64)
+    hi = np.empty(n, dtype=np.uint64)
+    salt64 = int(salt) & _M64_
+    _native().mix_cols2(
+        arrs, n, salt64, salt64, _hash_scalar, _hash_scalar_hi,
+        _STR_MEMO2, lo, hi,
+    )
+    _register_keys(lo, hi)
+    return lo
+
+
 def _hash_values_py(rows: list[tuple], salt: int = 0) -> KeyArray:
     base = np.uint64(0xA076_1D64_78BD_642F) ^ np.uint64(salt)
     out = []
@@ -445,10 +539,32 @@ def _hash_values_py(rows: list[tuple], salt: int = 0) -> KeyArray:
 def hash_values(
     rows: Iterable[tuple], salt: int = 0, register: bool = True
 ) -> KeyArray:
-    """Hash python row tuples — the row-ingestion path (the reference's Rust
-    xxh3-u128 keyspace analog, value.rs:30-75). ``register=True`` also
-    derives the HI lane and registers the 128-bit pair for conflation
-    detection."""
+    """Hash python row tuples — the row-ingestion hot path, in the native
+    kernel (the reference's Rust xxh3-u128 keyspace analog,
+    value.rs:30-75). ``register=True`` also derives the HI lane and
+    registers the 128-bit pair for conflation detection."""
+    rows = rows if isinstance(rows, list) else list(rows)
+    salt64 = int(salt) & _M64_
+    if register and _registration_suspended_here():
+        register = False
+    if not register:
+        out = np.empty(len(rows), dtype=np.uint64)
+        _native().hash_rows(rows, salt64, _hash_scalar, out)
+        return out
+    lo = np.empty(len(rows), dtype=np.uint64)
+    hi = np.empty(len(rows), dtype=np.uint64)
+    _native().hash_rows2(
+        rows, salt64, salt64, _hash_scalar, _hash_scalar_hi,
+        _STR_MEMO2, lo, hi,
+    )
+    _register_keys(lo, hi)
+    return lo
+
+
+def _hash_values_plain(
+    rows: Iterable[tuple], salt: int = 0, register: bool = True
+) -> KeyArray:
+    """The plain version of :func:`hash_values`."""
     rows = rows if isinstance(rows, list) else list(rows)
     lo = _hash_values_py(rows, salt)
     if register and _registration_suspended_here():
@@ -478,13 +594,19 @@ def pointer_from_ints(vals: np.ndarray) -> KeyArray:
 
 
 def all_unique(keys: KeyArray) -> bool:
-    """True when no key repeats. Used by the consolidation identity fast
-    path (engine/delta.py) to prove an all-insertions batch is already
+    """True when no key repeats — O(n) native open-addressing probe
+    (engine keys are already avalanche-mixed, so masked-key slots
+    distribute uniformly). Used by the consolidation identity fast path
+    (engine/delta.py) to prove an all-insertions batch is already
     consolidated."""
-    n = len(keys)
-    if n < 2:
+    if len(keys) < 2:
         return True
-    return len(np.unique(keys)) == n
+    return bool(_native().all_unique_u64(np.ascontiguousarray(keys, dtype=np.uint64)))
+
+
+def all_unique_plain(keys: KeyArray) -> bool:
+    """The plain version of :func:`all_unique`."""
+    return len(np.unique(keys)) == len(keys)
 
 
 def derive(keys: KeyArray, salt: int) -> KeyArray:

@@ -5,16 +5,19 @@ cites below). Every method appends a node to the parse graph; nothing
 executes until ``pw.run``/debug computes outputs. Each node kind maps to one
 engine operator family (see ``internals/graph_runner.py``).
 
-Copy of ``pathway_tpu/internals/table.py``. The methods the reference backs
-with its ``stdlib`` (windows, interval/window/as-of joins, sort, diff,
-interpolate, plot, show, live) raise ``NotImplementedError``; no error-log
-scope or lint-mode breadcrumb is recorded.
+Copy of ``pathway_tpu/internals/table.py``. ``sort`` runs on the port's
+``stdlib._sorted``; the other methods the reference backs with its ``stdlib``
+(windows, interval/window/as-of joins, diff, interpolate, plot, show, live)
+raise ``NotImplementedError``; no error-log scope or lint-mode breadcrumb is
+recorded.
 """
 
 from __future__ import annotations
 
 import itertools
 from typing import Any, Iterable
+
+import numpy as np
 
 from . import dtype as dt
 from .expression import (
@@ -791,9 +794,32 @@ class Table(TableLike):
             self,
         )
 
-    def sort(self, key: Any = None, instance: Any = None) -> "Table":
-        raise NotImplementedError(
-            "Table.sort is not ported (ROADMAP.md Queue 3 item 12)"
+    def sort(self, key: Any, instance: Any = None) -> "Table":
+        """Sort rows by `key` (within `instance`); returns a same-universe
+        table with ``prev``/``next`` pointer columns (reference table.py:2157,
+        backed by prev_next.rs in the reference engine). The definition of
+        ``pathway_tpu/internals/table.py`` that runs there (its class body
+        defines ``sort`` twice; the second wins)."""
+        from ..stdlib._sorted import sorted_group_transform
+
+        key_e = self._sub(key)
+        inst_e = self._sub(instance) if instance is not None else None
+
+        def fn(entries):
+            out = []
+            for i, (rk, order, _payload) in enumerate(entries):
+                prev_k = entries[i - 1][0] if i > 0 else None
+                next_k = entries[i + 1][0] if i + 1 < len(entries) else None
+                out.append((rk, (
+                    None if prev_k is None else np.uint64(prev_k),
+                    None if next_k is None else np.uint64(next_k),
+                )))
+            return out
+
+        return sorted_group_transform(
+            self, key_e, [], inst_e,
+            {"prev": dt.Optional(dt.POINTER), "next": dt.Optional(dt.POINTER)},
+            fn,
         )
 
     def windowby(self, time_expr: Any, *, window: Any, instance: Any = None, behavior: Any = None, **kwargs):

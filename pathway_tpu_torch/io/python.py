@@ -10,10 +10,10 @@ queue and mints one commit timestamp per batch
 (``engine/executor.RealtimeSource``).
 
 Copy of ``pathway_tpu/io/python.py``. Keys are derived by
-``keys.mix_columns`` (the reference's ``mix_columns_fused`` is its native
-fast path, bit-identical); batches reach the engine as Deltas, without the
-connector wire frame; the ingest stage split of the profiling plane is
-never on.
+``keys.mix_columns_fused``, which folds object key columns in one pass of the
+native module, as the reference's does; batches reach the engine as Deltas,
+without the connector wire frame; the ingest stage split of the profiling
+plane is never on.
 """
 
 from __future__ import annotations
@@ -405,7 +405,7 @@ class PythonSubjectSource(RealtimeSource):
         else:
             key_names = tuple(self.names)
         batch.data = data
-        batch.keys = K.mix_columns(
+        batch.keys = K.mix_columns_fused(
             [data[c] for c in key_names], n, register=self._keys_register
         )
         batch.key_names = key_names
@@ -495,7 +495,7 @@ class PythonSubjectSource(RealtimeSource):
         )
         if not explicit:
             h0 = _time.perf_counter_ns() if stage is not None else 0
-            keys = K.mix_columns(key_cols, n)
+            keys = K.mix_columns_fused(key_cols, n)
             h1 = _time.perf_counter_ns() if stage is not None else 0
             out = Delta(keys=keys, data=data, diffs=diffs)
             out.keys_content_cols = tuple(
@@ -524,7 +524,7 @@ class PythonSubjectSource(RealtimeSource):
         hash_dt = 0
         if keep.any():
             h0 = _time.perf_counter_ns() if stage is not None else 0
-            keys[keep] = K.mix_columns(
+            keys[keep] = K.mix_columns_fused(
                 [np.asarray(c)[keep] for c in key_cols], int(keep.sum())
             )
             if stage is not None:
@@ -631,7 +631,7 @@ class PythonSubjectSource(RealtimeSource):
                 key_names = tuple(self.names[i] for i in self.pk_indices)
             else:
                 key_names = tuple(self.names)
-            keys = K.mix_columns([data[c] for c in key_names], n)
+            keys = K.mix_columns_fused([data[c] for c in key_names], n)
             t_built = _time.perf_counter_ns()
             if stage is not None:
                 _accrue(stage, "parse_ns", t1 - t0)

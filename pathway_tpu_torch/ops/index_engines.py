@@ -1,16 +1,19 @@
-"""Mutable brute-force KNN index engine on the card: port of ``BruteForceKnnEngine`` from
-``pathway_tpu/ops/index_engines.py``.
+"""Mutable index engines: brute-force KNN on the card, LSH KNN, BM25 and hybrid fusion on the
+host. Port of ``pathway_tpu/ops/index_engines.py``.
 
-It implements the ``IndexEngine`` protocol that the dataflow engine's external-index node calls
-(``add`` / ``remove`` / ``search``, plus ``add_batch``). The index lives on the host in a
-capacity-doubling arena; a mirror on the device is synced on the first search after a change, and
-scoring with top-k is the fused kernel of ``ops/knn.py``. ``LshKnnEngine``, ``BM25Engine`` and
-``HybridEngine`` wait for a later slice (ROADMAP, Queue 1).
+They implement the ``IndexEngine`` protocol that the dataflow engine's external-index node calls
+(``add`` / ``remove`` / ``search``, plus ``add_batch``). ``BruteForceKnnEngine`` keeps its index on
+the host in a capacity-doubling arena; a mirror on the device is synced on the first search after
+a change, and scoring with top-k is the fused kernel of ``ops/knn.py``. ``LshKnnEngine``,
+``BM25Engine`` and ``HybridEngine`` are the reference's host numpy and Python code, copied as it
+is, so that ties and the order of candidates stay the reference's.
 """
 
 from __future__ import annotations
 
 import json
+import math
+import re
 from typing import Any, Callable
 
 import numpy as np
@@ -20,12 +23,12 @@ from .._device import resolve_device
 from ..utils.filters import compile_metadata_filter
 from .knn import topk_scores
 
-__all__ = ["BruteForceKnnEngine"]
+__all__ = ["BruteForceKnnEngine", "LshKnnEngine", "BM25Engine", "HybridEngine", "tokenize"]
 
 
 def _as_json(filter_data: Any) -> Any:
     """Metadata as a JSON value: None stays None, a string is parsed (None when it is not JSON),
-    anything else (a dict) is kept as it is."""
+    a ``Json`` wrapper gives its value, anything else (a dict) is kept as it is."""
     if filter_data is None:
         return None
     if isinstance(filter_data, str):
@@ -33,6 +36,10 @@ def _as_json(filter_data: Any) -> Any:
             return json.loads(filter_data)
         except ValueError:
             return None
+    from ..internals.json import Json
+
+    if isinstance(filter_data, Json):
+        return filter_data.value
     return filter_data
 
 
@@ -277,4 +284,187 @@ class BruteForceKnnEngine:
             key = self._slots.slot_to_key.get(int(slot))
             if key is not None:
                 out.append((key, float(sc)))
+        return out
+
+
+class LshKnnEngine(BruteForceKnnEngine):
+    """LSH-bucketed approximate KNN (reference ``LshKnn``, ``stdlib/ml/index.py`` classic impl):
+    random-hyperplane signatures route vectors to buckets, and a query scores only its buckets'
+    candidates. All of it is host numpy: the candidates score with ``block @ v`` on the host, not
+    through the card's kernel (the reference's docstring says otherwise; its ``search`` is numpy
+    too). ``device`` is only where the base class would keep its mirror, which this engine never
+    searches."""
+
+    def __init__(self, dimensions: int, *, metric: str = "cos",
+                 reserved_space: int = 1024, n_or: int = 4, n_and: int = 8,
+                 bucket_length: float | None = None, seed: int = 0,
+                 embedder: Callable[[str], np.ndarray] | None = None,
+                 device: str | torch.device = "cuda"):
+        super().__init__(dimensions, metric=metric, reserved_space=reserved_space,
+                         embedder=embedder, device=device)
+        rng = np.random.default_rng(seed)
+        self.n_or = n_or
+        self.n_and = n_and
+        self._planes = rng.standard_normal((n_or, n_and, dimensions)).astype(np.float32)
+        self._buckets: list[dict[int, set[int]]] = [dict() for _ in range(n_or)]
+        self._slot_sigs: dict[int, list[int]] = {}
+
+    def _signatures(self, v: np.ndarray) -> list[int]:
+        bits = (np.einsum("oad,d->oa", self._planes, v) > 0).astype(np.uint64)
+        weights = (2 ** np.arange(self.n_and, dtype=np.uint64))
+        return [int((bits[o] * weights).sum()) for o in range(self.n_or)]
+
+    def add(self, key: int, data: Any, filter_data: Any) -> None:
+        if key in self._slots.key_to_slot:
+            # clean old bucket entries before re-slotting (plain super().add would re-allocate
+            # the slot and leak the old signatures)
+            self.remove(key)
+        super().add(key, data, filter_data)
+        slot = self._slots.key_to_slot[key]
+        sigs = self._signatures(self._host[slot])
+        self._slot_sigs[slot] = sigs
+        for o, sig in enumerate(sigs):
+            self._buckets[o].setdefault(sig, set()).add(slot)
+
+    def remove(self, key: int) -> None:
+        slot = self._slots.key_to_slot.get(key)
+        super().remove(key)
+        if slot is not None:
+            for o, sig in enumerate(self._slot_sigs.pop(slot, [])):
+                self._buckets[o].get(sig, set()).discard(slot)
+
+    def search(self, queries: list[Any], limits: list[int], filters: list[Any]):
+        if self._slots.high == 0 or not queries:
+            return [[] for _ in queries]
+        filt_fns = [compile_metadata_filter(f) for f in filters]
+        out = []
+        for qd, lim, fv in zip(queries, limits, filt_fns):
+            v = self._vec(qd)
+            cand: set[int] = set()
+            for o, sig in enumerate(self._signatures(v)):
+                cand |= self._buckets[o].get(sig, set())
+            cand = {s for s in cand if self._valid[s]}
+            if fv is not None:
+                cand = {s for s in cand if fv(self._slots.meta.get(s))}
+            if not cand:
+                out.append([])
+                continue
+            slots = np.fromiter(cand, dtype=np.int64)
+            block = self._host[slots]
+            if self.metric in ("cos", "ip"):
+                scores = block @ v
+            else:
+                scores = -((block - v[None, :]) ** 2).sum(axis=1)
+            top = np.argsort(-scores)[:lim]
+            out.append([
+                (self._slots.slot_to_key[int(slots[i])], float(scores[i]))
+                for i in top
+            ])
+        return out
+
+
+_TOKEN_RE = re.compile(r"[A-Za-z0-9_]+")
+
+
+def tokenize(text: str) -> list[str]:
+    return [t.lower() for t in _TOKEN_RE.findall(text)]
+
+
+class BM25Engine:
+    """In-memory BM25 full-text index on the host (replaces the reference's Tantivy integration,
+    ``tantivy_integration.rs``): an inverted index token -> {key: tf}, Okapi BM25 scoring with
+    k1/b."""
+
+    def __init__(self, *, ram_budget: int = 0, in_memory_index: bool = True,
+                 k1: float = 1.2, b: float = 0.75):
+        self.k1 = k1
+        self.b = b
+        self._postings: dict[str, dict[int, int]] = {}
+        self._doc_len: dict[int, int] = {}
+        self._doc_tokens: dict[int, list[str]] = {}
+        self._meta: dict[int, Any] = {}
+
+    def add(self, key: int, data: Any, filter_data: Any) -> None:
+        if key in self._doc_len:
+            self.remove(key)
+        toks = tokenize(str(data))
+        self._doc_tokens[key] = toks
+        self._doc_len[key] = len(toks)
+        self._meta[key] = _as_json(filter_data)
+        for t in toks:
+            self._postings.setdefault(t, {})
+            self._postings[t][key] = self._postings[t].get(key, 0) + 1
+
+    def remove(self, key: int) -> None:
+        toks = self._doc_tokens.pop(key, None)
+        if toks is None:
+            return
+        self._doc_len.pop(key, None)
+        self._meta.pop(key, None)
+        for t in set(toks):
+            plist = self._postings.get(t)
+            if plist is not None:
+                plist.pop(key, None)
+                if not plist:
+                    del self._postings[t]
+
+    def search(self, queries: list[Any], limits: list[int], filters: list[Any]):
+        n_docs = len(self._doc_len)
+        if n_docs == 0 or not queries:
+            return [[] for _ in queries]
+        avgdl = sum(self._doc_len.values()) / n_docs
+        filt_fns = [compile_metadata_filter(f) for f in filters]
+        out = []
+        for q, lim, fv in zip(queries, limits, filt_fns):
+            scores: dict[int, float] = {}
+            for t in tokenize(str(q)):
+                plist = self._postings.get(t)
+                if not plist:
+                    continue
+                idf = math.log(1.0 + (n_docs - len(plist) + 0.5) / (len(plist) + 0.5))
+                for key, tf in plist.items():
+                    dl = self._doc_len[key]
+                    denom = tf + self.k1 * (1 - self.b + self.b * dl / avgdl)
+                    scores[key] = scores.get(key, 0.0) + idf * tf * (self.k1 + 1) / denom
+            ranked = sorted(scores.items(), key=lambda kv: (-kv[1], kv[0]))
+            if fv is not None:
+                ranked = [(k, s) for k, s in ranked if fv(self._meta.get(k))]
+            out.append([(k, float(s)) for k, s in ranked[:lim] if s > 0])
+        return out
+
+
+class HybridEngine:
+    """Reciprocal-rank fusion over sub-engines (reference ``HybridIndex``,
+    ``stdlib/indexing/hybrid_index.py``): score = sum of 1 / (rrf_k + rank). The fusion is host
+    Python; a brute-force sub-engine still searches on the card."""
+
+    def __init__(self, engines: list[Any], *, rrf_k: int = 60,
+                 adapters: list[Callable[[Any], Any]] | None = None):
+        self.engines = engines
+        self.rrf_k = rrf_k
+        self.adapters = adapters or [None] * len(engines)
+
+    def add(self, key: int, data: Any, filter_data: Any) -> None:
+        for eng, ad in zip(self.engines, self.adapters):
+            eng.add(key, ad(data) if ad else data, filter_data)
+
+    def remove(self, key: int) -> None:
+        for eng in self.engines:
+            eng.remove(key)
+
+    def search(self, queries: list[Any], limits: list[int], filters: list[Any]):
+        # each sub-engine retrieves a deeper pool so fusion has candidates
+        deep = [max(l * 2, l + 5) for l in limits]
+        per_engine = [
+            eng.search([ad(q) if ad else q for q in queries], deep, filters)
+            for eng, ad in zip(self.engines, self.adapters)
+        ]
+        out = []
+        for qi in range(len(queries)):
+            fused: dict[int, float] = {}
+            for replies in per_engine:
+                for rank, (key, _score) in enumerate(replies[qi]):
+                    fused[key] = fused.get(key, 0.0) + 1.0 / (self.rrf_k + rank + 1)
+            ranked = sorted(fused.items(), key=lambda kv: (-kv[1], kv[0]))
+            out.append([(k, float(s)) for k, s in ranked[: limits[qi]]])
         return out

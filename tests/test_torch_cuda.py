@@ -1301,3 +1301,81 @@ def test_table_api_runs_on_the_card(cuda, monkeypatch):
     for gg, ww in zip(g[z > -32.0], w[z > -32.0]):
         want[int(gg)] = want.get(int(gg), 0.0) + ww
     assert got == want
+
+
+def test_native_module_builds_and_loads_on_the_card_machine(cuda):
+    """The engine's keyspace module builds with the host C compiler there and hashes as the
+    Python path does."""
+    from pathway_tpu_torch import native
+    from pathway_tpu_torch.engine import keys as K
+    from pathway_tpu_torch.engine.slotmap import SlotMap, SlotMapPlain
+
+    module = native.load()
+    assert module.__name__ == "_pathway_torch_native"
+    words = np.array([f"w{i % 97}" for i in range(5000)] + [None, 3, 2.5, (1, "x")],
+                     dtype=object)
+    np.testing.assert_array_equal(K._hash_object_column(words),
+                                  K._hash_object_column_plain(words))
+    rows = [(w, i) for i, w in enumerate(words[:500])]
+    np.testing.assert_array_equal(K.hash_values(rows, register=False),
+                                  K._hash_values_plain(rows, register=False))
+    keys = K.mix_columns([np.arange(3000) % 700], 3000, register=False)
+    np.testing.assert_array_equal(SlotMap().lookup_or_insert(keys)[0],
+                                  SlotMapPlain().lookup_or_insert(keys)[0])
+
+
+@pytest.mark.parametrize("workers", [1, 2])
+def test_data_index_query_on_the_card_launches_the_scorer(cuda, workers, monkeypatch):
+    """A ``pw.indexing.DataIndex`` query through ``pw.run(device="cuda")``: the scorer launches,
+    and the answers equal ``BruteForceKnnEngine.search`` on an engine filled with the same rows
+    (scores within one bf16 ulp, ids where the scores are clear)."""
+    import pathway_tpu_torch as pw
+
+    rng = np.random.default_rng(21)
+    n, d, q, k = 20000, 384, 16, 10
+    vecs = rng.standard_normal((n, d)).astype(np.float32)
+    queries = rng.standard_normal((q, d)).astype(np.float32)
+
+    class Rows(pw.io.python.ConnectorSubject):
+        def run(self):
+            for s in range(0, n, 5000):
+                self.next_batch({"rid": list(range(s, s + 5000)), "vec": list(vecs[s:s + 5000])})
+                self.commit()
+
+    pw.G.clear()
+    data = pw.io.python.read(Rows(), schema=pw.schema_from_types(rid=int, vec=object),
+                             autocommit_duration_ms=None)
+    qt = pw.debug.table_from_rows(pw.schema_from_types(qi=int, qv=object),
+                                  [(i, queries[i]) for i in range(q)])
+    index = pw.indexing.BruteForceKnnFactory(dimensions=d, reserved_space=n).build_index(
+        data.vec, data)
+    res = index.query(qt.qv, number_of_matches=k).select(
+        qi=pw.left.qi, rid=pw.right.rid, score=pw.right._pw_index_reply_score)
+    got = {}
+
+    def on_change(key, row, time, is_addition):
+        if is_addition:
+            got[row["qi"]] = (list(row["rid"]), list(row["score"]))
+
+    pw.io.subscribe(res, on_change=on_change)
+    before = topk_scores.launches
+    monkeypatch.setenv("PATHWAY_THREADS", str(workers))
+    monkeypatch.setenv("PATHWAY_MESH_EXCHANGE", str(int(workers > 1)))
+    try:
+        pw.run(device="cuda")
+    finally:
+        pw.G.clear()
+    assert topk_scores.launches > before
+    direct = BruteForceKnnEngine(d, reserved_space=n, device=cuda)
+    direct.add_batch(list(range(n)), list(vecs), [None] * n)
+    want = direct.search(list(queries), [k + 1] * q, [None] * q)  # one more: the k-th's gap
+    assert sorted(got) == list(range(q))
+    s_ours = np.array([got[i][1] for i in range(q)])
+    i_ours = np.array([got[i][0] for i in range(q)])
+    s_want = np.array([[s for _, s in row] for row in want])
+    i_want = np.array([[key for key, _ in row] for row in want])[:, :k]
+    tol = topk_tol(s_want[:, :k], queries, vecs, "cos")
+    assert (np.abs(s_ours - s_want[:, :k]) <= tol).all()
+    gap_prev = np.concatenate([np.full((q, 1), np.inf), s_want[:, :k - 1] - s_want[:, 1:k]], 1)
+    clear = (gap_prev > tol) & (s_want[:, :k] - s_want[:, 1:] > tol)
+    np.testing.assert_array_equal(i_ours[clear], i_want[clear])

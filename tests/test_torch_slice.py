@@ -239,6 +239,27 @@ _BLOCKED_RUN = textwrap.dedent("""
             want[(a % 100) % 7] = want.get((a % 100) % 7, 0) + a * 3 + 7
     assert sums == want, (sums, want)
     assert HostLauncher.runs > 0
+
+    # the native keyspace module and pw.indexing: BM25 and a sort through pw.run on the CPU,
+    # still at 2 workers
+    import pathway_tpu_torch.native as native
+    import pathway_tpu_torch.stdlib.indexing as indexing
+
+    assert native.load().__name__ == "_pathway_torch_native"
+    pt.G.clear()
+    docs = pt.debug.table_from_rows(pt.schema_from_types(name=str, text=str), [
+        ("a", "alpha beta"), ("b", "gamma delta"), ("c", "alpha")])
+    qs = pt.debug.table_from_rows(pt.schema_from_types(q=str), [("alpha",)])
+    answer = indexing.default_full_text_document_index(docs.text, docs).query_as_of_now(
+        qs.q, number_of_matches=2).select(m=pt.right.name)
+    order = docs + docs.sort(key=docs.name)
+    found, chained = [], {}
+    pt.io.subscribe(answer, on_change=lambda key, row, time, is_addition: found.append(row["m"]))
+    pt.io.subscribe(order, on_change=lambda key, row, time, is_addition: chained.update(
+        {row["name"]: row["next"]}))
+    pt.run(device="cpu")
+    assert sorted(found[-1]) == ["a", "c"], found
+    assert chained["c"] is None and len(chained) == 3, chained
     loaded = sorted(
         m for m, mod in sys.modules.items() if mod is not None
         and (m.startswith("jax") or m == "pathway_tpu" or m.startswith("pathway_tpu."))
