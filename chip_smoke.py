@@ -1,5 +1,6 @@
 """Drive the PyTorch port's RAG ingest and retrieval path, its training step, its parallel paths, its
-dataflow engine and its Table API on one NVIDIA card.
+dataflow engine, its Table API, its indexing stdlib and its RAG serve path over HTTP on one NVIDIA
+card.
 
     python3 chip_smoke.py
 
@@ -104,17 +105,37 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    embedder; its data table from a ``ConnectorSubject``: the RAG cell's 16,384 chunk texts in
    commits of 1024, then 1,032,192 seeded unit vectors in commits of 65,536 (1,048,576 rows);
    then 64 text queries at k=10 in a commit of their own through ``query_as_of_now`` with
-   collapsed answers (each commit is its own tick); at 1 worker and at 2 with
-   ``PATHWAY_MESH_EXCHANGE=1``. Every answer is held against
+   collapsed answers (each commit is its own tick); at 1 worker, and at 2 with
+   ``PATHWAY_MESH_EXCHANGE=1`` over the first 262,144 of those rows. Every answer is held against
    ``BruteForceKnnEngine.search`` called directly on an engine filled with the same rows (scores
    within one bf16 ulp, ids equal where the scores are clear). The fill rate (until the run's
    engine holds every row), the query tick's host time (commit to the last answer's callback)
    and its idle share (a trace of the run's device activity, between two marker kernels launched
    at the commit and at the last answer) are logged. Then a ``HybridIndex`` of BM25 with the
-   brute-force index (reciprocal-rank fusion) over the 16,384 chunks, the same queries, held
+   brute-force index (reciprocal-rank fusion) over the first 4,096 chunks, the same queries, held
    against ``HybridEngine.search`` called directly on the run's engine (untraced). The launch
    counts are zeroed just before each run and read just after.
-12. Each engine-path kernel's launches and summed device time per path, one JSON line with each
+12. The RAG serve path over HTTP (``xpacks/llm``: ``DocumentStore``, ``DocumentStoreServer``;
+   ``io/http``: ``rest_connector`` on ``aiohttp``), ``pw.run(device="cuda")`` on a thread of its
+   own and the client on ``urllib``. (a) Seeded documents of the RAG cell's sentences,
+   as plain text, HTML and Markdown in turn, from a ``ConnectorSubject`` in commits of 256,
+   through ``ParseLocal``, ``TokenCountSplitter(max_tokens=256)`` (exactly 16,384 chunks) and
+   the default encoder into ``BruteForceKnnFactory(dimensions=384)``: documents/s and chunks/s
+   until ``/v1/statistics`` reads every document; 16 ``/v1/retrieve`` answers (k=10) held
+   against the run's engine searched directly (scores within one bf16 ulp, texts equal where
+   the scores are clear); ``/v1/inputs`` listing every path; a ``filepath_globpattern`` request
+   whose answers all match it. (b) The north star, as the JAX package's bench measures its
+   serve p50 (``bench.py``, ``_doc_server`` and ``_rest_rag_point``): 1,048,576 seeded unit
+   vectors in commits of 100,000 into the store's pre-embedded mode
+   (``BruteForceKnnFactory(reserved_space=2^20)``, ``TorchEmbedder(max_len=32)``), then 104
+   requests of ``{"query": "dataflow shard topic {i % 13}", "k": 3}``, the first 4 untimed:
+   p50, p95 and p99 (host clock), ``framework_ms`` (the p50 of 14 ``/v1/statistics``),
+   ``embed_ms`` (one query's embed) and ``index_ms`` (the remainder); 8 answers held against the
+   plain scorer over the fed vectors; the kernels' launches per request; one request traced
+   between two marker kernels (its idle share and largest device events); the peak device
+   memory; a filtered request timed apart. The launch counts are zeroed just before each leg
+   and read just after.
+13. Each engine-path kernel's launches and summed device time per path, one JSON line with each
    kernel's numbers, then the closing JSON line.
 
 It needs one CUDA card and exits non-zero, printing no result, without one. It imports nothing
@@ -136,6 +157,9 @@ import sys
 import time
 
 sys.modules["jax"] = None  # a JAX import anywhere below fails loudly
+# tiktoken fetches its encodings over the network at first use; the run needs none, so the
+# splitter counts whitespace tokens, as it does wherever the encoding cannot load
+sys.modules["tiktoken"] = None
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -484,7 +508,7 @@ def make_corpus(n_chunks: int, max_tokens: int, seed: int):
             words = rng.choice(len(vocab), size=int(rng.integers(6, 30)), p=zipf)
             sentences.append(" ".join(vocab[w] for w in words) + ".")
         topic = f"t{doc % 8}"
-        chunks.extend((text, topic) for text, _ in splitter(" ".join(sentences)))
+        chunks.extend((text, topic) for text, _ in splitter.__wrapped__(" ".join(sentences)))
         doc += 1
     return chunks[:n_chunks]
 
@@ -2273,6 +2297,19 @@ def rows_held(engine) -> int:
     return engine._slots.high if hasattr(engine, "_slots") else len(engine._doc_len)
 
 
+def keep_engines(index) -> list:
+    """The index engines a ``DataIndex``'s run builds (one a worker), for the direct searches."""
+    inner = index.inner_index
+    make_engine, engines = inner._make_engine, []
+
+    def keep(dev):
+        engines.append(make_engine(dev))
+        return engines[-1]
+
+    inner._make_engine = keep
+    return engines
+
+
 def run_index_pipeline(device, *, factory, texts, vecs, queries, k: int, chunk_commit: int,
                        vec_commit: int, workers: int, trace: bool = True) -> dict:
     """``pw.run(device=...)`` of an index over a ``ConnectorSubject``'s rows (``rid``, ``data``:
@@ -2291,7 +2328,6 @@ def run_index_pipeline(device, *, factory, texts, vecs, queries, k: int, chunk_c
     n_rows = len(texts) + len(vecs)
     answered = threading.Event()
     marks: dict = {}
-    engines: list = []
 
     class Rows(pw.io.python.ConnectorSubject):
         def run(self):
@@ -2326,13 +2362,7 @@ def run_index_pipeline(device, *, factory, texts, vecs, queries, k: int, chunk_c
     qt = pw.io.python.read(Queries(), schema=pw.schema_from_types(qid=int, q=str),
                            autocommit_duration_ms=None)
     index = factory.build_index(data.data, data)
-    make_engine = index.inner_index._make_engine
-
-    def keep_engine(dev):
-        engines.append(make_engine(dev))
-        return engines[-1]
-
-    index.inner_index._make_engine = keep_engine  # the run's engines, for the direct search
+    engines = keep_engines(index)
     res = index.query_as_of_now(qt.q, number_of_matches=k).select(
         qid=pw.left.qid, rid=pw.right.rid, score=pw.right._pw_index_reply_score,
         ids=pw.right._pw_index_reply_id)
@@ -2425,10 +2455,12 @@ def check_answers(label: str, got: dict, want: dict) -> int:
     return swapped
 
 
-def run_indexing(device, *, n_chunks: int = 16384, n_rows: int = 1 << 20, chunk_commit: int = 1024,
-                 vec_commit: int = 1 << 16, n_queries: int = 64, k: int = 10, cfg=None) -> dict:
-    """The phase; sizes as the defaults say on the card (a CPU rehearsal passes small ones).
-    Returns each run's launch counts, rates and times."""
+def run_indexing(device, *, n_chunks: int = 16384, n_rows: int = 1 << 20, n_rows_2: int = 1 << 18,
+                 n_hybrid: int = 4096, chunk_commit: int = 1024, vec_commit: int = 1 << 16,
+                 n_queries: int = 64, k: int = 10, cfg=None) -> dict:
+    """The phase; sizes as the defaults say on the card (a CPU rehearsal passes small ones):
+    ``n_rows`` at 1 worker, ``n_rows_2`` (at most ``n_rows``) at 2, the hybrid over the first
+    ``n_hybrid`` chunks. Returns each run's launch counts, rates and times."""
     import pathway_tpu_torch as pw
     from pathway_tpu_torch.models.embedder import Embedder
     from pathway_tpu_torch.ops.index_engines import BruteForceKnnEngine
@@ -2439,36 +2471,39 @@ def run_indexing(device, *, n_chunks: int = 16384, n_rows: int = 1 << 20, chunk_
     texts, vecs, queries = index_data(n_chunks, n_rows, dim, n_queries)
     emb.embed_texts(texts[:8])  # first use: kernel libraries load, cuBLAS warms up
 
-    t0 = time.perf_counter()
-    direct = BruteForceKnnEngine(dim, reserved_space=n_rows, embedder=emb, device=device)
-    for s in range(0, n_chunks, chunk_commit):
-        part = texts[s:s + chunk_commit]
-        direct.add_batch(list(range(s, s + len(part))), part, [None] * len(part))
-    for s in range(0, len(vecs), vec_commit):
-        part = vecs[s:s + vec_commit]
-        direct.add_batch(list(range(n_chunks + s, n_chunks + s + len(part))), list(part),
-                         [None] * len(part))
-    want = dict(enumerate(direct.search(queries, [k] * n_queries, [None] * n_queries)))
-    log(f"the direct engine: {direct._slots.high} rows and {n_queries} searches in "
-        f"{time.perf_counter() - t0:.1f} s")
-    del direct
+    def direct_answers(rows: int) -> dict:
+        t0 = time.perf_counter()
+        direct = BruteForceKnnEngine(dim, reserved_space=rows, embedder=emb, device=device)
+        for s in range(0, n_chunks, chunk_commit):
+            part = texts[s:s + chunk_commit]
+            direct.add_batch(list(range(s, s + len(part))), part, [None] * len(part))
+        for s in range(0, rows - n_chunks, vec_commit):
+            part = vecs[s:min(s + vec_commit, rows - n_chunks)]
+            direct.add_batch(list(range(n_chunks + s, n_chunks + s + len(part))), list(part),
+                             [None] * len(part))
+        want = dict(enumerate(direct.search(queries, [k] * n_queries, [None] * n_queries)))
+        log(f"the direct engine: {direct._slots.high} rows and {n_queries} searches in "
+            f"{time.perf_counter() - t0:.1f} s")
+        return want
 
     result: dict = {"launches": {}, "rates": {}}
-    factory = pw.indexing.BruteForceKnnFactory(dimensions=dim, reserved_space=n_rows,
-                                               embedder=emb)
     card = card_line() if cuda else "cpu"
-    for path, workers in (("indexing", 1), ("indexing_2", 2)):
+    for path, workers, rows in (("indexing", 1, n_rows), ("indexing_2", 2, min(n_rows_2, n_rows))):
+        want = direct_answers(rows)
+        factory = pw.indexing.BruteForceKnnFactory(dimensions=dim, reserved_space=rows,
+                                                   embedder=emb)
         with counted(path, result["launches"]):
-            run = run_index_pipeline(device, factory=factory, texts=texts, vecs=vecs,
-                                     queries=queries, k=k, chunk_commit=chunk_commit,
-                                     vec_commit=vec_commit, workers=workers)
+            run = run_index_pipeline(device, factory=factory, texts=texts,
+                                     vecs=vecs[:rows - n_chunks], queries=queries, k=k,
+                                     chunk_commit=chunk_commit, vec_commit=vec_commit,
+                                     workers=workers)
         swapped = check_answers(path, run["answers"], want)
         held = max(e._slots.high for e in run["engines"])
-        if held != n_rows:
-            raise AssertionError(f"{path}: the index holds {held} rows, not {n_rows}")
+        if held != rows:
+            raise AssertionError(f"{path}: the index holds {held} rows, not {rows}")
         result["rates"][path] = {k_: run[k_] for k_ in ("fill_rows_per_s", "query_ms",
                                                         "idle_share", "seconds")}
-        log(f"pw.indexing {path}: {n_rows} rows ({n_chunks} chunks in commits of "
+        log(f"pw.indexing {path}: {rows} rows ({n_chunks} chunks in commits of "
             f"{chunk_commit}, then vectors in commits of {vec_commit}) at {workers} worker(s)"
             f"{', mesh exchange' if workers > 1 else ''}: {run['fill_rows_per_s']:.1f} rows/s "
             f"filled; {n_queries} answers equal to the direct search ({swapped} ids swapped "
@@ -2486,7 +2521,7 @@ def run_indexing(device, *, n_chunks: int = 16384, n_rows: int = 1 << 20, chunk_
     with counted("indexing_hybrid", result["launches"]):
         # untraced: the per-chunk embeds (about 100 kernels each) would make a trace of some
         # 1.6 million device events, minutes to read
-        run = run_index_pipeline(device, factory=factory, texts=texts, vecs=vecs[:0],
+        run = run_index_pipeline(device, factory=factory, texts=texts[:n_hybrid], vecs=vecs[:0],
                                  queries=queries, k=k, chunk_commit=chunk_commit,
                                  vec_commit=vec_commit, workers=1, trace=False)
     direct = run["engines"][0].search(queries, [k] * n_queries, [None] * n_queries)
@@ -2497,7 +2532,8 @@ def run_indexing(device, *, n_chunks: int = 16384, n_rows: int = 1 << 20, chunk_
             raise AssertionError("the hybrid's answer differs from HybridEngine.search")
     result["rates"]["indexing_hybrid"] = {k_: run[k_] for k_ in ("fill_rows_per_s", "query_ms",
                                                                  "idle_share", "seconds")}
-    log(f"pw.indexing hybrid (BM25 + brute force, RRF k=60): {n_chunks} chunks at 1 worker, "
+    log(f"pw.indexing hybrid (BM25 + brute force, RRF k=60): {min(n_hybrid, n_chunks)} chunks "
+        f"at 1 worker, "
         f"{run['fill_rows_per_s']:.1f} rows/s filled; {n_queries} answers equal to "
         f"HybridEngine.search; the query tick {run['query_ms']:.3f} ms, idle share "
         f"{fmt_share(run['idle_share'])}; launches {result['launches']['indexing_hybrid']} "
@@ -2522,6 +2558,394 @@ def log_query_tick(run: dict, card: str) -> None:
 
 def fmt_share(x: float | None) -> str:
     return "not measured" if x is None else f"{x:.4f}"
+
+
+# -- phase 12: the RAG serve path over HTTP ------------------------------------------------------
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+@functools.cache
+def local_opener():
+    """A ``urllib`` opener that never goes through a proxy, built once (building one loads the
+    TLS certificates, about 25 ms)."""
+    import urllib.request
+
+    return urllib.request.build_opener(urllib.request.ProxyHandler({}))
+
+
+def post_json(port: int, route: str, body: dict, timeout: float = 120.0):
+    """One JSON POST to the local server: (status, parsed body)."""
+    import urllib.error
+    import urllib.request
+
+    opener = local_opener()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{route}",
+                                 data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with opener.open(req, timeout=timeout) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"null")
+
+
+def serve_documents(n_chunks: int, seed: int = 7):
+    """Seeded documents of ``make_corpus``'s sentences (the RAG cell's, in order, again from the
+    start if they run out), 20 to 79 a document, as bytes in the three formats ``ParseLocal``
+    sniffs in turn (plain text, HTML with a title and paragraphs, Markdown with headings), each
+    with ``_metadata`` {path, modified_at}, until they split into exactly ``n_chunks`` chunks
+    under ``TokenCountSplitter(max_tokens=256)`` (the last document is plain text cut to the
+    count). Returns [(bytes, metadata)] and the chunk texts in order."""
+    import itertools
+
+    from pathway_tpu_torch.xpacks.llm.parsers import ParseLocal
+    from pathway_tpu_torch.xpacks.llm.splitters import TokenCountSplitter
+
+    parser, splitter = ParseLocal(), TokenCountSplitter(max_tokens=256)
+    rng = np.random.default_rng(seed)
+    stream = itertools.cycle([sent for chunk, _ in make_corpus(16384, 256, seed=1)
+                              for sent in re.split(r"(?<=\.)\s+", chunk)])
+
+    def chunks_of(data: bytes) -> list[str]:
+        return [c for text, _ in parser.__wrapped__(data) for c, _ in splitter.__wrapped__(text)]
+
+    docs: list = []
+    chunks: list[str] = []
+    while len(chunks) < n_chunks:
+        i = len(docs)
+        sentences = list(itertools.islice(stream, int(rng.integers(20, 80))))
+        paras = [" ".join(sentences[j:j + 8]) for j in range(0, len(sentences), 8)]
+        kind = ("txt", "html", "md")[i % 3]
+        if kind == "txt":
+            data = " ".join(sentences).encode()
+        elif kind == "html":
+            data = (f"<!DOCTYPE html><html><head><title>Document {i}</title></head><body>"
+                    + "".join(f"<p>{p}</p>" for p in paras) + "</body></html>").encode()
+        else:
+            data = (f"# Document {i}\n\n" + "\n\n".join(
+                (f"## Part {j}\n\n" if j % 2 else "") + p for j, p in enumerate(paras))).encode()
+        got = chunks_of(data)
+        if len(chunks) + len(got) > n_chunks:  # the last document: plain text, cut to the count
+            kind, kept = "txt", []
+            for sent in sentences:
+                if len(chunks_of(" ".join(kept + [sent]).encode())) > n_chunks - len(chunks):
+                    break
+                kept.append(sent)
+            data = " ".join(kept).encode()
+            got = chunks_of(data)
+        docs.append((data, {"path": f"docs/{i:05d}.{kind}", "modified_at": i + 1}))
+        chunks.extend(got)
+    if len(chunks) != n_chunks:
+        raise AssertionError(f"the documents split into {len(chunks)} chunks, not {n_chunks}")
+    return docs, chunks
+
+
+def start_server(store, device) -> tuple[object, int]:
+    """A ``DocumentStoreServer`` over ``store`` on a free local port, its engine (``pw.run``) on
+    a thread of its own."""
+    from pathway_tpu_torch.xpacks.llm.servers import DocumentStoreServer
+
+    port = free_port()
+    server = DocumentStoreServer("127.0.0.1", port, store)
+    server.run(threaded=True, device=device)
+    return server, port
+
+
+def wait_for_count(server, port: int, count: int, deadline_s: float) -> float:
+    """Poll ``/v1/statistics`` until it reads ``count`` documents; the host clock at that
+    answer."""
+    deadline = time.perf_counter() + deadline_s
+    while True:
+        if server.run_error is not None:
+            raise server.run_error
+        try:
+            status, body = post_json(port, "/v1/statistics", {}, timeout=60)
+            if status == 200 and body and body.get("file_count") == count:
+                return time.perf_counter()
+        except OSError:  # the server is not listening yet
+            pass
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"/v1/statistics did not read {count} documents in {deadline_s} s")
+        time.sleep(0.05)
+
+
+def stop_server(server) -> None:
+    """``request_stop()`` and ``terminate_all()``, then the engine thread's join, bounded."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.io.http._server import terminate_all
+
+    pw.request_stop()
+    terminate_all()
+    server._thread.join(60)
+    pw.G.clear()
+    if server._thread.is_alive():
+        raise AssertionError("the server's engine thread did not stop within 60 s")
+    if server.run_error is not None:
+        raise server.run_error
+
+
+def answer_pairs(body: list, ident) -> list:
+    """A ``/v1/retrieve`` answer as [(id, score)]: the reply's ``dist`` is the negated score."""
+    return [(ident(d), -float(d["dist"])) for d in body]
+
+
+def run_serve_text(device, embedder, *, n_chunks: int, docs_commit: int, n_queries: int,
+                   k: int) -> dict:
+    """Leg (a): documents in three formats through ``ParseLocal``, ``TokenCountSplitter`` and the
+    embedder into a ``DocumentStore`` served over HTTP; the fill rates, the answers against the
+    run's engine searched directly, ``/v1/inputs`` and a glob request."""
+    import fnmatch
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.xpacks.llm.document_store import DocumentStore
+    from pathway_tpu_torch.xpacks.llm.parsers import ParseLocal
+    from pathway_tpu_torch.xpacks.llm.splitters import TokenCountSplitter
+
+    t0 = time.perf_counter()
+    docs_in, chunk_texts = serve_documents(n_chunks)
+    log(f"serve documents: {len(docs_in)} documents (text, HTML, Markdown) of {n_chunks} chunks "
+        f"made in {time.perf_counter() - t0:.1f} s")
+
+    class Docs(pw.io.python.ConnectorSubject):
+        def run(self):
+            for s in range(0, len(docs_in), docs_commit):
+                part = docs_in[s:s + docs_commit]
+                self.next_batch({"data": [d for d, _ in part], "_metadata": [m for _, m in part]})
+                self.commit()
+
+    pw.G.clear()
+    docs = pw.io.python.read(Docs(), schema=pw.schema_from_types(data=bytes, _metadata=dict),
+                             autocommit_duration_ms=None)
+    store = DocumentStore(docs, pw.indexing.BruteForceKnnFactory(
+        dimensions=embedder.embedder.cfg.dim, embedder=embedder.embedder),
+        parser=ParseLocal(), splitter=TokenCountSplitter(max_tokens=256))
+    engines = keep_engines(store.index)
+    texts: dict = {}
+    pw.io.subscribe(store.chunked_documents,
+                    on_change=lambda key, row, time, is_addition: texts.__setitem__(
+                        int(key), row["text"]) if is_addition else None)
+    t0 = time.perf_counter()
+    server, port = start_server(store, device)
+    try:
+        filled = wait_for_count(server, port, len(docs_in), 900) - t0
+        held = rows_held(engines[0])
+        if held != n_chunks or len(texts) != n_chunks:
+            raise AssertionError(f"the index holds {held} chunks ({len(texts)} seen), "
+                                 f"not {n_chunks}")
+        rng = np.random.default_rng(8)
+        queries = [chunk_texts[i].split(".")[0] for i in rng.integers(0, n_chunks, n_queries)]
+        got = {}
+        for q, query in enumerate(queries):
+            status, body = post_json(port, "/v1/retrieve", {"query": query, "k": k})
+            if status != 200:
+                raise AssertionError(f"/v1/retrieve answered {status}: {body}")
+            got[q] = answer_pairs(body, lambda d: d["text"])
+        direct = engines[0].search(queries, [k] * n_queries, [None] * n_queries)
+        want = {q: [(texts[key], score) for key, score in row] for q, row in enumerate(direct)}
+        swapped = check_answers("serve text", got, want)
+        status, files = post_json(port, "/v1/inputs", {})
+        paths = sorted(f["path"] for f in files)
+        if status != 200 or paths != sorted(m["path"] for _, m in docs_in):
+            raise AssertionError(f"/v1/inputs listed {len(paths)} paths, not the "
+                                 f"{len(docs_in)} documents")
+        glob = "docs/*.html"
+        status, body = post_json(port, "/v1/retrieve", {"query": queries[0], "k": k,
+                                                        "filepath_globpattern": glob})
+        if status != 200 or not body or not all(
+                fnmatch.fnmatch(d["metadata"]["path"], glob) for d in body):
+            raise AssertionError(f"the glob request's answer is outside {glob!r}: {body}")
+    finally:
+        stop_server(server)
+    return {"docs_per_s": len(docs_in) / filled, "chunks_per_s": n_chunks / filled,
+            "n_docs": len(docs_in), "swapped": swapped, "glob_answers": len(body)}
+
+
+def run_serve_rows(device, embedder, *, n_rows: int, feed_commit: int, requests: int,
+                   warmup: int, k: int) -> dict:
+    """Leg (b), as the reference's bench measures its serve p50 (``bench.py``, ``_doc_server``
+    and ``_rest_rag_point``): seeded unit vectors in the store's pre-embedded mode, then
+    ``requests`` retrievals of which the first ``warmup`` are not timed, the framework's share
+    (``/v1/statistics``), one query's embed, a traced request, a filtered one timed apart."""
+    import fnmatch
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.ops.knn import topk_scores_plain
+    from pathway_tpu_torch.xpacks.llm.document_store import DocumentStore
+
+    cuda = device.type == "cuda"
+    emb = embedder.embedder
+    dim = emb.cfg.dim
+    rng = np.random.default_rng(3)
+    vecs = rng.standard_normal((n_rows, dim), dtype=np.float32)
+    vecs /= np.linalg.norm(vecs, axis=1, keepdims=True)
+
+    class DocFeed(pw.io.python.ConnectorSubject):
+        def run(self):
+            for start in range(0, n_rows, feed_commit):
+                stop = min(start + feed_commit, n_rows)
+                self.next_batch({
+                    "data": [f"doc {i} on topic {i % 29} covering dataflow shard {i % 7}"
+                             for i in range(start, stop)],
+                    "_metadata": [{"path": f"d{i}.txt"} for i in range(start, stop)],
+                    "vec": list(vecs[start:stop]),
+                })
+                self.commit()
+
+    pw.G.clear()
+    docs = pw.io.python.read(DocFeed(), schema=pw.schema_from_types(
+        data=str, _metadata=dict, vec=np.ndarray), autocommit_duration_ms=None)
+    store = DocumentStore(docs, pw.indexing.BruteForceKnnFactory(
+        dimensions=dim, reserved_space=n_rows, embedder=emb), vector_column="vec")
+    wrappers = launch_counters()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    server, port = start_server(store, device)
+    out: dict = {}
+    try:
+        out["fill_rows_per_s"] = n_rows / (wait_for_count(server, port, n_rows, 1200) - t0)
+
+        def retrieve(i: int, **extra):
+            t = time.perf_counter()
+            status, body = post_json(port, "/v1/retrieve",
+                                     {"query": f"dataflow shard topic {i % 13}", "k": k, **extra})
+            ms = (time.perf_counter() - t) * 1e3
+            if status != 200 or len(body) != k:
+                raise AssertionError(f"/v1/retrieve answered {status} with {body}")
+            return ms, body
+
+        lat, bodies = [], {}
+        for i in range(warmup):  # the first copies the index to the device
+            ms, _ = retrieve(i)
+            if i == 0:
+                out["first_ms"] = ms
+        before = {name: fn.launches for name, fn in wrappers.items()}
+        for i in range(warmup, requests):
+            ms, body = retrieve(i)
+            lat.append(ms)
+            if len(bodies) < 8:
+                bodies[i] = body
+        out["per_request"] = {name: (fn.launches - before[name]) / len(lat)
+                              for name, fn in wrappers.items()}
+        fw = []
+        for i in range(16):
+            t = time.perf_counter()
+            status, _ = post_json(port, "/v1/statistics", {})
+            if i >= 2:
+                fw.append((time.perf_counter() - t) * 1e3)
+        emb.embed_texts(["warm the query bucket"])
+        embeds = []
+        for i in range(7):
+            t = time.perf_counter()
+            emb.embed_texts([f"dataflow shard topic {i}"])  # returns numpy: synchronised
+            embeds.append((time.perf_counter() - t) * 1e3)
+        out.update(p50=float(np.percentile(lat, 50)), p95=float(np.percentile(lat, 95)),
+                   p99=float(np.percentile(lat, 99)), framework_ms=float(np.percentile(fw, 50)),
+                   embed_ms=float(np.median(embeds)), lat=lat)
+        out["index_ms"] = max(out["p50"] - out["framework_ms"] - out["embed_ms"], 0.0)
+
+        # 8 answers against a direct search over the fed vectors, normalised as the cos metric
+        # normalises them, with the plain scorer
+        fed = vecs.copy()
+        fed /= np.linalg.norm(fed, axis=1, keepdims=True)
+        index = torch.from_numpy(fed).to(device)
+        del fed
+        got, want = {}, {}
+        for i, body in bodies.items():
+            q = emb.embed_texts_device([f"dataflow shard topic {i % 13}"]).float()
+            s, ids = topk_scores_plain(q, index, k)
+            want[i] = list(zip(ids[0].tolist(), s[0].tolist()))
+            got[i] = answer_pairs(body, lambda d: int(d["metadata"]["path"][1:-4]))
+        del index
+        out["swapped"] = check_answers("serve", got, want)
+
+        if cuda:  # one request on the device's timeline, between two marker kernels
+            acts = [torch.profiler.ProfilerActivity.CUDA]
+            for _ in range(3):  # the tracer sometimes loses a session's events: up to 3
+                with torch.profiler.profile(activities=acts) as prof:
+                    torch.cuda._sleep(1000)
+                    retrieve(requests)
+                    torch.cuda._sleep(1000)
+                    torch.cuda.synchronize()
+                traced = query_tick_device(prof)
+                if traced:
+                    out.update(traced)
+                    break
+            out["peak_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        glob = "d7*.txt"
+        out["filtered_ms"], body = retrieve(0, filepath_globpattern=glob)
+        if not all(fnmatch.fnmatch(d["metadata"]["path"], glob) for d in body):
+            raise AssertionError(f"the filtered request's answer is outside {glob!r}: {body}")
+    finally:
+        stop_server(server)
+    return out
+
+
+def run_serve(device, *, n_chunks: int = 16384, docs_commit: int = 256, n_rows: int = 1 << 20,
+              feed_commit: int = 100_000, n_queries: int = 16, requests: int = 104,
+              warmup: int = 4, cfg=None) -> dict:
+    """The phase; sizes as the defaults say on the card (a CPU rehearsal passes small ones and a
+    small encoder). Returns each leg's launch counts, rates and times."""
+    from pathway_tpu_torch.models.embedder import Embedder
+    from pathway_tpu_torch.xpacks.llm.embedders import TorchEmbedder
+
+    cuda = device.type == "cuda"
+    card = card_line() if cuda else "cpu"
+    launches: dict = {}
+
+    def embedder(**kw):
+        return TorchEmbedder(None if cfg is None else Embedder(cfg, seed=0, device=device),
+                             device=device, **kw)
+
+    with scoped_env({"PATHWAY_THREADS": "1", "PATHWAY_MESH_EXCHANGE": "0"}):
+        with counted("serve_text", launches):
+            text = run_serve_text(device, embedder(), n_chunks=n_chunks,
+                                  docs_commit=docs_commit, n_queries=n_queries, k=10)
+        log(f"serve, text leg: {text['n_docs']} documents of {n_chunks} chunks through "
+            f"ParseLocal, TokenCountSplitter(max_tokens=256) and the encoder into DocumentStore: "
+            f"{text['docs_per_s']:.1f} documents/s, {text['chunks_per_s']:.1f} chunks/s (run "
+            f"start to /v1/statistics reading every document); {n_queries} /v1/retrieve answers "
+            f"(k=10) equal to the run's engine searched directly ({text['swapped']} texts "
+            f"swapped inside near ties); /v1/inputs lists every path; a glob request's "
+            f"{text['glob_answers']} answers all match; launches {launches['serve_text']} "
+            f"[{card}]")
+        if cuda:
+            torch.cuda.empty_cache()
+        with counted("serve", launches):
+            rows = run_serve_rows(device, embedder(max_len=32), n_rows=n_rows,
+                                  feed_commit=feed_commit, requests=requests, warmup=warmup,
+                                  k=3)
+    per = {name: n for name, n in rows["per_request"].items() if n}
+    log(f"serve, {n_rows} pre-embedded rows in commits of {feed_commit}: filled at "
+        f"{rows['fill_rows_per_s']:.1f} rows/s; the first request {rows['first_ms']:.3f} ms "
+        f"(it copies the index to the device) [{card}]")
+    log(f"serve: /v1/retrieve p50 {rows['p50']:.3f} ms, p95 {rows['p95']:.3f} ms, p99 "
+        f"{rows['p99']:.3f} ms over {requests - warmup} requests (host clock, k=3; the north "
+        f"star: p50 < 50 ms); framework_ms {rows['framework_ms']:.3f} (p50 of /v1/statistics), "
+        f"embed_ms {rows['embed_ms']:.3f} (one query, synchronised), index_ms "
+        f"{rows['index_ms']:.3f} (the remainder) [{card}]")
+    log(f"serve: 8 answers equal to the plain scorer over the fed vectors ({rows['swapped']} ids "
+        f"swapped inside near ties); launches per request {per}; a filtered request "
+        f"(filepath_globpattern) {rows['filtered_ms']:.3f} ms, untimed in the 100 [{card}]")
+    if cuda:
+        log(f"serve: one request on the device: idle share {fmt_share(rows.get('idle_share'))}; "
+            f"peak device memory {rows['peak_gb']:.3f} GiB [{card}]")
+        log_query_tick(rows, card)
+        for path in ("serve_text", "serve"):
+            missing = [n for n in ("masked_attention", "knn_topk") if launches[path][n] == 0]
+            if missing:
+                raise AssertionError(f"{missing} not launched on the {path} path")
+        if not (rows["per_request"]["masked_attention"] and rows["per_request"]["knn_topk"]):
+            raise AssertionError(f"a kernel of the serve path was not launched per request: "
+                                 f"{rows['per_request']}")
+    return {"launches": launches, "text": text, "rows": rows}
 
 
 def main() -> int:
@@ -2674,6 +3098,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     indexing = run_indexing(device)
 
+    phase("the RAG serve path over HTTP")
+    torch.cuda.empty_cache()
+    serve = run_serve(device)
+
     by_path = {**engine["device_ms_by_path"], **api["device_ms_by_path"]}
     all_launches = {**engine["launches"], **api["launches"]}
     for name in PATH_KERNELS:
@@ -2715,13 +3143,15 @@ def main() -> int:
                    "sharded": sharded["launches"].get(name, 0),
                    **{p: c[name] for p, c in engine["launches"].items()},
                    **{p: c[name] for p, c in api["launches"].items()},
-                   **{p: c[name] for p, c in indexing["launches"].items()}}
+                   **{p: c[name] for p, c in indexing["launches"].items()},
+                   **{p: c[name] for p, c in serve["launches"].items()}}
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            **{k: t[k] for k in ("route", "device_ms_by_pass", "blocks", "blocks_per_sm",
+            **({"kernel_route": t["route"]} if "route" in t else {}),
+            **{k: t[k] for k in ("device_ms_by_pass", "blocks", "blocks_per_sm",
                                  "smem_bytes", "upload_ms", "readback_ms", "numpy_tier_ms",
                                  "device_ms", "cases",
                                  "empty_ms", "empty_device_ms", "device_ms_by_path",

@@ -1,23 +1,26 @@
-"""PyTorch/CUDA port of ``pathway_tpu``'s RAG ingest and retrieval path, its training step, its
-sequence- and index-parallel paths and its dataflow engine's core, for an NVIDIA H100.
+"""PyTorch/CUDA port of ``pathway_tpu``'s RAG ingest, retrieval and serving path, its training
+step, its sequence- and index-parallel paths and its dataflow engine, for an NVIDIA H100.
 
 The slices ported so far: the MiniLM-class encoder (``models.embedder``), the brute-force KNN
-scorer (``ops.knn``), the mutable index engine (``ops.index_engines``), the token-count splitter
-and the embedder front (``xpacks.llm``); the one-device training step (``models.pipeline``); the
-meshes over ``torch.distributed`` (``parallel``), long-context embedding with ring attention
-(``models.ring_attention``) and the sharded KNN search (``ops.knn``); the dataflow engine's core
-(``engine``: executor, operators, keys, external index) sharded over worker threads, with its
-record exchange on the card (``parallel.meshcomm``, ``parallel.exchange``); the Table API down to
-``run()`` (``internals``: tables, expressions, schemas, the parse graph, the graph runner and the
-expression compiler; ``io.python``, ``io.subscribe``, ``debug``, ``reducers``, ``udfs``), so that
-``import pathway_tpu_torch as pw`` reads like the reference; the native keyspace module under the
-engine (``native``, built with the host C compiler at first use); ``pw.indexing`` (KNN, BM25,
-hybrid and sorted indexes) and ``Table.sort``. Hand-written CUDA kernels carry their
-device work: masked attention and its gradient (``ops.attention``), fused
+scorer (``ops.knn``), the mutable index engine (``ops.index_engines``); the one-device training
+step (``models.pipeline``); the meshes over ``torch.distributed`` (``parallel``), long-context
+embedding with ring attention (``models.ring_attention``) and the sharded KNN search
+(``ops.knn``); the dataflow engine's core (``engine``: executor, operators, keys, external index)
+sharded over worker threads, with its record exchange on the card (``parallel.meshcomm``,
+``parallel.exchange``); the Table API down to ``run()`` (``internals``: tables, expressions,
+schemas, the parse graph, the graph runner and the expression compiler; ``io.python``,
+``io.subscribe``, ``debug``, ``reducers``, ``udfs``), so that ``import pathway_tpu_torch as pw``
+reads like the reference; the native keyspace module under the engine (``native``, built with
+the host C compiler at first use); ``pw.indexing`` (KNN, BM25, hybrid and sorted indexes) and
+``Table.sort``; the RAG serving path (``xpacks.llm``: the local parsers, the splitters and
+embedders as UDFs, the live ``DocumentStore`` and ``DocumentStoreServer``; ``io.http``'s
+``rest_connector``; the ``serve`` plane's admission control and merge). Hand-written CUDA
+kernels carry their device work: masked attention and its gradient (``ops.attention``), fused
 scoring with top-k and the sharded search's merge (``ops.knn``), the InfoNCE loss with its
 gradient (``ops.infonce``), the ring's block step (``ops.ring``), the exchange's bucketing
 (``parallel.exchange``) and the expression register machine that runs the compiled numeric
-expressions and fused chains (``ops.expression_kernel``). They build from ``csrc/`` at first use (``_kernels``).
+expressions and fused chains (``ops.expression_kernel``). They build from ``csrc/`` at first use
+(``_kernels``).
 
 Every entry point takes ``device=`` and defaults to ``"cuda"``; with no card it raises unless
 the caller passes ``device="cpu"``, where each kernel's plain PyTorch version runs instead. The

@@ -4,9 +4,10 @@
 
 Copy of ``pathway_tpu/internals/config.py`` with the knobs the port's runner
 reads: the worker layout (``PATHWAY_THREADS``, ``PATHWAY_PROCESSES``) and
-``PATHWAY_MESH_EXCHANGE``, read as the reference reads them. Persistence,
-replay, fault plans, supervision, monitoring and the cluster address book
-are left out with the runner branches that use them.
+``PATHWAY_MESH_EXCHANGE``, read as the reference reads them, and the readers
+(``_env_bool``, ``_env_int``, ``_env_float``) that the serve plane's knobs go
+through. Persistence, replay, fault plans, supervision, monitoring and the
+cluster address book are left out with the runner branches that use them.
 """
 
 from __future__ import annotations
@@ -31,6 +32,14 @@ def _env_int(name: str, default: int) -> int:
     v = os.environ.get(name)
     try:
         return int(v) if v is not None else default
+    except ValueError:
+        return default
+
+
+def _env_float(name: str, default: float) -> float:
+    v = os.environ.get(name)
+    try:
+        return float(v) if v is not None else default
     except ValueError:
         return default
 

@@ -5,8 +5,8 @@ SourceNode/Subscribe machinery. Implemented connectors live in submodules
 (``fs``, ``csv``, ``jsonlines``, ``plaintext``, ``python``, ``http``, ...);
 ``subscribe`` is the universal callback sink (reference ``io.subscribe``).
 
-Copy of ``pathway_tpu/io/__init__.py`` with the ``python`` connector only;
-the other connectors are not ported.
+Copy of ``pathway_tpu/io/__init__.py`` with the ``python`` connector and
+``http``'s REST server only; the other connectors are not ported.
 """
 
 from __future__ import annotations
@@ -16,9 +16,9 @@ from typing import Any, Callable
 from ..internals.parse_graph import G
 from ..internals.table import Table
 
-from . import python  # noqa: E402,F401
+from . import http, python  # noqa: E402,F401
 
-__all__ = ["python", "subscribe", "OnChangeCallback", "OnFinishCallback"]
+__all__ = ["http", "python", "subscribe", "OnChangeCallback", "OnFinishCallback"]
 
 OnChangeCallback = Callable[..., None]
 OnFinishCallback = Callable[[], None]

@@ -23,7 +23,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Any, Iterable, NamedTuple, Sequence
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -85,29 +85,15 @@ def _check_k(name: str, k: int, n: int) -> None:
                          f"got k={k} with {n} candidates")
 
 
-def _merge_topk(
-    parts: Iterable[Sequence[tuple[Any, float]]], k: int
-) -> list[tuple[Any, float]]:
-    """Copy of ``pathway_tpu/serve/merge.py::merge_topk``.
-
-    Merge per-shard (key, score) candidate lists into a global best-first top-k. Scores compare
-    higher-is-better. Duplicate keys keep their best score only."""
-    best: dict[Any, float] = {}
-    for part in parts:
-        for key, score in part:
-            prev = best.get(key)
-            if prev is None or score > prev:
-                best[key] = score
-    ranked = sorted(best.items(), key=lambda kv: (-kv[1], kv[0]))
-    return [(key, score) for key, score in ranked[:k]]
-
-
 def merge_shard_topk(
     parts: "list[list[tuple[Any, float]]]", k: int
 ) -> "list[tuple[Any, float]]":
     """Merge per-shard best-first (key, score) candidate lists into a global top-k on the host
-    (scores compare higher-is-better; duplicate keys keep their best score)."""
-    return _merge_topk(parts, k)
+    (scores compare higher-is-better; duplicate keys keep their best score): the serve plane's
+    ``serve/merge.py::merge_topk``, as in the JAX package."""
+    from ..serve.merge import merge_topk
+
+    return merge_topk(parts, k)
 
 
 def topk_scores_plain(

@@ -1,8 +1,9 @@
-"""Text splitters: port of ``TokenCountSplitter`` from ``pathway_tpu/xpacks/llm/splitters.py``.
+"""Text splitters: port of ``pathway_tpu/xpacks/llm/splitters.py``.
 
-A splitter maps ``text -> list[(chunk, metadata)]``. Here it is a plain callable; the UDF base
-class it derives from in the JAX package comes with the dataflow slice. Tokens are counted with
-tiktoken when it is installed, else by a deterministic whitespace approximation.
+A splitter is a UDF ``text -> list[(chunk, metadata)]``, so its output column flattens into one
+row per chunk. Called on a column it builds an expression; ``__wrapped__`` (or ``_split``) is the
+function on one text. ``TokenCountSplitter`` counts tokens with tiktoken when it is installed and
+its encoding loads, else by a deterministic whitespace approximation.
 """
 
 from __future__ import annotations
@@ -10,16 +11,35 @@ from __future__ import annotations
 import re
 from typing import Any
 
-__all__ = ["TokenCountSplitter"]
+from ...udfs import UDF
+
+__all__ = ["BaseSplitter", "NullSplitter", "TokenCountSplitter"]
+
+
+class BaseSplitter(UDF):
+    def _split(self, text: str, **kwargs: Any) -> list[tuple[str, dict]]:
+        raise NotImplementedError
+
+    def __wrapped__(self, text: str, **kwargs: Any) -> list[tuple[str, dict]]:
+        return self._split(text or "", **kwargs)
+
+
+class NullSplitter(BaseSplitter):
+    """One chunk per document."""
+
+    def _split(self, text: str, **kwargs: Any) -> list[tuple[str, dict]]:
+        return [(text, {})]
+
 
 _WORD_RE = re.compile(r"\S+")
 
 
-class TokenCountSplitter:
+class TokenCountSplitter(BaseSplitter):
     """Greedy sentence-boundary packing into [min_tokens, max_tokens] windows."""
 
     def __init__(self, min_tokens: int = 50, max_tokens: int = 500,
-                 encoding_name: str = "cl100k_base"):
+                 encoding_name: str = "cl100k_base", **kwargs: Any):
+        super().__init__(**kwargs)
         self.min_tokens = min_tokens
         self.max_tokens = max_tokens
         self.encoding_name = encoding_name
@@ -30,9 +50,6 @@ class TokenCountSplitter:
             self._enc = tiktoken.get_encoding(encoding_name)
         except Exception:  # not installed, or its encoding files are absent (no network)
             self._enc = None  # fall back to whitespace token counts
-
-    def __call__(self, text: str, **kwargs: Any) -> list[tuple[str, dict]]:
-        return self._split(text or "", **kwargs)
 
     def _count(self, text: str) -> int:
         if self._enc is not None:

@@ -1379,3 +1379,74 @@ def test_data_index_query_on_the_card_launches_the_scorer(cuda, workers, monkeyp
     gap_prev = np.concatenate([np.full((q, 1), np.inf), s_want[:, :k - 1] - s_want[:, 1:k]], 1)
     clear = (gap_prev > tol) & (s_want[:, :k] - s_want[:, 1:] > tol)
     np.testing.assert_array_equal(i_ours[clear], i_want[clear])
+
+
+def test_document_store_server_on_the_card_launches_both_kernels(cuda, monkeypatch):
+    """A ``DocumentStoreServer`` on the card over a few hundred chunks (``ParseLocal``,
+    ``TokenCountSplitter``, the default encoder) answers one ``/v1/retrieve`` over HTTP, and both
+    kernels of the serve path, the attention and the scorer, launch for it."""
+    import json
+    import socket
+    import sys
+    import threading
+    import time
+    import urllib.request
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.io.http._server import terminate_all
+    from pathway_tpu_torch.xpacks.llm import DocumentStore, DocumentStoreServer
+    from pathway_tpu_torch.xpacks.llm.embedders import TorchEmbedder
+    from pathway_tpu_torch.xpacks.llm.parsers import ParseLocal
+    from pathway_tpu_torch.xpacks.llm.splitters import TokenCountSplitter
+
+    monkeypatch.setitem(sys.modules, "tiktoken", None)  # its encodings come over the network
+    rng = np.random.default_rng(23)
+    words = [f"w{i}" for i in range(500)]
+    docs_in = []
+    for i in range(40):
+        text = " ".join(" ".join(rng.choice(words, size=12)) + "." for _ in range(60))
+        data = (f"<html><title>d{i}</title><body><p>{text}</p></body></html>" if i % 2
+                else text)
+        docs_in.append((data.encode(), {"path": f"d{i}.txt", "modified_at": i}))
+    pw.G.clear()
+    docs = pw.debug.table_from_rows(pw.schema_from_types(data=bytes, _metadata=dict), docs_in)
+    embedder = TorchEmbedder(device=cuda)
+    store = DocumentStore(docs, pw.indexing.BruteForceKnnFactory(
+        dimensions=embedder.embedder.cfg.dim, embedder=embedder.embedder),
+        parser=ParseLocal(), splitter=TokenCountSplitter(min_tokens=20, max_tokens=64))
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    server = DocumentStoreServer("127.0.0.1", port, store)
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+
+    def post(route, body):
+        req = urllib.request.Request(f"http://127.0.0.1:{port}{route}",
+                                     data=json.dumps(body).encode(),
+                                     headers={"Content-Type": "application/json"})
+        with opener.open(req, timeout=60) as resp:
+            return json.loads(resp.read())
+
+    server.run(threaded=True, device=cuda)
+    try:
+        deadline = time.monotonic() + 120
+        while True:
+            try:
+                if post("/v1/statistics", {}).get("file_count") == len(docs_in):
+                    break
+            except OSError:
+                pass
+            assert time.monotonic() < deadline and server.run_error is None
+            time.sleep(0.1)
+        before = (masked_attention.launches, topk_scores.launches)
+        answer = post("/v1/retrieve", {"query": "w1 w2 w3", "k": 5})
+        after = (masked_attention.launches, topk_scores.launches)
+    finally:
+        pw.request_stop()
+        terminate_all()
+        server._thread.join(60)
+        pw.G.clear()
+    assert not server._thread.is_alive() and server.run_error is None
+    assert len(answer) == 5 and all(np.isfinite(d["dist"]) for d in answer)
+    assert [d["dist"] for d in answer] == sorted(d["dist"] for d in answer)
+    assert after[0] > before[0] and after[1] > before[1], (before, after)

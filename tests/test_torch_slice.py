@@ -26,6 +26,7 @@ from pathway_tpu_torch import (
     BruteForceKnnEngine,
     Embedder,
     EmbedderConfig,
+    UDF,
     TokenCountSplitter,
     TorchEmbedder,
     params_from_jax,
@@ -58,10 +59,10 @@ def test_slice_end_to_end_matches_jax():
     theirs_split = JaxSplitter(min_tokens=8, max_tokens=24)
     chunks = []
     for doc in docs:
-        mine = ours_split(doc)
+        mine = ours_split.__wrapped__(doc)
         assert mine == theirs_split._split(doc)
         chunks.extend(text for text, _ in mine)
-    assert ours_split("   ") == theirs_split._split("   ") == []
+    assert ours_split.__wrapped__("   ") == theirs_split._split("   ") == []
     assert len(chunks) > 60
 
     jcfg = jemb.EmbedderConfig(**SMALL, dtype=jnp.float32)
@@ -106,7 +107,8 @@ def test_torch_embedder_matches_tpu_embedder():
                                atol=EMB_F32_ATOL, rtol=0)
     np.testing.assert_allclose(ours._embed(texts[1]), theirs._embed(texts[1]),
                                atol=EMB_F32_ATOL, rtol=0)
-    np.testing.assert_allclose(ours(""), theirs.__wrapped__(""), atol=EMB_F32_ATOL, rtol=0)
+    np.testing.assert_allclose(ours.__wrapped__(""), theirs.__wrapped__(""), atol=EMB_F32_ATOL,
+                               rtol=0)
     assert ours.get_embedding_dimension() == SMALL["dim"]
 
 
@@ -118,6 +120,9 @@ def test_entry_points_default_to_the_card():
             make()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TorchEmbedder(embedder=object())
+    assert issubclass(TorchEmbedder, UDF)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TorchEmbedder(embedder=object(), max_len=32)
     # the Table API: pw.run(), the graph runner and the debug entry points
     import pathway_tpu_torch as pt
     from pathway_tpu_torch.internals.graph_runner import GraphRunner
@@ -128,6 +133,21 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         pt.debug.table_to_dicts(t)
     pt.G.clear()
+    # the REST servers: run() without device= is a run on the card
+    from pathway_tpu_torch.io.http._server import terminate_all
+    from pathway_tpu_torch.xpacks.llm import DocumentStore, DocumentStoreServer
+
+    docs = pt.debug.table_from_rows(pt.schema_from_types(data=str, _metadata=dict),
+                                    [("a text", {"path": "a.txt"})])
+    store = DocumentStore(docs, pt.indexing.BruteForceKnnFactory(
+        dimensions=4, embedder=lambda text: np.ones(4)))
+    server = DocumentStoreServer("127.0.0.1", 0, store)  # never started: run() raises first
+    try:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            server.run()
+    finally:
+        terminate_all()
+        pt.G.clear()
 
 
 _IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|pathway_tpu)(?:[.\s]|$)", re.M)
@@ -148,6 +168,7 @@ _BLOCKED_RUN = textwrap.dedent("""
     import sys
 
     sys.modules["jax"] = None
+    sys.modules["tiktoken"] = None  # its encodings come over the network; the splitter counts words
 
     class Block(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
@@ -164,7 +185,7 @@ _BLOCKED_RUN = textwrap.dedent("""
     cfg = pt.EmbedderConfig(vocab_size=64, dim=32, n_layers=2, n_heads=4, max_len=48,
                             dtype=torch.float32)
     emb = pt.Embedder(cfg, device="cpu")
-    chunks = [c for c, _ in pt.TokenCountSplitter(min_tokens=4, max_tokens=12)(
+    chunks = [c for c, _ in pt.TokenCountSplitter(min_tokens=4, max_tokens=12).__wrapped__(
         "stream engines keep state. vector indexes answer queries. " * 6)]
     engine = pt.BruteForceKnnEngine(32, embedder=emb, device="cpu")
     engine.add_batch(list(range(len(chunks))), chunks, [None] * len(chunks))
@@ -174,7 +195,7 @@ _BLOCKED_RUN = textwrap.dedent("""
     index.add(emb.embed_texts(chunks))
     s, i = index.query(emb.embed_texts(["stream engines"]), 2)
     assert np.isfinite(s).all()
-    vec = pt.TorchEmbedder(emb, device="cpu")("a text")
+    vec = pt.TorchEmbedder(emb, device="cpu").__wrapped__("a text")
     assert vec.shape == (32,)
 
     # the engine core: a 2-worker wordcount whose exchange goes through MeshComm on the CPU
@@ -260,6 +281,25 @@ _BLOCKED_RUN = textwrap.dedent("""
     pt.run(device="cpu")
     assert sorted(found[-1]) == ["a", "c"], found
     assert chained["c"] is None and len(chained) == 3, chained
+
+    # the RAG serve path's modules: xpacks.llm, io.http (on aiohttp) and serve; a DocumentStore
+    # with the local parser, the splitter and the encoder through pw.run, still at 2 workers
+    import pathway_tpu_torch.io.http
+    import pathway_tpu_torch.serve
+    from pathway_tpu_torch.xpacks.llm import DocumentStore, DocumentStoreServer, parsers, splitters
+
+    pt.G.clear()
+    docs = pt.debug.table_from_rows(pt.schema_from_types(data=bytes, _metadata=dict), [
+        (b"<html><title>t</title><body><p>vector indexes answer queries.</p></body></html>",
+         {"path": "a.html"}),
+        (b"stream engines keep state.", {"path": "b.txt"})])
+    store = DocumentStore(docs, pt.indexing.BruteForceKnnFactory(dimensions=32, embedder=emb),
+                          parser=parsers.ParseLocal(),
+                          splitter=splitters.TokenCountSplitter(min_tokens=2, max_tokens=12))
+    q = pt.debug.table_from_rows(DocumentStore.RetrieveQuerySchema,
+                                 [("vector indexes", 2, None, None)])
+    [row] = pt.debug.table_to_pandas(store.retrieve_query(q), device="cpu")["result"].tolist()
+    assert sorted(d["metadata"]["path"] for d in row) == ["a.html", "b.txt"], row
     loaded = sorted(
         m for m, mod in sys.modules.items() if mod is not None
         and (m.startswith("jax") or m == "pathway_tpu" or m.startswith("pathway_tpu."))

@@ -56,3 +56,19 @@ def topk_tol(scores: np.ndarray, queries: np.ndarray, index: np.ndarray,
         return bf16_ulp(scores)
     dot_max = np.linalg.norm(queries, axis=1, keepdims=True) * np.linalg.norm(index, axis=1).max()
     return np.broadcast_to(2 * bf16_ulp(dot_max) + 1e-6 * np.abs(scores), scores.shape)
+
+
+def assert_docs_close(got: list, want: list) -> None:
+    """Two ``DocumentStore`` answers (lists of {text, metadata, dist}, best first): the same
+    length, each ``dist`` within one bf16 ulp of the reference's, and text and metadata equal
+    wherever the reference's dist is clear of its neighbours' by more than two ulps."""
+    assert len(got) == len(want), (got, want)
+    dists = np.array([float(w["dist"]) for w in want])
+    tol = bf16_ulp(dists)
+    for g, w, t in zip(got, want, tol):
+        assert abs(float(g["dist"]) - float(w["dist"])) <= t, (g, w)
+    for i, (g, w) in enumerate(zip(got, want)):
+        near = [abs(dists[i] - dists[j]) <= 2 * tol[i] for j in (i - 1, i + 1)
+                if 0 <= j < len(want)]
+        if not any(near):
+            assert (g["text"], g["metadata"]) == (w["text"], w["metadata"]), (i, got, want)
