@@ -2456,11 +2456,11 @@ def check_answers(label: str, got: dict, want: dict) -> int:
 
 
 def run_indexing(device, *, n_chunks: int = 16384, n_rows: int = 1 << 20, n_rows_2: int = 1 << 18,
-                 n_hybrid: int = 4096, chunk_commit: int = 1024, vec_commit: int = 1 << 16,
-                 n_queries: int = 64, k: int = 10, cfg=None) -> dict:
+                 chunk_commit: int = 1024, vec_commit: int = 1 << 16, n_queries: int = 64,
+                 k: int = 10, cfg=None) -> dict:
     """The phase; sizes as the defaults say on the card (a CPU rehearsal passes small ones):
-    ``n_rows`` at 1 worker, ``n_rows_2`` (at most ``n_rows``) at 2, the hybrid over the first
-    ``n_hybrid`` chunks. Returns each run's launch counts, rates and times."""
+    ``n_rows`` at 1 worker, ``n_rows_2`` (at most ``n_rows``) at 2, the hybrid over the
+    ``n_chunks`` chunks. Returns each run's launch counts, rates and times."""
     import pathway_tpu_torch as pw
     from pathway_tpu_torch.models.embedder import Embedder
     from pathway_tpu_torch.ops.index_engines import BruteForceKnnEngine
@@ -2521,7 +2521,7 @@ def run_indexing(device, *, n_chunks: int = 16384, n_rows: int = 1 << 20, n_rows
     with counted("indexing_hybrid", result["launches"]):
         # untraced: the per-chunk embeds (about 100 kernels each) would make a trace of some
         # 1.6 million device events, minutes to read
-        run = run_index_pipeline(device, factory=factory, texts=texts[:n_hybrid], vecs=vecs[:0],
+        run = run_index_pipeline(device, factory=factory, texts=texts, vecs=vecs[:0],
                                  queries=queries, k=k, chunk_commit=chunk_commit,
                                  vec_commit=vec_commit, workers=1, trace=False)
     direct = run["engines"][0].search(queries, [k] * n_queries, [None] * n_queries)
@@ -2532,8 +2532,7 @@ def run_indexing(device, *, n_chunks: int = 16384, n_rows: int = 1 << 20, n_rows
             raise AssertionError("the hybrid's answer differs from HybridEngine.search")
     result["rates"]["indexing_hybrid"] = {k_: run[k_] for k_ in ("fill_rows_per_s", "query_ms",
                                                                  "idle_share", "seconds")}
-    log(f"pw.indexing hybrid (BM25 + brute force, RRF k=60): {min(n_hybrid, n_chunks)} chunks "
-        f"at 1 worker, "
+    log(f"pw.indexing hybrid (BM25 + brute force, RRF k=60): {n_chunks} chunks at 1 worker, "
         f"{run['fill_rows_per_s']:.1f} rows/s filled; {n_queries} answers equal to "
         f"HybridEngine.search; the query tick {run['query_ms']:.3f} ms, idle share "
         f"{fmt_share(run['idle_share'])}; launches {result['launches']['indexing_hybrid']} "
@@ -2776,6 +2775,7 @@ def run_serve_rows(device, embedder, *, n_rows: int, feed_commit: int, requests:
     import fnmatch
 
     import pathway_tpu_torch as pw
+    from pathway_tpu_torch.models.embedder import Embedder
     from pathway_tpu_torch.ops.knn import topk_scores_plain
     from pathway_tpu_torch.xpacks.llm.document_store import DocumentStore
 
@@ -2840,11 +2840,11 @@ def run_serve_rows(device, embedder, *, n_rows: int, feed_commit: int, requests:
             status, _ = post_json(port, "/v1/statistics", {})
             if i >= 2:
                 fw.append((time.perf_counter() - t) * 1e3)
-        emb.embed_texts(["warm the query bucket"])
+        embedder.embed_batch(["warm the query bucket"])
         embeds = []
         for i in range(7):
             t = time.perf_counter()
-            emb.embed_texts([f"dataflow shard topic {i}"])  # returns numpy: synchronised
+            embedder.embed_batch([f"dataflow shard topic {i}"])  # returns numpy: synchronised
             embeds.append((time.perf_counter() - t) * 1e3)
         out.update(p50=float(np.percentile(lat, 50)), p95=float(np.percentile(lat, 95)),
                    p99=float(np.percentile(lat, 99)), framework_ms=float(np.percentile(fw, 50)),
@@ -2852,18 +2852,29 @@ def run_serve_rows(device, embedder, *, n_rows: int, feed_commit: int, requests:
         out["index_ms"] = max(out["p50"] - out["framework_ms"] - out["embed_ms"], 0.0)
 
         # 8 answers against a direct search over the fed vectors, normalised as the cos metric
-        # normalises them, with the plain scorer
+        # normalises them, with the plain scorer; each query's embedding, one a forward as the
+        # server embeds it, held against the host encoder's (the plain attention) on the same
+        # params
         fed = vecs.copy()
         fed /= np.linalg.norm(fed, axis=1, keepdims=True)
         index = torch.from_numpy(fed).to(device)
         del fed
-        got, want = {}, {}
+        host = Embedder(emb.cfg, params=emb.params, device="cpu")
+        got, want, emb_err, emb_cos = {}, {}, 0.0, 1.0
         for i, body in bodies.items():
-            q = emb.embed_texts_device([f"dataflow shard topic {i % 13}"]).float()
+            text = f"dataflow shard topic {i % 13}"
+            q = emb.embed_texts_device([text], max_len=embedder.max_len).float()
+            on_host = torch.from_numpy(host.embed_texts([text], max_len=embedder.max_len))
+            emb_err = max(emb_err, (q.cpu() - on_host).abs().max().item())
+            emb_cos = min(emb_cos, (q.cpu() * on_host).sum().item())
             s, ids = topk_scores_plain(q, index, k)
             want[i] = list(zip(ids[0].tolist(), s[0].tolist()))
             got[i] = answer_pairs(body, lambda d: int(d["metadata"]["path"][1:-4]))
-        del index
+        del index, host
+        out.update(emb_err=emb_err, emb_cos=emb_cos)
+        if not (emb_err <= EMB_ATOL and emb_cos >= EMB_MIN_COS):
+            raise AssertionError(f"the served queries' embeddings disagree with the host's: max "
+                                 f"|err| {emb_err:.3e}, min cosine {emb_cos:.6f}")
         out["swapped"] = check_answers("serve", got, want)
 
         if cuda:  # one request on the device's timeline, between two marker kernels
@@ -2932,7 +2943,9 @@ def run_serve(device, *, n_chunks: int = 16384, docs_commit: int = 256, n_rows: 
         f"embed_ms {rows['embed_ms']:.3f} (one query, synchronised), index_ms "
         f"{rows['index_ms']:.3f} (the remainder) [{card}]")
     log(f"serve: 8 answers equal to the plain scorer over the fed vectors ({rows['swapped']} ids "
-        f"swapped inside near ties); launches per request {per}; a filtered request "
+        f"swapped inside near ties); their queries embedded one a forward against the host "
+        f"encoder: max |err| {rows['emb_err']:.3e} (atol {EMB_ATOL}), min cosine "
+        f"{rows['emb_cos']:.6f} (at least {EMB_MIN_COS}); launches per request {per}; a filtered request "
         f"(filepath_globpattern) {rows['filtered_ms']:.3f} ms, untimed in the 100 [{card}]")
     if cuda:
         log(f"serve: one request on the device: idle share {fmt_share(rows.get('idle_share'))}; "
@@ -2990,6 +3003,8 @@ def main() -> int:
 
     phase("kernels of the RAG path")
     attn_err = check_attention(64, (16, 128, 512), device)
+    # one query a request on the serve path: B=1 at each length bucket an encoder pass can take
+    attn_err = max(attn_err, check_attention(1, (16, 32, 64, 128), device))
     knn_err, _ = check_knn(64, 1 << 20, 384, (1, 10, 100), device)
     from pathway_tpu_torch.ops.knn import MAX_K
 

@@ -3,10 +3,11 @@
 Copy of ``pathway_tpu/io/http/_server.py`` over the port's engine: each HTTP request becomes a
 row of a query table keyed by a unique request key (``engine/keys.py::ref_scalar``); the user
 pipeline computes a result row under the same key; the response writer sink completes the
-pending HTTP response when that row arrives (by default at the tick's end, once the frontier has
-passed every operator on the path). ``PathwayWebserver`` is the reference's ``aiohttp`` server,
-with its routes, JSON bodies, status codes (400, 429 with ``Retry-After``, 500, 504) and headers
-(``X-Pathway-Deadline-Ms``, ``X-Pathway-Degraded``).
+pending HTTP response at the tick's end, once the frontier has passed every operator on the path
+(the reference's legacy first-emission writer, ``PATHWAY_SERVE_QUIESCENT=0``, is not ported).
+``PathwayWebserver`` is the reference's ``aiohttp`` server, with its routes, JSON bodies, status
+codes (400, 429 with ``Retry-After``, 500, 504) and the ``X-Pathway-Deadline-Ms`` request header;
+the ``X-Pathway-Degraded`` answer of sharded serving comes with that branch.
 """
 
 from __future__ import annotations
@@ -232,7 +233,6 @@ class _RestSubject(ConnectorSubject):
             )
 
     async def _handle_inner(self, request, web):
-        from ...serve import status as serve_status
         from ...serve.admission import shared_controller
         from ...serve.merge import default_deadline_ms
         from ...serve.stats import bump as serve_bump
@@ -315,11 +315,6 @@ class _RestSubject(ConnectorSubject):
         if self.delete_completed_queries:
             self._rows[key] = row  # kept only for the later retraction
         try:
-            import time as _time
-
-            serve_status.note_deadline(
-                key, _time.time_ns() + int(deadline_ms * 1e6)
-            )
             self._next_with_key(key, **row)
             self.commit()
             remaining_s = max(0.001, deadline_ms / 1e3 - (loop.time() - t0))
@@ -331,19 +326,7 @@ class _RestSubject(ConnectorSubject):
                 return web.json_response({"error": "timeout"}, status=504)
             if isinstance(result, Json):
                 result = result.value
-            headers = {}
-            st = serve_status.take_status(key)
-            if st is not None and (
-                st.get("degraded") or st.get("deadline_exceeded")
-            ):
-                headers["X-Pathway-Degraded"] = "1"
-                if isinstance(result, dict):
-                    result = dict(result)
-                    result["degraded"] = True
-                    result["missing_shards"] = list(
-                        st.get("missing_shards", ())
-                    )
-            return web.json_response(result, dumps=_dumps, headers=headers)
+            return web.json_response(result, dumps=_dumps)
         except asyncio.CancelledError:
             # client disconnected mid-flight: free the slot now, drop the
             # pending future (the engine's late answer finds nobody)
@@ -415,26 +398,12 @@ def rest_connector(
     )
 
     def response_writer(result_table: Table) -> None:
-        from ...internals.config import _env_bool
         from .. import subscribe
 
         cols = result_table.column_names()
 
         def _value_of(row):
             return row.get("result") if "result" in cols else row
-
-        if not _env_bool("PATHWAY_SERVE_QUIESCENT", True):
-            # legacy: resolve the HTTP future on the FIRST emission for the
-            # key — wrong/partial on multi-wave cascades within one commit
-            # tick (a later operator wave may retract + replace the row
-            # after the client already got the early version)
-            def on_change(key, row, time, is_addition):
-                if not is_addition:
-                    return
-                subject._complete(int(key), _value_of(row))
-
-            subscribe(result_table, on_change=on_change)
-            return
 
         # frontier-quiescent respond(): buffer the latest addition per key
         # and resolve only at on_time_end, i.e. after the commit wave's

@@ -80,9 +80,13 @@ class TorchEmbedder(BaseEmbedder):
 
 
 class SentenceTransformerEmbedder(BaseEmbedder):
-    """Needs ``sentence_transformers`` (TorchEmbedder is the native equivalent)."""
+    """Needs ``sentence_transformers`` (TorchEmbedder is the native equivalent). Runs on
+    ``device`` (default the card; with no card it raises unless the caller passes
+    ``device="cpu"``)."""
 
-    def __init__(self, model: str, call_kwargs: dict = {}, device: str = "cpu", **kwargs: Any):
+    def __init__(self, model: str, call_kwargs: dict = {}, device: str | torch.device = "cuda",
+                 **kwargs: Any):
+        self.device = resolve_device(device)
         try:
             import sentence_transformers  # type: ignore[import-not-found]
         except ImportError as e:
@@ -92,7 +96,7 @@ class SentenceTransformerEmbedder(BaseEmbedder):
                 "on-device equivalent"
             ) from e
         super().__init__(**kwargs)
-        self.model = sentence_transformers.SentenceTransformer(model, device=device)
+        self.model = sentence_transformers.SentenceTransformer(model, device=str(self.device))
         self.call_kwargs = call_kwargs
 
     def _embed(self, text: str, **kwargs: Any) -> np.ndarray:

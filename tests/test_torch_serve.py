@@ -5,7 +5,7 @@ Three parts, then one HTTP round trip:
 - ``tests/test_serve.py``'s admission controller, top-k merge, gather state, deadline helpers and
   status channel, on the port's ``serve`` modules (the router is not ported);
 - ``tests/test_streaming_io.py``'s REST tests on the port: a round trip, a missing field's 400,
-  the quiescent writer against the legacy first-emission one;
+  the quiescent writer (the reference's legacy first-emission writer is not ported);
 - ``tests/test_ported_openapi.py``'s five OpenAPI descriptions, equal in both packages;
 - a ``DocumentStoreServer`` of each package over the same documents on a free port each, the same
   ``/v1/retrieve`` (with and without a glob), ``/v1/statistics`` and ``/v1/inputs`` requests:
@@ -417,7 +417,6 @@ class TestServeQuiescent:
         return captured, completed
 
     def test_quiescent_holds_until_frontier(self, monkeypatch):
-        monkeypatch.delenv("PATHWAY_SERVE_QUIESCENT", raising=False)
         captured, completed = self._capture_writer(monkeypatch)
         on_change, on_time_end = captured["on_change"], captured["on_time_end"]
         on_change(7, {"result": "partial"}, 1, True)
@@ -430,12 +429,17 @@ class TestServeQuiescent:
         on_time_end(2)  # the buffer drained: a later tick does not complete it again
         assert completed == [(7, "full")]
 
-    def test_legacy_first_emission_resolves_immediately(self, monkeypatch):
-        monkeypatch.setenv("PATHWAY_SERVE_QUIESCENT", "0")
+    def test_quiescent_keeps_the_row_another_retraction_does_not_name(self, monkeypatch):
+        """A retraction of another value leaves the buffered row; each key of the tick answers
+        once, with its settled row."""
         captured, completed = self._capture_writer(monkeypatch)
-        assert "on_time_end" not in captured
-        captured["on_change"](7, {"result": "partial"}, 1, True)
-        assert completed == [(7, "partial")]
+        on_change, on_time_end = captured["on_change"], captured["on_time_end"]
+        on_change(7, {"result": "full"}, 1, True)
+        on_change(7, {"result": "stale"}, 1, False)
+        on_change(8, {"result": "other"}, 1, True)
+        assert completed == []
+        on_time_end(1)
+        assert sorted(completed) == [(7, "full"), (8, "other")]
 
     def test_quiescent_rest_over_collapsed_index_join(self):
         """The settled top-k row of a BM25 ``DataIndex`` join answers, not an interim one."""

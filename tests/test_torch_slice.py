@@ -31,6 +31,7 @@ from pathway_tpu_torch import (
     TorchEmbedder,
     params_from_jax,
 )
+from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
 from torch_topk_checks import assert_topk_equal, bf16_ulp
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -115,7 +116,8 @@ def test_torch_embedder_matches_tpu_embedder():
 def test_entry_points_default_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
-    for make in (Embedder, lambda: BruteForceKnnEngine(8), TorchEmbedder):
+    for make in (Embedder, lambda: BruteForceKnnEngine(8), TorchEmbedder,
+                 lambda: SentenceTransformerEmbedder("all-MiniLM-L6-v2")):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
     with pytest.raises(RuntimeError, match="device='cpu'"):
