@@ -1,6 +1,6 @@
 """Drive the PyTorch port's RAG ingest and retrieval path, its training step, its parallel paths, its
-dataflow engine, its Table API, its indexing stdlib and its RAG serve path over HTTP on one NVIDIA
-card.
+dataflow engine, its Table API, its indexing stdlib, its RAG serve path over HTTP, and its file
+connectors with the RAG example served from a directory, on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -69,7 +69,7 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    graph runner runs executors, over ``LocalComm`` and over ``MeshComm`` on the card (the record
    exchange's dense columns through the ``bucket_exchange`` kernel): the reference's streaming
    wordcount (500,000 rows, 997 words, commits of 10,000) at 1, 2 and 8 workers; a dense
-   groupby-and-join (4,194,304 rows over 65,536 groups in commits of 65,536, joined to a
+   groupby-and-join (2,097,152 rows over 65,536 groups in 32 commits of 65,536, joined to a
    65,536-row dimension table) at 1 worker and at 8 with each comm; every multi-worker table equal
    to the 1-worker table exactly. The kernel (buckets, validity and per-bucket counts) against
    its plain version bitwise (n = 2, 4, 8, cap_in 8 to 65,536, w 4 to 16, rows without a
@@ -119,7 +119,7 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    ``io/http``: ``rest_connector`` on ``aiohttp``), ``pw.run(device="cuda")`` on a thread of its
    own and the client on ``urllib``. (a) Seeded documents of the RAG cell's sentences,
    as plain text, HTML and Markdown in turn, from a ``ConnectorSubject`` in commits of 256,
-   through ``ParseLocal``, ``TokenCountSplitter(max_tokens=256)`` (exactly 16,384 chunks) and
+   through ``ParseLocal``, ``TokenCountSplitter(max_tokens=256)`` (exactly 4,096 chunks) and
    the default encoder into ``BruteForceKnnFactory(dimensions=384)``: documents/s and chunks/s
    until ``/v1/statistics`` reads every document; 16 ``/v1/retrieve`` answers (k=10) held
    against the run's engine searched directly (scores within one bf16 ulp, texts equal where
@@ -135,7 +135,28 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    between two marker kernels (its idle share and largest device events); the peak device
    memory; a filtered request timed apart. The launch counts are zeroed just before each leg
    and read just after.
-13. Each engine-path kernel's launches and summed device time per path, one JSON line with each
+13. The files (``io/fs.py``, ``io/columnar.py``, ``io/delivery.py``, the example). (a) The JAX
+   package bench's ingest lanes (``bench.py``, ``_INGEST_CONNECTOR_PROG``): csv, jsonlines and
+   plaintext files of 200,000 rows (``word = w{i % 997}``, ``x = i``) read by
+   ``pw.io.fs.read(mode="streaming", autocommit_duration_ms=25)`` through
+   ``pw.run(device="cuda")`` and counted by ``on_batch`` (held to 200,000), each with
+   ``PATHWAY_INGEST_COLUMNAR`` 1 and 0: rows/s and the parse/hash/delta split of
+   ``INGEST_CONNECTOR_STATS``; every arm's net table equal to the per-row one (ids, diffs,
+   values). (b) Its file
+   wordcount (``_WORDCOUNT_FILE_PROG``): 300,000 plaintext rows, ``groupby(data).reduce(count)``
+   at 1 worker and at 2 with ``PATHWAY_MESH_EXCHANGE=1`` (``bucket_exchange`` on the card),
+   every count held against ``collections.Counter``, and so is the last row per word of the
+   counts written by ``pw.io.csv.write`` and read back. (c) The north star's example: phase 12's
+   kind of documents, 16,384 chunks of them, written as files into a directory and served by the
+   ported
+   ``examples/rag_server/serve.py``'s ``build_server(..., device="cuda")``: documents/s and
+   chunks/s until ``/v1/statistics`` reads every document, 104 requests of ``/v1/retrieve``
+   (k=3, 4 untimed): p50, p95, p99 (host clock) and the launches per request (held to 6
+   ``masked_attention`` and 1 ``knn_topk``); 8 answers against the run's engine searched
+   directly; ``/v1/inputs`` as the reference answers for such a directory (every
+   ``_metadata`` is ``{}``). The launch counts are zeroed just before each run and read just
+   after.
+14. Each engine-path kernel's launches and summed device time per path, one JSON line with each
    kernel's numbers, then the closing JSON line.
 
 It needs one CUDA card and exits non-zero, printing no result, without one. It imports nothing
@@ -1736,7 +1757,7 @@ def exchange_split(prof, stats: dict, seconds: float, label: str) -> None:
 
 
 def run_engine(device, *, wc_rows: int = 500_000, wc_commit: int = 10_000,
-               dense_rows: int = 1 << 22, groups: int = 1 << 16, dense_commit: int = 1 << 16,
+               dense_rows: int = 1 << 21, groups: int = 1 << 16, dense_commit: int = 1 << 16,
                workers: int = 8, rag_chunks: int = 16384, rag_rows: int = 1 << 20,
                rag_commit: int = 1024, rag_queries: int = 64, k: int = 10, cfg=None) -> dict:
     """The engine phase; sizes as the defaults say on the card (a CPU rehearsal passes small
@@ -2899,7 +2920,7 @@ def run_serve_rows(device, embedder, *, n_rows: int, feed_commit: int, requests:
     return out
 
 
-def run_serve(device, *, n_chunks: int = 16384, docs_commit: int = 256, n_rows: int = 1 << 20,
+def run_serve(device, *, n_chunks: int = 4096, docs_commit: int = 256, n_rows: int = 1 << 20,
               feed_commit: int = 100_000, n_queries: int = 16, requests: int = 104,
               warmup: int = 4, cfg=None) -> dict:
     """The phase; sizes as the defaults say on the card (a CPU rehearsal passes small ones and a
@@ -2959,6 +2980,314 @@ def run_serve(device, *, n_chunks: int = 16384, docs_commit: int = 256, n_rows: 
             raise AssertionError(f"a kernel of the serve path was not launched per request: "
                                  f"{rows['per_request']}")
     return {"launches": launches, "text": text, "rows": rows}
+
+
+# -- phase 13: the file connectors, the delivery-managed writers and the example -----------------
+
+
+LANE_KINDS = ("csv", "jsonlines", "plaintext")
+
+
+def write_lane_file(kind: str, n_rows: int, d: str) -> str:
+    """The reference bench's ingest lane file (``bench.py``, ``_INGEST_CONNECTOR_PROG``): rows
+    ``word = w{i % 997}``, ``x = i``, as csv with a header, jsonlines or plaintext (words only)."""
+    path = os.path.join(d, f"{kind}.in")
+    words = [f"w{i % 997}" for i in range(n_rows)]
+    with open(path, "w") as f:
+        if kind == "csv":
+            f.write("word,x\n")
+            f.writelines(f"{w},{i}\n" for i, w in enumerate(words))
+        elif kind == "jsonlines":
+            f.writelines('{"word": "%s", "x": %d}\n' % (w, i) for i, w in enumerate(words))
+        else:
+            f.writelines(w + "\n" for w in words)
+    return path
+
+
+def net_table(seen: list, names: list) -> tuple:
+    """A subscribed stream of (keys, diffs, columns) batches as its net table: each row key once,
+    in key order, with its summed diff and its columns."""
+    keys = np.concatenate([k for k, _, _ in seen])
+    diffs = np.concatenate([d for _, d, _ in seen])
+    order = np.argsort(keys, kind="stable")
+    keys, diffs = keys[order], diffs[order]
+    starts = np.flatnonzero(np.r_[True, keys[1:] != keys[:-1]])
+    cols = {c: np.concatenate([b[c] for _, _, b in seen])[order][starts] for c in names}
+    return keys[starts], np.add.reduceat(diffs, starts), cols
+
+
+def read_lane(device, kind: str, path: str, n_rows: int, columnar: bool) -> tuple[dict, tuple]:
+    """``pw.io.fs.read(mode="streaming", autocommit_duration_ms=25)`` of a lane file through
+    ``pw.run(device=...)``, counted by ``on_batch`` until every row arrived (duplicate content
+    keys consolidate, so rows are the positive-diff sum); ``columnar`` sets
+    ``PATHWAY_INGEST_COLUMNAR``. Returns its rows/s and the
+    parse/hash/delta split of ``INGEST_CONNECTOR_STATS``, and its net table."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.io.python import INGEST_CONNECTOR_STATS
+
+    names = ["data"] if kind == "plaintext" else ["word", "x"]
+    schema = pw.schema_from_types(**({"data": str} if kind == "plaintext" else
+                                     {"word": str, "x": int}))
+    INGEST_CONNECTOR_STATS.clear()
+    pw.G.clear()
+    t = pw.io.fs.read(path, format=kind, schema=schema, mode="streaming",
+                      autocommit_duration_ms=25)
+    total, seen = {"n": 0}, []
+
+    def on_batch(time_, b):
+        seen.append((b.keys, b.diffs, {c: b.data[c] for c in names}))
+        total["n"] += int(b.diffs[b.diffs > 0].sum())
+        if total["n"] >= n_rows:
+            pw.request_stop()
+
+    pw.io.subscribe(t, on_batch=on_batch)
+    env = {"PATHWAY_INGEST_COLUMNAR": "1" if columnar else "0", "PATHWAY_PROFILE": "1",
+           "PATHWAY_THREADS": "1", "PATHWAY_MESH_EXCHANGE": "0"}
+    with scoped_env(env):
+        try:
+            t0 = time.perf_counter()
+            pw.run(device=device)
+            sec = time.perf_counter() - t0
+        finally:
+            pw.G.clear()
+    if total["n"] != n_rows:
+        raise AssertionError(f"lane {kind}: {total['n']} rows counted, not {n_rows}")
+    s = INGEST_CONNECTOR_STATS[f"fs-{kind}"]
+    split = {f"{st}_s": s[f"{st}_ns"] / 1e9 for st in ("parse", "hash", "delta")}
+    return {"rows_per_s": n_rows / sec, "seconds": sec, "rows": s["rows"], **split}, \
+        net_table(seen, names)
+
+
+def run_file_wordcount(device, path: str, n_rows: int, workers: int, out_csv: str) -> tuple:
+    """The reference bench's ``_WORDCOUNT_FILE_PROG`` (``bench.py``): a plaintext file read in
+    streaming, ``groupby(data).reduce(count)``, counted until every row arrived; the counts also
+    written with ``pw.io.csv.write``. At ``workers`` > 1 with ``PATHWAY_MESH_EXCHANGE=1``.
+    Returns (word -> its last count in the subscribed stream, seconds of the run)."""
+    import pathway_tpu_torch as pw
+
+    pw.G.clear()
+    t = pw.io.fs.read(path, format="plaintext", schema=pw.schema_from_types(data=str),
+                      mode="streaming", autocommit_duration_ms=25)
+    counts = t.groupby(pw.this.data).reduce(pw.this.data, c=pw.reducers.count())
+    total, seen = {"n": 0}, []
+
+    def on_raw(time_, b):
+        total["n"] += int(b.diffs[b.diffs > 0].sum())
+        if total["n"] >= n_rows:
+            pw.request_stop()
+
+    pw.io.subscribe(t, on_batch=on_raw)
+    pw.io.subscribe(counts, on_batch=lambda tm, b: seen.append(
+        (b.keys, b.diffs, {"data": b.data["data"], "c": b.data["c"]})))
+    pw.io.csv.write(counts, out_csv)
+    env = {"PATHWAY_THREADS": str(workers), "PATHWAY_MESH_EXCHANGE": "1" if workers > 1 else "0",
+           "PATHWAY_INGEST_COLUMNAR": "1"}
+    with scoped_env(env):
+        try:
+            t0 = time.perf_counter()
+            pw.run(device=device)
+            sec = time.perf_counter() - t0
+        finally:
+            pw.G.clear()
+    if total["n"] != n_rows:
+        raise AssertionError(f"file wordcount: {total['n']} rows counted, not {n_rows}")
+    final: dict = {}
+    for _keys, diffs, cols in seen:  # batches arrive in time order
+        for w, c in zip(cols["data"][diffs > 0].tolist(), cols["c"][diffs > 0].tolist()):
+            final[w] = c
+    _keys, net, cols = net_table(seen, ["data"])
+    if (net != 1).any() or sorted(cols["data"].tolist()) != sorted(final):
+        raise AssertionError("file wordcount: the subscribed stream does not net one row a word")
+    return final, sec
+
+
+def read_written_counts(path: str) -> dict:
+    """The last inserted count per word of a ``pw.io.csv.write`` output (``data,c,time,diff``)."""
+    import csv
+
+    with open(path, newline="") as f:
+        rows = list(csv.reader(f))
+    if rows[0] != ["data", "c", "time", "diff"]:
+        raise AssertionError(f"the written csv's header is {rows[0]}")
+    last: dict = {}
+    for w, c, t, d in sorted(rows[1:], key=lambda r: int(r[2])):  # stable: by time
+        if int(d) > 0:
+            last[w] = int(c)
+    return last
+
+
+def running_engines() -> list:
+    """The index engines of the running ``pw.run`` (one worker): each ``ExternalIndexNode``'s."""
+    from pathway_tpu_torch.engine.external_index import ExternalIndexNode
+    from pathway_tpu_torch.internals import run
+
+    return [n.engine for n in run._current["runner"]._nodes if isinstance(n, ExternalIndexNode)]
+
+
+def run_files_example(device, embedder, *, n_chunks: int, requests: int, warmup: int,
+                      k: int, n_checked: int = 8) -> dict:
+    """The north star's example as a user runs it: ``serve_documents``' documents written as files
+    into a directory, served by ``examples/rag_server/serve.py``'s ``build_server``; the fill
+    rate until ``/v1/statistics`` reads every document, ``requests`` retrievals of which the first
+    ``warmup`` are untimed, the launches per request, ``n_checked`` answers against the store's
+    engine searched directly, and ``/v1/inputs`` (every ``_metadata`` is ``{}``: the binary read
+    is static in both packages)."""
+    import tempfile
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.examples.rag_server import serve
+
+    docs_in, chunk_texts = serve_documents(n_chunks)
+    out: dict = {"n_docs": len(docs_in)}
+    with tempfile.TemporaryDirectory(prefix="rag_docs_") as d:
+        for data, meta in docs_in:
+            with open(os.path.join(d, os.path.basename(meta["path"])), "wb") as f:
+                f.write(data)
+        pw.G.clear()
+        port = free_port()
+        t0 = time.perf_counter()
+        server = serve.build_server(d, "127.0.0.1", port, 256, device, embedder=embedder)
+        store = server.document_store
+        if store.docs.column_names() != ["data"]:
+            raise AssertionError(f"the example's table has {store.docs.column_names()}")
+        texts: dict = {}
+        pw.io.subscribe(store.chunked_documents,
+                        on_change=lambda key, row, time, is_addition: texts.__setitem__(
+                            int(key), row["text"]) if is_addition else None)
+        server.run(threaded=True, device=device)
+        try:
+            filled = wait_for_count(server, port, len(docs_in), 900) - t0
+            engines = running_engines()
+            if len(engines) != 1:
+                raise AssertionError(f"the run holds {len(engines)} index engines, not 1")
+            held = rows_held(engines[0])
+            if held != n_chunks or len(texts) != n_chunks:
+                raise AssertionError(f"the index holds {held} chunks ({len(texts)} seen), "
+                                     f"not {n_chunks}")
+            out.update(docs_per_s=len(docs_in) / filled, chunks_per_s=n_chunks / filled,
+                       fill_s=filled)
+            rng = np.random.default_rng(9)
+            queries = [chunk_texts[i].split(".")[0] for i in rng.integers(0, n_chunks, requests)]
+            wrappers = launch_counters()
+            lat, bodies = [], {}
+            for i, query in enumerate(queries):
+                if i == warmup:
+                    before = {name: fn.launches for name, fn in wrappers.items()}
+                t = time.perf_counter()
+                status, body = post_json(port, "/v1/retrieve", {"query": query, "k": k})
+                ms = (time.perf_counter() - t) * 1e3
+                if status != 200 or len(body) != k:
+                    raise AssertionError(f"/v1/retrieve answered {status} with {body}")
+                if i >= warmup:
+                    lat.append(ms)
+                    if len(bodies) < n_checked:
+                        bodies[i] = body
+            out["per_request"] = {name: (fn.launches - before[name]) / len(lat)
+                                  for name, fn in wrappers.items()}
+            out.update(p50=float(np.percentile(lat, 50)), p95=float(np.percentile(lat, 95)),
+                       p99=float(np.percentile(lat, 99)), n_timed=len(lat))
+            got = {i: answer_pairs(body, lambda x: x["text"]) for i, body in bodies.items()}
+            direct = engines[0].search([queries[i] for i in bodies], [k] * len(bodies),
+                                       [None] * len(bodies))
+            want = {i: [(texts[key], score) for key, score in row]
+                    for i, row in zip(bodies, direct)}
+            out["swapped"] = check_answers("files example", got, want)
+            status, files = post_json(port, "/v1/inputs", {})
+            if status != 200 or files != [{"path": None}] * len(docs_in):
+                raise AssertionError(f"/v1/inputs answered {status} with {len(files)} entries, "
+                                     f"not the reference's {len(docs_in)} of {{'path': None}}")
+        finally:
+            stop_server(server)
+    return out
+
+
+def run_files(device, *, lane_rows: int = 200_000, wc_rows: int = 300_000, n_chunks: int = 16384,
+              requests: int = 104, warmup: int = 4, cfg=None) -> dict:
+    """The phase; sizes as the defaults say on the card (a CPU rehearsal passes small ones and a
+    small encoder). Returns each path's launch counts, rates and times."""
+    import tempfile
+
+    from pathway_tpu_torch.models.embedder import Embedder
+    from pathway_tpu_torch.xpacks.llm.embedders import TorchEmbedder
+
+    cuda = device.type == "cuda"
+    card = card_line() if cuda else "cpu"
+    result: dict = {"launches": {}, "lanes": {}, "wordcount": {}}
+    with tempfile.TemporaryDirectory(prefix="files_phase_") as d:
+        for kind in LANE_KINDS:
+            path = write_lane_file(kind, lane_rows, d)
+            tables = {}
+            for arm, columnar in (("columnar", True), ("rows", False)):
+                with counted(f"files_{kind}_{arm}", result["launches"]):
+                    lane, tables[arm] = read_lane(device, kind, path, lane_rows, columnar)
+                result["lanes"][(kind, arm)] = lane
+                rates = {st: (lane["rows"] / lane[f"{st}_s"] if lane[f"{st}_s"] else None)
+                         for st in ("parse", "hash", "delta")}
+                log(f"files, lane {kind} ({arm} parse, PATHWAY_INGEST_COLUMNAR={int(columnar)}): "
+                    f"{lane_rows} rows "
+                    f"counted, {lane['rows_per_s']:.1f} rows/s; parse {lane['parse_s']:.4f} s, "
+                    f"hash {lane['hash_s']:.4f} s, delta {lane['delta_s']:.4f} s (rows/s alone: "
+                    + ", ".join(f"{st} {r:.1f}" if r else f"{st} -" for st, r in rates.items())
+                    + f") [{card}]")
+            k0, n0, c0 = tables["rows"]
+            for arm, (k1, n1, c1) in tables.items():
+                if not (np.array_equal(k1, k0) and np.array_equal(n1, n0)
+                        and all(np.array_equal(c1[c], c0[c]) for c in c1)):
+                    raise AssertionError(f"lane {kind}: the {arm} and per-row tables differ")
+            log(f"files, lane {kind}: the {', '.join(tables)} tables equal ({len(k0)} row ids, "
+                f"ids, diffs and values)")
+
+        words = [f"w{i % 997}" for i in range(wc_rows)]
+        want = dict(collections.Counter(words))
+        path = os.path.join(d, "words.txt")
+        with open(path, "w") as f:
+            f.writelines(w + "\n" for w in words)
+        for workers in (1, 2):
+            label = f"files_wordcount_{workers}"
+            out_csv = os.path.join(d, f"counts_{workers}.csv")
+            with counted(label, result["launches"]):
+                got, sec = run_file_wordcount(device, path, wc_rows, workers, out_csv)
+            if got != want:
+                raise AssertionError(f"{label}: the counts differ from collections.Counter")
+            if read_written_counts(out_csv) != want:
+                raise AssertionError(f"{label}: the csv.write output differs from the Counter")
+            result["wordcount"][workers] = wc_rows / sec
+            log(f"files, wordcount from a file at {workers} worker(s)"
+                f"{' with PATHWAY_MESH_EXCHANGE=1' if workers > 1 else ''}: {wc_rows} rows, "
+                f"{len(want)} words equal to collections.Counter, and so is pw.io.csv.write's "
+                f"output read back; {wc_rows / sec:.1f} rows/s; launches "
+                f"{ {n: c for n, c in result['launches'][label].items() if c} } [{card}]")
+
+    def embedder():
+        return TorchEmbedder(None if cfg is None else Embedder(cfg, seed=0, device=device),
+                             device=device)
+
+    with scoped_env({"PATHWAY_THREADS": "1", "PATHWAY_MESH_EXCHANGE": "0"}):
+        with counted("files_example", result["launches"]):
+            ex = run_files_example(device, embedder(), n_chunks=n_chunks, requests=requests,
+                                   warmup=warmup, k=3)
+    result["example"] = ex
+    per = {name: n for name, n in ex["per_request"].items() if n}
+    log(f"files, the example (examples/rag_server/serve.py on the port) over {ex['n_docs']} "
+        f"document files of {n_chunks} chunks: {ex['docs_per_s']:.1f} documents/s, "
+        f"{ex['chunks_per_s']:.1f} chunks/s ({ex['fill_s']:.1f} s from build_server to "
+        f"/v1/statistics reading every document) [{card}]")
+    log(f"files, the example: /v1/retrieve p50 {ex['p50']:.3f} ms, p95 {ex['p95']:.3f} ms, p99 "
+        f"{ex['p99']:.3f} ms over {ex['n_timed']} requests (host clock, k=3, {warmup} untimed); "
+        f"launches per request {per}; 8 answers equal to the store's engine searched directly "
+        f"({ex['swapped']} texts swapped inside near ties); /v1/inputs as the reference's "
+        f"[{card}]")
+    if cuda:
+        if ex["per_request"]["masked_attention"] != 6 or ex["per_request"]["knn_topk"] != 1:
+            raise AssertionError(f"the example's requests launched {per}, not 6 masked_attention "
+                                 f"and 1 knn_topk each")
+        if not result["launches"]["files_wordcount_2"]["bucket_exchange"]:
+            raise AssertionError("bucket_exchange was not launched on the 2-worker file wordcount")
+        missing = [n for n in ("masked_attention", "knn_topk")
+                   if not result["launches"]["files_example"][n]]
+        if missing:
+            raise AssertionError(f"{missing} not launched on the example's path")
+    return result
 
 
 def main() -> int:
@@ -3117,6 +3446,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     serve = run_serve(device)
 
+    phase("the files")
+    torch.cuda.empty_cache()
+    files = run_files(device)
+
     by_path = {**engine["device_ms_by_path"], **api["device_ms_by_path"]}
     all_launches = {**engine["launches"], **api["launches"]}
     for name in PATH_KERNELS:
@@ -3159,7 +3492,8 @@ def main() -> int:
                    **{p: c[name] for p, c in engine["launches"].items()},
                    **{p: c[name] for p, c in api["launches"].items()},
                    **{p: c[name] for p, c in indexing["launches"].items()},
-                   **{p: c[name] for p, c in serve["launches"].items()}}
+                   **{p: c[name] for p, c in serve["launches"].items()},
+                   **{p: c[name] for p, c in files["launches"].items()}}
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,

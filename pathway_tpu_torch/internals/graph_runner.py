@@ -11,10 +11,13 @@ recursion from the requested outputs.
 Copy of ``pathway_tpu/internals/graph_runner.py``. ``GraphRunner(device=)``
 (default ``"cuda"``) hands the device to every ``ColumnEnv`` it lowers
 expressions in — the expression kernels launch there past their gate — and
-to ``MeshComm(device=)`` under ``PATHWAY_MESH_EXCHANGE``. Left out: the
-multi-process cluster and cross-host mesh branches, persistence, delivery
-sinks, the observability hub, HTTP server, dashboard and telemetry export,
-and ``Table.named`` pins (the port's nodes carry no upgrade identity).
+to ``MeshComm(device=)`` under ``PATHWAY_MESH_EXCHANGE``. Delivery-managed
+sinks (``io/delivery.py``) lower as the reference's do without persistence:
+one ``DeliverySink`` a sink behind a ``Subscribe``, delivering continuously.
+Left out: the multi-process cluster and cross-host mesh branches,
+persistence (and with it the sinks' ack cursors and transactional release),
+the observability hub, HTTP server, dashboard and telemetry export, and
+``Table.named`` pins (the port's nodes carry no upgrade identity).
 """
 
 from __future__ import annotations
@@ -47,6 +50,8 @@ class GraphRunner:
         #: the executor exists); the flag is handed to the executor on
         #: creation so early stops aren't lost
         self.stop_requested: bool = False
+        #: the dead-letter queue this runner's delivery sinks share
+        self._dlq: Any = None
 
     # ------------------------------------------------------------------
 
@@ -151,10 +156,33 @@ class GraphRunner:
         self._nodes.append(cap)
         return cap
 
+    def _build_delivery_sink(self, spec: dict) -> Any:
+        """Instantiate one delivery-managed sink (io/delivery.py) for this
+        worker's runner; the runner's sinks share one dead-letter queue."""
+        from ..io import delivery as _dlv
+
+        if self._dlq is None:
+            self._dlq = _dlv.DeadLetterQueue()
+        return _dlv.DeliverySink(
+            spec["adapter_factory"](),
+            spec["name"],
+            policy=spec.get("retry_policy"),
+            dlq=self._dlq,
+        )
+
     def lower_sink(self, sink: Any) -> None:
         kind = sink["kind"]
         if kind == "subscribe":
             node = self.lower(sink["table"])
+            dspec = sink.get("delivery")
+            if dspec is not None:
+                # delivery-managed sink: retries and the DLQ live in the
+                # delivery layer
+                dsink = self._build_delivery_sink(dspec)
+                self._nodes.append(ops.Subscribe(
+                    node, on_batch=dsink.on_batch, on_end=dsink.on_end,
+                ))
+                return
             self._nodes.append(ops.Subscribe(
                 node,
                 on_change=sink.get("on_change"),

@@ -5,8 +5,11 @@ SourceNode/Subscribe machinery. Implemented connectors live in submodules
 (``fs``, ``csv``, ``jsonlines``, ``plaintext``, ``python``, ``http``, ...);
 ``subscribe`` is the universal callback sink (reference ``io.subscribe``).
 
-Copy of ``pathway_tpu/io/__init__.py`` with the ``python`` connector and
-``http``'s REST server only; the other connectors are not ported.
+Copy of ``pathway_tpu/io/__init__.py`` with the file connectors (``fs``,
+``csv``, ``jsonlines``, ``plaintext``, and ``s3``'s object stream under
+``fs``), the delivery-managed writers (``delivery``, ``null``), the
+``python`` connector and ``http``'s REST server; the other connectors are not
+ported.
 """
 
 from __future__ import annotations
@@ -16,9 +19,32 @@ from typing import Any, Callable
 from ..internals.parse_graph import G
 from ..internals.table import Table
 
-from . import http, python  # noqa: E402,F401
+from . import (  # noqa: E402,F401
+    csv,
+    delivery,
+    fs,
+    http,
+    jsonlines,
+    null,
+    plaintext,
+    python,
+    s3,
+)
 
-__all__ = ["http", "python", "subscribe", "OnChangeCallback", "OnFinishCallback"]
+__all__ = [
+    "csv",
+    "delivery",
+    "fs",
+    "http",
+    "jsonlines",
+    "null",
+    "plaintext",
+    "python",
+    "s3",
+    "subscribe",
+    "OnChangeCallback",
+    "OnFinishCallback",
+]
 
 OnChangeCallback = Callable[..., None]
 OnFinishCallback = Callable[[], None]

@@ -11,9 +11,11 @@ queue and mints one commit timestamp per batch
 
 Copy of ``pathway_tpu/io/python.py``. Keys are derived by
 ``keys.mix_columns_fused``, which folds object key columns in one pass of the
-native module, as the reference's does; batches reach the engine as Deltas,
-without the connector wire frame; the ingest stage split of the profiling
-plane is never on.
+native module, as the reference's does; a columnar batch reaches the engine as
+a connector wire frame (``parallel/frames.py``), passed by reference. The
+ingest stage split (``INGEST_STAGE_STATS``, ``INGEST_CONNECTOR_STATS``) is on
+under ``PATHWAY_PROFILE`` (default on), the reference's switch; the port has
+no sampling profiler behind it.
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ _DONE = object()
 
 
 class _Batch:
-    __slots__ = ("data", "diffs", "ingest_ns", "keys", "key_names")
+    __slots__ = ("data", "diffs", "ingest_ns", "keys", "key_names", "frame")
 
     def __init__(self, data: dict[str, Any], diffs: Any):
         self.data = data
@@ -54,6 +56,11 @@ class _Batch:
         #: — the post-fusion wordcount bottleneck (PR 14 headroom note)
         self.keys: Any = None
         self.key_names: tuple | None = None
+        #: the finished connector batch AS a wire frame
+        #: (``parallel.frames.connector_frame``): in process it carries
+        #: the built Delta by reference — the engine-side poll opens it
+        #: and asserts identity (zero-copy, LocalComm.exchange contract)
+        self.frame: Any = None
 
 
 #: process-wide ingest-build accounting (read by bench.py's ingest-split
@@ -101,11 +108,20 @@ def _connector_stage(name: str) -> dict[str, int]:
     return s
 
 
+def _stages_on() -> bool:
+    """``PATHWAY_PROFILE`` (default on), re-read per call like the
+    reference's ``observability.profiler.enabled``."""
+    from ..internals.config import _env_bool
+
+    return _env_bool("PATHWAY_PROFILE", True)
+
+
 def _stage_sinks(conn: str):
     """(global split, per-connector split) when profiling is on, else
-    None — every parse path accrues through exactly this pair. The port
-    has no profiling plane, so the split is never on."""
-    return None
+    None — every parse path accrues through exactly this pair."""
+    if not _stages_on():
+        return None
+    return (INGEST_STAGE_STATS, _connector_stage(conn))
 
 
 def _accrue(sinks, key: str, v: int) -> None:
@@ -392,7 +408,8 @@ class PythonSubjectSource(RealtimeSource):
 
     def _prebuild_batch(self, batch: _Batch) -> None:
         """Producer-thread half of the batch path: columns → schema-ordered
-        normalized arrays + vectorized row keys (pure per-row work; the
+        normalized arrays + vectorized row keys + the finished Delta,
+        wrapped as a connector wire frame (pure per-row work; the
         engine-side poll keeps the skip/offset bookkeeping). Bit-identical
         to the engine-side build — ``K.mix_columns`` over the same
         normalized columns."""
@@ -413,6 +430,20 @@ class PythonSubjectSource(RealtimeSource):
         if stage is not None:
             _accrue(stage, "parse_ns", t1 - t0)
             _accrue(stage, "hash_ns", t2 - t1)
+        # assemble the Delta here too and ship it as a wire frame: the
+        # engine-side poll then just opens the frame (pass-by-reference
+        # in process — the columnar-ingest zero-copy seam)
+        from ..parallel import frames as _frames
+
+        diffs = (
+            np.ones(n, dtype=np.int64)
+            if batch.diffs is None
+            else np.asarray(batch.diffs, dtype=np.int64)
+        )
+        d = Delta(keys=batch.keys, data=data, diffs=diffs)
+        # key provenance for the fusion content-key reuse fast path
+        d.keys_content_cols = key_names
+        batch.frame = _frames.connector_frame(d)
         t3 = _time.perf_counter_ns()
         if stage is not None:
             _accrue(stage, "delta_ns", t3 - t2)
@@ -619,6 +650,25 @@ class PythonSubjectSource(RealtimeSource):
         keeps only the skip/offset bookkeeping then — the fallback build
         covers batches enqueued before the source started."""
         stage = _stage_sinks(self._conn_name)
+        if batch.frame is not None and self._skip == 0:
+            # the connector batch arrived AS a wire frame: open it and
+            # hand the Delta straight through. In process the frame is
+            # passed by reference, never serialized — the engine reads
+            # the very column buffers the producer thread filled
+            # (LocalComm.exchange's zero-copy contract, asserted here)
+            from ..parallel import frames as _frames
+
+            t_open = _time.perf_counter_ns() if stage is not None else 0
+            d = _frames.open_connector_frame(batch.frame)
+            assert d.data is batch.data, (
+                "connector frame must pass by reference in-process"
+            )
+            self._emitted += len(d)
+            if stage is not None:
+                _accrue(
+                    stage, "delta_ns", _time.perf_counter_ns() - t_open
+                )
+            return d
         if batch.keys is not None:
             data, n, keys = batch.data, len(batch.keys), batch.keys
             key_names = batch.key_names

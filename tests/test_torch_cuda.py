@@ -1450,3 +1450,65 @@ def test_document_store_server_on_the_card_launches_both_kernels(cuda, monkeypat
     assert len(answer) == 5 and all(np.isfinite(d["dist"]) for d in answer)
     assert [d["dist"] for d in answer] == sorted(d["dist"] for d in answer)
     assert after[0] > before[0] and after[1] > before[1], (before, after)
+
+
+def test_example_serves_a_file_directory_on_the_card(cuda, monkeypatch, tmp_path):
+    """The ported example (``examples/rag_server/serve.py``) over a directory of text and HTML
+    files on the card: ``/v1/retrieve`` answers, and its request launches the attention (the
+    query's forward) and the scorer."""
+    import json
+    import socket
+    import sys
+    import time
+    import urllib.request
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.examples.rag_server import serve
+    from pathway_tpu_torch.io.http._server import terminate_all
+
+    monkeypatch.setitem(sys.modules, "tiktoken", None)  # its encodings come over the network
+    rng = np.random.default_rng(29)
+    words = [f"w{i}" for i in range(400)]
+    for i in range(24):
+        text = " ".join(" ".join(rng.choice(words, size=10)) + "." for _ in range(40))
+        body = f"<html><title>d{i}</title><body><p>{text}</p></body></html>" if i % 2 else text
+        (tmp_path / f"d{i:02d}.{'html' if i % 2 else 'txt'}").write_text(body)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    pw.G.clear()
+    server = serve.build_server(str(tmp_path), "127.0.0.1", port, 64, cuda)
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+
+    def post(route, body):
+        req = urllib.request.Request(f"http://127.0.0.1:{port}{route}",
+                                     data=json.dumps(body).encode(),
+                                     headers={"Content-Type": "application/json"})
+        with opener.open(req, timeout=60) as resp:
+            return json.loads(resp.read())
+
+    server.run(threaded=True, device=cuda)
+    try:
+        deadline = time.monotonic() + 120
+        while True:
+            try:
+                if post("/v1/statistics", {}).get("file_count") == 24:
+                    break
+            except OSError:
+                pass
+            assert time.monotonic() < deadline and server.run_error is None
+            time.sleep(0.1)
+        before = (masked_attention.launches, topk_scores.launches)
+        answer = post("/v1/retrieve", {"query": "w1 w2 w3", "k": 3})
+        after = (masked_attention.launches, topk_scores.launches)
+        inputs = post("/v1/inputs", {})
+    finally:
+        pw.request_stop()
+        terminate_all()
+        server._thread.join(60)
+        pw.G.clear()
+    assert not server._thread.is_alive() and server.run_error is None
+    assert len(answer) == 3 and all(np.isfinite(d["dist"]) for d in answer)
+    assert [d["dist"] for d in answer] == sorted(d["dist"] for d in answer)
+    assert inputs == [{"path": None}] * 24  # the binary read carries no _metadata
+    assert after[0] > before[0] and after[1] == before[1] + 1, (before, after)

@@ -158,6 +158,9 @@ _IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|pathway_tpu)(?:[.\s]|$)
 def test_static_scan_finds_no_jax_or_pathway_tpu_import():
     files = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    scanned = {str(f.relative_to(PACKAGE)) for f in files if PACKAGE in f.parents}
+    assert {"parallel/frames.py", "io/columnar.py", "io/fs.py", "io/delivery.py", "io/null.py",
+            "io/_object_scanner.py", "io/s3.py", "examples/rag_server/serve.py"} <= scanned
     for path in files:
         src = path.read_text()
         assert not _IMPORT.findall(src), path
@@ -302,6 +305,49 @@ _BLOCKED_RUN = textwrap.dedent("""
                                  [("vector indexes", 2, None, None)])
     [row] = pt.debug.table_to_pandas(store.retrieve_query(q), device="cpu")["result"].tolist()
     assert sorted(d["metadata"]["path"] for d in row) == ["a.html", "b.txt"], row
+    # the file connectors, the connector frame and the delivery-managed writers: a csv read,
+    # a groupby and a csv write through pw.run on the CPU, still at 2 workers; a tail stream;
+    # then the example's server over a directory, built but not started
+    import tempfile
+    import pathway_tpu_torch.io.columnar
+    import pathway_tpu_torch.io.s3
+    from pathway_tpu_torch.parallel import frames
+    from pathway_tpu_torch.examples.rag_server import serve
+
+    work = tempfile.mkdtemp()
+    with open(f"{work}/words.csv", "w") as f:
+        f.write("word\\n" + "".join(w + "\\n" for w in ["a", "b", "a", "c", "a"]))
+    pt.G.clear()
+    words = pt.io.csv.read(f"{work}/words.csv", schema=pt.schema_from_types(word=str),
+                           mode="static")
+    pt.io.csv.write(words.groupby(pt.this.word).reduce(pt.this.word, n=pt.reducers.count()),
+                    f"{work}/out.csv")
+    pt.run(device="cpu")
+    with open(f"{work}/out.csv") as f:
+        assert sorted(f.read().splitlines()) == ["a,3,0,1", "b,1,0,1", "c,1,0,1",
+                                                 "word,n,time,diff"]
+    with open(f"{work}/lines.txt", "w") as f:
+        f.write("x\\ny\\n")
+    src = pt.io.fs.FsStreamSource(f"{work}/lines.txt", "plaintext",
+                                  pt.schema_from_types(data=str), ["data"], autocommit_ms=None)
+    [delta] = src.poll()
+    chunks, _ = frames.encode_frame(0, 1, 0, {0: delta})
+    back = frames.open_connector_frame(b"".join(bytes(c) for c in chunks))
+    assert list(back.data["data"]) == ["x", "y"] and (back.keys == delta.keys).all()
+    pt.G.clear()
+    docs = f"{work}/docs"
+    os.makedirs(docs)
+    with open(f"{docs}/a.txt", "w") as f:
+        f.write("vector indexes answer queries.")
+    server = serve.build_server(docs, "127.0.0.1", 0, 64, "cpu",
+                                embedder=pt.TorchEmbedder(emb, device="cpu"))
+    q = pt.debug.table_from_rows(DocumentStore.RetrieveQuerySchema,
+                                 [("vector indexes", 1, None, None)])
+    [row] = pt.debug.table_to_pandas(server.document_store.retrieve_query(q),
+                                     device="cpu")["result"].tolist()
+    assert row[0]["text"] == "vector indexes answer queries.", row
+    from pathway_tpu_torch.io.http._server import terminate_all
+    terminate_all()
     loaded = sorted(
         m for m, mod in sys.modules.items() if mod is not None
         and (m.startswith("jax") or m == "pathway_tpu" or m.startswith("pathway_tpu."))
