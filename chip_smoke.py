@@ -1,6 +1,7 @@
 """Drive the PyTorch port's RAG ingest and retrieval path, its training step, its parallel paths, its
-dataflow engine, its Table API, its indexing stdlib, its RAG serve path over HTTP, and its file
-connectors with the RAG example served from a directory, on one NVIDIA card.
+dataflow engine, its Table API, its indexing stdlib, its RAG serve path over HTTP, its file
+connectors with the RAG example served from a directory, and its persistence and recovery, on one
+NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -156,7 +157,30 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    directly; ``/v1/inputs`` as the reference answers for such a directory (every
    ``_metadata`` is ``{}``). The launch counts are zeroed just before each run and read just
    after.
-14. Each engine-path kernel's launches and summed device time per path, one JSON line with each
+14. Persistence and recovery (``pw.persistence``, ``pw.run(persistence_config=...)``). (a) Phase
+   11's index as a persisted program: its 1,048,576 rows through a python source named ``rows``
+   (each commit sent once the index holds the rows before it) into ``DataIndex`` over
+   ``BruteForceKnnFactory(dimensions=384, reserved_space=2^20)``, at 1 worker, on the filesystem
+   backend with a snapshot interval of a fifth of phase 11's fill time. The first leg runs in a
+   child interpreter (``subprocess``, this script with ``--persist-leg``), SIGKILLed once its
+   newest metadata covers 786,432 rows; each of its commits is logged with its barrier, snapshot
+   and release ms and its bytes, and the store's bytes at the kill. The second leg restarts the
+   same program in this process with the whole feed (the source's seek skips what the snapshot
+   holds), then sends phase 11's 64 text queries through ``query_as_of_now`` (k=10); the
+   answers are held against phase 11's direct search. Logged: ``restore_operators``'s seconds,
+   the rows replayed from the input tail, the seconds from the second ``pw.run`` to the tick
+   holding every row beside phase 11's fill time, and the first query tick (host, and on the
+   device between two marker kernels, its copies apart). (b) Phase 13's 300,000 plaintext rows
+   as 10 files in a directory, ``pw.io.fs.read(mode="streaming")``, ``groupby(data).reduce(count)``
+   at 2 workers with ``PATHWAY_MESH_EXCHANGE=1``, persisted on the filesystem and written by
+   ``pw.io.csv.write`` (transactional): a first leg over 5 files stopped by ``request_stop`` once
+   it counted them, 5 more files, a second leg until every row is counted. The finals are held
+   against ``collections.Counter``, and the csv rows of both legs, net of their diffs, against the
+   clean counts, with no row written twice. The launch counts are zeroed just before (a) and (b)
+   and read just after ((a)'s first leg launches in another process, so (a)'s counts are those
+   after the restore); they must show ``knn_topk`` and ``masked_attention`` in (a) and
+   ``bucket_exchange`` in (b). The stores are deleted at the end.
+15. Each engine-path kernel's launches and summed device time per path, one JSON line with each
    kernel's numbers, then the closing JSON line.
 
 It needs one CUDA card and exits non-zero, printing no result, without one. It imports nothing
@@ -172,6 +196,7 @@ import json
 import math
 import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -2440,12 +2465,14 @@ def query_tick_device(prof) -> dict:
     inside = [e for e in ev if lo <= e.time_range.start and e.time_range.end <= hi]
     span_ms = (hi - lo) / 1e3
     busy_ms = sum(e.time_range.elapsed_us() for e in inside) / 1e3
+    copy_ms = sum(e.time_range.elapsed_us() for e in inside if "Memcpy" in e.name) / 1e3
     by_name = collections.Counter()
     counts = collections.Counter()
     for e in inside:
         by_name[e.name[:80]] += e.time_range.elapsed_us() / 1e3
         counts[e.name[:80]] += 1
     return {"idle_share": 1 - busy_ms / span_ms, "busy_ms": busy_ms, "span_ms": span_ms,
+            "copy_ms": copy_ms,
             "top": [(ms, counts[name], name) for name, ms in by_name.most_common(4)]}
 
 
@@ -2507,10 +2534,11 @@ def run_indexing(device, *, n_chunks: int = 16384, n_rows: int = 1 << 20, n_rows
             f"{time.perf_counter() - t0:.1f} s")
         return want
 
-    result: dict = {"launches": {}, "rates": {}}
+    result: dict = {"launches": {}, "rates": {}, "data": (texts, vecs, queries), "want": {}}
     card = card_line() if cuda else "cpu"
     for path, workers, rows in (("indexing", 1, n_rows), ("indexing_2", 2, min(n_rows_2, n_rows))):
         want = direct_answers(rows)
+        result["want"][rows] = want  # phase 14 answers the same queries over the first rows
         factory = pw.indexing.BruteForceKnnFactory(dimensions=dim, reserved_space=rows,
                                                    embedder=emb)
         with counted(path, result["launches"]):
@@ -3290,6 +3318,438 @@ def run_files(device, *, lane_rows: int = 200_000, wc_rows: int = 300_000, n_chu
     return result
 
 
+
+# -- phase 14: persistence and recovery ----------------------------------------------------------
+
+
+#: phase 14 (a)'s rows: the first 262,144 of phase 11's (its 2-worker run's rows, whose direct
+#: answers phase 11 computed). At all 1,048,576, (a)'s two legs took 146 s on an H100 machine,
+#: past the 120 s it may take, most of it its commits' pickling (PERF.md section 4;
+#: ``scripts/torch_persistence_phase.py`` runs it at any size)
+PERSIST_ROWS = 1 << 18
+
+
+def dir_bytes(path: str) -> int:
+    """The bytes of every file under ``path``."""
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def newest_meta(store: str) -> dict | None:
+    """The newest committed metadata of a one-worker filesystem store (``meta/meta-*``)."""
+    d = os.path.join(store, "meta")
+    names = sorted(n for n in os.listdir(d) if n.startswith("meta-") and ".tmp" not in n) \
+        if os.path.isdir(d) else []
+    for name in reversed(names):
+        try:
+            with open(os.path.join(d, name)) as f:
+                return json.load(f)
+        except (OSError, ValueError):
+            continue
+    return None
+
+
+def persisted_index_graph(pw, emb, *, texts, vecs, queries, k: int, chunk_commit: int,
+                          vec_commit: int, ask: bool, device, marks: dict,
+                          fed_path: str | None = None) -> dict:
+    """Phase 11's index as a persisted program: the chunk texts then the vectors, each commit
+    sent once the index holds the ones before it, through a python source named ``rows`` into
+    ``DataIndex`` over ``BruteForceKnnFactory(dimensions,
+    reserved_space=rows)``; a second source named ``queries`` that, with ``ask``, sends the text
+    queries in one commit once the running index holds every row (marking the query tick on the
+    device with a spin kernel, as phase 11 does), and without ``ask`` sends nothing and never
+    finishes (the first leg runs until it is killed; it creates ``fed_path`` once its feed is
+    sent). Returns the answers by query id, filled as they arrive; ``marks`` gets the host times
+    and the running persistence manager."""
+    from pathway_tpu_torch.internals import run as run_mod
+
+    cuda = device.type == "cuda"
+    n_rows = len(texts) + len(vecs)
+
+    def paced(upto: int) -> None:
+        # each commit is sent once the running index holds the rows before it: a poll cycle
+        # then brings one commit, so a snapshot can land between any two
+        deadline = _wall() + 600
+        while not running_engines() or rows_held(running_engines()[0]) < upto:
+            if _wall() > deadline:
+                raise AssertionError(f"the index did not take {upto} rows within 600 s")
+            time.sleep(0.002)
+
+    class Rows(pw.io.python.ConnectorSubject):
+        def run(self):
+            for s in range(0, len(texts), chunk_commit):
+                part = texts[s:s + chunk_commit]
+                paced(s)
+                self.next_batch({"rid": list(range(s, s + len(part))), "data": part})
+                self.commit()
+            for s in range(0, len(vecs), vec_commit):
+                part = vecs[s:s + vec_commit]
+                start = len(texts) + s
+                paced(start)
+                self.next_batch({"rid": list(range(start, start + len(part))),
+                                 "data": list(part)})
+                self.commit()
+            if fed_path is not None:
+                open(fed_path, "w").close()
+
+    class Queries(pw.io.python.ConnectorSubject):
+        def run(self):
+            marks["manager"] = run_mod._current["runner"].persistence
+            if not ask:
+                time.sleep(900)  # killed long before; a leg left running fails its parent
+                raise AssertionError("the first leg was not killed within 900 s")
+            deadline = _wall() + 1200
+            while not running_engines() or rows_held(running_engines()[0]) < n_rows:
+                if _wall() > deadline:
+                    raise AssertionError("the index did not take every row within 1200 s")
+                time.sleep(0.005)
+            marks["filled"] = _wall()
+            if cuda:
+                torch.cuda._sleep(1000)  # the query tick's start on the device's timeline
+            marks["query"] = _wall()
+            self.next_batch({"qid": list(range(len(queries))), "q": list(queries)})
+            self.commit()
+
+    answers: dict = {}
+
+    def on_answer(key, row, time, is_addition):
+        if is_addition:
+            answers[row["qid"]] = list(zip((int(r) for r in row["rid"]),
+                                           (float(s) for s in row["score"])))
+            if len(answers) == len(queries):
+                marks["answered"] = _wall()
+                if cuda:
+                    torch.cuda._sleep(1000)  # the query tick's end
+
+    pw.G.clear()
+    data = pw.io.python.read(Rows(), schema=pw.schema_from_types(rid=int, data=object),
+                             autocommit_duration_ms=None, name="rows")
+    qt = pw.io.python.read(Queries(), schema=pw.schema_from_types(qid=int, q=str),
+                           autocommit_duration_ms=None, name="queries")
+    factory = pw.indexing.BruteForceKnnFactory(dimensions=emb.cfg.dim, reserved_space=n_rows,
+                                               embedder=emb)
+    index = factory.build_index(data.data, data)
+    res = index.query_as_of_now(qt.q, number_of_matches=k).select(
+        qid=pw.left.qid, rid=pw.right.rid, score=pw.right._pw_index_reply_score)
+    pw.io.subscribe(res, on_change=on_answer)
+    return answers
+
+
+def persist_leg(args: dict) -> int:
+    """The first leg of phase 14 (a), in a child interpreter: the persisted index program run
+    until its parent SIGKILLs it. Each commit's time, phase split, bytes and source offsets go
+    to ``args["commit_log"]`` as it lands."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.models.embedder import Embedder, EmbedderConfig
+    from pathway_tpu_torch.persistence import Backend, Config, PersistenceManager
+
+    device = torch.device(args["device"])
+    cfg = None
+    if args["cfg"] is not None:
+        cfg = EmbedderConfig(**{**args["cfg"], "dtype": getattr(torch, args["cfg"]["dtype"])})
+    emb = Embedder(cfg, seed=0, device=device)
+    with open(args["texts"]) as f:
+        texts = json.load(f)
+    vecs = np.load(args["vecs"])
+    commit = PersistenceManager.commit
+
+    def logged(self, time_, **kw):
+        commit(self, time_, **kw)
+        with open(args["commit_log"], "a") as f:
+            f.write(json.dumps({**self.commit_log[-1], "offsets": self.offsets}) + "\n")
+
+    PersistenceManager.commit = logged
+    log(f"persistence leg 1 (pid {os.getpid()}): {len(texts)} chunks and {len(vecs)} vectors, "
+        f"snapshot_interval_ms={args['interval_ms']}")
+    persisted_index_graph(pw, emb, texts=texts, vecs=vecs, queries=[], k=1,
+                          chunk_commit=args["chunk_commit"], vec_commit=args["vec_commit"],
+                          ask=False, device=device, marks={}, fed_path=args["fed"])
+    pw.run(device=device, persistence_config=Config.simple_config(
+        Backend.filesystem(args["store"]), snapshot_interval_ms=args["interval_ms"]))
+    return 3  # the leg ran to an end instead of being killed
+
+
+def read_commit_log(path: str) -> list:
+    """The first leg's commits as its child logged them (a line torn by the kill is dropped)."""
+    out = []
+    if os.path.exists(path):
+        with open(path) as f:
+            for line in f:
+                try:
+                    out.append(json.loads(line))
+                except ValueError:
+                    pass
+    return out
+
+
+def commit_lines(entries: list) -> list:
+    """One line a commit: its bytes and phase split, the rows it covers, and its largest parts
+    (the input flush, an operator's snapshot) with their ms and MiB."""
+    return [f"t={e['time']} {e['bytes'] / 2**20:.1f} MiB, barrier "
+            f"{e['ns']['barrier'] / 1e6:.1f} ms, snapshot {e['ns']['snapshot'] / 1e6:.1f} ms, "
+            f"release {e['ns']['release'] / 1e6:.1f} ms"
+            + (f", {e['offsets']['rows']['rows']} rows covered" if 'offsets' in e else "")
+            + "; " + ", ".join(f"{p['what']} {p['ns'] / 1e6:.1f} ms {p['bytes'] / 2**20:.1f} MiB"
+                               for p in sorted(e["parts"], key=lambda p: -p["ns"])[:4])
+            for e in entries]
+
+
+def run_persisted_index(device, emb, cfg, *, texts, vecs, queries, want, k: int,
+                        chunk_commit: int, vec_commit: int, kill_rows: int, interval_ms: int,
+                        work: str) -> dict:
+    """Phase 14 (a): the persisted index killed by SIGKILL in a child once its metadata covers
+    ``kill_rows`` rows, then restored in this process with the whole feed and queried."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.persistence import Backend, Config
+
+    cuda = device.type == "cuda"
+    n_rows = len(texts) + len(vecs)
+    store = os.path.join(work, "store")
+    args = {"device": str(device), "store": store, "texts": os.path.join(work, "texts.json"),
+            "vecs": os.path.join(work, "vecs.npy"), "commit_log": os.path.join(work, "log.jsonl"),
+            "fed": os.path.join(work, "fed"),
+            "interval_ms": interval_ms, "chunk_commit": chunk_commit, "vec_commit": vec_commit,
+            "cfg": None if cfg is None else {**cfg.__dict__, "dtype": str(cfg.dtype).split(".")[-1]}}
+    with open(args["texts"], "w") as f:
+        json.dump(texts, f)
+    np.save(args["vecs"], vecs)
+    if cuda:
+        torch.cuda.empty_cache()
+    out: dict = {}
+    t0 = time.perf_counter()
+    # exec, never fork, once CUDA is up: the child is a fresh interpreter
+    child = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--persist-leg",
+                              json.dumps(args)])
+    try:
+        covered, fed_at = 0, None
+        while covered < kill_rows:
+            if child.poll() is not None:
+                raise AssertionError(f"leg 1 exited with {child.returncode} before a commit "
+                                     f"covered {kill_rows} rows")
+            if fed_at is None and os.path.exists(args["fed"]):
+                fed_at = time.perf_counter()
+            # once the feed is sent, ticks (and so commits) stop when the engine catches up
+            if fed_at is not None and time.perf_counter() - fed_at > 60 + 3 * interval_ms / 1e3:
+                raise AssertionError(f"the feed ended and no commit covered {kill_rows} rows: "
+                                     f"snapshot_interval_ms={interval_ms} is too long for it")
+            meta = newest_meta(store)
+            # kill once the covering commit has returned (its log entry written), so the log
+            # holds every commit the store does
+            if meta and meta["offsets"].get("rows", {}).get("rows", 0) >= kill_rows:
+                covered = max([e["offsets"].get("rows", {}).get("rows", 0)
+                               for e in read_commit_log(args["commit_log"])] or [0])
+            time.sleep(0.05)
+        child.send_signal(signal.SIGKILL)
+        child.wait(60)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait(60)
+    out["leg1_s"] = time.perf_counter() - t0
+    out["killed_covered"] = covered
+    out["store_bytes"] = dir_bytes(store)
+    out["leg1_commits"] = read_commit_log(args["commit_log"])
+    for name in ("texts", "vecs"):
+        os.remove(args[name])
+    if len(out["leg1_commits"]) < 2:
+        raise AssertionError(f"leg 1 committed {len(out['leg1_commits'])} times, not at least 2")
+
+    marks: dict = {}
+    answers = persisted_index_graph(pw, emb, texts=texts, vecs=vecs, queries=queries, k=k,
+                                    chunk_commit=chunk_commit, vec_commit=vec_commit, ask=True,
+                                    device=device, marks=marks)
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with scoped_env({"PATHWAY_THREADS": "1", "PATHWAY_MESH_EXCHANGE": "0"}), \
+            (torch.profiler.profile(activities=acts) if cuda else contextlib.nullcontext()) as prof:
+        try:
+            t0 = _wall()
+            pw.run(device=device, persistence_config=Config.simple_config(
+                Backend.filesystem(store), snapshot_interval_ms=interval_ms))
+            out["leg2_s"] = _wall() - t0
+        finally:
+            pw.G.clear()
+        if prof is not None:
+            torch.cuda.synchronize()
+    if len(answers) != len(queries):
+        raise AssertionError(f"leg 2 answered {len(answers)} of {len(queries)} queries")
+    manager = marks["manager"]
+    out.update(recovery=dict(manager.recovery_stats), leg2_commits=list(manager.commit_log),
+               refill_s=marks["filled"] - t0, query_ms=(marks["answered"] - marks["query"]) * 1e3,
+               swapped=check_answers("persistence", answers, want))
+    if prof is not None:
+        out.update(query_tick_device(prof))
+    return out
+
+
+def write_word_files(d: str, words: list, n_files: int, first: int, last: int) -> int:
+    """Files ``first`` to ``last - 1`` of ``n_files`` equal slices of ``words``, one word a line;
+    returns the rows written."""
+    per = len(words) // n_files
+    for i in range(first, last):
+        with open(os.path.join(d, f"part-{i:02d}.txt"), "w") as f:
+            f.writelines(w + "\n" for w in words[i * per:(i + 1) * per])
+    return per * (last - first)
+
+
+def run_persisted_wordcount(device, *, words: list, n_files: int, work: str) -> dict:
+    """Phase 14 (b): phase 13's file wordcount at 2 workers with the mesh exchange, persisted on
+    the filesystem and written with ``pw.io.csv.write`` (transactional): a first leg over half
+    the files stopped with ``request_stop`` once it counted them, the other files added, a
+    second leg restarted over the directory until every row is counted."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.persistence import Backend, Config
+
+    data, out_csv = os.path.join(work, "words"), os.path.join(work, "counts.csv")
+    os.makedirs(data)
+    cfg = Config.simple_config(Backend.filesystem(os.path.join(work, "store")))
+    last: dict = {}
+    result: dict = {}
+
+    def leg(target: int) -> float:
+        pw.G.clear()
+        t = pw.io.fs.read(data, format="plaintext", schema=pw.schema_from_types(data=str),
+                          mode="streaming", autocommit_duration_ms=25, name="words")
+        counts = t.groupby(pw.this.data).reduce(pw.this.data, c=pw.reducers.count())
+
+        def on_change(key, row, time, is_addition):
+            if is_addition:
+                last[row["data"]] = row["c"]
+                if sum(last.values()) >= target:
+                    pw.request_stop()
+
+        pw.io.subscribe(counts, on_change=on_change)
+        pw.io.csv.write(counts, out_csv, name="counts")
+        with scoped_env({"PATHWAY_THREADS": "2", "PATHWAY_MESH_EXCHANGE": "1",
+                         "PATHWAY_INGEST_COLUMNAR": "1"}):
+            try:
+                t0 = time.perf_counter()
+                pw.run(device=device, persistence_config=cfg)
+                return time.perf_counter() - t0
+            finally:
+                pw.G.clear()
+
+    half = write_word_files(data, words, n_files, 0, n_files // 2)
+    result["leg1_s"] = leg(half)
+    result["leg1_counted"] = sum(last.values())
+    write_word_files(data, words, n_files, n_files // 2, n_files)
+    result["leg2_s"] = leg(len(words))
+    want = dict(collections.Counter(words))
+    if last != want:
+        raise AssertionError("persisted wordcount: the finals differ from collections.Counter")
+    import csv
+
+    with open(out_csv, newline="") as f:
+        rows = [(r["data"], int(r["c"]), int(r["time"]), int(r["diff"]))
+                for r in csv.DictReader(f)]
+    if len(rows) != len(set(rows)):
+        raise AssertionError("persisted wordcount: a batch was written to the csv twice")
+    net: dict = {}
+    for w, c, _t, d_ in rows:
+        net[(w, c)] = net.get((w, c), 0) + d_
+    if {key for key, v in net.items() if v} != set(want.items()) or \
+            any(v not in (0, 1) for v in net.values()):
+        raise AssertionError("persisted wordcount: the csv rows net of their diffs differ from "
+                             "the clean counts")
+    result["csv_rows"] = len(rows)
+    return result
+
+
+def run_persistence(device, *, data=None, want=None, phase11_fill_rows_per_s=None,
+                    n_chunks: int = 16384, n_rows: int = 1 << 20, chunk_commit: int = 1024,
+                    vec_commit: int = 1 << 16, n_queries: int = 64, k: int = 10,
+                    kill_rows: int = 786_432, wc_rows: int = 300_000, wc_files: int = 10,
+                    cfg=None) -> dict:
+    """The phase; sizes as the defaults say on the card (a CPU rehearsal passes small ones and a
+    small encoder). ``data`` and ``want`` are phase 11's rows, queries and direct answers at one
+    worker (computed here when absent), ``phase11_fill_rows_per_s`` its fill rate, which sets the
+    snapshot interval so the first leg commits about three times before the kill."""
+    import tempfile
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.models.embedder import Embedder
+    from pathway_tpu_torch.ops.index_engines import BruteForceKnnEngine
+
+    cuda = device.type == "cuda"
+    card = card_line() if cuda else "cpu"
+    emb = Embedder(cfg, seed=0, device=device)
+    if data is None:
+        data = index_data(n_chunks, n_rows, emb.cfg.dim, n_queries)
+    texts, vecs, queries = data
+    if want is None:
+        direct = BruteForceKnnEngine(emb.cfg.dim, reserved_space=n_rows, embedder=emb,
+                                     device=device)
+        direct.add_batch(list(range(len(texts))), list(texts), [None] * len(texts))
+        direct.add_batch(list(range(len(texts), n_rows)), list(vecs), [None] * len(vecs))
+        want = dict(enumerate(direct.search(queries, [k] * n_queries, [None] * n_queries)))
+        del direct
+    fill_s = None if phase11_fill_rows_per_s is None else n_rows / phase11_fill_rows_per_s
+    # five commits over phase 11's fill time (the interval runs from each commit's end, as the
+    # fill's own time does): the fourth covers kill_rows = 3/4 of the rows with a margin of a
+    # fifth of the fill either way
+    interval_ms = max(100, int(1e3 * (fill_s or 5.0) / 5))
+    result: dict = {"launches": {}}
+    work = tempfile.mkdtemp(prefix="persistence_phase_")
+    try:
+        os.makedirs(os.path.join(work, "a"))
+        with counted("persistence_index", result["launches"]):
+            a = run_persisted_index(device, emb, cfg, texts=texts, vecs=vecs, queries=queries,
+                                    want=want, k=k, chunk_commit=chunk_commit,
+                                    vec_commit=vec_commit, kill_rows=kill_rows,
+                                    interval_ms=interval_ms, work=os.path.join(work, "a"))
+        result["index"] = a
+        rec = a["recovery"]
+        log(f"persistence, the index: snapshot_interval_ms={interval_ms}; leg 1 (a child "
+            f"interpreter) committed {len(a['leg1_commits'])} times and was SIGKILLed "
+            f"{a['leg1_s']:.1f} s after its start, its newest metadata covering "
+            f"{a['killed_covered']} of {n_rows} rows; {a['store_bytes'] / 2**30:.3f} GiB under "
+            f"the store at the kill [{card}]")
+        for line in commit_lines(a["leg1_commits"]):
+            log(f"  leg 1 commit: {line} [{card}]")
+        log(f"persistence, the index: restore_operators {rec.get('restore_s', 0.0):.3f} s "
+            f"(snapshot at t={rec.get('op_time')}), {rec.get('replayed_rows')} rows replayed "
+            f"from the input tail in {rec.get('replayed_ticks')} ticks ({rec.get('replay_s', 0):.3f}"
+            f" s); {a['refill_s']:.1f} s from the second pw.run to the tick holding all "
+            f"{n_rows} rows, against "
+            + (f"{fill_s:.1f} s for as many rows at phase 11's one-worker fill rate"
+               if fill_s is not None else "no fill rate of phase 11 (not run)")
+            + f"; leg 2 {a['leg2_s']:.1f} s in all [{card}]")
+        for line in commit_lines(a["leg2_commits"]):
+            log(f"  leg 2 commit: {line} [{card}]")
+        log(f"persistence, the index: {n_queries} answers equal to the direct search "
+            f"({a['swapped']} ids swapped inside near ties); the first query tick "
+            f"{a['query_ms']:.3f} ms (host, commit to the last answer)"
+            + (f", on the device {a['span_ms']:.3f} ms between its markers, busy "
+               f"{a['busy_ms']:.3f} ms, of it copies {a['copy_ms']:.3f} ms" if "span_ms" in a
+               else "")
+            + f"; launches after the restore {result['launches']['persistence_index']} [{card}]")
+        for dev_ms, count, name in a.get("top", []):
+            log(f"  first query tick, device {dev_ms:9.3f} ms  x{count:<5d} {name} [{card}]")
+        words = [f"w{i % 997}" for i in range(wc_rows)]
+        os.makedirs(os.path.join(work, "b"))
+        with counted("persistence_files", result["launches"]):
+            b = run_persisted_wordcount(device, words=words, n_files=wc_files,
+                                        work=os.path.join(work, "b"))
+        result["files"] = b
+        log(f"persistence, the file wordcount at 2 workers with PATHWAY_MESH_EXCHANGE=1: leg 1 "
+            f"counted {b['leg1_counted']} rows of {wc_files // 2} files in {b['leg1_s']:.1f} s "
+            f"and stopped; leg 2 over {wc_files} files {b['leg2_s']:.1f} s; the finals equal "
+            f"collections.Counter, the {b['csv_rows']} csv rows of both legs net of their diffs "
+            f"equal the clean counts, none written twice; launches "
+            f"{ {n: c for n, c in result['launches']['persistence_files'].items() if c} } "
+            f"[{card}]")
+    finally:
+        import shutil
+
+        shutil.rmtree(work, ignore_errors=True)
+    if cuda:
+        missing = [n for n in ("masked_attention", "knn_topk")
+                   if not result["launches"]["persistence_index"][n]]
+        if missing:
+            raise AssertionError(f"{missing} not launched after the restore")
+        if not result["launches"]["persistence_files"]["bucket_exchange"]:
+            raise AssertionError("bucket_exchange was not launched on the persisted wordcount")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -3450,6 +3910,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     files = run_files(device)
 
+    phase("persistence")
+    torch.cuda.empty_cache()
+    texts, vecs, queries = indexing.pop("data")
+    rows = PERSIST_ROWS
+    persistence = run_persistence(
+        device, data=(texts, vecs[:rows - len(texts)], queries), want=indexing.pop("want")[rows],
+        n_rows=rows, kill_rows=rows * 3 // 4,
+        phase11_fill_rows_per_s=indexing["rates"]["indexing"]["fill_rows_per_s"])
+    del texts, vecs
+
     by_path = {**engine["device_ms_by_path"], **api["device_ms_by_path"]}
     all_launches = {**engine["launches"], **api["launches"]}
     for name in PATH_KERNELS:
@@ -3493,7 +3963,8 @@ def main() -> int:
                    **{p: c[name] for p, c in api["launches"].items()},
                    **{p: c[name] for p, c in indexing["launches"].items()},
                    **{p: c[name] for p, c in serve["launches"].items()},
-                   **{p: c[name] for p, c in files["launches"].items()}}
+                   **{p: c[name] for p, c in files["launches"].items()},
+                   **{p: c[name] for p, c in persistence["launches"].items()}}
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -3517,4 +3988,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--persist-leg"]:  # phase 14's first leg, in a child interpreter
+        sys.exit(persist_leg(json.loads(sys.argv[2])))
     sys.exit(main())

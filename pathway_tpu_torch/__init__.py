@@ -10,7 +10,8 @@ sharded over worker threads, with its record exchange on the card (``parallel.me
 ``parallel.exchange``); the Table API down to ``run()`` (``internals``: tables, expressions,
 schemas, the parse graph, the graph runner and the expression compiler; ``io.python``,
 ``io.subscribe``, ``debug``, ``reducers``, ``udfs``), so that ``import pathway_tpu_torch as pw``
-reads like the reference; the native keyspace module under the engine (``native``, built with
+reads like the reference; ``persistence`` (checkpoints of input and operator state, recovery,
+exactly-once delivery-managed output); the native keyspace module under the engine (``native``, built with
 the host C compiler at first use); ``pw.indexing`` (KNN, BM25, hybrid and sorted indexes) and
 ``Table.sort``; the RAG serving path (``xpacks.llm``: the local parsers, the splitters and
 embedders as UDFs, the live ``DocumentStore`` and ``DocumentStoreServer``; ``io.http``'s
@@ -70,7 +71,7 @@ from .internals.table import (
 )
 from .internals.thisclass import left, right, this
 from .udfs import UDF, udf, udf_async
-from . import debug, io  # noqa: E402
+from . import debug, io, persistence  # noqa: E402
 from .stdlib import indexing  # noqa: E402
 
 from .models.embedder import (
@@ -178,6 +179,7 @@ __all__ = [
     "join_right",
     "left",
     "make_tuple",
+    "persistence",
     "reducers",
     "request_stop",
     "require",

@@ -15,10 +15,14 @@ advance in lock-step: every worker sweeps the same ticks, and each Exchange
 is a blocking all-to-all.
 
 Copy of ``pathway_tpu/engine/executor.py`` with its bulk-synchronous tick
-loop. Left out: the frontier-driven async plane, persistence and recovery
-replay, and the hooks that are inert unless configured (chaos injection, the
-flight recorder, the profiler's operator slot, the upgrade fingerprints, the
-spill budget, key-load accounting, the commit-wave recorder).
+loop and its persistence: the node snapshot protocol, the sources' offset
+protocol, the commit points (each tick in one worker; a tick the workers
+agree on in sharded runs) and recovery (``_recover``: restore the newest
+operator snapshot every worker holds, replay the input tail after it, seek
+the sources). Left out: the frontier-driven async plane and its commit waves,
+the CLI's replay modes, and the hooks that are inert unless configured (chaos
+injection, the flight recorder, the profiler's operator slot, the upgrade
+fingerprints, the spill budget, key-load accounting).
 """
 
 from __future__ import annotations
@@ -220,6 +224,32 @@ class Node:
     def has_state(self) -> bool:
         return bool(self.STATE_FIELDS)
 
+    def snapshot_state(self) -> dict:
+        """Picklable snapshot of the operator's durable state. Called at a
+        consistency point (after a tick sweep, before the next); the result
+        plus replay of later input must reproduce the operator exactly
+        (reference operator_snapshot.rs:18-293)."""
+        return {
+            f: getattr(self, f) for f in self.STATE_FIELDS if hasattr(self, f)
+        }
+
+    def snapshot_state_parts(self):
+        """Streaming snapshot protocol: yield picklable parts that
+        together reproduce ``snapshot_state()``'s result via
+        ``state_from_parts``. The default is a single part: the monolithic
+        state."""
+        yield self.snapshot_state()
+
+    @classmethod
+    def state_from_parts(cls, parts) -> dict:
+        """Reassemble the materialized state dict from a parts stream
+        (inverse of ``snapshot_state_parts``; fed to ``restore_state``)."""
+        return next(parts)
+
+    def restore_state(self, state: dict) -> None:
+        for f, v in state.items():
+            setattr(self, f, v)
+
     def exchange_specs(self) -> list[tuple | None]:
         """Routing requirement per input port for sharded execution: None
         (stateless — rows may stay wherever they are) or a route spec the
@@ -290,6 +320,10 @@ class RealtimeSource(SourceNode):
     thread fills an internal queue and ``poll()`` drains it.
     """
 
+    #: stable id used by persistence to snapshot/replay this source's input
+    #: (reference `persistent_id` / unique_name, src/connectors/mod.rs)
+    persistent_id: str | None = None
+
     def schedule(self) -> list[tuple[int, Delta]]:
         return []
 
@@ -320,10 +354,28 @@ class RealtimeSource(SourceNode):
     def stop(self) -> None:
         """Request shutdown (engine teardown)."""
 
+    # -- persistence protocol (reference OffsetAntichain, connectors/offset.rs)
+
+    def offset_state(self):
+        """JSON-serializable resume position covering everything emitted by
+        `poll` so far. None = non-replayable (snapshot replay only)."""
+        return None
+
+    def seek(self, state) -> None:
+        """Skip input already covered by `state` (recovery restart)."""
+
+    def observe_replay(self, delta: Delta) -> None:
+        """Recovery: one of this source's persisted batches is being replayed
+        through the dataflow. Diff-based sources (full-state scanners)
+        rebuild their internal last-seen state here so the first live poll
+        only emits genuinely new changes."""
+
 
 def owned_sources(realtime: list["RealtimeSource"], ctx) -> list["RealtimeSource"]:
     """The realtime sources THIS worker polls (round-robin by source
-    index): one owner per source."""
+    index). The single owner per source is also the anchor of persisted
+    offsets: only the owner's offset ever advances, so only the owner
+    records it. Polling and recording MUST use this same assignment."""
     if not ctx.is_sharded:
         return list(realtime)
     return [
@@ -404,7 +456,7 @@ class Executor:
     briefly when idle.
     """
 
-    def __init__(self, nodes: list[Node], ctx: Any = None):
+    def __init__(self, nodes: list[Node], persistence: Any = None, ctx: Any = None):
         if ctx is None:
             from ..parallel.comm import single_worker_context
 
@@ -427,7 +479,9 @@ class Executor:
                 self._consumers.setdefault(inp.node_id, []).append((node, port))
         self._on_time_end: list[Callable[[int], None]] = []
         self._stop_requested = False
+        self.persistence = persistence
         self._last_clock = 0
+        self._defer_commit = False
         self.stats = EngineStats()
         #: ingest wall-time (ns) of the oldest row feeding the NEXT tick
         #: (set by the streaming loops from connector stamps); consumed
@@ -440,6 +494,14 @@ class Executor:
         from ..internals.tracing import get_tracer
 
         self.tracer = get_tracer()
+        if persistence is not None:
+            # sharded mode: commits are a coordinated collective decided in
+            # _stream_loop_sharded, never a per-worker wall-clock whim — all
+            # workers must snapshot operator state at the SAME tick, or
+            # replaying one worker's input tail would re-exchange rows into
+            # peers whose state already includes them
+            persistence.auto_commit = not ctx.is_sharded
+            persistence.attach_nodes(self.nodes)
 
     def request_stop(self) -> None:
         self._stop_requested = True
@@ -527,6 +589,16 @@ class Executor:
             clock = max(clock + 2, int(t))
             self._tick(clock, pending[t])
 
+        if self.persistence is not None:
+            clock = max(clock, self._recover(realtime))
+            # exactly-once replay determinism: a recovered run must
+            # re-derive the same tick boundaries as the original run, so
+            # the backpressure coalescing of backlogged windows
+            # (PATHWAY_INGEST_COALESCE_WINDOWS, io/python.py) is disabled
+            for src in realtime:
+                if hasattr(src, "_coalesce_windows"):
+                    src._coalesce_windows = 0
+
         if self.ctx.is_sharded:
             self._stream_loop_sharded(realtime, clock)
             self._finish()
@@ -565,8 +637,17 @@ class Executor:
                         # even wall-clock ms, strictly increasing (timestamp.rs)
                         wall = int(_time.time() * 1000) & ~1
                         clock = max(clock + 2, wall)
+                        # a checkpoint between rounds of one poll cycle would
+                        # persist offsets covering rounds not yet recorded —
+                        # only the cycle's last tick may commit
+                        self._defer_commit = j < len(rounds) - 1
                         self._next_tick_ingest_ns = ingest[j]
                         self._tick(clock, emissions)
+                    self._defer_commit = False
+                    if self.persistence is not None:
+                        # every drained round has now ticked: live source
+                        # offsets exactly cover the recorded input again
+                        self.persistence.note_delivery_boundary()
                 elif all(src.is_finished() for src in realtime):
                     break
                 else:
@@ -618,10 +699,14 @@ class Executor:
                         )
                 finished = all(src.is_finished() for src in owned)
                 wall = int(_time.time() * 1000) & ~1
+                want_commit = (
+                    self.persistence is not None
+                    and self.persistence.should_commit()
+                )
                 gathered = ctx.comm.allgather(
                     ("cycle", cycle), ctx.worker_id,
                     (len(rounds), finished, self._stop_requested, wall,
-                     cycle_ingest),
+                     want_commit, cycle_ingest),
                 )
                 cycle += 1
                 n_rounds = max(p[0] for p in gathered)
@@ -631,13 +716,25 @@ class Executor:
                 # the sink worker needs the ORIGIN's stamp, not its own
                 agreed_ingest: int | None = None
                 for p in gathered:
-                    agreed_ingest = _min_stamp(agreed_ingest, p[4])
+                    agreed_ingest = _min_stamp(agreed_ingest, p[5])
                 for j in range(n_rounds):
                     # identical on every worker: deterministic fn of the
                     # gathered payload and the shared tick history
                     clock = max(clock + 2, agreed_wall + 2 * j)
                     self._next_tick_ingest_ns = agreed_ingest
                     self._tick(clock, rounds[j] if j < len(rounds) else [])
+                if n_rounds and self.persistence is not None:
+                    # every drained round has now ticked: live source
+                    # offsets exactly cover the recorded input again
+                    self.persistence.note_delivery_boundary()
+                # coordinated checkpoint: every worker snapshots operator
+                # state at the SAME agreed tick (reference: workers agree on
+                # the last complete snapshot, worker-architecture doc :57-61).
+                # The decision is a function of the gathered payload, so a
+                # worker that wants no commit still joins its peers' one —
+                # no worker waits at a barrier the others skip
+                if self.persistence is not None and any(p[4] for p in gathered):
+                    self.persistence.commit(clock)
                 # honour stop only after flushing this cycle's rounds —
                 # breaking first would drop rows already drained from the
                 # connector queues (the single-worker loop always flushes)
@@ -654,6 +751,153 @@ class Executor:
         finally:
             for src in owned:
                 src.stop()
+
+    def _recover(self, realtime: list[RealtimeSource]) -> int:
+        """Restore operator state from the newest usable snapshot, replay
+        only the input tail recorded after it (restart cost O(state) +
+        O(tail), not O(history) — reference operator_snapshot.rs), seek
+        sources past persisted offsets, then start recording live input.
+        Returns the clock floor."""
+        import time as _wall
+
+        unnamed_schemas: dict[tuple, int] = {}
+        for src in realtime:
+            if src.persistent_id is None:
+                unnamed_schemas[tuple(src.column_names)] = (
+                    unnamed_schemas.get(tuple(src.column_names), 0) + 1
+                )
+        dupes = [cols for cols, n in unnamed_schemas.items() if n > 1]
+        if dupes:
+            # positional fallback ids would silently swap snapshots if the
+            # sources were ever reordered and the column-name check can't
+            # tell them apart — refuse instead
+            raise RuntimeError(
+                f"{sum(unnamed_schemas[c] for c in dupes)} unnamed sources share "
+                f"identical column sets {[list(c) for c in dupes]}; persistence "
+                "cannot distinguish their snapshots across restarts — give each "
+                "source a stable name= id"
+            )
+        for i, src in enumerate(realtime):
+            if src.persistent_id is None:
+                src.persistent_id = f"src-{i}"
+        by_pid = {src.persistent_id: src for src in realtime}
+
+        # pick the newest operator snapshot present on EVERY worker — a crash
+        # mid-commit-wave may have left some workers one version ahead; the
+        # manager retains two versions so a common one always exists.
+        # Delivery-managed sinks add a FLOOR (io/delivery.py): restore must
+        # not climb above the minimum ack cursor, or output between the
+        # cursor and the snapshot would never be regenerated (replay only
+        # covers times after the restored snapshot) — a kill between a
+        # metadata commit and its post-commit sink drain lands exactly here
+        local_times = self.persistence.available_op_times()
+        delivery_mgr = getattr(self.persistence, "delivery", None)
+        floor = (
+            delivery_mgr.recovery_floor() if delivery_mgr is not None else None
+        )
+        first_chunk = getattr(self.persistence, "_first_chunk", 0)
+        if self.ctx.is_sharded:
+            gathered = self.ctx.comm.allgather(
+                ("recover-op",), self.ctx.worker_id,
+                (tuple(local_times), floor, first_chunk),
+            )
+            common = set(gathered[0][0])
+            for avail, _f, _c in gathered[1:]:
+                common &= set(avail)
+            floors = [f for _, f, _ in gathered if f is not None]
+            floor = min(floors) if floors else None
+            first_chunk = max(c for _, _, c in gathered)
+        else:
+            common = set(local_times)
+        eligible = {
+            t for t in common if floor is None or t <= floor
+        }
+        if common and not eligible:
+            # reachable exactly once: a kill between the FIRST metadata
+            # commit (snapshot written) and its post-commit sink drain —
+            # the cursor still reads -1. Nothing was truncated yet
+            # (truncation needs a full retention window), so restore
+            # NOTHING and replay the retained input log from scratch: the
+            # pending (never-released) output regenerates and the cursor
+            # dedupes. Restoring a snapshot instead would suppress replay
+            # below it and silently LOSE the undelivered output.
+            import logging
+
+            if first_chunk == 0:
+                logging.getLogger("pathway_tpu_torch.persistence").warning(
+                    "sink ack floor %s sits below every operator snapshot "
+                    "%s; replaying the input log from scratch so the "
+                    "undelivered output regenerates", floor, sorted(common),
+                )
+            else:
+                # input below the oldest snapshot is gone — full replay
+                # would rebuild garbage state. Restore the oldest
+                # snapshot (loses the least output) and say so. Should be
+                # unreachable: truncation requires commits whose drains
+                # advanced the floor past the oldest retained snapshot.
+                logging.getLogger("pathway_tpu_torch.persistence").warning(
+                    "sink ack floor %s sits below every operator snapshot "
+                    "%s but the input log was truncated (first chunk %d); "
+                    "restoring the oldest snapshot — output between the "
+                    "floor and it is LOST", floor, sorted(common),
+                    first_chunk,
+                )
+                eligible = {min(common)}
+        op_time = max(eligible) if eligible else -1
+        if op_time >= 0:
+            self.persistence.restore_operators(op_time)
+        clock = max(0, op_time)
+
+        # replay the recorded input tail (times after the operator snapshot)
+        replay_t0 = _wall.perf_counter()
+        replayed_rows = 0
+        by_time: dict[int, list[tuple[SourceNode, Delta]]] = {}
+        for t, pid, delta in self.persistence.replay_batches(after_time=op_time):
+            src = by_pid.get(pid)
+            if src is None:
+                raise RuntimeError(
+                    f"persisted state references source {pid!r} which is not "
+                    "present in this program — the dataflow changed since the "
+                    "snapshot was taken (give sources stable name= ids, or "
+                    "clear the persistence backend)"
+                )
+            if list(delta.columns) != list(src.column_names):
+                raise RuntimeError(
+                    f"persisted snapshot for source {pid!r} has columns "
+                    f"{list(delta.columns)} but the source now produces "
+                    f"{list(src.column_names)} — refusing to replay "
+                    "mismatched state (did unnamed sources get reordered?)"
+                )
+            by_time.setdefault(int(t), []).append((src, delta))
+            src.observe_replay(delta)
+            replayed_rows += len(delta)
+        # sharded replay runs in lock-step over the union of all workers'
+        # recorded times (Exchange nodes join a collective every tick)
+        times = sorted(by_time)
+        if self.ctx.is_sharded:
+            gathered = self.ctx.comm.allgather(
+                ("recover-times",), self.ctx.worker_id, tuple(times)
+            )
+            times = sorted({t for tup in gathered for t in tup})
+        for t in times:
+            self._tick(t, by_time.get(t, []))
+            clock = max(clock, t)
+        self.persistence.recovery_stats.update(
+            op_time=op_time, replayed_rows=replayed_rows,
+            replayed_ticks=len(times),
+            replay_s=_wall.perf_counter() - replay_t0,
+        )
+        clock = max(clock, self.persistence.last_time)
+        for src in realtime:
+            state = self.persistence.offset_for(src.persistent_id)
+            if state is not None:
+                src.seek(state)
+        # record offsets for OWNED sources only (the owner is the one
+        # worker whose offset ever advances): each pid then appears in
+        # exactly one worker's metadata, so a rescale can union per-pid
+        # offsets across workers without conflicts
+        self.persistence.begin_recording(owned_sources(realtime, self.ctx))
+        return clock
 
     def _tick(self, time: int, source_emissions: list[tuple[SourceNode, Delta]]) -> None:
         import time as _wall
@@ -672,6 +916,9 @@ class Executor:
         seeded: dict[int, list[Delta]] = {}
         for src, delta in source_emissions:
             seeded.setdefault(src.node_id, []).append(delta)
+            if self.persistence is not None and isinstance(src, RealtimeSource):
+                if src.persistent_id is not None:
+                    self.persistence.record(time, src.persistent_id, delta)
         self._last_clock = max(self._last_clock, time) if time != END_TIME else self._last_clock
         for node in self.nodes:
             if timed:
@@ -712,6 +959,10 @@ class Executor:
                         out = node.process(time, ins)
                     if out is not None and len(out):
                         out_parts.append(out)
+            if self.persistence is not None and node.has_state() and (
+                ports or node.node_id in seeded or out_parts
+            ):
+                self.persistence.mark_dirty(node)
             emitted_rows = 0
             if out_parts:
                 emitted = concat_deltas(out_parts, out_parts[0].columns)
@@ -753,9 +1004,15 @@ class Executor:
         self.stats.note_tick(time)
         for cb in self._on_time_end:
             cb(time)
+        if (
+            self.persistence is not None
+            and time != END_TIME
+            and not self._defer_commit
+        ):
+            self.persistence.on_time_end(time)
         if tracer is not None:
-            # after the callbacks, which can dominate a tick and must show
-            # inside its span. Span + counter go in ONE append (worker id in
+            # after the callbacks and the persistence commit, which can
+            # dominate a tick and must show inside its span. Span + counter go in ONE append (worker id in
             # the counter name: counter tracks merge by (pid, name)).
             tracer.complete(
                 "tick",
@@ -777,6 +1034,22 @@ class Executor:
             inbox.setdefault(consumer.node_id, {}).setdefault(port, []).append(delta)
 
     def _finish(self) -> None:
+        delivery = (
+            getattr(self.persistence, "delivery", None)
+            if self.persistence is not None
+            else None
+        )
+        if delivery is not None and not delivery.has_sinks():
+            delivery = None
+        if delivery is not None:
+            # final consistency point FIRST, snapshotting PRE-end-of-stream
+            # state: the END_TIME flush output generated below is a pure
+            # function of this state, so a crash mid-final-delivery
+            # restores here, re-runs _finish, regenerates the same END
+            # batches, and the ack cursor dedupes — commit-after-sweep
+            # would snapshot post-flush state that can never regenerate
+            # the END batches a partial drain left undelivered
+            self.persistence.commit(self._last_clock)
         inbox: dict[int, dict[int, list[Delta]]] = {}
         for node in self.nodes:
             out_parts: list[Delta] = []
@@ -799,4 +1072,10 @@ class Executor:
                 self._route(node, emitted, inbox)
         for cb in self._on_time_end:
             cb(END_TIME)
+        if self.persistence is not None and delivery is None:
+            self.persistence.commit(self._last_clock)
+        if delivery is not None:
+            # after the pre-sweep commit: release everything still pending
+            # (END_TIME flush batches included), drain to acked, close
+            delivery.finish()
         self.stats.finished = True

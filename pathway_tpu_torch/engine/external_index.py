@@ -19,6 +19,8 @@ gather to worker 0, which holds the index.
 
 Copy of ``pathway_tpu/engine/external_index.py`` without the scale-out
 serving branch (``PATHWAY_SERVE_SHARDED``), which waits for the serve plane.
+A restored node grafts the freshly built engine's embedder onto the engine it
+unpickled; the engine rebuilds its device mirror on the first search.
 """
 
 from __future__ import annotations
@@ -50,8 +52,17 @@ class IndexEngine(Protocol):
 
 
 class ExternalIndexNode(Node):
-    # the engine and the standing queries
+    # the engine (host arenas; the engines' __getstate__ drops the device
+    # mirror and the embedder) snapshots alongside the standing queries
     STATE_FIELDS = ("engine", "_queries", "_answered")
+
+    def restore_state(self, state: dict) -> None:
+        fresh = self.engine
+        super().restore_state(state)
+        # non-picklable config (embedder closures) carries over from the
+        # freshly-built engine — see BruteForceKnnEngine.__getstate__
+        if getattr(self.engine, "embedder", None) is None:
+            self.engine.embedder = getattr(fresh, "embedder", None)
 
     def __init__(self, data_node: Node, query_node: Node, engine: IndexEngine,
                  *, asof_now: bool):

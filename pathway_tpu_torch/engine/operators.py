@@ -1,8 +1,10 @@
 """Engine operator implementations over columnar deltas.
 
-Copy of ``pathway_tpu/engine/operators.py`` without the persistence, rescale and spill
-protocols (operator snapshots, ``split_state``/``merge_states``, the spill tier's branches),
-the async plane's branch of ``Exchange`` and the JAX array case of ``_as_column``.
+Copy of ``pathway_tpu/engine/operators.py`` with its operator snapshots (``GroupByReduce`` and
+``Join`` in the reference's parts layout, the rest through ``STATE_FIELDS``), without the rescale
+and spill protocols (``split_state``/``merge_states``, the spill tier's branches: every snapshot
+is whole and resident), the async plane's branch of ``Exchange`` and the JAX array case of
+``_as_column``.
 
 Each class re-designs one family of the reference engine's ~60 ``Graph``
 trait operations (``src/engine/graph.rs:664-1011``, implemented at
@@ -444,8 +446,90 @@ class GroupByReduce(Node):
             return [("column", self._key_from_column)]
         return [("mix", self._group_cols, self._key_salt)]
 
+    # -- operator snapshots (persist.rs analog) ---------------------------
+
     def has_state(self) -> bool:
         return True
+
+    def snapshot_state(self) -> dict:
+        st: dict = {
+            "_state": self._state,
+            "dense": self._dense,
+            "gerrs": self._gerrs,
+        }
+        if self._dense:
+            # trim arenas to allocated slots; the SlotMap (a native table)
+            # is reconstructed from _gkey_by_slot on restore
+            st["arena"] = self._arena_trimmed()
+        return st
+
+    def snapshot_state_parts(self):
+        """Streaming snapshot (persistence/snapshots.py write_parts), in
+        the reference's parts layout: one head part holding the resident
+        state. The port has no spill tier, so there are never cold arena
+        blocks or cold general buckets to stream after it."""
+        head: dict = {
+            "dense": self._dense,
+            "gerrs": self._gerrs,
+            "state_resident": self._state,
+            "n_cold_buckets": 0,
+        }
+        if self._dense:
+            head["arena_tail"] = self._arena_trimmed()
+            head["n_arena_blocks"] = 0
+        yield head
+
+    @classmethod
+    def state_from_parts(cls, parts) -> dict:
+        head = next(parts)
+        st: dict = {
+            "_state": dict(head["state_resident"]),
+            "dense": head["dense"],
+            "gerrs": head["gerrs"],
+        }
+        if head["dense"]:
+            if head.get("n_arena_blocks", 0) or head.get("n_cold_buckets", 0):
+                raise ValueError(
+                    "GroupByReduce snapshot has spilled parts; the port has "
+                    "no spill tier"
+                )
+            st["arena"] = head["arena_tail"]
+        return st
+
+    def _arena_trimmed(self) -> dict:
+        """Snapshot-format arena covering slots [0, n), copies only."""
+        n = len(self._slots)
+        return {
+            "_counts": self._counts[:n].copy(),
+            "_gkey_by_slot": self._gkey_by_slot[:n].copy(),
+            "_emitted": self._emitted[:n].copy(),
+            "_accs": [None if a is None else a[:n].copy() for a in self._accs],
+            "_prev": [p[:n].copy() for p in self._prev],
+            "_gvals": [None if g is None else g[:n].copy() for g in self._gvals],
+        }
+
+    def restore_state(self, state: dict) -> None:
+        from .slotmap import SlotMap
+
+        self._state = state["_state"]
+        self._gerrs = state.get("gerrs", {})
+        if not state["dense"]:
+            if self._dense:
+                # snapshot was taken after a demotion — mirror it
+                self._dense = False
+                del self._slots, self._counts, self._gkey_by_slot
+                del self._gvals, self._accs, self._emitted, self._prev
+            return
+        a = state["arena"]
+        self._counts = a["_counts"]
+        self._gkey_by_slot = a["_gkey_by_slot"]
+        self._emitted = a["_emitted"]
+        self._accs = a["_accs"]
+        self._prev = a["_prev"]
+        self._gvals = a["_gvals"]
+        # the native KeyTable is rebuilt from the keys in slot order, never
+        # pickled
+        self._slots = SlotMap.rebuild(self._gkey_by_slot)
 
     def absorb_preamble(self, port: int, rowwise: "Rowwise") -> bool:
         """Fuse the adjacent Rowwise preamble into this node (called by
@@ -926,6 +1010,24 @@ class _SortedSide:
         self._pending: list[tuple] = []
         self._pending_rows = 0
 
+    def __getstate__(self) -> dict:
+        # the memos must not ride into operator snapshots (they pin query
+        # arrays and are identity-keyed — meaningless after unpickling)
+        self._flush_pending()  # snapshots see the arranged representation
+        d = dict(self.__dict__)
+        d.pop("_range_cache", None)
+        d.pop("_jk_hash_idx", None)
+        d.pop("_pending", None)
+        d.pop("_pending_rows", None)
+        return d
+
+    def __setstate__(self, d: dict) -> None:
+        self.__dict__.update(d)
+        self._range_cache = {}
+        self._jk_hash_idx = {}
+        self._pending = []
+        self._pending_rows = 0
+
     def __len__(self) -> int:
         return sum(len(r[0]) for r in self._runs) + self._pending_rows
 
@@ -1290,6 +1392,33 @@ class Join(Node):
     STATE_FIELDS = (
         "_cleft", "_cright", "_left", "_right", "_lpad", "_rpad", "_idstate"
     )
+
+    def snapshot_state(self) -> dict:
+        # deferred (fusion-lane) arrangement batches must be arranged
+        # before any state consumer walks _runs directly — pickling
+        # flushes via __getstate__, but tests may read the live object
+        for side in (getattr(self, "_cleft", None), getattr(self, "_cright", None)):
+            if side is not None:
+                side._flush_pending()
+        return super().snapshot_state()
+
+    # -- streaming snapshots (persistence/snapshots.py write_parts) -------
+    #
+    # The reference's parts layout: a head with the resident state and the
+    # count of spilled runs a side streams after it. The port has no spill
+    # tier, so every side is resident and the head is the only part.
+
+    def snapshot_state_parts(self):
+        yield {"base": self.snapshot_state(), "sides": {}}
+
+    @classmethod
+    def state_from_parts(cls, parts) -> dict:
+        head = next(parts)
+        if head["sides"]:
+            raise ValueError(
+                "Join snapshot has spilled runs; the port has no spill tier"
+            )
+        return dict(head["base"])
 
     # -- elastic rescale (rescale/resharder.py) ---------------------------
     #

@@ -6,8 +6,10 @@ Copy of ``pathway_tpu/internals/config.py`` with the knobs the port's runner
 reads: the worker layout (``PATHWAY_THREADS``, ``PATHWAY_PROCESSES``) and
 ``PATHWAY_MESH_EXCHANGE``, read as the reference reads them, and the readers
 (``_env_bool``, ``_env_int``, ``_env_float``) that the serve plane's knobs go
-through. Persistence, replay, fault plans, supervision, monitoring and the
-cluster address book are left out with the runner branches that use them.
+through (``PATHWAY_ELASTIC`` and the sink knobs among them). The replay
+storage (the CLI's record/replay), fault plans, supervision, monitoring and the
+cluster address book are left out with the runner branches that use them;
+persistence takes its settings from ``pw.persistence.Config``.
 """
 
 from __future__ import annotations

@@ -11,13 +11,16 @@ recursion from the requested outputs.
 Copy of ``pathway_tpu/internals/graph_runner.py``. ``GraphRunner(device=)``
 (default ``"cuda"``) hands the device to every ``ColumnEnv`` it lowers
 expressions in — the expression kernels launch there past their gate — and
-to ``MeshComm(device=)`` under ``PATHWAY_MESH_EXCHANGE``. Delivery-managed
-sinks (``io/delivery.py``) lower as the reference's do without persistence:
-one ``DeliverySink`` a sink behind a ``Subscribe``, delivering continuously.
-Left out: the multi-process cluster and cross-host mesh branches,
-persistence (and with it the sinks' ack cursors and transactional release),
-the observability hub, HTTP server, dashboard and telemetry export, and
-``Table.named`` pins (the port's nodes carry no upgrade identity).
+to ``MeshComm(device=)`` under ``PATHWAY_MESH_EXCHANGE``. Its persistence
+branch is the reference's: one ``PersistenceManager`` a worker in sharded
+runs, ``Subscribe``'s ``skip_until`` at the persisted frontier, and the
+delivery plane (``io/delivery.py``): one ``DeliverySink`` a sink behind a
+``Subscribe``, transactional (ack cursor in the worker's namespace, release
+at commit boundaries) on worker 0 when persistence is on, continuous
+otherwise. Left out: the multi-process cluster and cross-host mesh branches,
+the CLI's replay mode, the observability hub, HTTP server, dashboard and
+telemetry export, and ``Table.named`` pins (the port's nodes carry no
+upgrade identity).
 """
 
 from __future__ import annotations
@@ -46,12 +49,11 @@ class GraphRunner:
         self._cache: dict[int, Node] = {}
         self._nodes: list[Node] = []
         self.executor: Executor | None = None
+        self.persistence: Any = None  # PersistenceManager when pw.run has one
         #: request_stop() may fire while the graph is still building (before
         #: the executor exists); the flag is handed to the executor on
         #: creation so early stops aren't lost
         self.stop_requested: bool = False
-        #: the dead-letter queue this runner's delivery sinks share
-        self._dlq: Any = None
 
     # ------------------------------------------------------------------
 
@@ -59,7 +61,7 @@ class GraphRunner:
         return ColumnEnv(device=self.device)
 
     def _execute(self) -> None:
-        self.executor = Executor(self._nodes)
+        self.executor = Executor(self._nodes, persistence=self.persistence)
         if self.stop_requested:
             self.executor.request_stop()
         self.executor.run()
@@ -106,6 +108,8 @@ class GraphRunner:
 
             comm = MeshComm(comm, device=self.device)
 
+        pcfg = getattr(self, "persistence_config", None)
+        managers: list[Any] = []
         executors: list[Executor] = []
         errors: list[BaseException] = []
 
@@ -116,16 +120,26 @@ class GraphRunner:
                 errors.append(e)
                 comm.abort()
 
-        # comm exists from here on: a failed build must still close it
+        # comm exists from here on: a failed build must still close it (and
+        # any managers)
         try:
             for w in range(n_workers):
                 worker_runner = GraphRunner(self.device)
+                if pcfg is not None:
+                    from ..persistence import PersistenceManager
+
+                    manager = PersistenceManager(
+                        pcfg, worker_id=w, n_workers=n_workers
+                    )
+                    worker_runner.persistence = manager
+                    managers.append(manager)
                 for sink in G.sinks:
                     worker_runner.lower_sink(sink)
                 executors.append(
                     Executor(
                         worker_runner._nodes,
                         ctx=WorkerContext(w, n_workers, comm),
+                        persistence=worker_runner.persistence,
                     )
                 )
             self.executor = executors[0]
@@ -143,6 +157,8 @@ class GraphRunner:
                 t.join()
         finally:
             comm.close()
+            for manager in managers:
+                manager.close()
         if errors:
             primary = [
                 e for e in errors
@@ -158,17 +174,34 @@ class GraphRunner:
 
     def _build_delivery_sink(self, spec: dict) -> Any:
         """Instantiate one delivery-managed sink (io/delivery.py) for this
-        worker's runner; the runner's sinks share one dead-letter queue."""
+        worker's runner. The DeliveryManager attaches to the persistence
+        manager on EVERY worker (so all workers agree on the finish-path
+        commit ordering), but only worker 0's sinks are transactional —
+        sink callbacks gather there, and a peer's idle cursor must never
+        drag the cluster's recovery floor down."""
         from ..io import delivery as _dlv
 
-        if self._dlq is None:
-            self._dlq = _dlv.DeadLetterQueue()
-        return _dlv.DeliverySink(
+        mgr = getattr(self, "_delivery_mgr", None)
+        worker_id = (
+            self.persistence.worker_id if self.persistence is not None else 0
+        )
+        if mgr is None:
+            mgr = self._delivery_mgr = _dlv.DeliveryManager(worker_id)
+            if self.persistence is not None:
+                self.persistence.delivery = mgr
+        active = worker_id == 0
+        transactional = self.persistence is not None and active
+        dsink = _dlv.DeliverySink(
             spec["adapter_factory"](),
             spec["name"],
             policy=spec.get("retry_policy"),
-            dlq=self._dlq,
+            worker_id=worker_id,
+            backend=self.persistence.backend if transactional else None,
+            transactional=transactional,
+            dlq=mgr.dlq,
         )
+        mgr.add(dsink)
+        return dsink
 
     def lower_sink(self, sink: Any) -> None:
         kind = sink["kind"]
@@ -176,19 +209,30 @@ class GraphRunner:
             node = self.lower(sink["table"])
             dspec = sink.get("delivery")
             if dspec is not None:
-                # delivery-managed sink: retries and the DLQ live in the
-                # delivery layer
+                # delivery-managed sink: retries/acks/DLQ live in the
+                # delivery layer; recovery dedup is the durable ack
+                # cursor, NOT skip_until — replayed output above the
+                # restore point must REACH the sink for re-delivery
                 dsink = self._build_delivery_sink(dspec)
                 self._nodes.append(ops.Subscribe(
-                    node, on_batch=dsink.on_batch, on_end=dsink.on_end,
+                    node,
+                    on_batch=dsink.on_batch,
+                    on_end=dsink.on_end,
+                    skip_until=-1,
                 ))
                 return
+            skip_until = -1
+            if self.persistence is not None and sink.get(
+                "skip_persisted_batch", True
+            ):
+                skip_until = self.persistence.last_time
             self._nodes.append(ops.Subscribe(
                 node,
                 on_change=sink.get("on_change"),
                 on_time_end=sink.get("on_time_end"),
                 on_end=sink.get("on_end"),
                 on_batch=sink.get("on_batch"),
+                skip_until=skip_until,
             ))
         elif kind == "callable":
             sink["build"](self)

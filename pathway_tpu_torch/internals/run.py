@@ -3,8 +3,11 @@
 Copy of ``pathway_tpu/internals/run.py``. ``run`` takes ``device=``
 (default ``"cuda"``), the device of the expression kernels and of the mesh
 exchange; with no card it raises unless the caller passes ``device="cpu"``.
-Left out: the lint mode's build-only run, persistence and replay, the
-monitoring dashboard and HTTP server, and the supervised SIGTERM wind-down.
+``persistence_config=`` runs the graph under ``persistence.run_with_persistence``
+(durable state, exactly-once delivery-managed output, recovery on restart).
+Left out: the lint mode's build-only run, the CLI's record/replay
+environment, the monitoring dashboard and HTTP server, and the supervised
+SIGTERM wind-down.
 """
 
 from __future__ import annotations
@@ -20,17 +23,29 @@ _current: dict[str, GraphRunner | None] = {"runner": None}
 _lock = threading.Lock()
 
 
-def run(*, device: str | torch.device = "cuda", **kwargs: Any) -> None:
+def run(
+    *,
+    device: str | torch.device = "cuda",
+    persistence_config: Any = None,
+    **kwargs: Any,
+) -> None:
     """Build and run the whole dataflow (all sinks registered so far) on
     ``device``. Blocks until all sources finish (streaming sources may run
-    forever — stop from another thread with ``request_stop()``). Other
-    keyword arguments of the reference (``debug``, ``monitoring_level``, ...)
-    are accepted and have no effect."""
+    forever — stop from another thread with ``request_stop()``). With
+    ``persistence_config`` (``pw.persistence.Config``) the run records its
+    input, snapshots operator state and recovers from the backend's state.
+    The reference's display keywords (``debug``, ``monitoring_level``,
+    ``with_http_server``, ...) are accepted and have no effect."""
     runner = GraphRunner(device=device)
     with _lock:
         _current["runner"] = runner
     try:
-        runner.run()
+        if persistence_config is not None:
+            from ..persistence import run_with_persistence
+
+            run_with_persistence(runner, persistence_config)
+        else:
+            runner.run()
     finally:
         with _lock:
             _current["runner"] = None

@@ -12,8 +12,7 @@ content plus retractions for every row of a changed or deleted object —
 exactly the reference's ``SnapshotEvent`` upsert semantics for object
 sources.
 
-Copy of ``pathway_tpu/io/_object_scanner.py`` without the operator-snapshot
-fields (``STATE_FIELDS``): the port has no persistence.
+Copy of ``pathway_tpu/io/_object_scanner.py``.
 """
 
 from __future__ import annotations
@@ -121,6 +120,10 @@ class ObjectScanSource(RealtimeSource):
     deleted-object detection, ``posix_like.rs``).
     """
 
+    # last seen objects: key -> [version, [row tuples]] — connector state
+    # restored directly by operator snapshots (cached_object_storage.rs:37)
+    STATE_FIELDS = ("_seen",)
+
     def __init__(
         self,
         client: ObjectStoreClient,
@@ -147,7 +150,6 @@ class ObjectScanSource(RealtimeSource):
         self.refresh_interval_s = refresh_interval_s
         self.autocommit_ms = autocommit_ms
         self.delimiter = delimiter
-        #: last seen objects: key -> [version, [row tuples]]
         self._seen: dict[str, list] = {}
         self._next_poll = 0.0
         self._stopped = False

@@ -1,25 +1,55 @@
-"""Output plane: managed sink delivery for every ``pw.io`` output connector.
+"""Exactly-once output plane: transactional sink delivery for every
+``pw.io`` output connector.
 
 Re-design of the reference's connector-writer protocol
-(``src/connectors/mod.rs`` writer loop). Every output connector builds a
-:class:`SinkAdapter` (how to write one batch to the external system) and
-registers it via :func:`deliver`; the engine-side :class:`DeliverySink` owns
-everything else: one :class:`RetryPolicy` (the ``io/http`` surface,
-generalized) with jittered exponential backoff; a per-sink write timeout
-watchdog; a per-sink circuit breaker that opens after consecutive exhausted
-retry cycles and paces re-probes; bounded in-flight buffering whose full queue
-**blocks the engine tick** (backpressure, never unbounded growth); and a
-disk-backed dead-letter queue for poison rows (non-retryable serialize/reject
-errors) with loud metrics instead of silent drop or a crashed worker. Batches
-are stamped ``(run_id, worker, tick time)`` and deliver continuously.
+(``src/connectors/mod.rs`` writer loop + ``src/persistence``'s frontier
+commits): sink output is **acked at time boundaries against the same
+persisted frontier that commits offsets and operator state**, which is
+what turns the engine's at-least-once callback stream into
+effectively-once external output (cf. Flink two-phase-commit sinks /
+Kafka transactional producers — PAPERS.md stream-processing lineage).
 
-Copy of ``pathway_tpu/io/delivery.py``, without what the engine's copies leave
-out: the persistence-gated transactional mode (ack cursors in a persistence
-backend, release at commit boundaries, boundary acks, the recovery floor, and
-the ``DeliveryManager`` that drives it) and the ``sink.write`` chaos site.
-The reference delivers the same way when persistence is off. Sink callbacks
-gather on worker 0, so every batch is stamped worker 0, as in the reference
-without persistence.
+Every output connector builds a :class:`SinkAdapter` (how to write one
+batch to the external system) and registers it via :func:`deliver`; the
+engine-side :class:`DeliverySink` owns everything else:
+
+- **Transactional delivery log.** Each sink batch is stamped with a
+  monotonically increasing ``(run_id, worker, boundary_seq)`` id, where
+  ``boundary_seq`` is the batch's logical tick time — deterministic
+  across crash-replay, because recorded input replays at its original
+  tick times (``persistence/manager.py``). After a batch is written to
+  the external system, a tiny ack cursor blob is committed through the
+  persistence backend (``delivery/<sink>`` key); on recovery, replayed
+  batches at-or-below the cursor are skipped, so output past the last
+  snapshot is *re-generated but never re-delivered*.
+
+  With persistence on, delivery is **gated to commit boundaries**: a
+  batch is released to the external system only after the metadata
+  commit that makes its input durable (never ack output whose input
+  could be re-read live at a fresh tick time — that is the one window
+  where a time-keyed cursor cannot dedupe). The persistence manager
+  calls :meth:`DeliveryManager.pre_commit_barrier` /
+  :meth:`DeliveryManager.on_commit` around each metadata commit; the
+  barrier (previous release fully acked) is what bounds delivery lag to
+  one snapshot interval and keeps the restore-point invariant: recovery
+  picks the newest operator snapshot at-or-below every sink's ack
+  cursor (``recovery_floor``), so unacked output is always regenerated.
+
+  Without persistence, batches deliver continuously (retry/breaker/DLQ/
+  backpressure still apply; there is no recovery to dedupe against).
+
+- **Unified resilience policy.** One :class:`RetryPolicy` (the
+  ``io/http`` surface, generalized) with jittered exponential backoff;
+  a per-sink write timeout watchdog; a per-sink circuit breaker that
+  opens after consecutive exhausted retry cycles and paces re-probes;
+  bounded in-flight buffering whose full queue **blocks the engine
+  tick** (backpressure, never unbounded growth); and a disk-backed
+  dead-letter queue for poison rows (non-retryable serialize/reject
+  errors) with loud metrics instead of silent drop or a crashed worker.
+
+Copy of ``pathway_tpu/io/delivery.py`` without the ``sink.write`` chaos site
+and the frontier-driven (async) executor's boundary-only acks: the port's
+sharded runs are bulk-synchronous, so every ack writes the cursor.
 
 Knobs: ``PATHWAY_SINK_QUEUE_BATCHES``, ``PATHWAY_SINK_RETRY_MAX``,
 ``PATHWAY_SINK_RETRY_FIRST_DELAY_MS``, ``PATHWAY_SINK_RETRY_BACKOFF``,
@@ -48,12 +78,16 @@ __all__ = [
     "SinkAdapter",
     "CallableAdapter",
     "DeadLetterQueue",
+    "DeliveryManager",
     "DeliverySink",
     "deliver",
     "sink_stats_snapshot",
 ]
 
 log = logging.getLogger("pathway_tpu_torch.io.delivery")
+
+#: ack-cursor keys in the persistence backend (worker namespace)
+_ACK_PREFIX = "delivery/"
 
 
 def _env_f(name: str, default: float) -> float:
@@ -136,8 +170,9 @@ class SinkRejectedError(Exception):
 
 
 class SinkBatch:
-    """One consolidated tick delta headed to a sink, stamped with
-    ``(run_id, worker, time)``, the tick's logical time."""
+    """One consolidated tick delta headed to a sink, stamped with its
+    transactional id ``(run_id, worker, boundary_seq)``; ``boundary_seq``
+    is the tick's logical time (replay-deterministic)."""
 
     __slots__ = ("time", "delta", "run_id", "worker", "enqueued_at")
 
@@ -376,11 +411,14 @@ class _Breaker:
 
 class DeliverySink:
     """One delivery-managed sink: bounded buffering, a dedicated writer
-    thread, retry/breaker/DLQ policy. Built by ``graph_runner.lower_sink``
-    from the spec :func:`deliver` registered.
+    thread, retry/breaker/DLQ policy, durable acks. Built by
+    ``graph_runner.lower_sink`` from the spec :func:`deliver` registered.
 
     Threading: ``on_batch`` runs on the engine thread (blocking there IS
-    the backpressure contract); ``_writer_loop`` owns the adapter."""
+    the backpressure contract); ``_writer_loop`` owns the adapter and the
+    ack writes. With a persistence manager attached, batches wait in
+    ``_pending`` until :meth:`release` (called under the manager's commit
+    protocol) moves them to the writer queue."""
 
     def __init__(
         self,
@@ -391,13 +429,22 @@ class DeliverySink:
         dlq: DeadLetterQueue | None = None,
         queue_batches: int | None = None,
         stats: SinkStats | None = None,
+        worker_id: int = 0,
+        backend: Any = None,
+        transactional: bool = False,
     ):
         self.adapter = adapter
         self.name = name
+        self.worker_id = worker_id
         self.policy = policy or RetryPolicy.from_env()
         self.run_id = os.environ.get("PATHWAY_RUN_ID", "local")
         self.dlq = dlq or DeadLetterQueue()
         self.stats = stats or _stats_for(name)
+        #: persistence backend holding the ack cursor (worker namespace);
+        #: None = in-memory acks only (no recovery dedupe possible)
+        self._backend = backend
+        #: True when delivery is gated to persistence commit boundaries
+        self.transactional = transactional
         self._queue_bound = queue_batches or _env_i(
             "PATHWAY_SINK_QUEUE_BATCHES", 64
         )
@@ -408,7 +455,11 @@ class DeliverySink:
             self.stats,
         )
         self._rng = random.Random(0xD15C0 ^ hash(name) & 0xFFFF)
-        #: batches the writer thread drains, bounded
+        #: batches awaiting their input's metadata commit (transactional
+        #: mode only); the engine thread owns it
+        self._pending: deque[SinkBatch] = deque()
+        self._pending_rows = 0
+        #: released batches the writer thread drains, bounded
         self._queue: deque[SinkBatch] = deque()
         self._lock = threading.Lock()
         self._not_empty = threading.Condition(self._lock)
@@ -418,35 +469,117 @@ class DeliverySink:
         self._writer: threading.Thread | None = None
         self._failure: BaseException | None = None
         self._opened = False
-        #: highest delivered-and-acked tick time
+        #: highest delivered-and-acked boundary_seq (tick time); restored
+        #: from the backend cursor before the first enqueue
         self.acked_time = -1
         #: the last acked ``write_batch`` return: what ``open`` and
         #: ``rollback`` restore the external system to
         self._resume_token: Any = None
+        self._load_cursor()
+        if self._backend is not None:
+            # only the authoritative (cursor-backed) sink publishes its
+            # restored position: SinkStats are shared per name, and a
+            # muted peer worker's construction must not clobber worker
+            # 0's restored acked_time gauge with -1
+            self.stats.acked_time = self.acked_time
+
+    # -- ack cursor (the transactional delivery log) --------------------
+
+    @property
+    def _ack_key(self) -> str:
+        return f"{_ACK_PREFIX}{self.name}"
+
+    def _load_cursor(self) -> None:
+        if self._backend is None:
+            return
+        try:
+            raw = self._backend.get_value(self._ack_key)
+        except (KeyError, FileNotFoundError):
+            # genuinely missing = fresh sink: stamp the floor NOW, so a
+            # crash between the first metadata commit and the first ack
+            # still pins recovery below any snapshot (nothing was ever
+            # delivered). Transient I/O errors must PROPAGATE instead —
+            # overwriting a perfectly good cursor with -1 on an EIO would
+            # re-deliver the whole replayed tail (same rule the S3
+            # backend applies to metadata reads).
+            self._write_cursor()
+            return
+        try:
+            doc = json.loads(raw)
+        except (ValueError, UnicodeDecodeError):
+            # corrupt cursor blob (should be impossible under the
+            # backends' atomic-rename discipline): adopt the conservative
+            # floor in memory but do NOT overwrite the blob — re-delivery
+            # (duplicates possible) beats destroying evidence; the next
+            # ack rewrites it
+            log.warning(
+                "sink %s: ack cursor %r is corrupt; treating as unacked "
+                "(replayed output may re-deliver)",
+                self.name, self._ack_key,
+            )
+            return
+        self.acked_time = int(doc.get("acked_time", -1))
+        self._resume_token = doc.get("token")
+
+    def _write_cursor(self, token: Any = None) -> None:
+        if self._backend is None:
+            return
+        self._backend.put_value(self._ack_key, json.dumps({
+            "acked_time": self.acked_time,
+            "token": token if token is not None else self._resume_token,
+            "run_id": self.run_id,
+            "worker": self.worker_id,
+        }).encode())
+
+    def recovery_floor(self) -> int:
+        """The newest operator-snapshot time recovery may restore at
+        without losing this sink's unacked output (everything at or below
+        ``acked_time`` was delivered; everything above regenerates from
+        replay and is deduped by the cursor)."""
+        return self.acked_time
 
     # -- engine side -----------------------------------------------------
 
     def on_batch(self, time: int, delta: Any) -> None:
         """Subscribe's columnar callback: stamp + buffer one tick batch.
-        Blocks when the queue is at its bound (backpressure)."""
+        Blocks when the released queue is at its bound (backpressure)."""
         self._raise_failure()
         if time <= self.acked_time:
-            return  # already delivered at this tick
-        self._enqueue_blocking(SinkBatch(time, delta, self.run_id, 0))
+            # recovery replay at/below the ack cursor: already delivered
+            # by a previous incarnation — the exactly-once skip. This
+            # covers END_TIME flush batches too: a kill after the final
+            # drain acked END_TIME must not re-deliver the regenerated
+            # END batch on the supervised restart.
+            return
+        batch = SinkBatch(time, delta, self.run_id, self.worker_id)
+        if self.transactional:
+            # waits for the commit protocol; the pending buffer is bounded
+            # indirectly — want_early_commit() asks the manager to commit
+            # (and so release) once it grows past the queue bound
+            self._pending.append(batch)
+            self._pending_rows += len(batch)
+            return
+        self._enqueue_blocking(batch)
 
     def on_end(self) -> None:
-        """End of stream: drain and close."""
-        timeout = self._drain_timeout()
-        drained = self.drain(timeout=timeout)
-        self.shutdown()
-        if not drained:
-            # losing queued output silently is the one failure mode
-            # this subsystem exists to eliminate — fail the run loudly
-            raise RuntimeError(
-                f"sink {self.name!r} failed to drain within "
-                f"PATHWAY_SINK_DRAIN_TIMEOUT_S={timeout}s at end of "
-                "run; undelivered batches remain"
-            )
+        """End of stream. Non-transactional sinks drain and close here;
+        transactional ones defer to the manager's finish() (which runs
+        after the final metadata commit — see executor._finish)."""
+        if not self.transactional:
+            timeout = self._drain_timeout()
+            drained = self.drain(timeout=timeout)
+            self.shutdown()
+            if not drained:
+                # losing queued output silently is the one failure mode
+                # this subsystem exists to eliminate — fail the run loudly
+                raise RuntimeError(
+                    f"sink {self.name!r} failed to drain within "
+                    f"PATHWAY_SINK_DRAIN_TIMEOUT_S={timeout}s at end of "
+                    "run; undelivered batches remain"
+                )
+
+    def want_early_commit(self) -> bool:
+        return len(self._pending) >= self._queue_bound
 
     def _raise_failure(self) -> None:
         if self._failure is not None:
@@ -468,10 +601,32 @@ class DeliverySink:
             self.stats.queue_depth = len(self._queue)
             self._not_empty.notify_all()
 
-    def drain(self, timeout: float | None = None) -> bool:
+    # -- transactional protocol (driven by DeliveryManager) --------------
+
+    def release(self, up_to_time: int) -> None:
+        """Move pending batches with time <= ``up_to_time`` to the writer
+        queue — their input is now durably committed. Blocks at the queue
+        bound (that block is the engine-thread backpressure)."""
+        while self._pending and self._pending[0].time <= up_to_time:
+            batch = self._pending.popleft()
+            self._pending_rows -= len(batch)
+            self._enqueue_blocking(batch)
+
+    def release_all(self) -> None:
+        """End-of-run: everything still pending (END_TIME flush batches
+        included) — called only after the final metadata commit."""
+        while self._pending:
+            batch = self._pending.popleft()
+            self._pending_rows -= len(batch)
+            self._enqueue_blocking(batch)
+
+    def drain(self, timeout: float | None = None,
+              bump_to: int | None = None) -> bool:
         """Block until the writer queue is empty and the in-flight batch
-        (if any) acked. Returns False on timeout or when a shutdown raced
-        the drain."""
+        (if any) acked. ``bump_to`` advances the durable cursor to that
+        tick afterwards (the commit-boundary heartbeat — sparse output
+        must not hold the recovery floor below the frontier). Returns
+        False on timeout or when a shutdown raced the drain."""
         self._ensure_writer()
         deadline = (
             _time.monotonic() + timeout if timeout is not None else None
@@ -491,6 +646,12 @@ class DeliverySink:
                         return False
                 self._drained.wait(timeout=wait)
         self._raise_failure()
+        if clean and bump_to is not None and bump_to > self.acked_time:
+            # the heartbeat bump is only valid over a COMPLETED drain: a
+            # cursor past an undelivered batch would make recovery skip it
+            self.acked_time = bump_to
+            self.stats.acked_time = bump_to
+            self._write_cursor()
         return clean
 
     def shutdown(self) -> None:
@@ -680,7 +841,8 @@ class DeliverySink:
         self.stats.dlq_total += self.dlq.append(self.name, batch, rows, e)
         keep = np.setdiff1d(np.arange(n), np.asarray(bad, dtype=np.int64))
         if not len(keep):
-            # nothing deliverable left: the batch is fully accounted for
+            # nothing deliverable left: the batch is fully accounted for —
+            # ack it so recovery does not re-deliver the poison
             self._ack(batch, None)
             return None
         return SinkBatch(
@@ -688,8 +850,10 @@ class DeliverySink:
         )
 
     def _ack(self, batch: SinkBatch, token: Any) -> None:
-        """The batch is externally visible: move the resume token and the
-        counters."""
+        """Durable ack: the batch is externally visible; record it through
+        the persistence backend BEFORE anything else can commit offsets
+        past it. A SIGKILL after this point cannot double-deliver — the
+        cursor survives and replay skips the batch."""
         if token is not None:
             self._resume_token = token
         self.stats.delivered_total += 1
@@ -699,12 +863,94 @@ class DeliverySink:
         )
         self.acked_time = max(self.acked_time, batch.time)
         self.stats.acked_time = self.acked_time
+        self._write_cursor(token)
+
+
+class DeliveryManager:
+    """All delivery sinks of one worker's dataflow, plus the commit-
+    protocol seams the persistence manager drives:
+
+    - ``pre_commit_barrier()`` — before a metadata commit: the previous
+      release must be fully acked (bounds delivery lag to one snapshot
+      interval; a down sink blocks here = engine backpressure).
+    - ``on_commit(T)`` — after the metadata commit at T: release batches
+      with time <= T to the writers (their input is durable now).
+    - ``recovery_floor()`` — min ack cursor across sinks; recovery picks
+      the newest operator snapshot at-or-below it.
+    - ``finish()`` — after the final commit: release everything
+      (END_TIME flush batches included), drain, close adapters.
+    """
+
+    def __init__(self, worker_id: int = 0):
+        self.worker_id = worker_id
+        self.sinks: list[DeliverySink] = []
+        self.dlq = DeadLetterQueue()
+        #: cumulative ns blocked in pre_commit_barrier / on_commit — the
+        #: delivery plane's share of the commits' barrier and release
+        self.barrier_wait_ns = 0
+        self.release_ns = 0
+
+    def add(self, sink: DeliverySink) -> None:
+        self.sinks.append(sink)
+
+    def has_sinks(self) -> bool:
+        return bool(self.sinks)
+
+    def pre_commit_barrier(self) -> None:
+        t0 = _time.perf_counter_ns()
+        for s in self.sinks:
+            if s.transactional:
+                s.drain(timeout=None)
+        self.barrier_wait_ns += _time.perf_counter_ns() - t0
+
+    def on_commit(self, up_to_time: int) -> None:
+        t0 = _time.perf_counter_ns()
+        for s in self.sinks:
+            if s.transactional:
+                s.release(up_to_time)
+        # drain NOW (not at the next barrier): acks land while the commit
+        # is fresh, the cursor heartbeat advances to the commit tick, and
+        # a crash right after the commit still finds acked >= T_prev
+        for s in self.sinks:
+            if s.transactional:
+                s.drain(timeout=None, bump_to=up_to_time)
+        self.release_ns += _time.perf_counter_ns() - t0
+
+    def want_early_commit(self) -> bool:
+        """Pending (uncommitted) output grew past the queue bound: ask the
+        streaming loop to commit early so batches release — growing the
+        pending buffer unboundedly would trade OOM for backpressure."""
+        return any(s.want_early_commit() for s in self.sinks)
+
+    def recovery_floor(self) -> int | None:
+        floors = [
+            s.recovery_floor() for s in self.sinks if s.transactional
+        ]
+        return min(floors) if floors else None
+
+    def finish(self) -> None:
+        timeout = _env_f("PATHWAY_SINK_DRAIN_TIMEOUT_S", 120.0)
+        for s in self.sinks:
+            if not s.transactional:
+                continue
+            s.release_all()
+            if not s.drain(timeout=timeout):
+                raise RuntimeError(
+                    f"sink {s.name!r} failed to drain within "
+                    f"PATHWAY_SINK_DRAIN_TIMEOUT_S={timeout}s at end of "
+                    f"run ({len(s._queue)} batch(es) still queued)"
+                )
+            s.shutdown()
+
+    def abort(self) -> None:
+        for s in self.sinks:
+            s._stop.set()
 
 
 # -- registration (the pw.io connector surface) ---------------------------
 
 def _sanitize(name: str) -> str:
-    """Sink ids double as DLQ filenames — keep them to
+    """Sink ids double as backend keys and DLQ filenames — keep them to
     one safe path segment."""
     import re
 
@@ -725,10 +971,11 @@ def deliver(
     non-zero workers' Subscribe nodes are muted by the gather pass and
     the adapter is then never opened).
 
-    The sink's id is its stable identity — the DLQ file and the stats
-    label. ``name`` is USER-supplied and must be unique (two sinks
-    sharing one id would mix their dead letters and counters);
-    ``default_name`` is the connector's derived fallback
+    The sink's id is its stable identity — the ack cursor key, the DLQ
+    file, the metrics label. ``name`` is USER-supplied and must be
+    unique (two sinks sharing one cursor would, after a crash, let the
+    one that was behind adopt the other's position and silently skip
+    rows); ``default_name`` is the connector's derived fallback
     (``fs-<basename>``, ``null``, ...) and de-collides with a
     registration-order suffix — deterministic for a fixed program, so
     two ``csv.write``s to files sharing a basename keep working."""

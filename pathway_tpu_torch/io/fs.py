@@ -5,12 +5,13 @@ Re-design of ``python/pathway/io/fs`` + the Rust filesystem scanner/parsers
 JsonLinesParser :1443). Static mode reads files at build time; streaming
 mode (directory watching) arrives with the realtime executor loop.
 
-Copy of ``pathway_tpu/io/fs.py`` without the persistence protocol of the tail
-stream (``offset_state``/``seek``): the port has no persistence, so offsets
-live for one run, and the tail stream hands each chunk's ``Delta`` to the
-engine directly, without the reference's connector-frame wrap and unwrap (the
-port has no cross-process path). ``write`` goes through the port's ``io/delivery.py``, which
-delivers continuously (its transactional mode is left out with persistence).
+Copy of ``pathway_tpu/io/fs.py``. The tail stream persists its per-file byte
+offsets (``offset_state``/``seek``: only bytes delivered to the engine, so a
+resumed stream re-reads neither a counted row nor a partial last line) and
+hands each chunk's ``Delta`` to the engine directly, without the reference's
+connector-frame wrap and unwrap (the port has no cross-process path).
+``write`` goes through the port's ``io/delivery.py``, transactional under
+persistence.
 As in the reference, ``format="binary"`` has no streaming branch and reads the
 directory once, at build time (ROADMAP.md Queue 3).
 """
@@ -70,7 +71,7 @@ class FsStreamSource(RealtimeSource):
     Re-design of the Rust posix scanner + parser thread
     (``src/connectors/posix_like.rs``, ``scanner/filesystem``): offsets are
     (path → bytes consumed), which is this source's ``OffsetAntichain``
-    (``src/connectors/offset.rs``). Each poll
+    (``src/connectors/offset.rs``) for persistence seek/resume. Each poll
     reads only the appended tail (stat + seek), never the whole file; a
     shrunk file (truncate/rotate) resets its offset and is re-read.
     """
@@ -91,8 +92,9 @@ class FsStreamSource(RealtimeSource):
         self.names = list(names)
         self.delimiter = delimiter
         self.autocommit_ms = autocommit_ms
-        #: bytes actually delivered to the engine; bytes parsed into
-        #: _pending but not yet emitted stay in _staged
+        #: bytes actually delivered to the engine (the persisted offset);
+        #: bytes parsed into _pending but not yet emitted stay in _staged so
+        #: a checkpoint never covers input the snapshot doesn't contain
         self._consumed: dict[str, int] = {}
         self._staged: dict[str, int] = {}
         self._headers: dict[str, list[str]] = {}
@@ -104,6 +106,20 @@ class FsStreamSource(RealtimeSource):
         self._pending_cols: list[tuple[str, dict, int]] = []
         self._plan: list | None = None  # lazy columnar csv parse plan
         self._last_emit: float | None = None  # None = emit first batch now
+
+    # -- persistence protocol --
+
+    def offset_state(self):
+        return {"files": dict(self._consumed)}
+
+    def seek(self, state) -> None:
+        self._consumed = {str(k): int(v) for k, v in state.get("files", {}).items()}
+        self._staged = {}
+        self._pending = []
+        self._pending_cols = []
+        # headers live before the persisted offsets — recover them
+        for fpath in list(self._consumed):
+            self._load_header(fpath)
 
     # -- polling --
 
@@ -585,9 +601,9 @@ def write(table: Table, filename: str | os.PathLike, *, format: str = "csv",
           name: str | None = None, retry_policy: Any = None,
           **kwargs: Any) -> None:
     """Write the table's update stream to a file (time/diff columns
-    appended). Rides the delivery layer (``io/delivery``): retries roll
-    the file back to the last acked batch, so a torn write never doubles
-    rows."""
+    appended). Rides the transactional delivery layer (``io/delivery``):
+    with persistence on, batches are acked against the committed frontier
+    and the file recovers exactly-once across crashes."""
     from .delivery import deliver
 
     filename = os.fspath(filename)

@@ -18,7 +18,8 @@ product exact, the sums in another order, no TF32); the top-k merge and the buck
 exchange exactly, its per-bucket counts included (the exchange moves bits), the runner's readback
 of only the arrived rows into pinned buffers equal to the host's, and the engine with its exchange
 on the card equals the engine on the host; the expression machine bit for bit against its plain version (float
-``**`` within 2 ulp), and the Table API's ``pw.run(device="cuda")`` equal to numpy.
+``**`` within 2 ulp), and the Table API's ``pw.run(device="cuda")`` equal to numpy; a persisted
+index restored on the card answers bit for bit as a run that was not stopped.
 """
 
 from __future__ import annotations
@@ -1379,6 +1380,84 @@ def test_data_index_query_on_the_card_launches_the_scorer(cuda, workers, monkeyp
     gap_prev = np.concatenate([np.full((q, 1), np.inf), s_want[:, :k - 1] - s_want[:, 1:k]], 1)
     clear = (gap_prev > tol) & (s_want[:, :k] - s_want[:, 1:] > tol)
     np.testing.assert_array_equal(i_ours[clear], i_want[clear])
+
+
+def test_persisted_data_index_restored_on_the_card(cuda, monkeypatch, tmp_path):
+    """A ``pw.indexing.DataIndex`` persisted with ``device="cuda"``: a first run takes three of
+    four commits and stops; the restarted run restores the engine from its snapshot (no tensor
+    in any snapshot blob), takes the fourth commit and answers the queries. Its first query
+    launches the scorer, and its answers equal, bit for bit, those of a run that was not
+    stopped."""
+    import time as _time
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.internals import run as run_mod
+    from pathway_tpu_torch.persistence import Backend, Config
+    from torch_persist_checks import guard_snapshot_blobs
+
+    checked = guard_snapshot_blobs(monkeypatch)
+    rng = np.random.default_rng(23)
+    n, d, q, k = 20000, 384, 16, 10
+    vecs = rng.standard_normal((n, d)).astype(np.float32)
+    queries = rng.standard_normal((q, d)).astype(np.float32)
+
+    def leg(commits: int, ask: bool, cfg) -> tuple[dict, int]:
+        rows = 5000 * commits
+
+        def held() -> int:
+            runner = run_mod._current["runner"]
+            return max([len(nd.engine._slots.key_to_slot) for nd in runner._nodes
+                        if type(nd).__name__ == "ExternalIndexNode"] or [0])
+
+        class Rows(pw.io.python.ConnectorSubject):
+            def run(self):
+                for s in range(0, rows, 5000):
+                    self.next_batch({"rid": list(range(s, s + 5000)),
+                                     "vec": list(vecs[s:s + 5000])})
+                    self.commit()
+
+        class Queries(pw.io.python.ConnectorSubject):
+            def run(self):
+                deadline = _time.monotonic() + 120
+                while held() < rows and _time.monotonic() < deadline:
+                    _time.sleep(0.005)
+                if ask:
+                    launches["before"] = topk_scores.launches
+                    self.next_batch({"qi": list(range(q)), "qv": list(queries)})
+                    self.commit()
+
+        pw.G.clear()
+        data = pw.io.python.read(Rows(), schema=pw.schema_from_types(rid=int, vec=object),
+                                 autocommit_duration_ms=None, name="rows")
+        qt = pw.io.python.read(Queries(), schema=pw.schema_from_types(qi=int, qv=object),
+                               autocommit_duration_ms=None, name="queries")
+        index = pw.indexing.BruteForceKnnFactory(dimensions=d, reserved_space=n).build_index(
+            data.vec, data)
+        res = index.query_as_of_now(qt.qv, number_of_matches=k).select(
+            qi=pw.left.qi, rid=pw.right.rid, score=pw.right._pw_index_reply_score)
+        got, launches = {}, {}
+
+        def on_change(key, row, time, is_addition):
+            if is_addition:
+                got[row["qi"]] = (list(row["rid"]), list(row["score"]))
+                launches.setdefault("after", topk_scores.launches)
+
+        pw.io.subscribe(res, on_change=on_change)
+        try:
+            pw.run(device="cuda", **({"persistence_config": cfg} if cfg else {}))
+        finally:
+            pw.G.clear()
+        return got, launches.get("after", 0) - launches.get("before", 0)
+
+    monkeypatch.setenv("PATHWAY_THREADS", "1")
+    cfg = Config.simple_config(Backend.filesystem(str(tmp_path / "ps")))
+    assert leg(3, False, cfg)[0] == {}
+    assert checked, "the first run wrote no operator snapshot"
+    restored, restored_launches = leg(4, True, cfg)
+    clean, _ = leg(4, True, None)
+    assert restored_launches > 0
+    assert sorted(restored) == list(range(q))
+    assert restored == clean
 
 
 def test_document_store_server_on_the_card_launches_both_kernels(cuda, monkeypatch):

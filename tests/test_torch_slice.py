@@ -160,7 +160,9 @@ def test_static_scan_finds_no_jax_or_pathway_tpu_import():
     assert len(files) > 10
     scanned = {str(f.relative_to(PACKAGE)) for f in files if PACKAGE in f.parents}
     assert {"parallel/frames.py", "io/columnar.py", "io/fs.py", "io/delivery.py", "io/null.py",
-            "io/_object_scanner.py", "io/s3.py", "examples/rag_server/serve.py"} <= scanned
+            "io/_object_scanner.py", "io/s3.py", "examples/rag_server/serve.py",
+            "persistence/__init__.py", "persistence/backends.py", "persistence/layout.py",
+            "persistence/snapshots.py", "persistence/manager.py"} <= scanned
     for path in files:
         src = path.read_text()
         assert not _IMPORT.findall(src), path
@@ -348,6 +350,27 @@ _BLOCKED_RUN = textwrap.dedent("""
     assert row[0]["text"] == "vector indexes answer queries.", row
     from pathway_tpu_torch.io.http._server import terminate_all
     terminate_all()
+
+    # persistence: the csv wordcount persisted on the filesystem, still at 2 workers, run twice;
+    # the second run restores its state, re-counts nothing and writes no row again
+    import pathway_tpu_torch.persistence as persistence
+
+    cfg = persistence.Config.simple_config(persistence.Backend.filesystem(f"{work}/pstate"))
+    for _ in range(2):
+        pt.G.clear()
+        words = pt.io.python.read(Feed(), schema=pt.schema_from_types(a=int, g=int),
+                                  autocommit_duration_ms=None, name="feed")
+        pt.io.csv.write(words.groupby(pt.this.g).reduce(pt.this.g, n=pt.reducers.count()),
+                        f"{work}/persisted.csv")
+        pt.run(device="cpu", persistence_config=cfg)
+    with open(f"{work}/persisted.csv") as f:
+        rows = [line.split(",") for line in f.read().splitlines()[1:]]
+    net = {}
+    for g, n, _t, d in rows:
+        net[(g, n)] = net.get((g, n), 0) + int(d)
+    assert {k for k, v in net.items() if v} == {(str(g), str(sum(1 for i in range(100)
+                                                               if i % 7 == g) * 6))
+                                                 for g in range(7)}, net
     loaded = sorted(
         m for m, mod in sys.modules.items() if mod is not None
         and (m.startswith("jax") or m == "pathway_tpu" or m.startswith("pathway_tpu."))
