@@ -1,7 +1,7 @@
 """Drive the PyTorch port's RAG ingest and retrieval path, its training step, its parallel paths, its
 dataflow engine, its Table API, its indexing stdlib, its RAG serve path over HTTP, its file
-connectors with the RAG example served from a directory, and its persistence and recovery, on one
-NVIDIA card.
+connectors with the RAG example served from a directory, its persistence and recovery, and its
+elastic rescale and spill tier, on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -180,7 +180,26 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    and read just after ((a)'s first leg launches in another process, so (a)'s counts are those
    after the restore); they must show ``knn_topk`` and ``masked_attention`` in (a) and
    ``bucket_exchange`` in (b). The stores are deleted at the end.
-15. Each engine-path kernel's launches and summed device time per path, one JSON line with each
+15. Elastic rescale and the spill tier (``pathway_tpu_torch.rescale``, ``PATHWAY_ELASTIC``,
+   ``engine/spill.py``, the key registry's cold tier). (a) Phase 14's index store, handed over
+   after its second leg (262,144 rows, 1 worker), mounted at 2 workers with
+   ``PATHWAY_MESH_EXCHANGE=1`` and ``PATHWAY_ELASTIC=1``: worker 0's boot reshards it (the
+   resharder's seconds by phase, the bytes it read and wrote, the store's bytes after its
+   cleanup), the restore (its seconds, the rows replayed), then the 64 text queries (k=10) under
+   a new source name, each answer held against phase 11's direct search; ``knn_topk`` and
+   ``masked_attention`` must launch. (b) Phase 14 (b)'s 10 files and transactional
+   ``pw.io.csv.write``: files 1-4 at 2 workers, 5-7 at 4 with the mesh exchange through the
+   elastic boot, an offline ``rescale(backend, 1)``, 8-10 at 1; the csv holds every count once
+   and nets to ``collections.Counter``; ``bucket_exchange`` must launch with 4 destinations. (c)
+   ``dense_graph`` (columns unchanged) over 1,048,576 rows and 2^20 groups in commits of 65,536,
+   in a child interpreter with ``PATHWAY_STATE_MEMORY_BUDGET_MB=32``,
+   ``PATHWAY_KEY_REGISTRY_CAP=262144`` and a spill directory: at 1 worker, then at 4 with the
+   mesh exchange over the first 262,144 rows at a sixteenth of the budget (each budget halved
+   until the run's peak state a worker is 4x it); each table held against numpy, the spill
+   counters must show bytes spilled and loads; beside it the same graph at 1 worker with no
+   budget in this process: rows/s, the bytes spilled and loaded and shed by store, the child's
+   peak RSS (sampled). The store and the spill directory are deleted at the end.
+16. Each engine-path kernel's launches and summed device time per path, one JSON line with each
    kernel's numbers, then the closing JSON line.
 
 It needs one CUDA card and exits non-zero, printing no result, without one. It imports nothing
@@ -1589,6 +1608,16 @@ def wordcount_graph(n_rows: int, commit: int):
     return build
 
 
+def dense_columns(n_rows: int, n_groups: int, seed: int = 30) -> tuple:
+    """``dense_graph``'s input columns: group int64 over ``n_groups``, value int64, weight
+    float64 in 1/16ths."""
+    rng = np.random.default_rng(seed)
+    g = rng.integers(0, n_groups, n_rows).astype(np.int64)
+    v = rng.integers(-2**31, 2**31, n_rows).astype(np.int64)
+    w = rng.integers(-2**20, 2**20, n_rows) / 16.0
+    return g, v, w
+
+
 def dense_graph(n_rows: int, n_groups: int, commit: int, seed: int = 30):
     """Every column numeric: (group int64 over ``n_groups``, value int64, weight float64) in
     commits of ``commit`` rows, a sum/sum/count groupby joined to a ``n_groups``-row dimension
@@ -1598,10 +1627,7 @@ def dense_graph(n_rows: int, n_groups: int, commit: int, seed: int = 30):
     from pathway_tpu_torch.engine.delta import Delta
     from pathway_tpu_torch.engine.reducers import make_reducer
 
-    rng = np.random.default_rng(seed)
-    g = rng.integers(0, n_groups, n_rows).astype(np.int64)
-    v = rng.integers(-2**31, 2**31, n_rows).astype(np.int64)
-    w = rng.integers(-2**20, 2**20, n_rows) / 16.0
+    g, v, w = dense_columns(n_rows, n_groups, seed)
     keys = row_keys(n_rows, 2)
     batches = [(2 * t + 2, slice(s, s + commit)) for t, s in enumerate(range(0, n_rows, commit))]
     dim_g = np.arange(n_groups, dtype=np.int64)
@@ -3144,12 +3170,24 @@ def read_written_counts(path: str) -> dict:
     return last
 
 
-def running_engines() -> list:
-    """The index engines of the running ``pw.run`` (one worker): each ``ExternalIndexNode``'s."""
-    from pathway_tpu_torch.engine.external_index import ExternalIndexNode
+def running_executor0():
+    """Worker 0's executor of the running ``pw.run`` (its only one at 1 worker), or None while
+    a sharded run builds its executors."""
     from pathway_tpu_torch.internals import run
 
-    return [n.engine for n in run._current["runner"]._nodes if isinstance(n, ExternalIndexNode)]
+    runner = run._current["runner"]
+    peers = getattr(runner, "_peer_executors", None)
+    return peers[0] if peers else getattr(runner, "executor", None)
+
+
+def running_engines() -> list:
+    """The index engines of the running ``pw.run``: each ``ExternalIndexNode``'s on worker 0,
+    which holds the index under any worker count."""
+    from pathway_tpu_torch.engine.external_index import ExternalIndexNode
+
+    ex = running_executor0()
+    nodes = ex.nodes if ex is not None else []
+    return [n.engine for n in nodes if isinstance(n, ExternalIndexNode)]
 
 
 def run_files_example(device, embedder, *, n_chunks: int, requests: int, warmup: int,
@@ -3350,7 +3388,8 @@ def newest_meta(store: str) -> dict | None:
 
 def persisted_index_graph(pw, emb, *, texts, vecs, queries, k: int, chunk_commit: int,
                           vec_commit: int, ask: bool, device, marks: dict,
-                          fed_path: str | None = None) -> dict:
+                          fed_path: str | None = None, queries_name: str = "queries",
+                          qid_base: int = 0) -> dict:
     """Phase 11's index as a persisted program: the chunk texts then the vectors, each commit
     sent once the index holds the ones before it, through a python source named ``rows`` into
     ``DataIndex`` over ``BruteForceKnnFactory(dimensions,
@@ -3358,10 +3397,11 @@ def persisted_index_graph(pw, emb, *, texts, vecs, queries, k: int, chunk_commit
     queries in one commit once the running index holds every row (marking the query tick on the
     device with a spin kernel, as phase 11 does), and without ``ask`` sends nothing and never
     finishes (the first leg runs until it is killed; it creates ``fed_path`` once its feed is
-    sent). Returns the answers by query id, filled as they arrive; ``marks`` gets the host times
-    and the running persistence manager."""
-    from pathway_tpu_torch.internals import run as run_mod
-
+    sent); ``queries_name`` names that source and ``qid_base`` offsets its query ids (a later
+    program over the same store asks its queries anew under another name, past the offset the
+    first one persisted, and with other ids, so other row keys). Returns the
+    answers by query id, filled as they arrive; ``marks`` gets the host times and worker 0's
+    running persistence manager."""
     cuda = device.type == "cuda"
     n_rows = len(texts) + len(vecs)
 
@@ -3393,7 +3433,7 @@ def persisted_index_graph(pw, emb, *, texts, vecs, queries, k: int, chunk_commit
 
     class Queries(pw.io.python.ConnectorSubject):
         def run(self):
-            marks["manager"] = run_mod._current["runner"].persistence
+            marks["manager"] = running_executor0().persistence
             if not ask:
                 time.sleep(900)  # killed long before; a leg left running fails its parent
                 raise AssertionError("the first leg was not killed within 900 s")
@@ -3406,14 +3446,15 @@ def persisted_index_graph(pw, emb, *, texts, vecs, queries, k: int, chunk_commit
             if cuda:
                 torch.cuda._sleep(1000)  # the query tick's start on the device's timeline
             marks["query"] = _wall()
-            self.next_batch({"qid": list(range(len(queries))), "q": list(queries)})
+            self.next_batch({"qid": list(range(qid_base, qid_base + len(queries))),
+                             "q": list(queries)})
             self.commit()
 
     answers: dict = {}
 
     def on_answer(key, row, time, is_addition):
         if is_addition:
-            answers[row["qid"]] = list(zip((int(r) for r in row["rid"]),
+            answers[row["qid"] - qid_base] = list(zip((int(r) for r in row["rid"]),
                                            (float(s) for s in row["score"])))
             if len(answers) == len(queries):
                 marks["answered"] = _wall()
@@ -3424,7 +3465,7 @@ def persisted_index_graph(pw, emb, *, texts, vecs, queries, k: int, chunk_commit
     data = pw.io.python.read(Rows(), schema=pw.schema_from_types(rid=int, data=object),
                              autocommit_duration_ms=None, name="rows")
     qt = pw.io.python.read(Queries(), schema=pw.schema_from_types(qid=int, q=str),
-                           autocommit_duration_ms=None, name="queries")
+                           autocommit_duration_ms=None, name=queries_name)
     factory = pw.indexing.BruteForceKnnFactory(dimensions=emb.cfg.dim, reserved_space=n_rows,
                                                embedder=emb)
     index = factory.build_index(data.data, data)
@@ -3590,21 +3631,30 @@ def write_word_files(d: str, words: list, n_files: int, first: int, last: int) -
     return per * (last - first)
 
 
-def run_persisted_wordcount(device, *, words: list, n_files: int, work: str) -> dict:
-    """Phase 14 (b): phase 13's file wordcount at 2 workers with the mesh exchange, persisted on
-    the filesystem and written with ``pw.io.csv.write`` (transactional): a first leg over half
-    the files stopped with ``request_stop`` once it counted them, the other files added, a
-    second leg restarted over the directory until every row is counted."""
+def run_persisted_wordcount(device, *, words: list, n_files: int, work: str,
+                            legs: tuple = ((5, 2, False), (10, 2, False))) -> dict:
+    """Phase 14 (b): phase 13's file wordcount, persisted on the filesystem and written with
+    ``pw.io.csv.write`` (transactional), in ``legs`` of (files written so far, workers, an
+    offline ``rescale`` to that count before the leg): each leg runs over the directory until it
+    counted every row of its files, then stops with ``request_stop``. Past 1 worker with the
+    mesh exchange and ``PATHWAY_ELASTIC=1``, so a leg at another count than the store's
+    reshards it at boot. Phase 14 runs two legs at 2 workers (half the files, then all);
+    phase 15 runs 4 files at 2 workers, 7 at 4 through the elastic boot, then an offline
+    rescale to 1 and all 10 at 1. Each leg's seconds, workers and the rescales' reports come
+    back beside the csv's rows."""
     import pathway_tpu_torch as pw
     from pathway_tpu_torch.persistence import Backend, Config
+    from pathway_tpu_torch.persistence.backends import FilesystemBackend
+    from pathway_tpu_torch.rescale import rescale, stats
 
     data, out_csv = os.path.join(work, "words"), os.path.join(work, "counts.csv")
+    store = os.path.join(work, "store")
     os.makedirs(data)
-    cfg = Config.simple_config(Backend.filesystem(os.path.join(work, "store")))
+    cfg = Config.simple_config(Backend.filesystem(store))
     last: dict = {}
-    result: dict = {}
+    result: dict = {"legs": []}
 
-    def leg(target: int) -> float:
+    def leg(target: int, workers: int) -> float:
         pw.G.clear()
         t = pw.io.fs.read(data, format="plaintext", schema=pw.schema_from_types(data=str),
                           mode="streaming", autocommit_duration_ms=25, name="words")
@@ -3618,8 +3668,9 @@ def run_persisted_wordcount(device, *, words: list, n_files: int, work: str) -> 
 
         pw.io.subscribe(counts, on_change=on_change)
         pw.io.csv.write(counts, out_csv, name="counts")
-        with scoped_env({"PATHWAY_THREADS": "2", "PATHWAY_MESH_EXCHANGE": "1",
-                         "PATHWAY_INGEST_COLUMNAR": "1"}):
+        with scoped_env({"PATHWAY_THREADS": str(workers),
+                         "PATHWAY_MESH_EXCHANGE": "1" if workers > 1 else "0",
+                         "PATHWAY_INGEST_COLUMNAR": "1", "PATHWAY_ELASTIC": "1"}):
             try:
                 t0 = time.perf_counter()
                 pw.run(device=device, persistence_config=cfg)
@@ -3627,11 +3678,19 @@ def run_persisted_wordcount(device, *, words: list, n_files: int, work: str) -> 
             finally:
                 pw.G.clear()
 
-    half = write_word_files(data, words, n_files, 0, n_files // 2)
-    result["leg1_s"] = leg(half)
-    result["leg1_counted"] = sum(last.values())
-    write_word_files(data, words, n_files, n_files // 2, n_files)
-    result["leg2_s"] = leg(len(words))
+    written, files_written = 0, 0
+    for files, workers, offline in legs:
+        entry: dict = {"files": files, "workers": workers}
+        if offline:
+            entry["rescale"] = rescale(FilesystemBackend(store), workers, log=lambda m: None)
+        before = stats()["total"]
+        written += write_word_files(data, words, n_files, files_written, files)
+        files_written = files
+        entry["s"] = leg(written, workers)
+        entry["counted"] = sum(last.values())
+        if stats()["total"] > before:
+            entry["elastic"] = stats()["last"]
+        result["legs"].append(entry)
     want = dict(collections.Counter(words))
     if last != want:
         raise AssertionError("persisted wordcount: the finals differ from collections.Counter")
@@ -3657,11 +3716,14 @@ def run_persistence(device, *, data=None, want=None, phase11_fill_rows_per_s=Non
                     n_chunks: int = 16384, n_rows: int = 1 << 20, chunk_commit: int = 1024,
                     vec_commit: int = 1 << 16, n_queries: int = 64, k: int = 10,
                     kill_rows: int = 786_432, wc_rows: int = 300_000, wc_files: int = 10,
-                    cfg=None) -> dict:
+                    cfg=None, hand_over: bool = False) -> dict:
     """The phase; sizes as the defaults say on the card (a CPU rehearsal passes small ones and a
     small encoder). ``data`` and ``want`` are phase 11's rows, queries and direct answers at one
     worker (computed here when absent), ``phase11_fill_rows_per_s`` its fill rate, which sets the
-    snapshot interval so the first leg commits about three times before the kill."""
+    snapshot interval so the first leg commits about three times before the kill. With
+    ``hand_over`` the index's store (after its second leg) outlives the phase under
+    ``result["store"]`` (with its snapshot interval, ``result["interval_ms"]``) for phase 15,
+    which deletes it; every other file of the phase is deleted here."""
     import tempfile
 
     import pathway_tpu_torch as pw
@@ -3729,9 +3791,10 @@ def run_persistence(device, *, data=None, want=None, phase11_fill_rows_per_s=Non
             b = run_persisted_wordcount(device, words=words, n_files=wc_files,
                                         work=os.path.join(work, "b"))
         result["files"] = b
+        leg1, leg2 = b["legs"]
         log(f"persistence, the file wordcount at 2 workers with PATHWAY_MESH_EXCHANGE=1: leg 1 "
-            f"counted {b['leg1_counted']} rows of {wc_files // 2} files in {b['leg1_s']:.1f} s "
-            f"and stopped; leg 2 over {wc_files} files {b['leg2_s']:.1f} s; the finals equal "
+            f"counted {leg1['counted']} rows of {leg1['files']} files in {leg1['s']:.1f} s "
+            f"and stopped; leg 2 over {leg2['files']} files {leg2['s']:.1f} s; the finals equal "
             f"collections.Counter, the {b['csv_rows']} csv rows of both legs net of their diffs "
             f"equal the clean counts, none written twice; launches "
             f"{ {n: c for n, c in result['launches']['persistence_files'].items() if c} } "
@@ -3739,6 +3802,11 @@ def run_persistence(device, *, data=None, want=None, phase11_fill_rows_per_s=Non
     finally:
         import shutil
 
+        store = os.path.join(work, "a", "store")
+        if hand_over and os.path.isdir(store):
+            result["store"] = os.path.join(tempfile.mkdtemp(prefix="rescale_phase_"), "store")
+            result["interval_ms"] = interval_ms
+            os.replace(store, result["store"])
         shutil.rmtree(work, ignore_errors=True)
     if cuda:
         missing = [n for n in ("masked_attention", "knn_topk")
@@ -3747,6 +3815,356 @@ def run_persistence(device, *, data=None, want=None, phase11_fill_rows_per_s=Non
             raise AssertionError(f"{missing} not launched after the restore")
         if not result["launches"]["persistence_files"]["bucket_exchange"]:
             raise AssertionError("bucket_exchange was not launched on the persisted wordcount")
+    return result
+
+
+# -- phase 15: elastic rescale and the spill tier ---------------------------------------------------
+
+
+#: phase 15 (c)'s spilled groupby-join: ``dense_graph`` over SPILL_ROWS rows and SPILL_GROUPS
+#: groups in commits of SPILL_COMMIT, at 1 worker, then over the first SPILL_ROWS_4 rows at 4
+#: workers with the mesh exchange, in a child interpreter under SPILL_BUDGET_MB a worker and a
+#: key registry cut to SPILL_REGISTRY_CAP, with a spill directory. The 4-worker run is cut from
+#: 524,288 rows to 262,144: the phase took 161.6 s of the 120 it may (PERF.md section 4)
+SPILL_ROWS, SPILL_GROUPS, SPILL_COMMIT, SPILL_ROWS_4 = 1 << 20, 1 << 20, 1 << 16, 1 << 18
+SPILL_BUDGET_MB, SPILL_REGISTRY_CAP = 32.0, 1 << 18
+
+
+def run_rescaled_index(device, emb, *, store: str, texts, vecs, queries, want, k: int,
+                       chunk_commit: int, vec_commit: int, interval_ms: int) -> dict:
+    """Phase 15 (a): phase 14's index store (one worker, after its second leg) mounted at 2
+    workers with the mesh exchange and ``PATHWAY_ELASTIC=1``. Worker 0's boot reshards it
+    (``rescale.stats()["last"]``: seconds by phase, bytes read and written, the store's bytes
+    after the cleanup), the restore replays the input tail after the snapshot, and the 64 text
+    queries, sent anew under another source name, are answered (k=10) and held against phase
+    11's direct search."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.persistence import Backend, Config
+    from pathway_tpu_torch.rescale import stats
+
+    before = stats()["total"]
+    marks: dict = {}
+    answers = persisted_index_graph(pw, emb, texts=texts, vecs=vecs, queries=queries, k=k,
+                                    chunk_commit=chunk_commit, vec_commit=vec_commit, ask=True,
+                                    device=device, marks=marks, queries_name="queries_rescaled",
+                                    qid_base=1 << 20)
+    t0 = _wall()
+    with scoped_env({"PATHWAY_THREADS": "2", "PATHWAY_MESH_EXCHANGE": "1",
+                     "PATHWAY_ELASTIC": "1"}):
+        try:
+            pw.run(device=device, persistence_config=Config.simple_config(
+                Backend.filesystem(store), snapshot_interval_ms=interval_ms))
+        finally:
+            pw.G.clear()
+    out: dict = {"run_s": _wall() - t0}
+    if stats()["total"] != before + 1:
+        raise AssertionError("the elastic boot at 2 workers did not rescale the store")
+    if len(answers) != len(queries):
+        raise AssertionError(f"the rescaled index answered {len(answers)} of {len(queries)} "
+                             "queries")
+    out.update(rescale=stats()["last"], recovery=dict(marks["manager"].recovery_stats),
+               query_ms=(marks["answered"] - marks["query"]) * 1e3,
+               swapped=check_answers("rescaled index", answers, want),
+               store_bytes_end=dir_bytes(store))
+    return out
+
+
+@contextlib.contextmanager
+def exchange_widths(into: collections.Counter):
+    """Count the block's ``bucket_exchange`` launches by their number of destinations, through
+    the module attribute the engine's runner calls (see ``record_largest_exchange``)."""
+    from pathway_tpu_torch.parallel import exchange
+
+    original = exchange.bucket_exchange
+
+    def recording(values, dest, n_dst, cap_bucket, **kw):
+        into[n_dst] += 1
+        return original(values, dest, n_dst, cap_bucket, **kw)
+
+    recording.launches = original.launches
+    exchange.bucket_exchange = recording
+    try:
+        yield
+    finally:
+        exchange.bucket_exchange = original
+        original.launches = recording.launches
+
+
+def spill_leg(args: dict) -> int:
+    """Phase 15 (c) in a child interpreter, whose environment carries the state budget, the key
+    registry's cap and the spill directory (or none of them): ``dense_graph`` over
+    ``args["groups"]`` groups for each of ``args["runs"]``, (workers, rows, budget MiB a worker
+    or None), with the mesh exchange past 1 worker; a run whose peak state a worker stays under
+    4x its budget runs again at half the budget. Each table is held against numpy. Writes to
+    ``args["out"]`` each run's budget, rows/s, its peak state a worker (resident spillable plus
+    spilled, read at each enforcement), the process's peak RSS during it (the resident size
+    of ``/proc/self/statm`` sampled every 20 ms: the ``ru_maxrss`` of a child forked from a
+    large parent keeps the parent's mark across ``exec``, and the card machine's
+    ``/proc/self/status`` has no ``VmHWM``), its spill counters and launch counts, and the
+    registry's tiers. With no budget in the environment it runs in the caller's process too
+    (``run_spilled_join``'s unbudgeted run)."""
+    import threading
+
+    from pathway_tpu_torch.engine import keys as K, spill
+
+    device = torch.device(args["device"])
+    budget = spill.get_budget()
+    peak = [0]
+    shed: collections.Counter = collections.Counter()  # bytes the budget moved out, by store
+    if budget is not None:
+        enforce = budget.maybe_spill
+
+        def watched(stores=None):
+            stores = budget.stores() if stores is None else stores
+            out_before = [s.spilled_bytes() for s in stores]
+            state = sum(s.spillable_bytes() for s in stores) + sum(out_before)
+            peak[0] = max(peak[0], state)
+            freed = enforce(stores)
+            for s, b in zip(stores, out_before):
+                if s.spilled_bytes() > b:
+                    shed[type(s).__name__] += s.spilled_bytes() - b
+            return freed
+
+        budget.maybe_spill = watched
+    rss = [0]
+    sampling = threading.Event()
+
+    def sample() -> None:
+        while not sampling.wait(0.02):
+            rss[0] = max(rss[0], spill._rss_bytes())
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+    out: dict = {"runs": []}
+    for workers, rows, budget_mb in args["runs"]:
+        halved = 0
+        rss[0] = 0
+        shed.clear()
+        while True:
+            if budget is not None:
+                budget.budget_bytes = int(budget_mb * (1 << 20))
+            peak[0] = 0
+            before = spill.spill_counters()
+            build = dense_graph(rows, args["groups"], args["commit"])
+            launches: dict = {}
+            with counted("run", launches):
+                cap, seconds, _ = run_workers(build, workers, workers > 1, device)
+            if budget is None or peak[0] >= 4 * budget.budget_bytes or budget_mb < 1 / 64:
+                break
+            budget_mb /= 2
+            halved += 1
+        got = [np.array(col) for col in zip(*(row for _, row in cap.state.iter_items()))]
+        order = np.argsort(got[0], kind="stable")
+        got = [col[order] for col in got]
+        g, v, w = dense_columns(rows, args["groups"])
+        n = np.bincount(g, minlength=args["groups"])
+        sv = np.zeros(args["groups"], np.int64)
+        np.add.at(sv, g, v)
+        sw = np.bincount(g, weights=w, minlength=args["groups"])
+        live = np.flatnonzero(n)
+        if len(got) != 5 or len(got[0]) != len(live) or not (
+                np.array_equal(got[0], live) and np.array_equal(got[1], sv[live])
+                and np.array_equal(got[2], sw[live]) and np.array_equal(got[3], n[live])
+                and np.array_equal(got[4], live * 7919 + 13)):
+            raise AssertionError(f"the groupby-join at {workers} worker(s): the table differs "
+                                 "from numpy's sums, counts and labels")
+        after = spill.spill_counters()
+        out["runs"].append({
+            "workers": workers, "rows": rows, "budget_mb": budget_mb, "halved": halved,
+            "s": seconds, "rows_per_s": rows / seconds, "groups": int(len(live)),
+            "peak_state_bytes": peak[0], "peak_rss_bytes": rss[0], "shed_bytes": dict(shed),
+            "counters": {k_: after[k_] - before.get(k_, 0) for k_ in after},
+            "launches": launches["run"]})
+    sampling.set()
+    sampler.join()
+    out["registry"] = K.registry_stats()
+    with open(args["out"], "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def spill_child(args: dict, env: dict, timeout_s: float = 600) -> tuple[dict, int]:
+    """``spill_leg`` in a child interpreter with ``env``; returns its JSON and the child's
+    ``ru_maxrss`` in bytes (``os.wait4``'s usage of that child alone, which carries the
+    parent's mark at the fork)."""
+    child = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--spill-leg",
+                              json.dumps(args)], env=env)
+    deadline = time.perf_counter() + timeout_s
+    try:
+        while True:
+            pid, status, usage = os.wait4(child.pid, os.WNOHANG)
+            if pid:
+                child.returncode = os.waitstatus_to_exitcode(status)
+                break
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"the spill leg did not end within {timeout_s} s")
+            time.sleep(0.05)
+    finally:
+        if child.returncode is None:
+            child.kill()
+            child.wait(60)
+    if child.returncode != 0:
+        raise AssertionError(f"the spill leg exited with {child.returncode}")
+    with open(args["out"]) as f:
+        return json.load(f), usage.ru_maxrss * 1024
+
+
+def run_spilled_join(device, *, rows: int, groups: int, commit: int, rows_4: int,
+                     budget_mb: float, registry_cap: int, work: str) -> dict:
+    """Phase 15 (c): in a child, the groupby-join at 1 worker under ``budget_mb`` a worker,
+    then over ``rows_4`` rows at 4 workers under a sixteenth of it (a worker holds about a
+    tenth of the state there), each budget halved until the run's peak state a worker is at
+    least 4x it; then the same graph at 1 worker with no budget in this process (a child's
+    start would cost the phase about 10 s more)."""
+    base = {k_: v_ for k_, v_ in os.environ.items()
+            if k_ not in ("PATHWAY_STATE_MEMORY_BUDGET_MB", "PATHWAY_STATE_SPILL_DIR",
+                          "PATHWAY_KEY_REGISTRY_SPILL_DIR", "PATHWAY_KEY_REGISTRY_OVERFLOW")}
+    args = {"device": str(device), "groups": groups, "commit": commit,
+            "out": os.path.join(work, "spill.json"),
+            "runs": [[1, rows, budget_mb]] + ([[4, rows_4, budget_mb / 16]] if rows_4 else [])}
+    env = {**base, "PATHWAY_STATE_MEMORY_BUDGET_MB": repr(budget_mb),
+           "PATHWAY_STATE_SPILL_DIR": os.path.join(work, "spill"),
+           "PATHWAY_KEY_REGISTRY_CAP": str(registry_cap)}
+    t0 = time.perf_counter()
+    spilled, rss = spill_child(args, env)
+    spilled_s = time.perf_counter() - t0
+    from pathway_tpu_torch.engine import spill
+
+    if spill.get_budget() is not None:
+        raise AssertionError("this process has a state budget; the unbudgeted run needs none")
+    t0 = time.perf_counter()
+    spill_leg({**args, "runs": [[1, rows, None]], "out": os.path.join(work, "plain.json")})
+    with open(os.path.join(work, "plain.json")) as f:
+        plain = json.load(f)
+    return {"spilled": spilled, "maxrss_bytes": rss, "spilled_child_s": spilled_s,
+            "plain": plain, "plain_s": time.perf_counter() - t0}
+
+
+def run_rescale_spill(device, *, store: str | None, interval_ms: int = 1000, data=None,
+                      want=None, k: int = 10, chunk_commit: int = 1024,
+                      vec_commit: int = 1 << 16, wc_rows: int = 300_000, wc_files: int = 10,
+                      spill_rows: int = SPILL_ROWS, spill_groups: int = SPILL_GROUPS,
+                      spill_commit: int = SPILL_COMMIT, spill_rows_4: int = SPILL_ROWS_4,
+                      budget_mb: float = SPILL_BUDGET_MB, registry_cap: int = SPILL_REGISTRY_CAP,
+                      cfg=None) -> dict:
+    """Phase 15; sizes as the defaults say on the card (a CPU rehearsal passes small ones).
+    ``store`` is phase 14's index store, handed over (``run_persistence(hand_over=True)``) and
+    deleted here; ``data`` and ``want`` are its rows, queries and direct answers. Without a store
+    (a rehearsal of (b) and (c) alone) leg (a) is skipped."""
+    import shutil
+    import tempfile
+
+    from pathway_tpu_torch.models.embedder import Embedder
+
+    cuda = device.type == "cuda"
+    card = card_line() if cuda else "cpu"
+    result: dict = {"launches": {}, "leg_s": {}}
+    work = tempfile.mkdtemp(prefix="rescale_spill_phase_")
+    try:
+        t0 = time.perf_counter()
+        if store is not None:
+            emb = Embedder(cfg, seed=0, device=device)
+            texts, vecs, queries = data
+            with counted("rescale_index", result["launches"]):
+                a = run_rescaled_index(device, emb, store=store, texts=texts, vecs=vecs,
+                                       queries=queries, want=want, k=k, chunk_commit=chunk_commit,
+                                       vec_commit=vec_commit, interval_ms=interval_ms)
+            result["index"] = a
+            r, rec = a["rescale"], a["recovery"]
+            phases = ", ".join(f"{n} {t:.3f} s" for n, t in r["phase_s"].items())
+            log(f"rescale, the index: phase 14's store (1 worker) at 2 workers with "
+                f"PATHWAY_ELASTIC=1 and PATHWAY_MESH_EXCHANGE=1: the resharder {r['duration_s']:.3f}"
+                f" s ({phases}; stage holds operators and chunks), {r['ranks']} stateful "
+                f"operators, {r['tail_entries']} tail entries, read "
+                f"{r['bytes_read'] / 2**30:.3f} GiB, wrote {r['bytes_written'] / 2**30:.3f} GiB, "
+                f"the store {r['store_bytes'] / 2**30:.3f} GiB after its cleanup; "
+                f"restore_operators {rec.get('restore_s', 0.0):.3f} s, "
+                f"{rec.get('replayed_rows')} rows replayed; the run {a['run_s']:.1f} s; "
+                f"{len(queries)} answers equal to the direct search ({a['swapped']} ids swapped "
+                f"inside near ties), the query tick {a['query_ms']:.3f} ms; launches "
+                f"{ {n: c for n, c in result['launches']['rescale_index'].items() if c} } "
+                f"[{card}]")
+        result["leg_s"]["a"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        words = [f"w{i % 997}" for i in range(wc_rows)]
+        os.makedirs(os.path.join(work, "b"))
+        widths: collections.Counter = collections.Counter()
+        with counted("rescale_files", result["launches"]), exchange_widths(widths):
+            b = run_persisted_wordcount(device, words=words, n_files=wc_files,
+                                        work=os.path.join(work, "b"),
+                                        legs=((4, 2, False), (7, 4, False), (10, 1, True)))
+        result["files"] = b
+        result["exchange_widths"] = dict(widths)
+        legs = "; ".join(
+            f"{e['files']} files at {e['workers']} worker(s) {e['s']:.1f} s"
+            + (f" after an offline rescale of {e['rescale']['duration_s']:.3f} s"
+               if "rescale" in e else "")
+            + (f" through the elastic boot ({e['elastic']['from']} -> {e['elastic']['to']}, "
+               f"{e['elastic']['duration_s']:.3f} s)" if "elastic" in e else "")
+            for e in b["legs"])
+        log(f"rescale, the file wordcount: {legs}; the {b['csv_rows']} csv rows net of their "
+            f"diffs equal collections.Counter, none written twice; bucket_exchange launches by "
+            f"destinations {dict(sorted(widths.items()))} [{card}]")
+        if cuda and not widths.get(4):
+            raise AssertionError("bucket_exchange was not launched with 4 destinations")
+        result["leg_s"]["b"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        c = run_spilled_join(device, rows=spill_rows, groups=spill_groups, commit=spill_commit,
+                             rows_4=spill_rows_4, budget_mb=budget_mb,
+                             registry_cap=registry_cap, work=work)
+        result["spill"] = c
+        for run in c["spilled"]["runs"]:
+            result["launches"][f"spill_{run['workers']}"] = run["launches"]
+        plain = c["plain"]["runs"][0]
+        for run in c["spilled"]["runs"]:
+            cnt = run["counters"]
+            log(f"spill, the groupby-join at {run['workers']} worker(s): {run['rows']} rows over "
+                f"{run['groups']} live groups in {run['s']:.1f} s, {run['rows_per_s']:.1f} rows/s "
+                f"under a budget of {run['budget_mb']!r} MiB a worker (halved {run['halved']} "
+                f"times), the peak state a worker {run['peak_state_bytes'] / 2**20:.1f} MiB; "
+                f"spilled {cnt['spill_bytes_total'] / 2**20:.1f} MiB in "
+                f"{cnt['spill_events_total']} writes, loaded {cnt['load_bytes_total'] / 2**20:.1f}"
+                f" MiB in {cnt['load_events_total']} reads, {cnt['spill_errors_total']} errors; "
+                f"shed by store {run['shed_bytes']}; the child's peak RSS "
+                f"{run['peak_rss_bytes'] / 2**30:.3f} GiB (sampled); launches "
+                f"{ {n: k_ for n, k_ in run['launches'].items() if k_} } [{card}]")
+        reg = c["spilled"]["registry"]
+        log(f"spill, the same graph at 1 worker without a budget (in this process): "
+            f"{plain['rows_per_s']:.1f} rows/s ({plain['s']:.1f} s), this process's RSS "
+            f"{plain['peak_rss_bytes'] / 2**30:.3f} GiB at its peak (sampled); the "
+            f"budgeted child's ru_maxrss {c['maxrss_bytes'] / 2**30:.3f} GiB (this process's "
+            f"mark at the fork); "
+            f"the key registry at cap {reg['cap']}: {reg['hot_entries']} hot, "
+            f"{reg['cold_entries']} cold; every table equal to numpy's; the child "
+            f"{c['spilled_child_s']:.1f} s, the unbudgeted run with its check "
+            f"{c['plain_s']:.1f} s [{card}]")
+        for run in c["spilled"]["runs"]:
+            cnt = run["counters"]
+            if run["peak_state_bytes"] < 4 * run["budget_mb"] * (1 << 20):
+                raise AssertionError(f"the run at {run['workers']} worker(s) stayed under 4x "
+                                     "its budget at 1/64 MiB")
+            if not (cnt["spill_bytes_total"] > 0 and cnt["load_events_total"] > 0):
+                raise AssertionError(f"the run at {run['workers']} worker(s) spilled "
+                                     f"{cnt['spill_bytes_total']} bytes and loaded "
+                                     f"{cnt['load_events_total']} times")
+        if not reg["cold_entries"]:
+            raise AssertionError("no key reached the registry's cold tier")
+        result["leg_s"]["c"] = time.perf_counter() - t0
+        log(f"rescale and spill: " + ", ".join(f"({k_}) {v_:.1f} s"
+                                                for k_, v_ in result["leg_s"].items())
+            + f" [{card}]")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        if store is not None:
+            shutil.rmtree(os.path.dirname(store), ignore_errors=True)
+    if cuda:
+        if store is not None:
+            missing = [n for n in ("masked_attention", "knn_topk")
+                       if not result["launches"]["rescale_index"][n]]
+            if missing:
+                raise AssertionError(f"{missing} not launched on the rescaled index")
+        if spill_rows_4 and not result["launches"]["spill_4"]["bucket_exchange"]:
+            raise AssertionError("bucket_exchange was not launched on the 4-worker spilled run")
     return result
 
 
@@ -3914,10 +4332,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     texts, vecs, queries = indexing.pop("data")
     rows = PERSIST_ROWS
+    want = indexing.pop("want")[rows]
     persistence = run_persistence(
-        device, data=(texts, vecs[:rows - len(texts)], queries), want=indexing.pop("want")[rows],
+        device, data=(texts, vecs[:rows - len(texts)], queries), want=want,
         n_rows=rows, kill_rows=rows * 3 // 4,
-        phase11_fill_rows_per_s=indexing["rates"]["indexing"]["fill_rows_per_s"])
+        phase11_fill_rows_per_s=indexing["rates"]["indexing"]["fill_rows_per_s"],
+        hand_over=True)
+
+    phase("rescale and spill")
+    torch.cuda.empty_cache()
+    rescaled = run_rescale_spill(device, store=persistence.pop("store"),
+                                 interval_ms=persistence["interval_ms"],
+                                 data=(texts, vecs[:rows - len(texts)], queries), want=want)
     del texts, vecs
 
     by_path = {**engine["device_ms_by_path"], **api["device_ms_by_path"]}
@@ -3964,7 +4390,8 @@ def main() -> int:
                    **{p: c[name] for p, c in indexing["launches"].items()},
                    **{p: c[name] for p, c in serve["launches"].items()},
                    **{p: c[name] for p, c in files["launches"].items()},
-                   **{p: c[name] for p, c in persistence["launches"].items()}}
+                   **{p: c[name] for p, c in persistence["launches"].items()},
+                   **{p: c[name] for p, c in rescaled["launches"].items()}}
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -3990,4 +4417,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--persist-leg"]:  # phase 14's first leg, in a child interpreter
         sys.exit(persist_leg(json.loads(sys.argv[2])))
+    if sys.argv[1:2] == ["--spill-leg"]:  # phase 15 (c), in a child interpreter
+        sys.exit(spill_leg(json.loads(sys.argv[2])))
     sys.exit(main())

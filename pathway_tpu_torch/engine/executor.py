@@ -22,7 +22,9 @@ operator snapshot every worker holds, replay the input tail after it, seek
 the sources). Left out: the frontier-driven async plane and its commit waves,
 the CLI's replay modes, and the hooks that are inert unless configured (chaos
 injection, the flight recorder, the profiler's operator slot, the upgrade
-fingerprints, the spill budget, key-load accounting).
+fingerprints, key-load accounting). The rescale protocol (``RESHARD``,
+``split_state``/``merge_states``) and the spill budget's hook after each tick
+are the reference's.
 """
 
 from __future__ import annotations
@@ -213,6 +215,64 @@ class Node:
     #: a run whose nodes are all stateless skips key registration.
     STATE_FIELDS: tuple[str, ...] = ()
 
+    #: how this operator's persisted state repartitions when the cluster is
+    #: resharded from N to M workers (rescale/resharder.py):
+    #:
+    #: - ``"keyed"``  — state containers are keyed by the same uint64
+    #:   routing keys the operator's exchange spec uses; ``split_state``
+    #:   filters by destination key-shard, ``merge_states`` unions disjoint
+    #:   pieces.
+    #: - ``"pinned"`` — the whole state lives on worker 0 (gather-routed
+    #:   operators: Capture, GradualBroadcast, external index).
+    #:   ``split_state`` hands every destination the piece unchanged and
+    #:   ``merge_states`` keeps source worker 0's piece — gather semantics
+    #:   guarantee the other source workers' copies are pristine, and a
+    #:   replicated copy on destination workers > 0 is inert (they never
+    #:   receive gathered rows).
+    #: - ``"replicate"`` — per-source scanner state (RealtimeSource): only
+    #:   the owner worker ever advanced it; every destination receives the
+    #:   field-wise union so the post-rescale owner (source index mod M)
+    #:   finds it wherever it lands.
+    RESHARD: str = "keyed"
+
+    @classmethod
+    def split_state(cls, state: dict, key_mask) -> dict:
+        """The sub-state of one persisted ``snapshot_state()`` dict owned by
+        a destination worker. ``key_mask(uint64[n]) -> bool[n]`` answers
+        "does this routing key belong to the destination's shard". The
+        generic implementation splits int-keyed dicts, ``RowState`` tables
+        and lists/tuples of those by their top-level keys — operators whose
+        state is shaped differently override (GroupByReduce arenas, Join
+        arrangements, temporal buffers)."""
+        if cls.RESHARD != "keyed":
+            return state
+        return {
+            f: _split_keyed_value(cls, f, v, key_mask)
+            for f, v in state.items()
+        }
+
+    @classmethod
+    def merge_states(cls, states: list[dict]) -> dict:
+        """Combine split pieces (one per SOURCE worker, in worker order)
+        into one destination state. Keyed pieces are key-disjoint by the
+        routing invariant and union; pinned state keeps source worker 0's
+        piece; replicated source state unions field-wise."""
+        if not states:
+            raise ValueError(f"{cls.__name__}.merge_states: no pieces")
+        if cls.RESHARD == "pinned":
+            return states[0]
+        if cls.RESHARD == "replicate":
+            fields = states[0].keys()
+            return {
+                f: _merge_replicated_value(cls, f, [s[f] for s in states])
+                for f in fields
+            }
+        fields = states[0].keys()
+        return {
+            f: _merge_keyed_value(cls, f, [s[f] for s in states])
+            for f in fields
+        }
+
     def __init__(self, inputs: list["Node"], column_names: list[str]):
         self.node_id = next(Node._ids)
         self.inputs = list(inputs)
@@ -287,6 +347,125 @@ def _min_stamp(a: "int | None", b: "int | None") -> "int | None":
     return min(a, b)
 
 
+def _mask_keys(key_mask, keys) -> np.ndarray:
+    """Apply a shard mask to an iterable of python-int keys."""
+    arr = np.fromiter((int(k) & 0xFFFFFFFFFFFFFFFF for k in keys),
+                      dtype=np.uint64, count=len(keys))
+    return key_mask(arr)
+
+
+def _split_keyed_value(cls, field: str, value, key_mask):
+    from .state import RowState
+
+    if value is None:
+        return None
+    if isinstance(value, RowState):
+        out = RowState(value.columns)
+        items = list(value.iter_items())
+        if items:
+            keep = _mask_keys(key_mask, [k for k, _ in items])
+            for (k, row), m in zip(items, keep.tolist()):
+                if m:
+                    out._rows[k] = row
+                    out._counts[k] = 1
+        return out
+    if isinstance(value, dict):
+        if not value:
+            return {}
+        if all(isinstance(k, (int, np.integer)) for k in value):
+            ks = list(value)
+            keep = _mask_keys(key_mask, ks)
+            return {k: value[k] for k, m in zip(ks, keep.tolist()) if m}
+    if isinstance(value, (list, tuple)):
+        parts = [_split_keyed_value(cls, field, v, key_mask) for v in value]
+        return type(value)(parts)
+    raise TypeError(
+        f"{cls.__name__}.{field} holds a {type(value).__name__} that the "
+        "generic keyed resharder cannot split — the operator must override "
+        "split_state/merge_states"
+    )
+
+
+def _merge_keyed_value(cls, field: str, values: list):
+    from .state import RowState
+
+    if all(v is None for v in values):
+        return None
+    if isinstance(values[0], RowState):
+        out = RowState(values[0].columns)
+        for piece in values:
+            for k, row in piece.iter_items():
+                if k in out._rows:
+                    raise ValueError(
+                        f"{cls.__name__}.{field}: key {k:#x} present in two "
+                        "source workers' state — routing invariant violated"
+                    )
+                out._rows[k] = row
+                out._counts[k] = 1
+        return out
+    if isinstance(values[0], dict):
+        out: dict = {}
+        for piece in values:
+            for k, v in piece.items():
+                if k in out and out[k] != v:
+                    raise ValueError(
+                        f"{cls.__name__}.{field}: key {k!r} present in two "
+                        "source workers' state — routing invariant violated"
+                    )
+                out[k] = v
+        return out
+    if isinstance(values[0], (list, tuple)):
+        merged = [
+            _merge_keyed_value(cls, field, [v[i] for v in values])
+            for i in range(len(values[0]))
+        ]
+        return type(values[0])(merged)
+    raise TypeError(
+        f"{cls.__name__}.{field}: cannot merge {type(values[0]).__name__} "
+        "generically — the operator must override merge_states"
+    )
+
+
+def _merge_replicated_value(cls, field: str, values: list):
+    """Union of per-source scanner state: only the owner worker ever
+    advanced it, the peers hold the initial value, so sets/dicts union,
+    numbers take their max and None loses to anything."""
+    present = [v for v in values if v is not None]
+    if not present:
+        return None
+    first = present[0]
+    try:
+        if all(v == first for v in present[1:]):
+            return first
+    except Exception:
+        pass  # unorderable / ambiguous equality — fall through to merging
+    if isinstance(first, set):
+        out_set: set = set()
+        for v in present:
+            out_set |= v
+        return out_set
+    if isinstance(first, dict):
+        # key-union with RECURSIVE conflict resolution: progress markers
+        # (e.g. per-file row counts) must merge numerically (max), never
+        # by repr ordering — '999' > '1500' as strings
+        out: dict = dict(first)
+        for v in present[1:]:
+            for k, val in v.items():
+                if k not in out:
+                    out[k] = val
+                elif out[k] != val:
+                    out[k] = _merge_replicated_value(
+                        cls, f"{field}[{k!r}]", [out[k], val]
+                    )
+        return out
+    if isinstance(first, (int, float)) and not isinstance(first, bool):
+        return max(present)
+    raise TypeError(
+        f"{cls.__name__}.{field}: conflicting source-state values of type "
+        f"{type(first).__name__} cannot be merged — override merge_states"
+    )
+
+
 class SourceNode(Node):
     """A source: provides a schedule of (time, delta) batches.
 
@@ -323,6 +502,11 @@ class RealtimeSource(SourceNode):
     #: stable id used by persistence to snapshot/replay this source's input
     #: (reference `persistent_id` / unique_name, src/connectors/mod.rs)
     persistent_id: str | None = None
+
+    #: scanner state (seen-file sets, CDC cursors) is per-source, not
+    #: keyed by row shard: a rescale replicates the owner's state to every
+    #: destination so the new owner (source index mod M) finds it
+    RESHARD = "replicate"
 
     def schedule(self) -> list[tuple[int, Delta]]:
         return []
@@ -373,9 +557,11 @@ class RealtimeSource(SourceNode):
 
 def owned_sources(realtime: list["RealtimeSource"], ctx) -> list["RealtimeSource"]:
     """The realtime sources THIS worker polls (round-robin by source
-    index). The single owner per source is also the anchor of persisted
-    offsets: only the owner's offset ever advances, so only the owner
-    records it. Polling and recording MUST use this same assignment."""
+    index). The single owner per source is also the correctness anchor of
+    persisted offsets: only the owner's offset ever advances, so only the
+    owner records it — which is what lets a rescale union per-pid offsets
+    across workers exactly (rescale/resharder.py). Polling and recording
+    MUST use this same assignment."""
     if not ctx.is_sharded:
         return list(realtime)
     return [
@@ -494,6 +680,11 @@ class Executor:
         from ..internals.tracing import get_tracer
 
         self.tracer = get_tracer()
+        # spill-to-disk state budget (engine/spill.py): None unless
+        # PATHWAY_STATE_MEMORY_BUDGET_MB is set — one None check per tick
+        from . import spill as _spill
+
+        self._state_budget = _spill.get_budget()
         if persistence is not None:
             # sharded mode: commits are a coordinated collective decided in
             # _stream_loop_sharded, never a per-worker wall-clock whim — all
@@ -1026,6 +1217,16 @@ class Executor:
                     },
                 ),
             )
+        if self._state_budget is not None:
+            # after the persistence commit: spilled segments materialize
+            # into snapshots, so shedding right after one avoids paying an
+            # immediate reload for state the commit just serialized. Only
+            # THIS executor's stores: workers must never spill (and race)
+            # a sibling thread's live arrangement — the budget is
+            # per-worker
+            from .spill import collect_spillable
+
+            self._state_budget.maybe_spill(collect_spillable(self.nodes))
 
     def _route(
         self, node: Node, delta: Delta, inbox: dict[int, dict[int, list[Delta]]]

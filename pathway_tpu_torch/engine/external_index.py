@@ -56,6 +56,10 @@ class ExternalIndexNode(Node):
     # mirror and the embedder) snapshots alongside the standing queries
     STATE_FIELDS = ("engine", "_queries", "_answered")
 
+    # gather-routed: the whole index lives on worker 0 under any layout,
+    # so a rescale keeps worker 0's piece (rescale/resharder.py)
+    RESHARD = "pinned"
+
     def restore_state(self, state: dict) -> None:
         fresh = self.engine
         super().restore_state(state)

@@ -21,8 +21,8 @@ same probability scale, ~n^2/2^129 for a silent miss, instead of
 ``derive_pair`` salts) occupy structurally disjoint salted domains and
 are not re-registered. The registry is bounded
 (``PATHWAY_KEY_REGISTRY_CAP`` entries, default 4M): at cap a batch with an
-unknown key raises, unless ``PATHWAY_KEY_REGISTRY_OVERFLOW=allow`` lets new
-keys pass unchecked.
+unknown key raises unless a spill directory takes it into the cold tier, or
+``PATHWAY_KEY_REGISTRY_OVERFLOW=allow`` lets new keys pass unchecked.
 
 Copy of ``pathway_tpu/engine/keys.py``. Object columns, row tuples and
 ingest columns hash in the port's native module (``pathway_tpu_torch/native``,
@@ -30,8 +30,11 @@ a copy of the reference's C extension), and the registry's table is its
 ``KeyRegistry``, where the reference takes them when its extension is built.
 The pure-Python versions stay beside them as the plain versions that the
 tests hold the native paths against, bit for bit (``*_plain``); nothing else
-calls them. The spill tier of the key registry
-(``PATHWAY_KEY_REGISTRY_SPILL_DIR``) is left out.
+calls them. The registry's cold tier is the reference's: with
+``PATHWAY_KEY_REGISTRY_SPILL_DIR`` (or ``PATHWAY_STATE_SPILL_DIR``) set, keys
+past the cap keep their 128-bit check in hashed blobs on disk
+(``_ColdKeyTier``) instead of raising. Left out: the flight recorder's
+cap-hit event.
 """
 
 from __future__ import annotations
@@ -348,43 +351,231 @@ def _suspend_registration(delta: int) -> None:
 
 
 class KeyRegistryOverflowError(RuntimeError):
-    """The key registry hit ``PATHWAY_KEY_REGISTRY_CAP``. Silently
-    downgrading to 64-bit collision safety at exactly the scale where
-    128-bit detection matters is the one thing this error exists to
-    prevent: raise the cap, or set ``PATHWAY_KEY_REGISTRY_OVERFLOW=allow``
-    to let new keys pass unchecked explicitly."""
+    """The key registry hit ``PATHWAY_KEY_REGISTRY_CAP`` with no spill
+    path configured. Silently downgrading to 64-bit collision safety at
+    exactly the scale where 128-bit detection matters is the one thing
+    this error exists to prevent: either point
+    ``PATHWAY_KEY_REGISTRY_SPILL_DIR`` (or ``PATHWAY_STATE_SPILL_DIR``)
+    at scratch disk to keep full detection past the cap, raise the cap,
+    or set ``PATHWAY_KEY_REGISTRY_OVERFLOW=allow`` to accept the old
+    freeze-open behavior explicitly."""
 
 
 def _overflow_error(cap: int) -> KeyRegistryOverflowError:
     return KeyRegistryOverflowError(
         f"key registry is full ({cap} keys, "
-        "PATHWAY_KEY_REGISTRY_CAP): refusing to silently degrade "
-        "128-bit conflation detection. Raise the cap, or set "
+        "PATHWAY_KEY_REGISTRY_CAP) and no spill path is configured: "
+        "refusing to silently degrade 128-bit conflation detection. Set "
+        "PATHWAY_KEY_REGISTRY_SPILL_DIR (or PATHWAY_STATE_SPILL_DIR) to "
+        "spill cold entries to disk, raise the cap, or set "
         "PATHWAY_KEY_REGISTRY_OVERFLOW=allow to let new keys pass "
         "unchecked."
     )
 
 
+class _ColdKeyTier:
+    """Disk-backed LO→HI map for keys past the hot-table cap.
+
+    Hash-bucketed (top 8 bits of the LO lane → 256 buckets) pickled
+    dicts written through :class:`engine.spill.SpillStore` (the
+    persistence-backend interface) with write-behind batching: probes check the in-memory pending tier, then
+    a small loaded-bucket LRU, then the bucket file. Only keys the hot
+    tier MISSES ever reach here, so the common case past the cap is one
+    numpy mask check per batch."""
+
+    N_BUCKETS = 256
+    _FLUSH_TOTAL = 65536  # pending entries across buckets → write-behind
+    _CACHE_BUCKETS = 4
+
+    def __init__(self, store):
+        self._store = store  # engine.spill.SpillStore
+        self._pending: dict[int, dict[int, int]] = {}
+        self._pending_n = 0
+        #: bucket id -> blob handles, oldest first: one base blob plus a
+        #: tail of per-flush delta blobs (folded by :meth:`_compact`)
+        self._handles: dict[int, list[dict]] = {}
+        #: tiny LRU of loaded (merged) bucket dicts
+        self._cache: dict[int, dict[int, int]] = {}
+        self.total = 0  # entries owned by the cold tier (pending + disk)
+
+    @staticmethod
+    def _bucket(lo: int) -> int:
+        return (lo >> 56) & 0xFF
+
+    def _load_bucket(self, b: int) -> dict[int, int]:
+        cached = self._cache.get(b)
+        if cached is not None:
+            self._cache[b] = self._cache.pop(b)  # refresh LRU recency
+            return cached
+        loaded: dict[int, int] = {}
+        for handle in self._handles.get(b, ()):
+            loaded.update(self._store.get_blob(handle))
+        if len(self._cache) >= self._CACHE_BUCKETS:
+            self._cache.pop(next(iter(self._cache)))
+        self._cache[b] = loaded
+        return loaded
+
+    def register(self, lo: list[int], hi: list[int]) -> int:
+        """Probe/insert (lo, hi) pairs; returns a conflicting index (the
+        smallest found) or -1. The batch is grouped by bucket so each
+        bucket's blobs load at most once per batch — per-key loads would
+        make cold-tier ingest quadratic with only a 4-bucket cache.
+        Insertions are write-behind — they live in the pending tier
+        until the next flush."""
+        by_bucket: dict[int, list[int]] = {}
+        for i, l in enumerate(lo):
+            by_bucket.setdefault(self._bucket(l), []).append(i)
+        conflict = -1
+        for b in sorted(by_bucket):
+            pend = self._pending.get(b)
+            disk = None  # loaded lazily, once per bucket per batch
+            for i in by_bucket[b]:
+                l, h = lo[i], hi[i]
+                cur = pend.get(l) if pend is not None else None
+                if cur is None:
+                    if disk is None:
+                        disk = self._load_bucket(b)
+                    cur = disk.get(l)
+                if cur is None:
+                    if pend is None:
+                        pend = self._pending[b] = {}
+                    pend[l] = h
+                    self._pending_n += 1
+                    self.total += 1
+                elif cur != h:
+                    # the run dies on any conflict; keys inserted after
+                    # it in other buckets are moot, so the rest of THIS
+                    # bucket is simply skipped
+                    if conflict < 0 or i < conflict:
+                        conflict = i
+                    break
+        if conflict >= 0:
+            return conflict
+        if self._pending_n >= self._FLUSH_TOTAL:
+            self.flush()
+        return -1
+
+    def flush(self) -> None:
+        """Write-behind flush: each dirty bucket's pending entries go to
+        disk as one DELTA blob (LSM-style — rewriting the whole bucket
+        per flush would make ingest I/O quadratic in cold-tier size);
+        :meth:`_compact` folds a bucket when its delta tail outweighs the
+        base, so every entry is rewritten O(log n) times total. A failed
+        write keeps that bucket's entries pending — resident state stays
+        authoritative, nothing is lost."""
+        for b in sorted(self._pending):
+            pend = self._pending[b]
+            if not pend:
+                continue
+            try:
+                handle = self._store.put_blob(f"kreg/b{b:02x}", pend)
+            except Exception:
+                from .spill import _count, log as _slog
+
+                _count("spill_errors_total")
+                _slog.warning(
+                    "key-registry cold bucket %02x flush failed; "
+                    "%d entr(ies) stay pending in memory",
+                    b, len(pend), exc_info=True,
+                )
+                continue
+            handles = self._handles.setdefault(b, [])
+            handles.append(handle)
+            cached = self._cache.get(b)
+            if cached is not None:
+                cached.update(pend)
+            self._pending_n -= len(pend)
+            self._pending[b] = {}
+            self._compact(b)
+
+    def _compact(self, b: int) -> None:
+        """Fold a bucket's base + deltas into one blob once the delta
+        tail has grown to the base's size (geometric trigger) or the
+        handle list is long enough to tax probes. Failure keeps the
+        delta handles — the merged view is unchanged either way."""
+        handles = self._handles.get(b, [])
+        if len(handles) < 2:
+            return
+        delta_bytes = sum(h["bytes"] for h in handles[1:])
+        if delta_bytes < handles[0]["bytes"] and len(handles) < 16:
+            return
+        merged = self._load_bucket(b)
+        try:
+            base = self._store.put_blob(f"kreg/b{b:02x}", merged)
+        except Exception:
+            from .spill import _count, log as _slog
+
+            _count("spill_errors_total")
+            _slog.warning(
+                "key-registry cold bucket %02x compaction failed; "
+                "keeping %d delta blob(s)", b, len(handles) - 1,
+                exc_info=True,
+            )
+            return
+        for h in handles:
+            self._store.drop_blob(h)
+        self._handles[b] = [base]
+
+
 class _KeyRegistry:
-    """The process-wide LO -> HI lane map, bounded at ``cap`` entries: the
-    native ``KeyRegistry``, driven as the reference's ``_TwoTierRegistry``
-    drives it without a spill tier (``register_overflow`` flags the keys a
-    full table does not hold).
+    """The process-wide LO -> HI lane map: the native ``KeyRegistry`` as
+    the hot table, bounded at ``cap`` entries, with the reference's
+    ``_TwoTierRegistry`` behaviour past it. ``register_overflow`` flags the
+    keys a full table does not hold; then
+
+    - ``allow`` → they pass unchecked (64-bit collision safety only);
+    - a ``spill_dir`` → they keep the full 128-bit check in the disk-backed
+      :class:`_ColdKeyTier`;
+    - otherwise → :class:`KeyRegistryOverflowError`.
 
     Registration runs concurrently from sharded worker threads. One native
     ``register_overflow`` call never releases the interpreter's lock, so it
-    is one critical section: no two threads can insert two different HI
-    lanes for one LO lane. Once full, a batch with an unknown key raises
-    :class:`KeyRegistryOverflowError` unless ``allow``."""
+    is one critical section; the cold tier's probe-and-insert runs under
+    its own lock. Either way no two threads can insert two different HI
+    lanes for one LO lane."""
 
-    def __init__(self, cap: int, allow: bool):
+    def __init__(self, cap: int, allow: bool, spill_dir: str | None = None):
         self._hot = _native().KeyRegistry(cap)
         self._cap = cap
         self._allow = allow
+        self._spill_dir = spill_dir
+        self._cold: _ColdKeyTier | None = None
+        self._cold_lock = _threading.Lock()
+        self._cap_hit_announced = False
+        self.spilled_total = 0  # keys ever routed to the cold tier
 
     @property
     def frozen(self) -> bool:
         return bool(self._hot.stats()[1])
+
+    @property
+    def mode(self) -> str:
+        if self._allow:
+            return "allow"
+        return "spill" if self._spill_dir is not None else "error"
+
+    def _announce_cap_hit(self) -> None:
+        if self._cap_hit_announced:
+            return
+        self._cap_hit_announced = True
+        import logging
+
+        what = {
+            "spill": (
+                "spilling cold entries to %r — 128-bit conflation "
+                "detection continues past the cap" % self._spill_dir
+            ),
+            "allow": (
+                "PATHWAY_KEY_REGISTRY_OVERFLOW=allow: detection is "
+                "FROZEN to the first %d keys; new keys pass unchecked "
+                "(64-bit collision safety only)" % self._hot.stats()[0]
+            ),
+            "error": "no spill path configured — refusing new keys",
+        }[self.mode]
+        logging.getLogger("pathway_tpu_torch.keys").warning(
+            "key registry reached PATHWAY_KEY_REGISTRY_CAP (%d): %s",
+            self._cap, what,
+        )
 
     def register(self, lo: np.ndarray, hi: np.ndarray) -> int:
         """Index of the first pair whose LO lane is known under another HI
@@ -393,9 +584,48 @@ class _KeyRegistry:
         idx = self._hot.register_overflow(lo, hi, miss)
         if idx >= 0:
             return int(idx)
-        if miss.any() and not self._allow:
+        if not miss.any():
+            return -1
+        # the hot table is frozen and this batch carries unknown keys
+        self._announce_cap_hit()
+        if self._allow:
+            return -1
+        if self._spill_dir is None:
             raise _overflow_error(self._cap)
+        mix = np.flatnonzero(miss)
+        with self._cold_lock:
+            if self._cold is None:
+                from ..persistence.backends import FilesystemBackend
+                from .spill import SpillStore
+
+                self._cold = _ColdKeyTier(
+                    SpillStore(FilesystemBackend(self._spill_dir))
+                )
+            before = self._cold.total
+            cold_idx = self._cold.register(lo[mix].tolist(), hi[mix].tolist())
+            # keys newly owned by the cold tier, not probe traffic
+            self.spilled_total += self._cold.total - before
+        if cold_idx >= 0:
+            return int(mix[cold_idx])
         return -1
+
+    def stats(self) -> tuple[int, int]:
+        size, frozen = self._hot.stats()
+        cold = self._cold.total if self._cold is not None else 0
+        return size + cold, int(frozen)
+
+    def detailed_stats(self) -> dict:
+        size, frozen = self._hot.stats()
+        cold = self._cold.total if self._cold is not None else 0
+        return {
+            "entries": size + cold,
+            "hot_entries": size,
+            "cold_entries": cold,
+            "frozen": int(bool(frozen) and self._allow),
+            "spilled_total": self.spilled_total,
+            "cap": self._cap,
+            "mode": self.mode,
+        }
 
 
 class _KeyRegistryPlain:
@@ -432,6 +662,25 @@ class _KeyRegistryPlain:
 _REGISTRY_LOCK = _threading.Lock()
 
 
+def _registry_spill_dir() -> str | None:
+    import os
+
+    configured = os.environ.get("PATHWAY_KEY_REGISTRY_SPILL_DIR")
+    if configured:
+        # per-pid like every other spill root: processes pointed at one
+        # dir must not clobber each other's bucket generations
+        from .spill import per_pid_scratch
+
+        return per_pid_scratch(configured)
+    state_dir = os.environ.get("PATHWAY_STATE_SPILL_DIR")
+    if state_dir:
+        # ride the state spill tier's scratch root, per-pid like it does
+        from .spill import per_pid_scratch
+
+        return os.path.join(per_pid_scratch(state_dir), "keyreg")
+    return None
+
+
 def _get_registry() -> _KeyRegistry:
     global _REGISTRY
     if _REGISTRY is not None:
@@ -442,12 +691,33 @@ def _get_registry() -> _KeyRegistry:
         import os
 
         cap = int(os.environ.get("PATHWAY_KEY_REGISTRY_CAP", 1 << 22))
-        allow = (
+        overflow = (
             os.environ.get("PATHWAY_KEY_REGISTRY_OVERFLOW", "").strip().lower()
-            == "allow"
         )
-        _REGISTRY = _KeyRegistry(cap, allow)
+        if overflow not in ("", "allow", "error", "spill"):
+            import logging
+
+            logging.getLogger("pathway_tpu_torch.keys").warning(
+                "unknown PATHWAY_KEY_REGISTRY_OVERFLOW=%r (valid: "
+                "allow | error | spill); using the default cap-hit "
+                "behavior (spill when a spill dir is configured, "
+                "hard error otherwise)", overflow,
+            )
+        spill_dir = None if overflow in ("allow", "error") else _registry_spill_dir()
+        _REGISTRY = _KeyRegistry(cap, overflow == "allow", spill_dir)
     return _REGISTRY
+
+
+def registry_stats() -> dict:
+    """Key-registry gauges; cheap, and does NOT instantiate the registry
+    on an idle process."""
+    reg = _REGISTRY
+    if reg is None:
+        return {
+            "entries": 0, "hot_entries": 0, "cold_entries": 0,
+            "frozen": 0, "spilled_total": 0, "cap": 0, "mode": "unarmed",
+        }
+    return reg.detailed_stats()
 
 
 def _register_keys(lo: np.ndarray, hi: np.ndarray) -> None:

@@ -1,10 +1,12 @@
 """Engine operator implementations over columnar deltas.
 
 Copy of ``pathway_tpu/engine/operators.py`` with its operator snapshots (``GroupByReduce`` and
-``Join`` in the reference's parts layout, the rest through ``STATE_FIELDS``), without the rescale
-and spill protocols (``split_state``/``merge_states``, the spill tier's branches: every snapshot
-is whole and resident), the async plane's branch of ``Exchange`` and the JAX array case of
-``_as_column``.
+``Join`` in the reference's parts layout, the rest through ``STATE_FIELDS``), the rescale protocol
+(``split_state``/``merge_states`` of the arena, the join's arrangements with the rk→jk map and its
+cache, the temporal buffers, the pinned composites) and the spill tier (``GroupByReduce``'s dense
+cold blocks and general cold buckets, ``_SortedSide``'s spilled runs; snapshots materialize both).
+Left out: the analyzer's hooks, the async plane's branch of ``Exchange``, the key-load sketch and
+the JAX array case of ``_as_column``.
 
 Each class re-designs one family of the reference engine's ~60 ``Graph``
 trait operations (``src/engine/graph.rs:664-1011``, implemented at
@@ -408,6 +410,30 @@ class GroupByReduce(Node):
         self._gerrs: dict[int, list[int]] = {}
         from .reducers import CountReducer, SumReducer
         from .slotmap import SlotMap
+        from . import spill as _spill
+
+        # spill tier (PATHWAY_STATE_MEMORY_BUDGET_MB, engine/spill.py):
+        # dense arenas shed a cold PREFIX block of slots (old groups get
+        # low slot ids; any touch below the boundary faults the whole
+        # block back in); the general path sheds cold groups into hashed
+        # buckets faulted back per-batch. Both materialize into snapshots.
+        self._budget = _spill.get_budget()
+        if self._budget is not None:
+            self._budget.register(self)
+        self._arena_base = 0  # slots [0, base) live in the cold blocks
+        #: spill-store handles, oldest first — each holds one contiguous
+        #: slot range; spills APPEND a block (never rewrite the whole
+        #: cold prefix: that would be quadratic I/O and a 2x RAM spike
+        #: at exactly the over-budget moment)
+        self._arena_cold: list[dict] = []
+        from collections import deque
+
+        self._hot_slot_mins: Any = deque(maxlen=4)
+        self._recent_hist: Any = deque(maxlen=2)
+        self._recent_gks: set[int] = set()
+        self._cold_set: set[int] = set()  # general groups now on disk
+        self._cold_buckets: dict[int, dict] = {}  # bucket id -> handle
+        self._entry_bytes_est = 512  # refined from real pickles at spill
 
         # reducer-preamble fusion (engine/fusion.py): the adjacent Rowwise
         # the lowering materializes group keys / reducer args in can be
@@ -452,32 +478,66 @@ class GroupByReduce(Node):
         return True
 
     def snapshot_state(self) -> dict:
+        # snapshots are the truth: spilled state (cold arena block, cold
+        # general groups) MATERIALIZES into the snapshot, so recovery and
+        # the resharder never depend on the scratch spill dir
         st: dict = {
-            "_state": self._state,
+            "_state": self._general_materialized(),
             "dense": self._dense,
             "gerrs": self._gerrs,
         }
         if self._dense:
-            # trim arenas to allocated slots; the SlotMap (a native table)
-            # is reconstructed from _gkey_by_slot on restore
-            st["arena"] = self._arena_trimmed()
+            # trim arenas to allocated slots; the SlotMap is reconstructed
+            # from _gkey_by_slot on restore (SlotMap.rebuild)
+            st["arena"] = self._arena_full_trimmed()
         return st
 
     def snapshot_state_parts(self):
-        """Streaming snapshot (persistence/snapshots.py write_parts), in
-        the reference's parts layout: one head part holding the resident
-        state. The port has no spill tier, so there are never cold arena
-        blocks or cold general buckets to stream after it."""
+        """Streaming snapshot (persistence/snapshots.py write_parts): the
+        resident head first, then each cold arena delta block and each
+        cold general bucket loaded ONE AT A TIME — the writer flushes
+        chunks between parts, so commit-time peak RSS is bounded by the
+        largest single spilled segment plus a chunk, never the
+        operator's total state (ROADMAP PR-8 corner)."""
         head: dict = {
             "dense": self._dense,
             "gerrs": self._gerrs,
             "state_resident": self._state,
-            "n_cold_buckets": 0,
+            "n_cold_buckets": (
+                len(self._cold_buckets) if self._cold_set else 0
+            ),
         }
         if self._dense:
-            head["arena_tail"] = self._arena_trimmed()
-            head["n_arena_blocks"] = 0
+            n = len(self._slots)
+            base = self._arena_base
+            r = n - base
+            head["arena_tail"] = {
+                "_counts": self._counts[:r].copy(),
+                "_gkey_by_slot": self._gkey_by_slot[:r].copy(),
+                "_emitted": self._emitted[:r].copy(),
+                "_accs": [
+                    None if a is None else a[:r].copy() for a in self._accs
+                ],
+                "_prev": [p[:r].copy() for p in self._prev],
+                "_gvals": [
+                    None if g is None else g[:r].copy() for g in self._gvals
+                ],
+            }
+            head["n_arena_blocks"] = len(self._arena_cold)
         yield head
+        if self._dense and self._arena_cold:
+            store = self._budget.spill_store()
+            for h in self._arena_cold:
+                yield store.get_blob(h)  # one cold block resident at a time
+        if self._cold_set:
+            store = self._budget.spill_store()
+            for b in sorted(self._cold_buckets):
+                blob = store.get_blob(self._cold_buckets[b])
+                yield {
+                    gk: entry
+                    for gk, entry in blob.items()
+                    if gk in self._cold_set
+                }
 
     @classmethod
     def state_from_parts(cls, parts) -> dict:
@@ -488,24 +548,104 @@ class GroupByReduce(Node):
             "gerrs": head["gerrs"],
         }
         if head["dense"]:
-            if head.get("n_arena_blocks", 0) or head.get("n_cold_buckets", 0):
-                raise ValueError(
-                    "GroupByReduce snapshot has spilled parts; the port has "
-                    "no spill tier"
-                )
-            st["arena"] = head["arena_tail"]
+            blocks = [next(parts) for _ in range(head["n_arena_blocks"])]
+            st["arena"] = cls._cat_arena_parts(
+                blocks + [head["arena_tail"]]
+            )
+        for _ in range(head.get("n_cold_buckets", 0)):
+            st["_state"].update(next(parts))
         return st
 
-    def _arena_trimmed(self) -> dict:
-        """Snapshot-format arena covering slots [0, n), copies only."""
-        n = len(self._slots)
+    @staticmethod
+    def _cat_arena_parts(blocks: list[dict]) -> dict:
+        """Concatenate arena dicts in slot order (cold delta blocks, then
+        the resident tail). Column None-ness is decided before the first
+        slot exists, so a column is None in every block or in none; an
+        empty tail array concatenates away."""
+        if len(blocks) == 1:
+            return blocks[0]
+
+        def cat(cols):
+            present = [c for c in cols if c is not None and len(c)]
+            if not present:
+                return None if all(c is None for c in cols) else cols[-1]
+            if len(present) == 1:
+                return present[0]
+            return _concat_arena(present)
+
+        first = blocks[0]
         return {
-            "_counts": self._counts[:n].copy(),
-            "_gkey_by_slot": self._gkey_by_slot[:n].copy(),
-            "_emitted": self._emitted[:n].copy(),
-            "_accs": [None if a is None else a[:n].copy() for a in self._accs],
-            "_prev": [p[:n].copy() for p in self._prev],
-            "_gvals": [None if g is None else g[:n].copy() for g in self._gvals],
+            "_counts": cat([b["_counts"] for b in blocks]),
+            "_gkey_by_slot": cat([b["_gkey_by_slot"] for b in blocks]),
+            "_emitted": cat([b["_emitted"] for b in blocks]),
+            "_accs": [
+                cat([b["_accs"][j] for b in blocks])
+                for j in range(len(first["_accs"]))
+            ],
+            "_prev": [
+                cat([b["_prev"][j] for b in blocks])
+                for j in range(len(first["_prev"]))
+            ],
+            "_gvals": [
+                cat([b["_gvals"][j] for b in blocks])
+                for j in range(len(first["_gvals"]))
+            ],
+        }
+
+    def _general_materialized(self) -> dict:
+        """The general-path state with every cold group faulted into a
+        COPY (the live dict and the cold tier stay as they are)."""
+        if not self._cold_set:
+            return self._state
+        merged = dict(self._state)
+        store = self._budget.spill_store()
+        for b, handle in self._cold_buckets.items():
+            for gk, entry in store.get_blob(handle).items():
+                if gk in self._cold_set:
+                    merged[gk] = entry
+        return merged
+
+    def _arena_full_trimmed(self) -> dict:
+        """Snapshot-format arena covering slots [0, n): the cold block
+        (if spilled) concatenated with the resident tail, copies only."""
+        n = len(self._slots)
+        base = self._arena_base
+        r = n - base  # resident slot count
+        if not base:
+            return {
+                "_counts": self._counts[:n].copy(),
+                "_gkey_by_slot": self._gkey_by_slot[:n].copy(),
+                "_emitted": self._emitted[:n].copy(),
+                "_accs": [None if a is None else a[:n].copy() for a in self._accs],
+                "_prev": [p[:n].copy() for p in self._prev],
+                "_gvals": [None if g is None else g[:n].copy() for g in self._gvals],
+            }
+        cold = self._load_cold_blocks()
+
+        def cat(c, res):
+            if c is None and res is None:
+                return None
+            if c is None:
+                return res.copy()
+            if res is None or not len(res):
+                return c.copy()
+            return _concat_arena([c, res])
+
+        return {
+            "_counts": cat(cold["_counts"], self._counts[:r]),
+            "_gkey_by_slot": cat(cold["_gkey_by_slot"], self._gkey_by_slot[:r]),
+            "_emitted": cat(cold["_emitted"], self._emitted[:r]),
+            "_accs": [
+                cat(c, None if a is None else a[:r])
+                for c, a in zip(cold["_accs"], self._accs)
+            ],
+            "_prev": [
+                cat(c, p[:r]) for c, p in zip(cold["_prev"], self._prev)
+            ],
+            "_gvals": [
+                cat(c, None if g is None else g[:r])
+                for c, g in zip(cold["_gvals"], self._gvals)
+            ],
         }
 
     def restore_state(self, state: dict) -> None:
@@ -513,6 +653,12 @@ class GroupByReduce(Node):
 
         self._state = state["_state"]
         self._gerrs = state.get("gerrs", {})
+        # restored state is fully resident; any previous spill handles
+        # belong to a dead generation of this operator
+        self._arena_base = 0
+        self._arena_cold = []
+        self._cold_set = set()
+        self._cold_buckets = {}
         if not state["dense"]:
             if self._dense:
                 # snapshot was taken after a demotion — mirror it
@@ -527,9 +673,289 @@ class GroupByReduce(Node):
         self._accs = a["_accs"]
         self._prev = a["_prev"]
         self._gvals = a["_gvals"]
-        # the native KeyTable is rebuilt from the keys in slot order, never
-        # pickled
         self._slots = SlotMap.rebuild(self._gkey_by_slot)
+
+    # -- spill tier (engine/spill.py spillable protocol) -------------------
+
+    _ARENA_KEYS = ("_counts", "_gkey_by_slot", "_emitted")
+
+    def spillable_bytes(self) -> int:
+        if self._dense:
+            total = self._counts.nbytes + self._gkey_by_slot.nbytes
+            total += self._emitted.nbytes
+            for group in (self._accs, self._prev, self._gvals):
+                for a in group:
+                    if a is not None:
+                        total += (
+                            len(a) * 64 if a.dtype == object else a.nbytes
+                        )
+            return total
+        return len(self._state) * self._entry_bytes_est
+
+    def spilled_bytes(self) -> int:
+        total = sum(h["bytes"] for h in self._cold_buckets.values())
+        total += sum(h["bytes"] for h in self._arena_cold)
+        return total
+
+    def spill(self, want_bytes: int) -> int:
+        if self._budget is None:
+            return 0
+        if self._dense:
+            return self._spill_dense(want_bytes)
+        return self._spill_general(want_bytes)
+
+    @staticmethod
+    def _bucket_of(gk: int) -> int:
+        return (gk >> 56) & 0xFF
+
+    def _spill_dense(self, want_bytes: int) -> int:
+        """Extend the cold prefix: every slot below the recent hot-slot
+        watermark moves to ONE new delta block appended after the
+        existing cold blocks (spills never reload or rewrite earlier
+        blocks). Resident arrays re-slice only after the write lands."""
+        n = len(self._slots)
+        base = self._arena_base
+        if n - base == 0:
+            return 0
+        hot_min = min(self._hot_slot_mins) if self._hot_slot_mins else n
+        boundary = min(hot_min, n)
+        k = boundary - base  # newly-cold resident slots
+        if k <= 0:
+            return 0
+        store = self._budget.spill_store()
+        payload = {
+            "_counts": self._counts[:k].copy(),
+            "_gkey_by_slot": self._gkey_by_slot[:k].copy(),
+            "_emitted": self._emitted[:k].copy(),
+            "_accs": [
+                None if a is None else a[:k].copy() for a in self._accs
+            ],
+            "_prev": [p[:k].copy() for p in self._prev],
+            "_gvals": [
+                None if g is None else g[:k].copy() for g in self._gvals
+            ],
+        }
+        freed = 0
+        for group in ((self._counts, self._gkey_by_slot, self._emitted),
+                      self._accs, self._prev, self._gvals):
+            for a in group:
+                if a is not None:
+                    freed += (
+                        k * 64 if a.dtype == object else k * a.itemsize
+                    )
+        handle = store.put_blob("gb/arena", payload)
+        self._arena_cold.append(handle)
+        self._arena_base = boundary
+        self._counts = self._counts[k:].copy()
+        self._gkey_by_slot = self._gkey_by_slot[k:].copy()
+        self._emitted = self._emitted[k:].copy()
+        self._accs = [None if a is None else a[k:].copy() for a in self._accs]
+        self._prev = [p[k:].copy() for p in self._prev]
+        self._gvals = [
+            None if g is None else g[k:].copy() for g in self._gvals
+        ]
+        return freed
+
+    def _unspill_arena(self) -> None:
+        """Fault the cold blocks back in front of the resident arrays."""
+        store = self._budget.spill_store()
+        cold = self._load_cold_blocks()
+
+        def cat(c, res):
+            if c is None:
+                return res
+            if res is None or not len(res):
+                return c
+            return _concat_arena([c, res])
+
+        self._counts = cat(cold["_counts"], self._counts)
+        self._gkey_by_slot = cat(cold["_gkey_by_slot"], self._gkey_by_slot)
+        self._emitted = cat(cold["_emitted"], self._emitted)
+        self._accs = [
+            cat(c, a) for c, a in zip(cold["_accs"], self._accs)
+        ]
+        self._prev = [cat(c, p) for c, p in zip(cold["_prev"], self._prev)]
+        self._gvals = [
+            cat(c, g) for c, g in zip(cold["_gvals"], self._gvals)
+        ]
+        for h in self._arena_cold:
+            store.drop_blob(h)
+        self._arena_cold = []
+        self._arena_base = 0
+
+    def _load_cold_blocks(self) -> dict:
+        """The full cold prefix as one arena dict: every delta block
+        loaded and concatenated in spill (= slot) order. Columns absent
+        (None) in a block are absent in all of them — ``_gvals``/``_accs``
+        None-ness is decided before the first slot exists."""
+        store = self._budget.spill_store()
+        blocks = [store.get_blob(h) for h in self._arena_cold]
+        if len(blocks) == 1:
+            return blocks[0]
+
+        def cat(cols):
+            present = [c for c in cols if c is not None]
+            if not present:
+                return None
+            return _concat_arena(present)
+
+        return {
+            "_counts": cat([b["_counts"] for b in blocks]),
+            "_gkey_by_slot": cat([b["_gkey_by_slot"] for b in blocks]),
+            "_emitted": cat([b["_emitted"] for b in blocks]),
+            "_accs": [
+                cat([b["_accs"][j] for b in blocks])
+                for j in range(len(self._accs))
+            ],
+            "_prev": [
+                cat([b["_prev"][j] for b in blocks])
+                for j in range(len(self._prev))
+            ],
+            "_gvals": [
+                cat([b["_gvals"][ci] for b in blocks])
+                for ci in range(len(self._gvals))
+            ],
+        }
+
+    def _spill_general(self, want_bytes: int) -> int:
+        """Move cold groups (untouched in the recent batches) into hashed
+        disk buckets. A bucket whose write fails keeps its groups resident
+        — nothing is dropped before its bytes are durable."""
+        if not self._state:
+            return 0
+        store = self._budget.spill_store()
+        if self._state and self._entry_bytes_est == 512:
+            import itertools, pickle as _pickle
+
+            sample = list(itertools.islice(self._state.items(), 8))
+            self._entry_bytes_est = max(
+                64, len(_pickle.dumps(sample)) // len(sample)
+            )
+        moved: dict[int, dict[int, list]] = {}
+        budgeted = 0
+        for gk, entry in self._state.items():
+            if gk in self._recent_gks:
+                continue
+            moved.setdefault(self._bucket_of(gk), {})[gk] = entry
+            budgeted += self._entry_bytes_est
+            if budgeted >= want_bytes:
+                break
+        freed = 0
+        for b, entries in moved.items():
+            prev = self._cold_buckets.get(b)
+            existing = store.get_blob(prev) if prev is not None else {}
+            # prune entries faulted back in since the last write — the
+            # cold set is the single source of which keys disk owns
+            merged = {
+                k: v for k, v in existing.items() if k in self._cold_set
+            }
+            merged.update(entries)
+            handle = store.put_blob(f"gb/bucket/{b:02x}", merged, prev=prev)
+            self._cold_buckets[b] = handle
+            for gk in entries:
+                del self._state[gk]
+                self._cold_set.add(gk)
+            freed += len(entries) * self._entry_bytes_est
+        return freed
+
+    def _fault_in_groups(self, gkeys: np.ndarray) -> None:
+        """Move any of this batch's groups that live in cold buckets back
+        into the resident dict (called before the per-row loop)."""
+        need: dict[int, list[int]] = {}
+        for gk in set(gkeys.tolist()):
+            gk = int(gk)
+            if gk in self._cold_set:
+                need.setdefault(self._bucket_of(gk), []).append(gk)
+        if not need:
+            return
+        store = self._budget.spill_store()
+        for b, gks in need.items():
+            data = store.get_blob(self._cold_buckets[b])
+            for gk in gks:
+                entry = data.get(gk)
+                if entry is not None:
+                    self._state[gk] = entry
+                self._cold_set.discard(gk)
+
+    # -- elastic rescale (rescale/resharder.py) ---------------------------
+
+    @classmethod
+    def split_state(cls, state: dict, key_mask) -> dict:
+        from .executor import _split_keyed_value
+
+        out = {
+            "_state": _split_keyed_value(cls, "_state", state["_state"], key_mask),
+            "dense": state["dense"],
+            "gerrs": _split_keyed_value(
+                cls, "gerrs", state.get("gerrs", {}), key_mask
+            ),
+        }
+        if state["dense"]:
+            a = state["arena"]
+            gk = np.asarray(a["_gkey_by_slot"], dtype=np.uint64)
+            keep = key_mask(gk) if len(gk) else np.zeros(0, dtype=bool)
+            out["arena"] = {
+                "_counts": a["_counts"][keep],
+                "_gkey_by_slot": gk[keep],
+                "_emitted": a["_emitted"][keep],
+                "_accs": [None if x is None else x[keep] for x in a["_accs"]],
+                "_prev": [p[keep] for p in a["_prev"]],
+                "_gvals": [None if g is None else g[keep] for g in a["_gvals"]],
+            }
+        return out
+
+    @classmethod
+    def merge_states(cls, states: list[dict]) -> dict:
+        from .executor import _merge_keyed_value
+
+        if all(s["dense"] for s in states):
+            arenas = [s["arena"] for s in states]
+            slots = [len(a["_counts"]) for a in arenas]
+            return {
+                "_state": _merge_keyed_value(
+                    cls, "_state", [s["_state"] for s in states]
+                ),
+                "dense": True,
+                "gerrs": _merge_keyed_value(
+                    cls, "gerrs", [s.get("gerrs", {}) for s in states]
+                ),
+                "arena": {
+                    "_counts": _concat_arena([a["_counts"] for a in arenas]),
+                    "_gkey_by_slot": _concat_arena(
+                        [a["_gkey_by_slot"] for a in arenas]
+                    ),
+                    "_emitted": _concat_arena([a["_emitted"] for a in arenas]),
+                    "_accs": _merge_arena_columns(
+                        [a["_accs"] for a in arenas], slots
+                    ),
+                    "_prev": _merge_arena_columns(
+                        [a["_prev"] for a in arenas], slots
+                    ),
+                    "_gvals": _merge_arena_columns(
+                        [a["_gvals"] for a in arenas], slots
+                    ),
+                },
+            }
+        # mixed dense/general across source workers (one worker saw the
+        # demoting column, another saw no rows at all): demote every dense
+        # piece offline and merge in the general representation
+        general: dict = {}
+        for s in states:
+            piece = _arena_to_general(s["arena"]) if s["dense"] else s["_state"]
+            for gk, entry in piece.items():
+                if gk in general:
+                    raise ValueError(
+                        f"GroupByReduce: group {gk:#x} present in two source "
+                        "workers' state — routing invariant violated"
+                    )
+                general[gk] = entry
+        return {
+            "_state": general,
+            "dense": False,
+            "gerrs": _merge_keyed_value(
+                cls, "gerrs", [s.get("gerrs", {}) for s in states]
+            ),
+        }
 
     def absorb_preamble(self, port: int, rowwise: "Rowwise") -> bool:
         """Fuse the adjacent Rowwise preamble into this node (called by
@@ -682,6 +1108,11 @@ class GroupByReduce(Node):
         of the general path's ``del self._state[gk]``."""
         from .slotmap import SlotMap
 
+        if self._arena_base:
+            # cold slots are on disk and SlotMap.rebuild would renumber
+            # resident slots over the cold block's ids — reclaim resumes
+            # after the next fault-in
+            return
         n_alloc = len(self._slots)
         live = np.flatnonzero(
             (self._counts[:n_alloc] != 0) | self._emitted[:n_alloc]
@@ -724,9 +1155,16 @@ class GroupByReduce(Node):
     def _process_dense(self, d, n, gcols, gkeys, arg_arrays) -> Delta | None:
         self._reclaim_arena()
         slots, n_new = self._slots.lookup_or_insert(gkeys)
+        if self._arena_base and int(slots.min()) < self._arena_base:
+            # the batch touches a group inside the spilled cold block —
+            # fault the whole block back in (O(cold) once, then the
+            # resident fast path below runs unchanged)
+            self._unspill_arena()
+        base = self._arena_base
+        self._hot_slot_mins.append(int(slots.min()))
         old_n = len(self._slots) - n_new
         total = len(self._slots)
-        self._grow(total)
+        self._grow(total - base)
         from .fusion import fusion_enabled as _fusion_on
 
         if (
@@ -743,31 +1181,34 @@ class GroupByReduce(Node):
             # exactly the order the sort path produced. Float64 bincount
             # sums of per-batch diffs are exact (|sum| <= n < 2^53).
             occ = np.bincount(slots, minlength=total)
-            u_slots = np.flatnonzero(occ)
+            u_slots_abs = np.flatnonzero(occ)
+            u_slots = u_slots_abs - base
             if n_new:
                 # SlotMap assigns fresh ids in first-occurrence order;
                 # reversed fancy-store leaves each slot's FIRST index
                 first_ix = np.empty(total, dtype=np.int64)
                 first_ix[slots[::-1]] = np.arange(n - 1, -1, -1)
-                fresh = u_slots >= old_n
+                fresh = u_slots_abs >= old_n
                 self._store_fresh_groups(
-                    u_slots[fresh], first_ix[u_slots[fresh]],
+                    u_slots[fresh], first_ix[u_slots_abs[fresh]],
                     gcols, gkeys,
                 )
             if (d.diffs == 1).all():
-                self._counts[u_slots] += occ[u_slots]
+                self._counts[u_slots] += occ[u_slots_abs]
             else:
                 sums = np.bincount(slots, weights=d.diffs, minlength=total)
-                self._counts[u_slots] += sums[u_slots].astype(np.int64)
+                self._counts[u_slots] += sums[u_slots_abs].astype(np.int64)
         else:
             order = np.argsort(slots, kind="stable")
             ss = slots[order]
             boundaries = np.flatnonzero(np.diff(ss) != 0) + 1
             starts = np.concatenate([[0], boundaries])
-            u_slots = ss[starts]
+            u_slots_abs = ss[starts]
+            # arena arrays cover slots [base, n) — index them relative
+            u_slots = u_slots_abs - base
             if n_new:
                 first_ix = order[starts]  # first occurrence of each u_slot
-                fresh = u_slots >= old_n
+                fresh = u_slots_abs >= old_n
                 self._store_fresh_groups(
                     u_slots[fresh], first_ix[fresh], gcols, gkeys
                 )
@@ -838,6 +1279,8 @@ class GroupByReduce(Node):
     def _demote(self) -> None:
         """Migrate arena state into the general dict state (a non-numeric
         argument column arrived); one-way, per-operator."""
+        if self._arena_base:
+            self._unspill_arena()
         self._dense = False
         live = np.flatnonzero(self._counts != 0)
         for slot in live:
@@ -862,6 +1305,12 @@ class GroupByReduce(Node):
     # -- general path ----------------------------------------------------
 
     def _process_general(self, d, n, gcols, gkeys, time) -> Delta | None:
+        if self._cold_set:
+            self._fault_in_groups(gkeys)
+        if self._budget is not None:
+            batch = set(map(int, gkeys.tolist()))
+            self._recent_hist.append(batch)
+            self._recent_gks = set().union(*self._recent_hist)
         arg_cols = [[d.data[a] for a in args] for _, _, args in self._reducers]
         # Error-aware only when errors exist at all (the errors_seen latch
         # trips on every Error construction/unpickle — zero-cost guard on
@@ -946,6 +1395,71 @@ class GroupByReduce(Node):
         )
 
 
+def _concat_arena(pieces: list[np.ndarray]) -> np.ndarray:
+    """Concatenate per-worker arena columns, promoting dtypes the same way
+    the live operator does (int accumulators promote to float64 when any
+    worker's did; any-object gvals make the merged column object)."""
+    nonempty = [p for p in pieces if len(p)]
+    if not nonempty:
+        return pieces[0]
+    if any(p.dtype == object for p in nonempty):
+        return np.concatenate([p.astype(object) for p in nonempty])
+    target = np.result_type(*[p.dtype for p in nonempty])
+    return np.concatenate([p.astype(target, copy=False) for p in nonempty])
+
+
+def _merge_arena_columns(per_piece: list[list], slots: list[int]) -> list:
+    """Merge parallel lists of arena columns (one list per source worker,
+    ``slots[i]`` = that worker's allocated slot count): column j of the
+    result is the concatenation of every worker's column j. A ``None``
+    column (count reducer's acc, or gvals never materialized) may sit
+    next to arrays only when its piece holds ZERO slots — otherwise the
+    concatenated column would silently fall out of alignment with the
+    slot order at restore."""
+    n_cols = len(per_piece[0])
+    out: list = []
+    for j in range(n_cols):
+        cols = [p[j] for p in per_piece]
+        if all(c is None for c in cols):
+            out.append(None)
+            continue
+        for c, n_slots in zip(cols, slots):
+            if c is None and n_slots:
+                raise ValueError(
+                    "GroupByReduce arena merge: a worker's snapshot holds "
+                    f"{n_slots} slot(s) but no array for column {j} — "
+                    "inconsistent snapshots (reducer config mismatch?)"
+                )
+        out.append(_concat_arena([c for c in cols if c is not None]))
+    return out
+
+
+def _arena_to_general(arena: dict) -> dict:
+    """Offline analog of ``GroupByReduce._demote``: convert a snapshotted
+    dense arena into general-path ``_state`` entries. A ``None`` slot in
+    ``_accs`` marks a count reducer (its value IS the multiplicity)."""
+    out: dict = {}
+    counts = arena["_counts"]
+    for slot in np.flatnonzero(counts != 0):
+        gk = int(arena["_gkey_by_slot"][slot])
+        gvals = tuple(g[slot] for g in arena["_gvals"])
+        accs: list = []
+        for acc in arena["_accs"]:
+            if acc is None:
+                accs.append(int(counts[slot]))
+            else:
+                v = acc[slot]
+                accs.append(v.item() if isinstance(v, np.generic) else v)
+        last = None
+        if arena["_emitted"][slot]:
+            last = gvals + tuple(
+                p[slot].item() if isinstance(p[slot], np.generic) else p[slot]
+                for p in arena["_prev"]
+            )
+        out[gk] = [int(counts[slot]), gvals, accs, last]
+    return out
+
+
 def _resize(arr: np.ndarray, total: int) -> np.ndarray:
     out = np.zeros(total, dtype=arr.dtype)
     out[: len(arr)] = arr
@@ -988,6 +1502,18 @@ class _SortedSide:
       pad snapshots of an unchanged arrangement) pay the binary search
       once. Runs are immutable after construction, which is what makes
       identity a sound cache key.
+
+    Under ``PATHWAY_STATE_MEMORY_BUDGET_MB`` (engine/spill.py) the
+    arrangement participates in the spill tier: cold runs (oldest first —
+    size-tiering makes them the largest and the last to merge) shed their
+    payload (row keys, value columns, counts) to the spill store, keeping
+    only the sorted jk array and the count prefix-sum resident. ``totals``
+    stays a pure in-memory operation; ``probe`` loads a spilled payload
+    transiently ONLY when its jk range actually matches — the hot-key
+    working set never touches disk. Snapshots are the truth: pickling
+    (``__getstate__``) materializes every spilled run back into the
+    resident representation, so recovery, ``split_state``/``merge_states``
+    and the resharder never see a spill handle.
     """
 
     MAX_RUNS = 8
@@ -1009,16 +1535,32 @@ class _SortedSide:
         #: tiered merge is deferred until the arrangement is read
         self._pending: list[tuple] = []
         self._pending_rows = 0
+        #: spilled cold runs, oldest first: [jks_sorted, csum, handle] —
+        #: payload (row_keys, cols, counts) lives in the spill store
+        self._spilled: list[list] = []
+        from . import spill as _spill
+
+        self._budget = _spill.get_budget()
+        if self._budget is not None:
+            self._budget.register(self)
 
     def __getstate__(self) -> dict:
-        # the memos must not ride into operator snapshots (they pin query
-        # arrays and are identity-keyed — meaningless after unpickling)
+        # the memo must not ride into operator snapshots (it pins query
+        # arrays and is identity-keyed — meaningless after unpickling);
+        # spilled runs MATERIALIZE into the snapshot — the scratch spill
+        # dir is a cache, never part of durable or resharded state
         self._flush_pending()  # snapshots see the arranged representation
         d = dict(self.__dict__)
         d.pop("_range_cache", None)
         d.pop("_jk_hash_idx", None)
         d.pop("_pending", None)
         d.pop("_pending_rows", None)
+        d.pop("_budget", None)
+        spilled = d.pop("_spilled", None)
+        if spilled:
+            d["_runs"] = [self._load_spilled(rec) for rec in spilled] + list(
+                d["_runs"]
+            )
         return d
 
     def __setstate__(self, d: dict) -> None:
@@ -1027,9 +1569,95 @@ class _SortedSide:
         self._jk_hash_idx = {}
         self._pending = []
         self._pending_rows = 0
+        self._spilled = []
+        from . import spill as _spill
+
+        self._budget = _spill.get_budget()
+        if self._budget is not None:
+            self._budget.register(self)
+
+    def _snapshot_skeleton(self) -> dict:
+        """The resident-only pickle dict (spilled payloads EXCLUDED) —
+        the streaming-snapshot head Join.snapshot_state_parts yields
+        before streaming each spilled run's payload individually."""
+        self._flush_pending()
+        d = dict(self.__dict__)
+        d.pop("_range_cache", None)
+        d.pop("_jk_hash_idx", None)
+        d.pop("_pending", None)
+        d.pop("_pending_rows", None)
+        d.pop("_budget", None)
+        d.pop("_spilled", None)
+        d["_runs"] = list(self._runs)
+        return d
 
     def __len__(self) -> int:
-        return sum(len(r[0]) for r in self._runs) + self._pending_rows
+        return (
+            sum(len(r[0]) for r in self._runs)
+            + sum(len(rec[0]) for rec in self._spilled)
+            + getattr(self, "_pending_rows", 0)
+        )
+
+    # -- spill tier (engine/spill.py spillable protocol) -----------------
+
+    @staticmethod
+    def _col_bytes(col) -> int:
+        arr = np.asarray(col)
+        if arr.dtype == object:
+            # pointer + a modest boxed-object estimate per cell
+            return len(arr) * 64
+        return arr.nbytes
+
+    def _payload_bytes(self, run: list) -> int:
+        # run[0] (jks) and run[4] (csum) stay resident after a spill, so
+        # only keys + value columns + counts count as spillable
+        return (
+            run[1].nbytes
+            + run[3].nbytes
+            + sum(self._col_bytes(c) for c in run[2])
+        )
+
+    def spillable_bytes(self) -> int:
+        self._flush_pending()  # spill decisions see arranged runs
+        return sum(self._payload_bytes(r) for r in self._runs)
+
+    def spilled_bytes(self) -> int:
+        return sum(rec[2]["bytes"] for rec in self._spilled)
+
+    def spill(self, want_bytes: int) -> int:
+        """Shed the oldest resident runs' payloads to the spill store
+        until ~want_bytes moved. A failed blob write propagates with the
+        run still resident (the budget logs and keeps going)."""
+        if self._budget is None:
+            return 0
+        self._flush_pending()  # only arranged runs spill
+        store = self._budget.spill_store()
+        freed = 0
+        while self._runs and freed < want_bytes:
+            run = self._runs[0]
+            nbytes = self._payload_bytes(run)
+            handle = store.put_blob("join/run", (run[1], run[2], run[3]))
+            self._runs.pop(0)
+            self._spilled.append([run[0], run[4], handle])
+            self._range_cache.clear()
+            freed += nbytes
+        return freed
+
+    def _load_spilled(self, rec: list) -> list:
+        keys, cols, counts = self._budget.spill_store().get_blob(rec[2])
+        return [rec[0], keys, cols, counts, rec[1]]
+
+    def _unspill_all(self) -> None:
+        """Materialize every spilled run back in front of the resident
+        list (compaction needs the whole arrangement)."""
+        if not self._spilled:
+            return
+        store = self._budget.spill_store()
+        loaded = [self._load_spilled(rec) for rec in self._spilled]
+        for rec in self._spilled:
+            store.drop_blob(rec[2])
+        self._spilled = []
+        self._runs[:0] = loaded
 
     @staticmethod
     def _make_run(jks, keys, cols, counts) -> list:
@@ -1107,6 +1735,7 @@ class _SortedSide:
 
         if (
             fusion_enabled()
+            and self._budget is None
             # only batches big enough that the deferred sort pays (tiny
             # batches keep the original eager layout, which unit tests
             # of the physical run structure observe) — but once a
@@ -1122,6 +1751,8 @@ class _SortedSide:
             # at all; an always-probed side flushes one batch per tick,
             # exactly the eager schedule. Bounded so a never-read side
             # cannot defer an unbounded compaction to snapshot time.
+            # Eager under a state memory budget: pending raw batches
+            # would dodge the spill tier's accounting.
             self._pending.append((
                 jks, keys,
                 [np.asarray(c) for c in cols],
@@ -1207,6 +1838,7 @@ class _SortedSide:
         from .delta import _concat_cols
 
         self._flush_pending()
+        self._unspill_all()
         if not self._runs:
             return
         jks = np.concatenate([r[0] for r in self._runs])
@@ -1232,8 +1864,23 @@ class _SortedSide:
 
     def probe(self, qjks: np.ndarray):
         """Yield (q_idx, row_keys, col_arrays, counts) for every state row
-        matching each query jk, per run — the vectorized pair enumeration."""
+        matching each query jk, per run — the vectorized pair enumeration.
+        Spilled runs (oldest, probed first to keep run order) decide the
+        match from their RESIDENT jk array and load the payload from disk
+        only on an actual hit — the working set stays in memory."""
         self._flush_pending()
+        for rec in self._spilled:
+            lo, hi = self._ranges(rec, qjks)
+            m = hi - lo
+            total = int(m.sum())
+            if not total:
+                continue
+            _jks_s, keys, cols, counts, _csum = self._load_spilled(rec)
+            q_idx = np.repeat(np.arange(len(qjks)), m)
+            side_idx = np.repeat(lo, m) + (
+                np.arange(total) - np.repeat(np.cumsum(m) - m, m)
+            )
+            yield q_idx, keys[side_idx], [c[side_idx] for c in cols], counts[side_idx]
         for run in self._runs:
             _jks_s, keys, cols, counts, _csum = run
             lo, hi = self._ranges(run, qjks)
@@ -1250,9 +1897,15 @@ class _SortedSide:
     def totals(self, qjks: np.ndarray) -> np.ndarray:
         """Total row multiplicity per query jk (the match-count vector the
         pad bookkeeping needs) — memoized searchsorted over a per-run
-        prefix sum (shared with ``probe`` on the same query array)."""
+        prefix sum (shared with ``probe`` on the same query array). Pure
+        in-memory even for spilled runs: their jks + prefix sums never
+        leave RAM."""
         self._flush_pending()
         out = np.zeros(len(qjks), dtype=np.int64)
+        for rec in self._spilled:
+            lo, hi = self._ranges(rec, qjks)
+            csum = rec[1]
+            out += csum[hi] - csum[lo]
         for run in self._runs:
             lo, hi = self._ranges(run, qjks)
             csum = run[4]
@@ -1396,7 +2049,8 @@ class Join(Node):
     def snapshot_state(self) -> dict:
         # deferred (fusion-lane) arrangement batches must be arranged
         # before any state consumer walks _runs directly — pickling
-        # flushes via __getstate__, but tests may read the live object
+        # flushes via __getstate__, but split_state/unit tests may read
+        # the live object
         for side in (getattr(self, "_cleft", None), getattr(self, "_cright", None)):
             if side is not None:
                 side._flush_pending()
@@ -1404,21 +2058,56 @@ class Join(Node):
 
     # -- streaming snapshots (persistence/snapshots.py write_parts) -------
     #
-    # The reference's parts layout: a head with the resident state and the
-    # count of spilled runs a side streams after it. The port has no spill
-    # tier, so every side is resident and the head is the only part.
+    # A sorted-merge arrangement under the memory budget holds most of
+    # its payload in spilled runs; pickling it (``__getstate__``)
+    # materializes every run resident. The parts protocol instead streams
+    # the resident skeleton first and each spilled run's payload one at a
+    # time — commit-time peak RSS stays bounded by one run + one chunk.
 
     def snapshot_state_parts(self):
-        yield {"base": self.snapshot_state(), "sides": {}}
+        base: dict = {}
+        sides: dict[str, _SortedSide] = {}
+        for f in self.STATE_FIELDS:
+            if not hasattr(self, f):
+                continue
+            v = getattr(self, f)
+            if (
+                f in ("_cleft", "_cright")
+                and isinstance(v, _SortedSide)
+                and v._spilled
+            ):
+                sides[f] = v
+            else:
+                base[f] = v
+        yield {
+            "base": base,
+            "sides": {f: len(s._spilled) for f, s in sides.items()},
+        }
+        for f in sorted(sides):
+            side = sides[f]
+            yield side._snapshot_skeleton()
+            store = side._budget.spill_store()
+            for rec in side._spilled:
+                # (sorted jks, count prefix-sum, payload) — ONE spilled
+                # run resident at a time
+                yield (rec[0], rec[1], store.get_blob(rec[2]))
 
     @classmethod
     def state_from_parts(cls, parts) -> dict:
         head = next(parts)
-        if head["sides"]:
-            raise ValueError(
-                "Join snapshot has spilled runs; the port has no spill tier"
-            )
-        return dict(head["base"])
+        state = dict(head["base"])
+        for f in sorted(head["sides"]):
+            skel = next(parts)
+            runs = []
+            for _ in range(head["sides"][f]):
+                jks, csum, payload = next(parts)
+                keys, cols, counts = payload
+                runs.append([jks, keys, cols, counts, csum])
+            side = _SortedSide.__new__(_SortedSide)
+            skel["_runs"] = runs + list(skel["_runs"])
+            side.__setstate__(skel)
+            state[f] = side
+        return state
 
     # -- elastic rescale (rescale/resharder.py) ---------------------------
     #
@@ -1427,6 +2116,110 @@ class Join(Node):
     # their destination is the shard of the jk their row lives under — a
     # rk→jk map rebuilt from the arrangements decides, falling back to the
     # row key's own shard for entries whose row is no longer arranged.
+
+    @classmethod
+    def _row_jk_map(cls, state: dict) -> dict[int, int]:
+        out: dict[int, int] = {}
+        for f in ("_cleft", "_cright"):
+            side = state.get(f)
+            if side is not None:
+                for run in side._runs:
+                    for jk, rk in zip(run[0].tolist(), run[1].tolist()):
+                        out.setdefault(int(rk), int(jk))
+        for f in ("_left", "_right"):
+            idx = state.get(f)
+            if idx is not None:
+                for jk, grp in idx._index.items():
+                    for rk in grp:
+                        out.setdefault(int(rk), int(jk))
+        return out
+
+    @staticmethod
+    def _split_rk_dict(d: dict, rk2jk: dict[int, int], key_mask) -> dict:
+        if not d:
+            return {}
+        route = np.fromiter(
+            (rk2jk.get(int(k), int(k)) & 0xFFFFFFFFFFFFFFFF for k in d),
+            dtype=np.uint64, count=len(d),
+        )
+        keep = key_mask(route)
+        # the reference's comprehension reads an unbound ``v`` here (a NameError on any
+        # non-empty pad ledger); the port keeps each entry's own value
+        return {k: d[k] for k, m in zip(d, keep.tolist()) if m}
+
+    #: memoization slot for the rk→jk map: the resharder calls split_state
+    #: once per destination on the SAME piece, and the map depends only on
+    #: the piece — rebuilding the O(rows) scan per destination would make
+    #: a rescale O(M × rows) per source worker
+    _RK2JK_CACHE = "__rescale_rk2jk__"
+
+    @classmethod
+    def split_state(cls, state: dict, key_mask) -> dict:
+        out: dict = {}
+        rk2jk = state.get(cls._RK2JK_CACHE)
+        if rk2jk is None:
+            rk2jk = cls._row_jk_map(state)
+            state[cls._RK2JK_CACHE] = rk2jk
+        for f, v in state.items():
+            if f == cls._RK2JK_CACHE:
+                continue
+            if f in ("_cleft", "_cright"):
+                side = _SortedSide(v._n_cols)
+                for run in v._runs:
+                    keep = key_mask(run[0])
+                    if keep.any():
+                        side._runs.append(_SortedSide._make_run(
+                            run[0][keep], run[1][keep],
+                            [np.asarray(c)[keep] for c in run[2]],
+                            run[3][keep],
+                        ))
+                out[f] = side
+            elif f in ("_left", "_right"):
+                idx = MultiIndex(v.columns)
+                jks = list(v._index)
+                if jks:
+                    arr = np.fromiter(
+                        (int(j) & 0xFFFFFFFFFFFFFFFF for j in jks),
+                        dtype=np.uint64, count=len(jks),
+                    )
+                    keep = key_mask(arr)
+                    idx._index = {
+                        j: v._index[j] for j, m in zip(jks, keep.tolist()) if m
+                    }
+                out[f] = idx
+            else:  # _lpad / _rpad / _idstate — row-keyed ledgers
+                out[f] = cls._split_rk_dict(v, rk2jk, key_mask)
+        return out
+
+    @classmethod
+    def merge_states(cls, states: list[dict]) -> dict:
+        out: dict = {}
+        for f in states[0]:
+            vals = [s[f] for s in states]
+            if f in ("_cleft", "_cright"):
+                side = _SortedSide(vals[0]._n_cols)
+                for v in vals:
+                    side._runs.extend(v._runs)
+                if len(side._runs) > _SortedSide.MAX_RUNS:
+                    side._compact()
+                out[f] = side
+            elif f in ("_left", "_right"):
+                idx = MultiIndex(vals[0].columns)
+                for v in vals:
+                    for jk, grp in v._index.items():
+                        if jk in idx._index:
+                            raise ValueError(
+                                f"Join.{f}: join key {jk:#x} present in two "
+                                "source workers' state"
+                            )
+                        idx._index[jk] = grp
+                out[f] = idx
+            else:
+                merged: dict = {}
+                for v in vals:
+                    merged.update(v)
+                out[f] = merged
+        return out
 
     def exchange_specs(self):
         # both sides route by join key -> matching rows co-locate
@@ -2155,6 +2948,55 @@ class Flatten(Node):
         )
 
 
+def _split_temporal_state(cls, state: dict, key_mask) -> dict:
+    """BufferUntil/ForgetAfter rescale split: their stores are keyed by
+    THRESHOLD (an event-time value, not a routing key) with row entries
+    inside — split the entry lists by each entry's row key, keep the
+    per-worker watermark as-is (it replicates; merge takes the max)."""
+    out: dict = {}
+    for f, store in state.items():
+        if f == "_watermark":
+            out[f] = store
+            continue
+        nb: dict = {}
+        for thr, entries in store.items():
+            if not entries:
+                continue
+            keys = np.fromiter(
+                (int(e[0]) & 0xFFFFFFFFFFFFFFFF for e in entries),
+                dtype=np.uint64, count=len(entries),
+            )
+            keep = key_mask(keys)
+            kept = [e for e, m in zip(entries, keep.tolist()) if m]
+            if kept:
+                nb[thr] = kept
+        out[f] = nb
+    return out
+
+
+def _merge_temporal_states(cls, states: list[dict]) -> dict:
+    out: dict = {}
+    for f in states[0]:
+        vals = [s[f] for s in states]
+        if f == "_watermark":
+            # the MIN of the per-worker watermarks (None = least knowledge
+            # wins): every buffered entry satisfies thr > its own worker's
+            # watermark, so min preserves the invariant — a max would
+            # strand entries below it, which only release on a FURTHER
+            # advance (never, on a plateaued stream). Understating the
+            # watermark merely delays releases/retractions until the next
+            # data-driven advance, which is within the per-shard-view
+            # semantics the live operator already has.
+            out[f] = None if any(v is None for v in vals) else min(vals)
+            continue
+        merged: dict = {}
+        for v in vals:
+            for thr, entries in v.items():
+                merged.setdefault(thr, []).extend(entries)
+        out[f] = merged
+    return out
+
+
 def _pop_due(store: dict, watermark, strict: bool = False) -> list:
     """Pop all (key, row, diff) entries whose threshold <= watermark
     (``strict``: < watermark). Thresholds may be ints, floats or
@@ -2221,6 +3063,9 @@ class BufferUntil(Node):
     exactly-once window outputs."""
 
     STATE_FIELDS = ("_buffer", "_watermark")
+
+    split_state = classmethod(_split_temporal_state)
+    merge_states = classmethod(_merge_temporal_states)
 
     def __init__(self, inp: Node, threshold_col: str, watermark_col: str | None = None):
         super().__init__([inp], inp.column_names)
@@ -2300,6 +3145,9 @@ class ForgetAfter(Node):
     watermark BEFORE the arriving batch — a row never makes itself late."""
 
     STATE_FIELDS = ("_live", "_watermark")
+
+    split_state = classmethod(_split_temporal_state)
+    merge_states = classmethod(_merge_temporal_states)
 
     def __init__(
         self,
@@ -2499,6 +3347,8 @@ class GradualBroadcast(Node):
 
     STATE_FIELDS = ("_keys", "_fracs", "_thr")
 
+    RESHARD = "pinned"  # single-owner composite (gathered to worker 0)
+
     def __init__(self, main: Node, thr: Node, cols: tuple[str, str, str]):
         super().__init__([main, thr], ["apx_value"])
         self._cols = cols  # (lower, value, upper) column names on thr input
@@ -2618,6 +3468,8 @@ class Capture(Node):
     # debug update log — snapshotting it would make every checkpoint
     # O(history), exactly what operator snapshots exist to avoid
     STATE_FIELDS = ("state",)
+
+    RESHARD = "pinned"  # gathered to worker 0; the full table lives there
 
     def exchange_specs(self):
         return [("gather",)]

@@ -6,7 +6,12 @@ Copy of ``pathway_tpu/internals/config.py`` with the knobs the port's runner
 reads: the worker layout (``PATHWAY_THREADS``, ``PATHWAY_PROCESSES``) and
 ``PATHWAY_MESH_EXCHANGE``, read as the reference reads them, and the readers
 (``_env_bool``, ``_env_int``, ``_env_float``) that the serve plane's knobs go
-through (``PATHWAY_ELASTIC`` and the sink knobs among them). The replay
+through (``PATHWAY_ELASTIC``, ``PATHWAY_RESCALE_WAIT_S`` and the sink knobs
+among them). The spill tier reads ``PATHWAY_STATE_MEMORY_BUDGET_MB`` and
+``PATHWAY_STATE_SPILL_DIR`` (``engine/spill.py``), the key registry
+``PATHWAY_KEY_REGISTRY_CAP``, ``PATHWAY_KEY_REGISTRY_OVERFLOW`` and
+``PATHWAY_KEY_REGISTRY_SPILL_DIR`` (``engine/keys.py``), where and as the
+reference reads them. The replay
 storage (the CLI's record/replay), fault plans, supervision, monitoring and the
 cluster address book are left out with the runner branches that use them;
 persistence takes its settings from ``pw.persistence.Config``.

@@ -7,7 +7,8 @@ backends. The backend is a flat key → bytes store; all snapshot/metadata
 layout policy lives above it (snapshots.py), exactly as in the reference.
 
 Copy of ``pathway_tpu/persistence/backends.py``. ``S3Backend`` imports
-``boto3`` only when no client is injected.
+``boto3`` only when no client is injected. ``CountingBackend`` is the port's:
+the bytes a manager's commits put, and a rescale's bytes read and written.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ __all__ = [
     "FilesystemBackend",
     "S3Backend",
     "PrefixBackend",
+    "CountingBackend",
     "open_backend",
 ]
 
@@ -199,6 +201,40 @@ class PrefixBackend(PersistenceBackend):
 
     def size_of(self, key: str) -> int:
         return self._inner.size_of(self._prefix + key)
+
+    def close(self) -> None:
+        self._inner.close()
+
+
+class CountingBackend(PersistenceBackend):
+    """A view of a backend that counts the bytes read (``get_bytes``) and written
+    (``put_bytes``) through it."""
+
+    def __init__(self, inner: PersistenceBackend):
+        self._inner = inner
+        self.get_bytes = 0
+        self.put_bytes = 0
+
+    def describe(self) -> str:
+        return self._inner.describe()
+
+    def get_value(self, key: str) -> bytes:
+        value = self._inner.get_value(key)
+        self.get_bytes += len(value)
+        return value
+
+    def put_value(self, key: str, value: bytes) -> None:
+        self._inner.put_value(key, value)
+        self.put_bytes += len(value)
+
+    def list_keys(self) -> list[str]:
+        return self._inner.list_keys()
+
+    def remove_key(self, key: str) -> None:
+        self._inner.remove_key(key)
+
+    def size_of(self, key: str) -> int:
+        return self._inner.size_of(key)
 
     def close(self) -> None:
         self._inner.close()

@@ -8,7 +8,7 @@ Worker namespaces are
   (byte-compatible with pre-rescale layouts);
 - epoch E > 0: ``epoch-{E}/worker-{i}/`` (``epoch-{E}/`` for N == 1).
 
-Epoch versioning is what makes ``pathway-tpu rescale`` atomic: the
+Epoch versioning is what makes a rescale atomic: the
 resharder writes a COMPLETE new layout under the next epoch's namespaces
 (fresh keys — the old layout is never touched), then flips the marker in
 one ``put_value`` (atomic-by-rename on the filesystem backend). A crash
@@ -16,9 +16,8 @@ at any earlier point leaves the old marker pointing at the old, intact
 layout; stale staging/epoch keys are garbage collected by the next
 successful rescale.
 
-Copy of ``pathway_tpu/persistence/layout.py``. The port has no resharder
-(``rescale/`` is not ported), so it only ever writes epoch 0 itself; it reads
-any epoch a marker names.
+Copy of ``pathway_tpu/persistence/layout.py``; the port's resharder is
+``pathway_tpu_torch/rescale/``.
 """
 
 from __future__ import annotations

@@ -21,13 +21,13 @@ operator snapshot machinery (``src/persistence/operator_snapshot.rs``):
 Sharded runs give each worker its own ``worker-{id}/`` namespace in the
 shared backend (``PrefixBackend``); a root-level ``cluster`` marker pins
 the worker count and layout epoch (see ``layout.py``). A worker-count
-mismatch against real state is refused.
+mismatch against real state is refused, unless ``PATHWAY_ELASTIC=1``: then
+worker 0 reshards the store in process (``rescale/resharder.py``) and its
+peers wait up to ``PATHWAY_RESCALE_WAIT_S`` for the new marker.
 
 Copy of ``pathway_tpu/persistence/manager.py``. Left out: the chaos wrap of
 the backend, the graph's fingerprint manifest (advisory metadata for the
-upgrade planner), the CLI's record and replay modes, and elastic rescale:
-``PATHWAY_ELASTIC=1`` against a mismatched layout raises
-``NotImplementedError`` (ROADMAP.md Queue 1 item 5(e), rescale).
+upgrade planner) and the CLI's record and replay modes.
 """
 
 from __future__ import annotations
@@ -39,7 +39,7 @@ from typing import Any, Iterator
 
 from ..engine.delta import Delta
 from . import layout as _layout
-from .backends import PersistenceBackend, PrefixBackend, open_backend
+from .backends import CountingBackend, PersistenceBackend, PrefixBackend, open_backend
 from .snapshots import (
     MetadataAccessor,
     OperatorSnapshots,
@@ -56,37 +56,6 @@ KEEP_OP_VERSIONS = 2
 #: commits kept in ``PersistenceManager.commit_log``
 COMMIT_LOG_LEN = 256
 
-class _CountingBackend(PersistenceBackend):
-    """A worker's view of the store that counts the bytes put through it
-    (each commit's ``bytes`` in ``PersistenceManager.commit_log``)."""
-
-    def __init__(self, inner: PersistenceBackend):
-        self._inner = inner
-        self.put_bytes = 0
-
-    def describe(self) -> str:
-        return self._inner.describe()
-
-    def get_value(self, key: str) -> bytes:
-        return self._inner.get_value(key)
-
-    def put_value(self, key: str, value: bytes) -> None:
-        self._inner.put_value(key, value)
-        self.put_bytes += len(value)
-
-    def list_keys(self) -> list[str]:
-        return self._inner.list_keys()
-
-    def remove_key(self, key: str) -> None:
-        self._inner.remove_key(key)
-
-    def size_of(self, key: str) -> int:
-        return self._inner.size_of(key)
-
-    def close(self) -> None:
-        self._inner.close()
-
-
 class PersistenceManager:
     def __init__(self, config: Any, worker_id: int = 0, n_workers: int = 1):
         self.config = config
@@ -96,7 +65,7 @@ class PersistenceManager:
         self._root = root
         self.epoch = self._resolve_layout(root, n_workers, worker_id)
         ns = _layout.worker_namespace(self.epoch, n_workers, worker_id)
-        self.backend: PersistenceBackend = _CountingBackend(
+        self.backend: CountingBackend = CountingBackend(
             PrefixBackend(root, ns) if ns else root
         )
         self.snapshot_interval_s = (config.snapshot_interval_ms or 0) / 1000.0
@@ -165,7 +134,9 @@ class PersistenceManager:
     ) -> int:
         """Reconcile this run's worker count with the persisted layout
         marker; returns the layout epoch to mount. A mismatch against real
-        state is refused."""
+        state either triggers an in-process rescale (elastic mode, worker
+        0), waits for worker 0's rescale to promote (elastic mode, other
+        workers), or refuses."""
         marker = _layout.read_marker(root)
         if marker is None:
             _layout.write_marker(root, n_workers, 0)
@@ -181,14 +152,31 @@ class PersistenceManager:
         if not _layout.has_layout_meta(root, epoch, cur_n):
             _layout.write_marker(root, n_workers, epoch)
             return epoch
-        from ..internals.config import _env_bool
+        from ..internals.config import _env_bool, _env_float
 
         if _env_bool("PATHWAY_ELASTIC"):
-            raise NotImplementedError(
-                f"PATHWAY_ELASTIC=1: persisted state at {root.describe()} was "
-                f"written by {cur_n} worker(s) and this run has {n_workers}; "
-                "elastic rescale is not ported (ROADMAP.md Queue 1 item "
-                "5(e), rescale)"
+            if worker_id == 0:
+                # elastic boot: worker 0 repartitions the persisted state
+                # to this run's worker count before mounting it
+                from ..rescale import rescale as _rescale
+
+                _rescale(root, n_workers)
+                marker = _layout.read_marker(root)
+                assert marker is not None and marker[0] == n_workers
+                return marker[1]
+            # peers wait for worker 0's rescale to promote the new marker
+            deadline = _time.monotonic() + _env_float(
+                "PATHWAY_RESCALE_WAIT_S", 120.0
+            )
+            while _time.monotonic() < deadline:
+                marker = _layout.read_marker(root)
+                if marker is not None and marker[0] == n_workers:
+                    return marker[1]
+                _time.sleep(0.1)
+            raise RuntimeError(
+                f"elastic rescale to {n_workers} workers did not complete "
+                f"within PATHWAY_RESCALE_WAIT_S (worker {worker_id} waited "
+                "for worker 0's resharder to promote the new layout)"
             )
         where = root.describe()
         raise RuntimeError(
@@ -196,7 +184,9 @@ class PersistenceManager:
             f"{cur_n} worker(s) but this run has "
             f"{n_workers}: operator state is hash-sharded by worker "
             "count and cannot be resharded on recovery — restart "
-            "with the original worker count, or clear the persistence "
+            "with the original worker count, run "
+            f"`pathway_tpu_torch.rescale.rescale(backend, {n_workers})` "
+            "(or boot with PATHWAY_ELASTIC=1), or clear the persistence "
             "backend"
         )
 

@@ -19,9 +19,10 @@ Layout (keys in the backend):
 Copy of ``pathway_tpu/persistence/snapshots.py``. Every blob is read back
 through :func:`load_blob`, whose unpickler refuses classes of the JAX package
 (``pathway_tpu.*``): a store that package wrote raises ``PersistenceFormatError``
-naming the store's location instead of importing the reference. The operators'
-``snapshot_state_parts`` streams come in one part each (the port has no spill
-tier), and ``write_parts``/``read_parts`` frame them as the reference does.
+naming the store's location instead of importing the reference, also when the
+resharder reads it. The operators' ``snapshot_state_parts`` streams (a resident
+head, then each spilled segment loaded one at a time) are framed by
+``write_parts``/``read_parts`` as the reference frames them.
 """
 
 from __future__ import annotations
@@ -283,12 +284,17 @@ class OperatorSnapshots:
         )
         return load_blob(blob, self._backend, self._key(rank, at, 0))
 
-    # -- streaming parts format -------------------------------------------
+    # -- streaming parts format (spill-aware operators) -------------------
     #
-    # ``write_parts`` consumes an ITERATOR of picklable parts, framing each
-    # part with an 8-byte length prefix and flushing chunks as the buffer
-    # passes CHUNK_BYTES: peak memory = one part + one chunk. Descriptors
-    # carry ``"fmt": "parts"``; the monolithic format stays readable.
+    # An operator whose state is partially spilled to disk must not
+    # materialize every spilled segment resident just to snapshot it —
+    # commit-time peak RSS would be bounded by its TOTAL state, not the
+    # memory budget. ``write_parts`` consumes an ITERATOR of picklable
+    # parts (the operator loads one spilled segment at a time), framing
+    # each part with an 8-byte length prefix and flushing chunks as the
+    # buffer passes CHUNK_BYTES: peak memory = one part + one chunk.
+    # Descriptors carry ``"fmt": "parts"``; the monolithic format stays
+    # readable and is what the resharder writes.
 
     def write_parts(self, rank: int, at: int, parts: Any) -> int:
         import struct
@@ -360,7 +366,8 @@ class OperatorSnapshots:
 def read_op_state(ops: "OperatorSnapshots", rank: int, desc: dict,
                   node_cls: Any) -> Any:
     """Materialized operator state from a snapshot descriptor, whichever
-    format it carries — the one read path the manager and recovery share."""
+    format it carries — the one read path the manager, the resharder and
+    recovery all share."""
     if desc.get("fmt") == "parts":
         return node_cls.state_from_parts(
             ops.read_parts(rank, int(desc["at"]), int(desc["chunks"]))

@@ -1,7 +1,8 @@
 """Phase 14 of ``chip_smoke.py`` (persistence and recovery) alone on one card, at a chosen number
-of index rows, beside a clean fill of the same index in the same process.
+of index rows, beside a clean fill of the same index in the same process; with ``--rescale``,
+phase 15 (elastic rescale and the spill tier) after it, over phase 14's store.
 
-    python scripts/torch_persistence_phase.py [--rows N]
+    python scripts/torch_persistence_phase.py [--rows N] [--rescale] [--spill-rows N]
 
 ``--rows`` (default 1,048,576, phase 11's full index) sets how many of phase 11's rows (its
 16,384 chunk texts, then seeded unit vectors) the index takes. The script builds the kernels and
@@ -13,7 +14,11 @@ interval and standing beside the restored run's refill, and the first leg killed
 covers three quarters of the rows. It logs what the phase logs and prints the card's name and
 power limit, then one JSON line: the clean fill's seconds and rate, each commit's time, bytes and
 phase split, the store's bytes at the kill, the restore's seconds, the rows replayed, the
-refill's seconds, the first query tick and the launches.
+refill's seconds, the first query tick and the launches. ``--rescale`` hands phase 14's index
+store to ``chip_smoke.py::run_rescale_spill`` (its spilled groupby-join over ``--spill-rows``
+rows and as many groups, default 1,048,576, the 4-worker run over half of them), which logs what
+phase 15 logs; the JSON line then carries phase 15's rescale report, restore, spill runs and
+launches under ``"rescale"``.
 """
 
 from __future__ import annotations
@@ -32,6 +37,8 @@ ROOT = Path(__file__).resolve().parents[1]
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rows", type=int, default=1 << 20)
+    ap.add_argument("--rescale", action="store_true")
+    ap.add_argument("--spill-rows", type=int, default=1 << 20)
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
     os.environ.setdefault("PATHWAY_KEY_REGISTRY_CAP", str(1 << 25))
@@ -81,10 +88,21 @@ def main() -> int:
     t0 = time.perf_counter()
     res = cs.run_persistence(device, data=(texts, vecs, queries), want=want,
                              phase11_fill_rows_per_s=args.rows / fill_s, n_rows=args.rows,
-                             kill_rows=args.rows * 3 // 4)
+                             kill_rows=args.rows * 3 // 4, hand_over=args.rescale)
+    phase14_s = time.perf_counter() - t0
+    rescaled = None
+    if args.rescale:
+        t1 = time.perf_counter()
+        r = cs.run_rescale_spill(device, store=res.pop("store"), interval_ms=res["interval_ms"],
+                                 data=(texts, vecs, queries), want=want,
+                                 spill_rows=args.spill_rows, spill_groups=args.spill_rows,
+                                 spill_rows_4=args.spill_rows // 2)
+        rescaled = {"phase_s": time.perf_counter() - t1, "index": r.get("index"),
+                    "files": r["files"], "exchange_widths": r["exchange_widths"],
+                    "spill": r["spill"], "launches": r["launches"]}
     a = res["index"]
     print(json.dumps({
-        "rows": args.rows, "clean_fill_s": fill_s, "phase_s": time.perf_counter() - t0,
+        "rows": args.rows, "clean_fill_s": fill_s, "phase_s": phase14_s, "rescale": rescaled,
         "leg1_commits": a["leg1_commits"], "leg1_s": a["leg1_s"],
         "store_bytes_at_kill": a["store_bytes"], "recovery": a["recovery"],
         "leg2_commits": a["leg2_commits"], "refill_s": a["refill_s"], "leg2_s": a["leg2_s"],

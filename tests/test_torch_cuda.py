@@ -19,7 +19,8 @@ exchange exactly, its per-bucket counts included (the exchange moves bits), the 
 of only the arrived rows into pinned buffers equal to the host's, and the engine with its exchange
 on the card equals the engine on the host; the expression machine bit for bit against its plain version (float
 ``**`` within 2 ulp), and the Table API's ``pw.run(device="cuda")`` equal to numpy; a persisted
-index restored on the card answers bit for bit as a run that was not stopped.
+index restored on the card answers bit for bit as a run that was not stopped; a persisted groupby
+rescaled 2 -> 4 workers on the card ends at the host's table.
 """
 
 from __future__ import annotations
@@ -1458,6 +1459,57 @@ def test_persisted_data_index_restored_on_the_card(cuda, monkeypatch, tmp_path):
     assert restored_launches > 0
     assert sorted(restored) == list(range(q))
     assert restored == clean
+
+
+def test_persisted_groupby_rescaled_on_the_card(cuda, monkeypatch, tmp_path):
+    """A persisted groupby at 2 workers with the mesh exchange on ``cuda`` (half the feed, then
+    stopped), rescaled offline to 4 and run on over the whole feed: the rows summed over both
+    runs equal the same program's ``device="cpu"`` table over the same feed, and
+    ``bucket_exchange`` launches in the rescaled run."""
+    from collections import Counter
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.parallel import exchange
+    from pathway_tpu_torch.persistence import Backend, Config
+    from pathway_tpu_torch.persistence.backends import FilesystemBackend
+    from pathway_tpu_torch.rescale import rescale
+
+    rng = np.random.default_rng(41)
+    g = rng.integers(0, 5000, 40000).tolist()
+    v = rng.integers(-1000, 1000, 40000).tolist()
+
+    def run(upto: int, device: str, workers: int, cfg) -> Counter:
+        class Feed(pw.io.python.ConnectorSubject):
+            def run(self):
+                for s in range(0, upto, 4000):
+                    self.next_batch({"g": g[s:s + 4000], "v": v[s:s + 4000]})
+                    self.commit()
+
+        pw.G.clear()
+        t = pw.io.python.read(Feed(), schema=pw.schema_from_types(g=int, v=int),
+                              autocommit_duration_ms=None, name="feed")
+        res = t.groupby(pw.this.g).reduce(pw.this.g, n=pw.reducers.count(),
+                                          s=pw.reducers.sum(pw.this.v))
+        seen: Counter = Counter()
+        pw.io.subscribe(res, on_change=lambda key, row, time, is_addition: seen.update(
+            {(row["g"], row["n"], row["s"]): 1 if is_addition else -1}))
+        monkeypatch.setenv("PATHWAY_THREADS", str(workers))
+        monkeypatch.setenv("PATHWAY_MESH_EXCHANGE", "1" if workers > 1 else "0")
+        try:
+            pw.run(device=device, **({"persistence_config": cfg} if cfg else {}))
+        finally:
+            pw.G.clear()
+        return seen
+
+    store = str(tmp_path / "ps")
+    cfg = Config.simple_config(Backend.filesystem(store), snapshot_interval_ms=0)
+    seen = run(20000, "cuda", 2, cfg)
+    report = rescale(FilesystemBackend(store), 4, log=lambda msg: None)
+    assert (report["from"], report["to"], report["ranks"]) == (2, 4, 1)
+    before = exchange.bucket_exchange.launches
+    seen.update(run(40000, "cuda", 4, cfg))
+    assert exchange.bucket_exchange.launches > before
+    assert +seen == +run(40000, "cpu", 1, None)
 
 
 def test_document_store_server_on_the_card_launches_both_kernels(cuda, monkeypatch):

@@ -13,7 +13,7 @@ run through both packages (the port with ``device="cpu"``), which must give the 
   lines, and a resumed stream that re-reads neither a counted row nor a partial last line; the
   close flush pinned to the delivery boundary.
 - The cluster marker: a worker-count mismatch names the store's location, a crashed first boot is
-  adopted, ``PATHWAY_ELASTIC=1`` raises in the port (rescale is not ported).
+  adopted; the refusal names the port's ``rescale``, and ``PATHWAY_ELASTIC=1`` reshards in process.
 - The ack cursor and the commit protocol of ``DeliverySink`` and ``DeliveryManager``.
 
 Every operator-snapshot blob the port writes is checked to hold no tensor and no module
@@ -458,21 +458,29 @@ def test_cluster_marker_tolerates_crashed_first_boot(p, tmp_path):
 
 
 def test_elastic_rescale_is_not_ported(tmp_path, monkeypatch):
-    """The port refuses ``PATHWAY_ELASTIC=1`` against a mismatched layout and names the
-    roadmap item; without it, the reference's refusal."""
+    """The name is the earlier slice's, when ``PATHWAY_ELASTIC=1`` raised. Now: without it,
+    a mismatched layout is refused and the refusal names the port's ``rescale``; with it,
+    worker 0 reshards a whole store in process, and a store torn mid-first-commit still
+    refuses, as the reference's does."""
     from pathway_tpu_torch.persistence import Backend, Config, PersistenceManager
+    from pathway_tpu_torch.persistence import layout
     from pathway_tpu_torch.persistence.backends import FilesystemBackend
+    from pathway_tpu_torch.rescale import RescaleError
 
     path = str(tmp_path / "pstate")
     cfg = Config.simple_config(Backend.filesystem(path))
     PersistenceManager(cfg, worker_id=0, n_workers=2).close()
     FilesystemBackend(path).put_value("worker-0/meta/meta-00000000", b'{"last_time": 0}')
+    with pytest.raises(RuntimeError, match=r"pathway_tpu_torch\.rescale\.rescale\(backend, 3\)"):
+        PersistenceManager(cfg, worker_id=0, n_workers=3)
     monkeypatch.setenv("PATHWAY_ELASTIC", "1")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(RescaleError, match="torn mid-first-commit"):
         PersistenceManager(cfg, worker_id=0, n_workers=3)
-    monkeypatch.delenv("PATHWAY_ELASTIC")
-    with pytest.raises(RuntimeError, match="2 worker"):
-        PersistenceManager(cfg, worker_id=0, n_workers=3)
+    FilesystemBackend(path).put_value("worker-1/meta/meta-00000000", b'{"last_time": 0}')
+    m = PersistenceManager(cfg, worker_id=0, n_workers=3)
+    assert (m.n_workers, m.epoch) == (3, 1)
+    m.close()
+    assert layout.read_marker(FilesystemBackend(path)) == (3, 1)
 
 
 # -- the transactional delivery plane --------------------------------------------------------

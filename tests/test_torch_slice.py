@@ -162,7 +162,8 @@ def test_static_scan_finds_no_jax_or_pathway_tpu_import():
     assert {"parallel/frames.py", "io/columnar.py", "io/fs.py", "io/delivery.py", "io/null.py",
             "io/_object_scanner.py", "io/s3.py", "examples/rag_server/serve.py",
             "persistence/__init__.py", "persistence/backends.py", "persistence/layout.py",
-            "persistence/snapshots.py", "persistence/manager.py"} <= scanned
+            "persistence/snapshots.py", "persistence/manager.py", "rescale/__init__.py",
+            "rescale/resharder.py", "engine/spill.py"} <= scanned
     for path in files:
         src = path.read_text()
         assert not _IMPORT.findall(src), path
@@ -368,9 +369,39 @@ _BLOCKED_RUN = textwrap.dedent("""
     net = {}
     for g, n, _t, d in rows:
         net[(g, n)] = net.get((g, n), 0) + int(d)
-    assert {k for k, v in net.items() if v} == {(str(g), str(sum(1 for i in range(100)
-                                                               if i % 7 == g) * 6))
-                                                 for g in range(7)}, net
+    want = {(str(g), str(sum(1 for i in range(100) if i % 7 == g) * 6)) for g in range(7)}
+    assert {k for k, v in net.items() if v} == want, net
+
+    # elastic rescale and the spill tier: the store resharded 2 -> 1 offline, then the program
+    # once more at 1 worker under a state budget of about 1 KiB: the store holds every count,
+    # so nothing is re-counted and the csv nets to the same counts
+    from pathway_tpu_torch.engine import spill
+    from pathway_tpu_torch.persistence.backends import FilesystemBackend
+    from pathway_tpu_torch.rescale import rescale
+
+    report = rescale(FilesystemBackend(f"{work}/pstate"), 1, log=lambda msg: None)
+    assert (report["from"], report["to"], report["ranks"]) == (2, 1, 1), report
+    os.environ.update(PATHWAY_THREADS="1", PATHWAY_STATE_MEMORY_BUDGET_MB="0.001",
+                      PATHWAY_STATE_SPILL_DIR=f"{work}/spill")
+    spill._reset_for_tests()
+    pt.G.clear()
+    words = pt.io.python.read(Feed(), schema=pt.schema_from_types(a=int, g=int),
+                              autocommit_duration_ms=None, name="feed")
+    pt.io.csv.write(words.groupby(pt.this.g).reduce(pt.this.g, n=pt.reducers.count()),
+                    f"{work}/persisted.csv")
+    pt.run(device="cpu", persistence_config=cfg)
+    with open(f"{work}/persisted.csv") as f:
+        rows = [line.split(",") for line in f.read().splitlines()[1:]]
+    net = {}
+    for g, n, _t, d in rows:
+        net[(g, n)] = net.get((g, n), 0) + int(d)
+    assert {k for k, v in net.items() if v} == want, net
+    pt.G.clear()
+    big = pt.debug.table_from_rows(pt.schema_from_types(a=int), [(i,) for i in range(3000)])
+    [n] = pt.debug.table_to_pandas(big.groupby(pt.this.a).reduce(n=pt.reducers.count())
+                                   .reduce(n=pt.reducers.count()), device="cpu")["n"].tolist()
+    assert n == 3000, n
+    assert spill.get_budget().budget_bytes == 1048, spill.get_budget()
     loaded = sorted(
         m for m, mod in sys.modules.items() if mod is not None
         and (m.startswith("jax") or m == "pathway_tpu" or m.startswith("pathway_tpu."))
