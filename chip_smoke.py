@@ -1,7 +1,8 @@
 """Drive the PyTorch port's RAG ingest and retrieval path, its training step, its parallel paths, its
 dataflow engine, its Table API, its indexing stdlib, its RAG serve path over HTTP, its file
-connectors with the RAG example served from a directory, its persistence and recovery, and its
-elastic rescale and spill tier, on one NVIDIA card.
+connectors with the RAG example served from a directory, its persistence and recovery, its
+elastic rescale and spill tier, and its frontier-driven async plane with ``pw.iterate``, on one
+NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -70,7 +71,7 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    graph runner runs executors, over ``LocalComm`` and over ``MeshComm`` on the card (the record
    exchange's dense columns through the ``bucket_exchange`` kernel): the reference's streaming
    wordcount (500,000 rows, 997 words, commits of 10,000) at 1, 2 and 8 workers; a dense
-   groupby-and-join (2,097,152 rows over 65,536 groups in 32 commits of 65,536, joined to a
+   groupby-and-join (1,048,576 rows over 65,536 groups in 16 commits of 65,536, joined to a
    65,536-row dimension table) at 1 worker and at 8 with each comm; every multi-worker table equal
    to the 1-worker table exactly. The kernel (buckets, validity and per-bucket counts) against
    its plain version bitwise (n = 2, 4, 8, cap_in 8 to 65,536, w 4 to 16, rows without a
@@ -113,7 +114,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    engine holds every row), the query tick's host time (commit to the last answer's callback)
    and its idle share (a trace of the run's device activity, between two marker kernels launched
    at the commit and at the last answer) are logged. Then a ``HybridIndex`` of BM25 with the
-   brute-force index (reciprocal-rank fusion) over the first 4,096 chunks, the same queries, held
+   brute-force index (reciprocal-rank fusion) over the first 8,192 chunks (its fill embeds one
+   chunk at a time, so it is the phase's longest run), the same queries, held
    against ``HybridEngine.search`` called directly on the run's engine (untraced). The launch
    counts are zeroed just before each run and read just after.
 12. The RAG serve path over HTTP (``xpacks/llm``: ``DocumentStore``, ``DocumentStoreServer``;
@@ -199,7 +201,36 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    counters must show bytes spilled and loads; beside it the same graph at 1 worker with no
    budget in this process: rows/s, the bytes spilled and loaded and shed by store, the child's
    peak RSS (sampled). The store and the spill directory are deleted at the end.
-16. Each engine-path kernel's launches and summed device time per path, one JSON line with each
+16. The frontier-driven async plane and ``pw.iterate``. Phases 1-15 run no sharded streaming
+   graph over ``LocalComm`` (each sharded streaming run there uses the mesh exchange, which keeps
+   the BSP loop unless ``PATHWAY_ASYNC_EXEC=1``, or is a batch run), so none of them changes
+   loop; this phase runs the async loop and one ``PATHWAY_ASYNC_EXEC=0`` run beside each. (a)
+   The reference's skew lane (``bench.py:1261-1470``): 150,000 fast rows in batches of 5,000 over
+   64 words of worker 0's shard, 40 slow rows over 8 words of worker 1's, each through a blocking
+   25 ms UDF, at 2 workers over ``LocalComm`` through ``pw.run(device="cuda")``, in 3 fresh
+   processes async and 3 with ``PATHWAY_ASYNC_EXEC=0`` (``--async-leg``): the fast shard's rows/s
+   until its last output update, its drain and total seconds, worker 0's busy fraction from
+   ``Executor._idle_park_ns`` and ``EngineStats``' Exchange node times, the async/BSP ratio of
+   the best runs; both arms' counts held against numpy's. (b) The reference's uniform A/B
+   (``bench.py:2030-2085``): its wordcount, 500,000 rows in commits of 10,000 after a warm-up of
+   100,000, the best of 2, at 1 worker, 2 async and 2 BSP, a fresh process each: rows/s and both
+   efficiencies. (c) At 2 workers over ``LocalComm``, async: phase 9's RAG through
+   ``ExternalIndexNode`` over realtime sources (16,384 chunks in commits of 1,024, embedded on both
+   workers and gathered to the index on worker 0; 64 text queries, k=10, once the index holds
+   every chunk), every answer held against a direct search; and phase 10's Table API chain over
+   4,194,304 rows, its table against numpy's; each beside a BSP run of the same graph. The launch
+   counts must show ``masked_attention`` and ``knn_topk``, and ``expression_vm``. (d) Phase 14
+   (b)'s persisted file wordcount (300,000 rows in 10 files, transactional ``pw.io.csv.write``)
+   at 2 workers async: 5 files, a stop, all 10 after a restart; then on a new store a child
+   interpreter over 5 files, SIGKILLed once both workers finished a commit wave, 5 more files
+   and a restart. Each time the csv holds each count once. Logged per leg: ``waves_total``, the
+   wave duration's p50, ``WaveRecorder``'s stage split (sweep, inbox_dwell, frontier_wait,
+   settle, snapshot, release) and the holders and critical stages of the merged wave documents.
+   (e) ``pw.iterate``'s min-label propagation (connected components) over a seeded graph of
+   65,536 nodes and 262,144 undirected edges at 1 worker, the labels held
+   against ``scipy.sparse.csgraph.connected_components``; its rounds, seconds (within 120) and
+   ``expression_vm`` launches.
+17. Each engine-path kernel's launches and summed device time per path, one JSON line with each
    kernel's numbers, then the closing JSON line.
 
 It needs one CUDA card and exits non-zero, printing no result, without one. It imports nothing
@@ -1808,7 +1839,7 @@ def exchange_split(prof, stats: dict, seconds: float, label: str) -> None:
 
 
 def run_engine(device, *, wc_rows: int = 500_000, wc_commit: int = 10_000,
-               dense_rows: int = 1 << 21, groups: int = 1 << 16, dense_commit: int = 1 << 16,
+               dense_rows: int = 1 << 20, groups: int = 1 << 16, dense_commit: int = 1 << 16,
                workers: int = 8, rag_chunks: int = 16384, rag_rows: int = 1 << 20,
                rag_commit: int = 1024, rag_queries: int = 64, k: int = 10, cfg=None) -> dict:
     """The engine phase; sizes as the defaults say on the card (a CPU rehearsal passes small
@@ -2221,12 +2252,30 @@ def scoped_env(env: dict):
                 os.environ[k] = v
 
 
-def run_pipeline(device, cols: dict, commit: int, n_groups: int, workers: int, lifted: bool):
+@contextlib.contextmanager
+def scoped_async(value: str | None):
+    """``PATHWAY_ASYNC_EXEC`` set to ``value`` for the block, or unset (the default loop) when
+    ``value`` is None; the old value back after it."""
+    saved = os.environ.pop("PATHWAY_ASYNC_EXEC", None)
+    if value is not None:
+        os.environ["PATHWAY_ASYNC_EXEC"] = value
+    try:
+        yield
+    finally:
+        os.environ.pop("PATHWAY_ASYNC_EXEC", None)
+        if saved is not None:
+            os.environ["PATHWAY_ASYNC_EXEC"] = saved
+
+
+def run_pipeline(device, cols: dict, commit: int, n_groups: int, workers: int, lifted: bool,
+                 mesh: bool | None = None, async_exec: str | None = None):
     """``pw.run(device=...)`` of the phase's streaming pipeline: a ``ConnectorSubject`` that
     ``next_batch``es the columns in commits of ``commit`` rows, the chain, the groupby, and
     ``pw.io.subscribe(on_batch=...)``. Returns (final table group -> (sum, count), seconds of
     the run). Each commit is its own tick (``PATHWAY_INGEST_COALESCE_WINDOWS=0``), so every
-    gate sees the same batches in every run."""
+    gate sees the same batches in every run. Past 1 worker with the mesh exchange unless
+    ``mesh`` is False; ``async_exec`` sets ``PATHWAY_ASYNC_EXEC`` (unset: the default loop, async
+    over ``LocalComm`` and BSP over the mesh exchange)."""
     import pathway_tpu_torch as pw
 
     n = len(cols["a"])
@@ -2246,9 +2295,11 @@ def run_pipeline(device, cols: dict, commit: int, n_groups: int, workers: int, l
     pw.io.subscribe(res, on_batch=lambda tm, b: seen.append(
         (b.keys.copy(), b.data["g"].copy(), b.data["s"].copy(), b.data["c"].copy(),
          b.diffs.copy())))
-    env = {"PATHWAY_THREADS": str(workers), "PATHWAY_MESH_EXCHANGE": "1" if workers > 1 else "0",
+    if mesh is None:
+        mesh = workers > 1
+    env = {"PATHWAY_THREADS": str(workers), "PATHWAY_MESH_EXCHANGE": "1" if mesh else "0",
            "PATHWAY_INGEST_COALESCE_WINDOWS": "0", "PATHWAY_FUSION": "1"}
-    with scoped_env(env):
+    with scoped_env(env), scoped_async(async_exec):
         try:
             t0 = time.perf_counter()
             pw.run(device=device)
@@ -2531,10 +2582,12 @@ def check_answers(label: str, got: dict, want: dict) -> int:
 
 def run_indexing(device, *, n_chunks: int = 16384, n_rows: int = 1 << 20, n_rows_2: int = 1 << 18,
                  chunk_commit: int = 1024, vec_commit: int = 1 << 16, n_queries: int = 64,
-                 k: int = 10, cfg=None) -> dict:
+                 k: int = 10, hybrid_chunks: int = 8192, cfg=None) -> dict:
     """The phase; sizes as the defaults say on the card (a CPU rehearsal passes small ones):
-    ``n_rows`` at 1 worker, ``n_rows_2`` (at most ``n_rows``) at 2, the hybrid over the
-    ``n_chunks`` chunks. Returns each run's launch counts, rates and times."""
+    ``n_rows`` at 1 worker, ``n_rows_2`` (at most ``n_rows``) at 2, the hybrid over the first
+    ``hybrid_chunks`` of the ``n_chunks`` chunks (it embeds a chunk at a time: cut from 16,384 to
+    8,192 when phase 16 came, PERF.md section 4). Returns each run's launch counts, rates and
+    times."""
     import pathway_tpu_torch as pw
     from pathway_tpu_torch.models.embedder import Embedder
     from pathway_tpu_torch.ops.index_engines import BruteForceKnnEngine
@@ -2596,8 +2649,8 @@ def run_indexing(device, *, n_chunks: int = 16384, n_rows: int = 1 << 20, n_rows
     with counted("indexing_hybrid", result["launches"]):
         # untraced: the per-chunk embeds (about 100 kernels each) would make a trace of some
         # 1.6 million device events, minutes to read
-        run = run_index_pipeline(device, factory=factory, texts=texts, vecs=vecs[:0],
-                                 queries=queries, k=k, chunk_commit=chunk_commit,
+        run = run_index_pipeline(device, factory=factory, texts=texts[:hybrid_chunks],
+                                 vecs=vecs[:0], queries=queries, k=k, chunk_commit=chunk_commit,
                                  vec_commit=vec_commit, workers=1, trace=False)
     direct = run["engines"][0].search(queries, [k] * n_queries, [None] * n_queries)
     for q, rows in enumerate(direct):
@@ -2607,7 +2660,8 @@ def run_indexing(device, *, n_chunks: int = 16384, n_rows: int = 1 << 20, n_rows
             raise AssertionError("the hybrid's answer differs from HybridEngine.search")
     result["rates"]["indexing_hybrid"] = {k_: run[k_] for k_ in ("fill_rows_per_s", "query_ms",
                                                                  "idle_share", "seconds")}
-    log(f"pw.indexing hybrid (BM25 + brute force, RRF k=60): {n_chunks} chunks at 1 worker, "
+    log(f"pw.indexing hybrid (BM25 + brute force, RRF k=60): {len(texts[:hybrid_chunks])} "
+        f"chunks at 1 worker, "
         f"{run['fill_rows_per_s']:.1f} rows/s filled; {n_queries} answers equal to "
         f"HybridEngine.search; the query tick {run['query_ms']:.3f} ms, idle share "
         f"{fmt_share(run['idle_share'])}; launches {result['launches']['indexing_hybrid']} "
@@ -4168,6 +4222,659 @@ def run_rescale_spill(device, *, store: str | None, interval_ms: int = 1000, dat
     return result
 
 
+# -- phase 16: the frontier-driven async plane and pw.iterate -------------------------------------
+
+
+#: (a) the reference's skew lane (``bench.py:1261-1470``): fast rows in batches over 64 words of
+#: worker 0's shard, slow rows over 8 words of worker 1's, each through a blocking 25 ms UDF
+SKEW_FAST, SKEW_BATCH, SKEW_SLOW, SKEW_PAUSE_MS, SKEW_REPS = 150_000, 5_000, 40, 25, 3
+#: (b) the reference's uniform A/B (``bench.py:2030-2085``): its wordcount, a warm-up of 100,000
+#: rows, then the best of 2 runs of 500,000 in commits of 10,000, each arm in a fresh process
+UNIFORM_ROWS, UNIFORM_WARMUP, UNIFORM_BATCH = 500_000, 100_000, 10_000
+#: (e) min-label propagation over a seeded graph, at 1 worker, within ITERATE_BUDGET_S
+CC_NODES, CC_EDGES, ITERATE_BUDGET_S = 1 << 16, 1 << 18, 120.0
+
+
+def skew_words(workers: int = 2) -> tuple[list, list]:
+    """The skew lane's words, picked by shard as the reference's are: a word's row keys and its
+    groupby key both derive from the word at salt 0, so one ``shard_of`` probe pins its whole path
+    to one worker. 64 words of worker 0's shard, 8 of worker 1's."""
+    from pathway_tpu_torch.engine import keys as K
+
+    fast, slow, i = [], [], 0
+    while len(fast) < 64 or len(slow) < 8:
+        w = f"w{i}"
+        key = K.mix_columns([np.array([w], dtype=object)], 1, register=False)
+        if int(K.shard_of(key, workers)[0]) == 0:
+            if len(fast) < 64:
+                fast.append(w)
+        elif len(slow) < 8:
+            slow.append(w)
+        i += 1
+    return fast, slow
+
+
+def keep_counts(into: dict, b) -> None:
+    """A count table's newest count per word from one subscribed batch (counts only grow)."""
+    for w, c, d in zip(b.data["word"].tolist(), b.data["c"].tolist(), b.diffs.tolist()):
+        if d > 0:
+            into[w] = max(into.get(w, 0), int(c))
+
+
+def numpy_counts(words: list) -> dict:
+    u, c = np.unique(np.array(words, dtype=object).astype(str), return_counts=True)
+    return dict(zip(u.tolist(), c.tolist()))
+
+
+def skew_run(device, *, n_fast: int, batch: int, n_slow: int, pause_ms: float) -> dict:
+    """One run of the skew lane at 2 workers over ``LocalComm`` (the loop as the environment
+    selects it): the fast shard's rows/s until its last output update, its drain and the whole
+    run's seconds, and worker 0's busy fraction over the drain (1 - waiting / drain, waiting its
+    idle parks from ``Executor._idle_park_ns``, plus under BSP its time inside Exchange nodes,
+    which ``EngineStats`` times per node). Both count tables are held against numpy's."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.engine import executor as E
+
+    stats_init = E.EngineStats.__init__
+
+    def detailed(self):  # per-node times for the busy fraction; this process runs one lane
+        stats_init(self)
+        self.detailed = True
+
+    E.EngineStats.__init__ = detailed
+    fast_words, slow_words = skew_words()
+    fast_feed = [fast_words[j % len(fast_words)] for j in range(n_fast)]
+    slow_feed = [slow_words[j % len(slow_words)] for j in range(n_slow)]
+
+    class FastFeed(pw.io.python.ConnectorSubject):
+        def run(self):
+            for s in range(0, n_fast, batch):
+                self.next_batch({"word": fast_feed[s:s + batch]})
+                self.commit()
+
+    class SlowFeed(pw.io.python.ConnectorSubject):
+        def run(self):
+            for w in slow_feed:
+                self.next(word=w)
+                self.commit()
+
+    pw.G.clear()
+    fast = pw.io.python.read(FastFeed(), schema=pw.schema_from_types(word=str),
+                             autocommit_duration_ms=None)
+    slow = pw.io.python.read(SlowFeed(), schema=pw.schema_from_types(word=str),
+                             autocommit_duration_ms=None)
+    pause = pause_ms / 1000.0
+
+    def crawl(w):
+        # the straggler: a blocking external call a row (sleep releases the interpreter's lock:
+        # slowness bound by I/O). It reads a closure cell, so it stays on the per-row path
+        time.sleep(pause)
+        return w
+
+    slowed = slow.select(word=pw.apply_with_type(crawl, str, pw.this.word))
+    fc = fast.groupby(pw.this.word).reduce(pw.this.word, c=pw.reducers.count())
+    sc = slowed.groupby(pw.this.word).reduce(pw.this.word, c=pw.reducers.count())
+    finals: dict = {"fast": {}, "slow": {}}
+    prog = {"fast_last": 0.0, "park_ns": 0, "exch_ns": 0}
+
+    def on_fast(time_, b):
+        keep_counts(finals["fast"], b)
+        prog["fast_last"] = time.perf_counter()
+        ex0 = running_executor0()
+        if ex0 is not None:  # this callback runs on worker 0's thread: its counters now
+            prog["park_ns"] = ex0._idle_park_ns
+            prog["exch_ns"] = sum(ns for label, ns in ex0.stats.time_by_node.items()
+                                  if label.startswith("Exchange#"))
+
+    pw.io.subscribe(fc, on_batch=on_fast)
+    pw.io.subscribe(sc, on_batch=lambda time_, b: keep_counts(finals["slow"], b))
+    t0 = time.perf_counter()
+    try:
+        pw.run(device=device)
+    finally:
+        pw.G.clear()
+        E.EngineStats.__init__ = stats_init
+    total_s = time.perf_counter() - t0
+    if finals["fast"] != numpy_counts(fast_feed) or finals["slow"] != numpy_counts(slow_feed):
+        raise AssertionError("skew lane: the counts differ from numpy's")
+    drain_s = max(prog["fast_last"] - t0, 1e-9)
+    waiting_s = prog["park_ns"] / 1e9
+    if os.environ.get("PATHWAY_ASYNC_EXEC") == "0":
+        waiting_s += prog["exch_ns"] / 1e9
+    return {"rows_per_s": n_fast / drain_s, "fast_drain_s": drain_s, "total_s": total_s,
+            "fast_busy_frac": max(0.0, min(1.0, 1.0 - waiting_s / drain_s)),
+            "park_s": prog["park_ns"] / 1e9, "exchange_s": prog["exch_ns"] / 1e9}
+
+
+def uniform_wordcount(device, n_rows: int, batch: int) -> float:
+    """The reference's ``_wordcount_throughput`` (``bench.py:2089``): words ``w{i % 997}`` from a
+    ``ConnectorSubject`` in commits of ``batch``, grouped and counted, ``on_batch``; rows/s."""
+    import pathway_tpu_torch as pw
+
+    words = [f"w{i % 997}" for i in range(n_rows)]
+
+    class Feed(pw.io.python.ConnectorSubject):
+        def run(self):
+            for s in range(0, n_rows, batch):
+                self.next_batch({"word": words[s:s + batch]})
+                self.commit()
+
+    pw.G.clear()
+    t = pw.io.python.read(Feed(), schema=pw.schema_from_types(word=str),
+                          autocommit_duration_ms=None)
+    counts = t.groupby(pw.this.word).reduce(pw.this.word, c=pw.reducers.count())
+    final: dict = {}
+    pw.io.subscribe(counts, on_batch=lambda time_, b: keep_counts(final, b))
+    t0 = time.perf_counter()
+    try:
+        pw.run(device=device)
+    finally:
+        pw.G.clear()
+    sec = time.perf_counter() - t0
+    if final != numpy_counts(words):
+        raise AssertionError("uniform wordcount: the counts differ from numpy's")
+    return n_rows / sec
+
+
+def async_leg(args: dict) -> int:
+    """One of phase 16's runs in a fresh interpreter (the reference runs each arm so: the key
+    registry and the hash memos grow across runs in one process); prints its JSON as the last
+    line. ``kind``: ``skew`` (one skew-lane run), ``uniform`` (the warm-up and the best of 2), or
+    ``wordcount`` ((d)'s persisted program, tailing its directory until its parent kills it)."""
+    device = torch.device(args["device"])
+    if args["kind"] == "skew":
+        out = skew_run(device, n_fast=args["n_fast"], batch=args["batch"],
+                       n_slow=args["n_slow"], pause_ms=args["pause_ms"])
+    elif args["kind"] == "uniform":
+        uniform_wordcount(device, args["warmup"], args["batch"])
+        runs = [uniform_wordcount(device, args["rows"], args["batch"]) for _ in range(2)]
+        out = {"rows_per_s": max(runs), "runs": runs}
+    else:
+        waves = []
+        from pathway_tpu_torch.engine import executor as E
+
+        wave = E.Executor._async_commit_wave
+
+        def logged(self, plane, clock, epoch, fin=False):
+            result = wave(self, plane, clock, epoch, fin)
+            waves.append((self.ctx.worker_id, epoch))
+            with open(args["waves"] + ".tmp", "w") as f:
+                json.dump(waves, f)
+            os.replace(args["waves"] + ".tmp", args["waves"])
+            return result
+
+        E.Executor._async_commit_wave = logged
+        async_wordcount_leg(device, data=args["data"], store=args["store"],
+                            out_csv=args["out_csv"], target=None)
+        return 3  # the leg ran to an end instead of being killed
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def async_child(args: dict, env: dict, timeout_s: float = 300) -> dict:
+    """``async_leg`` in a fresh interpreter with ``env`` over this process's environment; its
+    last line's JSON."""
+    r = subprocess.run([sys.executable, os.path.abspath(__file__), "--async-leg",
+                        json.dumps(args)], env={**os.environ, **env}, capture_output=True,
+                       text=True, timeout=timeout_s)
+    if r.returncode != 0:
+        raise AssertionError(f"the {args['kind']} leg exited with {r.returncode}: "
+                             f"{r.stderr[-3000:]}")
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def run_skew_lane(device, reps: int = SKEW_REPS) -> dict:
+    """(a): ``reps`` fresh processes a loop, async (the default) then BSP; the best of each."""
+    arms: dict = {}
+    for name, value in (("async", None), ("bsp", "0")):
+        env = {"PATHWAY_THREADS": "2", "PATHWAY_MESH_EXCHANGE": "0"}
+        if value is not None:
+            env["PATHWAY_ASYNC_EXEC"] = value
+        args = {"kind": "skew", "device": str(device), "n_fast": SKEW_FAST,
+                "batch": SKEW_BATCH, "n_slow": SKEW_SLOW, "pause_ms": SKEW_PAUSE_MS}
+        with scoped_async(None):
+            arms[name] = [async_child(args, env) for _ in range(reps)]
+    best = {name: max(runs, key=lambda d: d["rows_per_s"]) for name, runs in arms.items()}
+    return {"arms": arms, "best": best,
+            "ratio": best["async"]["rows_per_s"] / best["bsp"]["rows_per_s"]}
+
+
+def run_uniform(device) -> dict:
+    """(b): the wordcount at 1 worker, at 2 async and at 2 BSP over ``LocalComm``, a fresh
+    process each; rows/s and the two efficiencies (2 workers' rate over 1 worker's)."""
+    out: dict = {}
+    for name, threads, value in (("1 worker", 1, None), ("2 async", 2, None),
+                                 ("2 bsp", 2, "0")):
+        env = {"PATHWAY_THREADS": str(threads), "PATHWAY_MESH_EXCHANGE": "0"}
+        if value is not None:
+            env["PATHWAY_ASYNC_EXEC"] = value
+        with scoped_async(None):
+            out[name] = async_child({"kind": "uniform", "device": str(device),
+                                     "rows": UNIFORM_ROWS, "warmup": UNIFORM_WARMUP,
+                                     "batch": UNIFORM_BATCH}, env)["rows_per_s"]
+    out["efficiency_async"] = out["2 async"] / out["1 worker"]
+    out["efficiency_bsp"] = out["2 bsp"] / out["1 worker"]
+    return out
+
+
+def feed_source(columns: list, batches: list, ready=None):
+    """An engine-level realtime source: one of ``batches`` (Deltas) a poll, once ``ready()``
+    holds; finished when every batch went out."""
+    from pathway_tpu_torch.engine.executor import RealtimeSource
+
+    class Feed(RealtimeSource):
+        def __init__(self):
+            super().__init__(columns)
+            self._left = list(batches)
+
+        def poll(self):
+            if not self._left or (ready is not None and not ready()):
+                return []
+            return [self._left.pop(0)]
+
+        def is_finished(self):
+            return not self._left
+
+    return Feed()
+
+
+def run_async_rag(device, emb, *, n_chunks: int, commit: int, n_queries: int, k: int,
+                  async_exec: str | None) -> dict:
+    """(c)'s RAG through the engine: phase 9's ``ExternalIndexNode`` graph over realtime sources
+    (the chunks in commits of ``commit``; the queries in one commit once worker 0's index holds
+    every chunk), at 2 workers over ``LocalComm`` with ``PATHWAY_ASYNC_EXEC=async_exec`` (unset:
+    async). The chunks are embedded on both workers and gathered to the index on worker 0; every
+    answer is held against a direct search of the same index."""
+    from pathway_tpu_torch.engine import operators as ops
+    from pathway_tpu_torch.engine.delta import Delta
+    from pathway_tpu_torch.engine.external_index import ExternalIndexNode
+    from pathway_tpu_torch.ops.index_engines import BruteForceKnnEngine
+
+    corpus = make_corpus(n_chunks, 256, seed=1)
+    texts = np.array([c for c, _ in corpus], dtype=object)
+    index = BruteForceKnnEngine(emb.cfg.dim, reserved_space=n_chunks, embedder=emb,
+                                device=device)
+    rng = np.random.default_rng(31)
+    doc_keys = row_keys(n_chunks, 4)
+    queries = np.array([texts[i].split(".")[0] for i in rng.integers(0, n_chunks, n_queries)],
+                       dtype=object)
+    q_keys = row_keys(n_queries, 5)
+
+    def build(worker):
+        docs = feed_source(["text"], [
+            Delta(keys=doc_keys[s:s + commit], data={"text": texts[s:s + commit]})
+            for s in range(0, n_chunks, commit)])
+        embedded = ops.Rowwise(docs, {"__data__": lambda c, k_: emb.embed_texts(list(c["text"]))})
+        qs = feed_source(["__query__", "__limit__"], [Delta(
+            keys=q_keys, data={"__query__": queries,
+                               "__limit__": np.full(n_queries, k, np.int64)})],
+            ready=lambda: rows_held(index) >= n_chunks)
+        engine = index if worker == 0 else BruteForceKnnEngine(emb.cfg.dim, reserved_space=1,
+                                                                device=device)
+        node = ExternalIndexNode(embedded, qs, engine, asof_now=True)
+        cap = ops.Capture(node)
+        return [docs, embedded, qs, node, cap], cap
+
+    with scoped_async(async_exec):
+        cap, sec, stats = run_workers(build, 2, False, device)
+    replies = {int(k_): row[0] for k_, row in cap.state.iter_items()}
+    direct = index.search(list(queries), [k] * n_queries, [None] * n_queries)
+    for qk, want_row in zip(q_keys, direct):
+        if replies.get(int(qk)) != tuple((int(a), float(b)) for a, b in want_row):
+            raise AssertionError("a reply of the engine under async differs from a direct search")
+    return {"chunks_per_s": n_chunks / sec, "s": sec, "stats": stats}
+
+
+def run_async_kernels(device, *, n_chunks: int = 16384, commit: int = 1024,
+                      n_queries: int = 64, k: int = 10, api_rows: int = 1 << 22,
+                      api_commit: int = 1 << 16, api_groups: int = 1 << 16, cfg=None) -> dict:
+    """(c): the kernels of the engine's paths under async at 2 workers over ``LocalComm``: the
+    RAG through ``ExternalIndexNode`` (``masked_attention``, ``knn_topk``) and the Table API
+    chain (``expression_vm``), each beside one ``PATHWAY_ASYNC_EXEC=0`` run of the same graph.
+    The launch counts are zeroed just before each async run and read just after."""
+    from pathway_tpu_torch.models.embedder import Embedder
+
+    launches: dict = {}
+    rates: dict = {}
+    emb = Embedder(cfg, seed=0, device=device)
+    emb.embed_texts(["first use: the kernel libraries load"])
+    with counted("async_rag", launches):
+        rag = run_async_rag(device, emb, n_chunks=n_chunks, commit=commit, n_queries=n_queries,
+                            k=k, async_exec=None)
+    rates["rag 2 workers async (chunks/s)"] = rag["chunks_per_s"]
+    if "async_inbox_depth" not in rag["stats"]:
+        raise AssertionError("the RAG run at 2 workers did not use the async plane")
+    bsp = run_async_rag(device, emb, n_chunks=n_chunks, commit=commit, n_queries=n_queries, k=k,
+                        async_exec="0")
+    rates["rag 2 workers BSP (chunks/s)"] = bsp["chunks_per_s"]
+    cols = pipeline_columns(api_rows, api_groups)
+    want = pipeline_reference(cols)
+    for name, value in (("async", None), ("BSP", "0")):
+        with counted("async_table_api", launches) if value is None else contextlib.nullcontext():
+            got, sec = run_pipeline(device, cols, api_commit, api_groups, 2, lifted=False,
+                                    mesh=False, async_exec=value)
+        if got != want:
+            raise AssertionError(f"the Table API chain at 2 workers {name} differs from numpy's")
+        rates[f"table api 2 workers {name}"] = api_rows / sec
+    return {"launches": launches, "rates": rates}
+
+
+@contextlib.contextmanager
+def kept_executors(into: list):
+    """Every ``Executor`` built in the block, appended to ``into``."""
+    from pathway_tpu_torch.engine.executor import Executor
+
+    init = Executor.__init__
+
+    def keep(self, *a, **kw):
+        init(self, *a, **kw)
+        into.append(self)
+
+    Executor.__init__ = keep
+    try:
+        yield
+    finally:
+        Executor.__init__ = init
+
+
+def wave_summary(executors: list) -> dict:
+    """The commit waves of one run's workers: the count, the duration's p50 (worker 0's
+    ``WaveRecorder`` documents), the stage split summed over the waves (worker 0's
+    ``EngineStats.wave_stage_ns``), and over the workers' documents merged a wave
+    (``merge_worker_waves``): each wave's holder and critical stage tallied, and the waves whose
+    holder every worker elected."""
+    from pathway_tpu_torch.observability.critpath import PHASES, merge_worker_waves
+
+    ex0 = executors[0]
+    if ex0.stats._waves is None:
+        raise AssertionError("the run recorded no commit wave: it did not take the async loop")
+    docs = list(ex0.stats._waves.recent)
+    merged = merge_worker_waves({str(ex.ctx.worker_id): ex.stats._waves.snapshot()
+                                 for ex in executors if ex.stats._waves is not None})
+    total = sum(ex0.stats.wave_stage_ns.get(p, 0) for p in PHASES) or 1
+    return {"waves_total": ex0.stats.waves_total,
+            "p50_ms": statistics.median(d["duration_ms"] for d in docs),
+            "stage_ms": {p: ex0.stats.wave_stage_ns.get(p, 0) / 1e6 for p in PHASES},
+            "stage_share": {p: ex0.stats.wave_stage_ns.get(p, 0) / total for p in PHASES},
+            "held": dict(collections.Counter(d["holder"] for d in merged["recent"])),
+            "agreed": sum(1 for d in merged["recent"] if d["agreed"]),
+            "critical": dict(collections.Counter(d["critical_stage"] for d in merged["recent"]))}
+
+
+def async_wordcount_leg(device, *, data: str, store: str, out_csv: str, target) -> float:
+    """(d)'s program: phase 14 (b)'s file wordcount over ``data`` (``pw.io.fs.read`` streaming,
+    name ``words``), persisted on the filesystem at ``store``, written with ``pw.io.csv.write``
+    (transactional), at 2 workers over ``LocalComm`` (async by default); stops once it counted
+    ``target`` rows (None: runs until it is killed). Returns its seconds."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.persistence import Backend, Config
+
+    pw.G.clear()
+    t = pw.io.fs.read(data, format="plaintext", schema=pw.schema_from_types(data=str),
+                      mode="streaming", autocommit_duration_ms=25, name="words")
+    counts = t.groupby(pw.this.data).reduce(pw.this.data, c=pw.reducers.count())
+    last: dict = {}
+
+    def on_change(key, row, time, is_addition):
+        if is_addition:
+            last[row["data"]] = row["c"]
+            if target is not None and sum(last.values()) >= target:
+                pw.request_stop()
+
+    pw.io.subscribe(counts, on_change=on_change)
+    pw.io.csv.write(counts, out_csv, name="counts")
+    with scoped_env({"PATHWAY_THREADS": "2", "PATHWAY_MESH_EXCHANGE": "0",
+                     "PATHWAY_INGEST_COLUMNAR": "1"}), scoped_async(None):
+        try:
+            t0 = time.perf_counter()
+            pw.run(device=device, persistence_config=Config.simple_config(
+                Backend.filesystem(store)))
+            return time.perf_counter() - t0
+        finally:
+            pw.G.clear()
+
+
+def csv_exactly_once(out_csv: str, want: dict) -> int:
+    """The transactional csv's rows, net of their diffs, equal ``want`` with no row written
+    twice; returns the rows."""
+    import csv
+
+    with open(out_csv, newline="") as f:
+        rows = [(r["data"], int(r["c"]), int(r["time"]), int(r["diff"]))
+                for r in csv.DictReader(f)]
+    if len(rows) != len(set(rows)):
+        raise AssertionError("async wordcount: a batch was written to the csv twice")
+    net: dict = {}
+    for w, c, _t, d_ in rows:
+        net[(w, c)] = net.get((w, c), 0) + d_
+    if {key for key, v in net.items() if v} != set(want.items()) or \
+            any(v not in (0, 1) for v in net.values()):
+        raise AssertionError("async wordcount: the csv rows net of their diffs differ from the "
+                             "clean counts")
+    return len(rows)
+
+
+def run_async_wordcount(device, *, words: list, n_files: int, work: str) -> dict:
+    """(d): the persisted file wordcount at 2 workers async with transactional csv: a leg over
+    half the files stopped once it counted them, a restart over all of them; then on a new store,
+    a child interpreter tailing half the files, SIGKILLed once both workers finished a commit
+    wave, and a restart over all of them. Each time the csv holds each count once. The waves of the in-process
+    legs are summarized from their executors."""
+    want = numpy_counts(words)
+    out: dict = {"legs": []}
+    data = os.path.join(work, "words")
+    os.makedirs(data)
+    store, out_csv = os.path.join(work, "store"), os.path.join(work, "counts.csv")
+    written = first = 0
+    for files in (n_files // 2, n_files):
+        written += write_word_files(data, words, n_files, first, files)
+        first = files
+        executors: list = []
+        with kept_executors(executors):
+            sec = async_wordcount_leg(device, data=data, store=store, out_csv=out_csv,
+                                      target=written)
+        out["legs"].append({"files": files, "rows": written, "s": sec,
+                            "waves": wave_summary(executors)})
+    out["csv_rows"] = csv_exactly_once(out_csv, want)
+    # the SIGKILL: a new store and csv over half the files, a child that never stops by itself;
+    # the other half written after the kill, so the restart updates every word's count
+    data = os.path.join(work, "words_k")
+    os.makedirs(data)
+    write_word_files(data, words, n_files, 0, n_files // 2)
+    store, out_csv = os.path.join(work, "store_k"), os.path.join(work, "counts_k.csv")
+    waves = os.path.join(work, "waves.json")
+    args = {"kind": "wordcount", "device": str(device), "data": data, "store": store,
+            "out_csv": out_csv, "waves": waves}
+    child = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--async-leg",
+                              json.dumps(args)])
+    t0 = time.perf_counter()
+    try:
+        while True:
+            if child.poll() is not None:
+                raise AssertionError(f"the killed leg ended by itself ({child.returncode})")
+            if os.path.exists(waves):
+                with open(waves) as f:
+                    done = json.load(f)
+                if {w for w, _ in done} == {0, 1}:
+                    break
+            if time.perf_counter() - t0 > 180:
+                raise AssertionError("the killed leg finished no commit wave within 180 s")
+            time.sleep(0.01)
+        os.kill(child.pid, signal.SIGKILL)
+        child.wait(60)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait(60)
+    out["killed_after_s"] = time.perf_counter() - t0
+    out["killed_waves"] = len(done)
+    out["csv_rows_at_kill"] = (sum(1 for _ in open(out_csv)) - 1) if os.path.exists(out_csv) else 0
+    write_word_files(data, words, n_files, n_files // 2, n_files)
+    executors = []
+    with kept_executors(executors):
+        out["restart_s"] = async_wordcount_leg(device, data=data, store=store, out_csv=out_csv,
+                                               target=len(words))
+    out["restart_waves"] = wave_summary(executors)
+    out["csv_rows_killed"] = csv_exactly_once(out_csv, want)
+    return out
+
+
+def cc_edges(n: int, m: int, seed: int = 16) -> tuple[np.ndarray, np.ndarray]:
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, n, m), rng.integers(0, n, m)
+
+
+def run_iterate_cc(device, *, n: int, m: int) -> dict:
+    """(e): min-label propagation (connected components) with ``pw.iterate`` over ``n`` nodes and
+    ``m`` seeded undirected edges (both directions in the edge table), at 1 worker; the labels
+    held against ``scipy.sparse.csgraph.connected_components`` (each node's label is its
+    component's smallest node); the rounds the driver ran and the seconds."""
+    import pandas as pd
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.internals import iterate as it
+
+    u, v = cc_edges(n, m)
+    pw.G.clear()
+    nodes = pw.debug.table_from_pandas(pd.DataFrame({"node": np.arange(n), "label": np.arange(n)}))
+    nodes = nodes.with_id_from(nodes.node)
+    # both directions of every edge, and a loop at every node: a node's next label is the least
+    # of its own and its neighbours'
+    loop = np.arange(n)
+    edges = pw.debug.table_from_pandas(pd.DataFrame({"a": np.concatenate([u, v, loop]),
+                                                     "b": np.concatenate([v, u, loop])}))
+
+    def step(labels, edges):
+        cand = edges.join(labels, edges.a == labels.node).select(node=edges.b,
+                                                                 label=labels.label)
+        best = cand.groupby(pw.this.node).reduce(pw.this.node,
+                                                 label=pw.reducers.min(pw.this.label))
+        return dict(labels=best.with_id_from(best.node))
+
+    res = pw.iterate(step, labels=nodes, edges=edges)["labels"]
+    rounds = [0]
+    run_once = it._IterateDescriptor._run_once
+
+    def counting(self, cur, device_):
+        rounds[0] += 1
+        return run_once(self, cur, device_)
+
+    it._IterateDescriptor._run_once = counting
+    try:
+        with scoped_env({"PATHWAY_THREADS": "1"}):
+            t0 = time.perf_counter()
+            got = pw.debug.table_to_pandas(res, device=device)
+            sec = time.perf_counter() - t0
+    finally:
+        it._IterateDescriptor._run_once = run_once
+        pw.G.clear()
+    _, comp = connected_components(coo_matrix((np.ones(m), (u, v)), shape=(n, n)),
+                                   directed=False)
+    smallest = np.full(comp.max() + 1, n)
+    np.minimum.at(smallest, comp, np.arange(n))
+    label = dict(zip(got["node"].tolist(), got["label"].tolist()))
+    if len(label) != n or any(label[i] != smallest[comp[i]] for i in range(n)):
+        raise AssertionError("pw.iterate's labels differ from scipy's components")
+    return {"rounds": rounds[0], "s": sec, "components": int(comp.max() + 1)}
+
+
+def run_async_iterate(device, *, wc_rows: int = 300_000, wc_files: int = 10,
+                      cc_nodes: int = CC_NODES, cc_edges_n: int = CC_EDGES,
+                      kernels: dict | None = None, skew_reps: int = SKEW_REPS) -> dict:
+    """Phase 16; sizes as the defaults say on the card (a CPU rehearsal passes small ones and
+    ``kernels``, ``run_async_kernels``' sizes). Logs (a)-(e) with the card's name and power
+    limit; returns the rates, the waves and the launch counts."""
+    import shutil
+    import tempfile
+
+    cuda = device.type == "cuda"
+    card = card_line() if cuda else "cpu"
+    result: dict = {"launches": {}, "s": {}}
+    t0 = time.perf_counter()
+    skew = run_skew_lane(device, reps=skew_reps)
+    result["skew"] = skew
+    for name, runs in skew["arms"].items():
+        for r in runs:
+            log(f"async, (a) the skew lane {name}: the fast shard {r['rows_per_s']:.1f} rows/s, "
+                f"drained in {r['fast_drain_s']:.3f} s, the run {r['total_s']:.3f} s, worker 0 "
+                f"busy {r['fast_busy_frac']:.3f} of the drain (parked {r['park_s']:.3f} s, in "
+                f"Exchange nodes {r['exchange_s']:.3f} s) [{card}]")
+    b = skew["best"]
+    log(f"async, (a) the skew lane, best of {skew_reps} fresh processes a loop: the fast shard "
+        f"{b['async']['rows_per_s']:.1f} rows/s async against {b['bsp']['rows_per_s']:.1f} BSP, "
+        f"ratio {skew['ratio']:.3f}; drain {b['async']['fast_drain_s']:.3f} s against "
+        f"{b['bsp']['fast_drain_s']:.3f} s, the run {b['async']['total_s']:.3f} s against "
+        f"{b['bsp']['total_s']:.3f} s; both arms' counts equal numpy's [{card}]")
+    result["s"]["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    uni = run_uniform(device)
+    result["uniform"] = uni
+    log(f"async, (b) the uniform wordcount ({UNIFORM_ROWS} rows, best of 2 after a warm-up, a "
+        f"fresh process each): 1 worker {uni['1 worker']:.1f} rows/s, 2 workers async "
+        f"{uni['2 async']:.1f} (efficiency {uni['efficiency_async']:.3f}), 2 workers BSP "
+        f"{uni['2 bsp']:.1f} (efficiency {uni['efficiency_bsp']:.3f}) [{card}]")
+    result["s"]["b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    kern = run_async_kernels(device, **(kernels or {}))
+    result["launches"].update(kern["launches"])
+    result["rates"] = kern["rates"]
+    for name, rate in kern["rates"].items():
+        log(f"async, (c) {name}: {rate:.1f}{'' if 'chunks' in name else ' rows/s'} [{card}]")
+    for path_ in ("async_rag", "async_table_api"):
+        log(f"async, (c) launches on the {path_} path: "
+            f"{ {n: c for n, c in result['launches'][path_].items() if c} }; every answer "
+            f"equal to the direct search, the table equal to numpy's [{card}]")
+    result["s"]["c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="async_phase_")
+    try:
+        words = [f"w{i % 997}" for i in range(wc_rows)]
+        with counted("async_files", result["launches"]):
+            d = run_async_wordcount(device, words=words, n_files=wc_files, work=work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    result["wordcount"] = d
+    for i, leg in enumerate(d["legs"]):
+        w = leg["waves"]
+        log(f"async, (d) the persisted file wordcount at 2 workers, leg {i + 1}: {leg['rows']} "
+            f"rows of {leg['files']} files in {leg['s']:.1f} s; waves_total {w['waves_total']}, "
+            f"wave p50 {w['p50_ms']:.3f} ms; stage split "
+            + ", ".join(f"{p} {ms:.1f} ms ({w['stage_share'][p]:.3f})"
+                        for p, ms in w["stage_ms"].items())
+            + f"; holders {w['held']} ({w['agreed']} agreed), critical stages {w['critical']} "
+            f"[{card}]")
+    w = d["restart_waves"]
+    log(f"async, (d) the csv holds each count once across the stop ({d['csv_rows']} rows); the "
+        f"SIGKILL leg killed {d['killed_after_s']:.1f} s after its start, after "
+        f"{d['killed_waves']} waves of its workers, {d['csv_rows_at_kill']} csv rows written; the "
+        f"restart {d['restart_s']:.1f} s, waves_total {w['waves_total']}, wave p50 "
+        f"{w['p50_ms']:.3f} ms, holders {w['held']}; the csv holds each count once "
+        f"({d['csv_rows_killed']} rows) [{card}]")
+    result["s"]["d"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with counted("iterate", result["launches"]):
+        cc = run_iterate_cc(device, n=cc_nodes, m=cc_edges_n)
+    result["iterate"] = cc
+    log(f"async, (e) pw.iterate's connected components over {cc_nodes} nodes and {cc_edges_n} "
+        f"undirected edges at 1 worker: {cc['rounds']} rounds in {cc['s']:.1f} s, "
+        f"{cc['components']} components, the labels equal scipy's; expression_vm launches "
+        f"{result['launches']['iterate']['expression_vm']} [{card}]")
+    result["s"]["e"] = time.perf_counter() - t0
+    log("async and iterate: " + ", ".join(f"({k_}) {v_:.1f} s" for k_, v_ in result["s"].items())
+        + f" [{card}]")
+    if cuda:
+        for path_, need in (("async_rag", ("masked_attention", "knn_topk")),
+                            ("async_table_api", ("expression_vm",))):
+            missing = [n for n in need if not result["launches"][path_][n]]
+            if missing:
+                raise AssertionError(f"{missing} not launched on the {path_} path under async")
+        if cc["s"] > ITERATE_BUDGET_S:
+            raise AssertionError(f"(e) took {cc['s']:.1f} s of its {ITERATE_BUDGET_S}")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -4346,6 +5053,10 @@ def main() -> int:
                                  data=(texts, vecs[:rows - len(texts)], queries), want=want)
     del texts, vecs
 
+    phase("async and iterate")
+    torch.cuda.empty_cache()
+    asynced = run_async_iterate(device)
+
     by_path = {**engine["device_ms_by_path"], **api["device_ms_by_path"]}
     all_launches = {**engine["launches"], **api["launches"]}
     for name in PATH_KERNELS:
@@ -4391,7 +5102,8 @@ def main() -> int:
                    **{p: c[name] for p, c in serve["launches"].items()},
                    **{p: c[name] for p, c in files["launches"].items()},
                    **{p: c[name] for p, c in persistence["launches"].items()},
-                   **{p: c[name] for p, c in rescaled["launches"].items()}}
+                   **{p: c[name] for p, c in rescaled["launches"].items()},
+                   **{p: c[name] for p, c in asynced["launches"].items()}}
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -4419,4 +5131,6 @@ if __name__ == "__main__":
         sys.exit(persist_leg(json.loads(sys.argv[2])))
     if sys.argv[1:2] == ["--spill-leg"]:  # phase 15 (c), in a child interpreter
         sys.exit(spill_leg(json.loads(sys.argv[2])))
+    if sys.argv[1:2] == ["--async-leg"]:  # phase 16's fresh processes
+        sys.exit(async_leg(json.loads(sys.argv[2])))
     sys.exit(main())

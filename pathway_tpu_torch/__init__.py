@@ -7,13 +7,15 @@ step (``models.pipeline``); the meshes over ``torch.distributed`` (``parallel``)
 embedding with ring attention (``models.ring_attention``) and the sharded KNN search
 (``ops.knn``); the dataflow engine's core (``engine``: executor, operators, keys, external index)
 sharded over worker threads, with its record exchange on the card (``parallel.meshcomm``,
-``parallel.exchange``); the Table API down to ``run()`` (``internals``: tables, expressions,
+``parallel.exchange``), its streaming runs frontier-driven by default (``parallel.asyncplane``,
+``engine.frontier``: commit waves and boundary-only acks; ``PATHWAY_ASYNC_EXEC=0`` selects the
+lock-step loop); the Table API down to ``run()`` (``internals``: tables, expressions,
 schemas, the parse graph, the graph runner and the expression compiler; ``io.python``,
 ``io.subscribe``, ``debug``, ``reducers``, ``udfs``), so that ``import pathway_tpu_torch as pw``
 reads like the reference; ``persistence`` (checkpoints of input and operator state, recovery,
-exactly-once delivery-managed output); the native keyspace module under the engine (``native``, built with
-the host C compiler at first use); ``pw.indexing`` (KNN, BM25, hybrid and sorted indexes) and
-``Table.sort``; the RAG serving path (``xpacks.llm``: the local parsers, the splitters and
+exactly-once delivery-managed output); ``pw.iterate``; the native keyspace module under the
+engine (``native``, built with the host C compiler at first use); ``pw.indexing`` (KNN, BM25,
+hybrid and sorted indexes) and ``Table.sort``; the RAG serving path (``xpacks.llm``: the local parsers, the splitters and
 embedders as UDFs, the live ``DocumentStore`` and ``DocumentStoreServer``; ``io.http``'s
 ``rest_connector``; the ``serve`` plane's admission control and merge). Hand-written CUDA
 kernels carry their device work: masked attention and its gradient (``ops.attention``), fused
@@ -49,6 +51,7 @@ from .internals.groupbys import GroupedTable
 from .internals.joins import Joinable, JoinMode, JoinResult
 from .internals.json import Json
 from .internals.parse_graph import G, Universe
+from .internals.iterate import iterate, iterate_universe
 from .internals.run import request_stop, run, run_all
 from .internals.schema import (
     Schema,
@@ -172,6 +175,8 @@ __all__ = [
     "if_else",
     "indexing",
     "io",
+    "iterate",
+    "iterate_universe",
     "join",
     "join_inner",
     "join_left",

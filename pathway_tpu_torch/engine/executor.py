@@ -10,19 +10,26 @@ order", which is exactly the reference's total-order ``Timestamp``
 (``src/engine/timestamp.rs:20``) semantics.
 
 Multi-worker sharding (reference: timely exchange channels) is layered above
-by partitioning deltas on ``keys.shard_of`` — see ``parallel/``. Sharded runs
-advance in lock-step: every worker sweeps the same ticks, and each Exchange
-is a blocking all-to-all.
+by partitioning deltas on ``keys.shard_of`` — see ``parallel/``. Sharded
+STREAMING runs over ``LocalComm`` default to frontier-driven asynchronous
+execution (each worker advances on data availability, consistency via
+frontier broadcasts and commit waves — the timely progress model proper;
+see the block comment above ``_use_async``); ``PATHWAY_ASYNC_EXEC=0``
+restores the lock-step global tick, and a run over ``MeshComm`` keeps it
+unless ``PATHWAY_ASYNC_EXEC=1``.
 
-Copy of ``pathway_tpu/engine/executor.py`` with its bulk-synchronous tick
-loop and its persistence: the node snapshot protocol, the sources' offset
-protocol, the commit points (each tick in one worker; a tick the workers
-agree on in sharded runs) and recovery (``_recover``: restore the newest
-operator snapshot every worker holds, replay the input tail after it, seek
-the sources). Left out: the frontier-driven async plane and its commit waves,
-the CLI's replay modes, and the hooks that are inert unless configured (chaos
-injection, the flight recorder, the profiler's operator slot, the upgrade
-fingerprints, key-load accounting). The rescale protocol (``RESHARD``,
+Copy of ``pathway_tpu/engine/executor.py``: the bulk-synchronous tick loop,
+the frontier-driven async loop with its commit waves
+(``_stream_loop_sharded_async``, ``_async_commit_wave``, ``_async_settle``;
+each wave's document goes to ``EngineStats``' ``WaveRecorder``), and the
+persistence: the node snapshot protocol, the sources' offset protocol, the
+commit points (each tick in one worker; an agreed tick in BSP sharded runs, a
+frontier-agreed wave time under async) and recovery (``_recover``: restore
+the newest operator snapshot every worker holds, replay the input tail after
+it, seek the sources). Left out: the CLI's replay modes, and the hooks that
+are inert unless configured (chaos injection, the flight recorder, the
+profiler's operator slot, the upgrade fingerprints, key-load accounting,
+the wave spans of the tracer). The rescale protocol (``RESHARD``,
 ``split_state``/``merge_states``) and the spill budget's hook after each tick
 are the reference's.
 """
@@ -110,6 +117,16 @@ class EngineStats:
         self.stage_hists: dict[str, Any] = {
             s: LogHistogram() for s in E2E_STAGES
         }
+        # -- commit-wave critical path (observability/critpath.py) --
+        self.waves_total = 0
+        #: wall duration of each commit wave (entry → release), ns
+        self.wave_duration = LogHistogram()
+        #: cumulative per-phase ns across waves (critpath.PHASES keys)
+        self.wave_stage_ns: dict[str, int] = {}
+        #: waves held per worker id (str keys)
+        self.wave_held_total: dict[str, int] = {}
+        #: per-worker WaveRecorder ring, attached by the async loop
+        self._waves: Any = None
 
     def heartbeat(self) -> None:
         import time as _time
@@ -178,6 +195,20 @@ class EngineStats:
         h["inbox_dwell"].observe(s2)
         h["settle_commit"].observe(lat_ns - s1 - s2 - s4)
         h["commit_deliver"].observe(s4)
+
+    def note_wave(self, doc: dict, duration_ns: int) -> None:
+        """Fold one commit-wave document (critpath.WaveRecorder) into
+        the scalar counters."""
+        self.waves_total += 1
+        self.wave_duration.observe(max(0, int(duration_ns)))
+        for p, ms in (doc.get("phases_ms") or {}).items():
+            self.wave_stage_ns[p] = (
+                self.wave_stage_ns.get(p, 0) + int(ms * 1e6)
+            )
+        holder = doc.get("holder")
+        if holder is not None:
+            k = str(holder)
+            self.wave_held_total[k] = self.wave_held_total.get(k, 0) + 1
 
     def note_exchange(self, rows_out: int, rows_in: int) -> None:
         self.exchange_batches += 1
@@ -669,6 +700,18 @@ class Executor:
         self._last_clock = 0
         self._defer_commit = False
         self.stats = EngineStats()
+        #: cumulative ns spent inside _tick sweeps — the busy half of the
+        #: wave critical path (sweep phase = busy delta between waves)
+        self._busy_ns_total = 0
+        #: (busy_ns, dwell_ns, perf_ns) snapshot at the end of the last
+        #: commit wave; the next wave's sweep/inbox_dwell phases and its
+        #: inter-wave interval are deltas against this mark
+        self._wave_mark: "tuple[int, int, int] | None" = None
+        #: cumulative ns this worker spent PARKED waiting for work in its
+        #: sharded streaming loop (async or BSP) — the "waiting" half of a
+        #: worker's busy fraction; blocked-in-collective time is NOT parked
+        #: time (it hides in Exchange node time under detailed timing)
+        self._idle_park_ns = 0
         #: ingest wall-time (ns) of the oldest row feeding the NEXT tick
         #: (set by the streaming loops from connector stamps); consumed
         #: and cleared by _tick to observe ingest→emit latency
@@ -686,9 +729,10 @@ class Executor:
 
         self._state_budget = _spill.get_budget()
         if persistence is not None:
-            # sharded mode: commits are a coordinated collective decided in
-            # _stream_loop_sharded, never a per-worker wall-clock whim — all
-            # workers must snapshot operator state at the SAME tick, or
+            # sharded mode: commits are coordinated by the sharded loops (an
+            # agreed tick under BSP, a commit wave under async), never a
+            # per-worker wall-clock whim — all workers must snapshot
+            # operator state at the SAME time, or
             # replaying one worker's input tail would re-exchange rows into
             # peers whose state already includes them
             persistence.auto_commit = not ctx.is_sharded
@@ -791,7 +835,14 @@ class Executor:
                     src._coalesce_windows = 0
 
         if self.ctx.is_sharded:
-            self._stream_loop_sharded(realtime, clock)
+            # frontier-driven asynchronous execution is the default for
+            # sharded streaming (PATHWAY_ASYNC_EXEC=0 restores the BSP
+            # lock-step tick loop); recovery replay above ran lock-step
+            # either way — only the LIVE loop changes shape
+            if self._use_async():
+                self._stream_loop_sharded_async(realtime, clock)
+            else:
+                self._stream_loop_sharded(realtime, clock)
             self._finish()
             return
 
@@ -937,11 +988,430 @@ class Executor:
                     # park until owned-source data arrives or the poll
                     # interval lapses; peers' data surfaces via the next
                     # cycle's allgather either way
+                    park_t0 = _time.perf_counter_ns()
                     wake.wait(0.005)
                     wake.clear()
+                    self._idle_park_ns += _time.perf_counter_ns() - park_t0
         finally:
             for src in owned:
                 src.stop()
+
+    # -- frontier-driven asynchronous execution ---------------------------
+    #
+    # The BSP loop above advances the whole cluster in lock-step: a
+    # per-cycle allgather plus a blocking all-to-all per Exchange per tick
+    # means one slow or skewed worker stalls everyone. The async loop
+    # below is the timely/differential model (SURVEY §0/§2.5) under this
+    # engine's total-order timestamps:
+    #
+    # - each worker mints its OWN tick times and sweeps on data
+    #   availability (its sources' polls + whatever peers posted);
+    # - Exchange nodes post buckets fire-and-forget and merge arrivals
+    #   eagerly — data moves asynchronously, accumulation commutes;
+    # - consistency comes from frontiers (engine/frontier.py): each
+    #   worker broadcasts "all my future sends are at times > f", and
+    #   commits/termination settle on a frontier-agreed boundary via the
+    #   QuiesceVotes protocol before any worker snapshots state;
+    # - exactly-once carries over because the delivery layer and the
+    #   persistence snapshots key on logical time: commit waves pick a
+    #   global time T > every worker's clock, settle all data <= T
+    #   everywhere (two clean vote rounds), then every worker snapshots
+    #   at the SAME T — the frontier-derived commit boundary replacing
+    #   the BSP "agreed tick".
+    #
+    # PATHWAY_ASYNC_EXEC=0 restores the BSP loop bit-for-bit; recovery
+    # replay and the END_TIME flush sweep stay lock-step in both modes.
+
+    def _use_async(self) -> bool:
+        if not self.ctx.is_sharded or self.ctx.comm is None:
+            return False
+        import os
+
+        raw = os.environ.get("PATHWAY_ASYNC_EXEC")
+        if raw is not None:
+            enabled = raw.strip().lower() not in ("0", "false", "no", "off")
+        else:
+            # the device mesh-exchange collective is bulk-synchronous by
+            # construction — keep it the owner of record exchange unless
+            # async is explicitly requested
+            enabled = not hasattr(self.ctx.comm, "exchange_deltas")
+        return enabled and self.ctx.comm.supports_async()
+
+    def _mint(self, clock: int) -> int:
+        """Next local tick time: even wall-clock ms, strictly increasing
+        (timestamp.rs:22-28) — per worker now, not cluster-agreed."""
+        import time as _time
+
+        return max(clock + 2, int(_time.time() * 1000) & ~1)
+
+    def _stream_loop_sharded_async(
+        self, realtime: list[RealtimeSource], clock: int
+    ) -> None:
+        import time as _time
+
+        from ..internals.config import _env_float
+        from ..parallel.asyncplane import AsyncPlane
+        from .frontier import QuiesceVotes
+
+        ctx = self.ctx
+        plane = AsyncPlane(ctx.comm, ctx.worker_id, ctx.n_workers)
+        ctx.async_plane = plane
+        if self.stats._waves is None:
+            from ..observability.critpath import WaveRecorder
+
+            self.stats._waves = WaveRecorder(ctx.worker_id)
+        self._wave_mark = None
+        self._async_timeout_s = _env_float(
+            "PATHWAY_COLLECTIVE_TIMEOUT_S", 600.0
+        )
+        bcast_s = _env_float("PATHWAY_FRONTIER_MS", 5.0) / 1000.0
+        delivery = (
+            getattr(self.persistence, "delivery", None)
+            if self.persistence is not None
+            else None
+        )
+        if delivery is not None:
+            delivery.use_boundary_acks()
+        owned = owned_sources(realtime, ctx)
+        for src in owned:
+            src.attach_waker(plane.waker)
+            src.start()
+        self.stats.sources_connected = True
+        epoch = 0
+        stop_seen = False
+        term_votes: QuiesceVotes | None = None
+        participated_final = False
+        try:
+            plane.broadcast_status({"ep": 0})
+            while True:
+                self.stats.heartbeat()
+                plane.drain()
+                worked = False
+                # 1. poll OWNED sources; each commit batch gets its own
+                #    locally-minted tick (round alignment across sources
+                #    as in the BSP loop; no cross-worker agreement needed)
+                rounds: list[list[tuple[SourceNode, Delta]]] = []
+                ingest: list[int | None] = []
+                # backpressure: a peer inbox (or outbound pipeline) at its
+                # bound pauses ingestion — queued work drains, new data
+                # waits at the connectors (bounded per-operator queues;
+                # remote workers' depths ride their status broadcasts)
+                if not stop_seen and not plane.congested():
+                    for src in owned:
+                        deltas = src.poll()
+                        stamps = src.take_ingest_stamps()
+                        for j, delta in enumerate(deltas):
+                            if delta is None or not len(delta):
+                                continue
+                            while len(rounds) <= j:
+                                rounds.append([])
+                                ingest.append(None)
+                            rounds[j].append((src, delta))
+                            ingest[j] = _min_stamp(
+                                ingest[j],
+                                stamps[j] if j < len(stamps) else None,
+                            )
+                for j, emissions in enumerate(rounds):
+                    clock = self._mint(clock)
+                    self._next_tick_ingest_ns = _min_stamp(
+                        ingest[j], plane.pending_ingest_ns()
+                    )
+                    self._tick(clock, emissions)
+                    worked = True
+                # 2. peer arrivals with no local round to ride (Exchange
+                #    is always_run, so round sweeps above already took
+                #    them) get a sweep of their own
+                if not rounds and plane.releasable():
+                    clock = self._mint(clock)
+                    self._next_tick_ingest_ns = plane.pending_ingest_ns()
+                    self._tick(clock, [])
+                    worked = True
+                # NOTE: unlike the BSP loop, no note_delivery_boundary()
+                # here — a locally-ticked round only proves the rows were
+                # POSTED, not that peers processed them or that their
+                # output came back. Advancing the close-path boundary on
+                # local progress would let a surviving worker's close()
+                # commit input whose output died in a peer, and the
+                # replay's skip_until would then suppress it forever (one
+                # lost row per in-flight exchange). The boundary advances
+                # only inside commit waves, where the settle quiesce
+                # proves global <=T processing; input recorded after the
+                # last wave is truncated by close() and re-read live on
+                # resume (at-least-once callbacks, exactly-once state).
+                # 3. frontier: everything this worker will ever send now
+                #    carries a time > its clock; an idle worker promises
+                #    up to the wall clock so peers' commit waves and stall
+                #    detection never wait on a parked worker
+                now = _time.monotonic()
+                if not worked:
+                    # idle promise up to the wall clock — and raise the
+                    # local clock floor WITH it, so a later backwards
+                    # wall step (NTP) can never mint a tick at or below
+                    # the already-broadcast frontier (mints are
+                    # max(clock+2, wall), monotone in clock)
+                    clock = max(clock, (int(_time.time() * 1000) & ~1) - 2)
+                plane.tracker.advance_local(
+                    max(clock, plane.tracker.local()), now=now
+                )
+                plane.broadcast_status({}, min_interval_s=bcast_s)
+                if not stop_seen and (
+                    self._stop_requested
+                    or any(
+                        st.get("stop")
+                        for st in plane.peer_status.values()
+                    )
+                ):
+                    # sticky + broadcast: every worker flushes its drained
+                    # rounds, stops polling, and converges on termination
+                    stop_seen = True
+                    plane.broadcast_status({"stop": True})
+                # 4. commit wave: any worker's snapshot-interval lapse (or
+                #    sink release pressure) pulls the whole cluster into a
+                #    wave at a frontier-agreed time
+                if self.persistence is not None:
+                    want = self.persistence.should_commit() or any(
+                        st.get("wc") == epoch
+                        or (
+                            st.get("cr") is not None
+                            and st["cr"][0] == epoch
+                        )
+                        for st in plane.peer_status.values()
+                    )
+                    if want:
+                        clock, was_final = self._async_commit_wave(
+                            plane, clock, epoch
+                        )
+                        epoch += 1
+                        if was_final:
+                            # a terminated peer marked this wave final:
+                            # global quiescence is proven (its vote round
+                            # needed everyone), so skip straight out
+                            participated_final = True
+                            break
+                        continue
+                # 5. termination: when locally drained + finished (or
+                #    stopping), vote; two clean rounds across the cluster
+                #    = the dataflow is quiescent everywhere
+                finished = all(src.is_finished() for src in owned)
+                if not worked and (finished or stop_seen) \
+                        and not plane.releasable():
+                    if term_votes is None:
+                        term_votes = QuiesceVotes(
+                            ctx.n_workers, ctx.worker_id, "term"
+                        )
+                    if term_votes.needs_cast():
+                        payload = term_votes.cast(
+                            plane.sent_events, plane.recv_events,
+                            plane.take_activity(),
+                        )
+                        plane.broadcast_status({"vote": payload})
+                    for w, v in plane.take_votes("term"):
+                        term_votes.observe(w, v)
+                    if term_votes.step():
+                        break
+                if not worked:
+                    park_t0 = _time.perf_counter_ns()
+                    plane.waker.wait(0.005)
+                    plane.waker.clear()
+                    self._idle_park_ns += _time.perf_counter_ns() - park_t0
+            # final consistency point: one last wave so every worker's
+            # newest snapshot shares ONE frontier-derived time (the
+            # _finish path then commits at the same _last_clock cluster-
+            # wide, exactly like the BSP loop's agreed ticks). It is a
+            # REGULAR epoch wave carrying a ``fin`` marker: workers still
+            # inside their main loop join it by epoch number exactly like
+            # any other wave (a sentinel epoch would deadlock against a
+            # concurrently-triggered regular wave), and the marker tells
+            # them it was the last one.
+            if self.persistence is not None and not participated_final:
+                clock, _ = self._async_commit_wave(
+                    plane, clock, epoch, fin=True
+                )
+                epoch += 1
+        finally:
+            for src in owned:
+                src.stop()
+            # the END_TIME flush sweep (and any recovery that follows a
+            # crash) runs over the blocking collectives again
+            ctx.async_plane = None
+
+    def _async_commit_wave(
+        self, plane, clock: int, epoch: int, fin: bool = False
+    ) -> tuple[int, bool]:
+        """One frontier-coordinated commit: agree on a target time T
+        greater than every worker's clock, settle all data <= T
+        everywhere (quiesce votes — settle sweeps are labeled exactly T,
+        so multi-hop forwarding of <=T input stays inside the boundary),
+        then snapshot at T on every worker. Replaces the BSP loop's
+        agreed-tick collective commit; SIGKILL at ANY point recovers to
+        the newest snapshot common to all workers, exactly as before.
+        Returns (clock, was_final): final when any participant entered
+        post-termination (its ``fin`` marker rides the ready payload)."""
+        import time as _time
+
+        from .frontier import QuiesceVotes
+
+        ctx = self.ctx
+        deadline = _time.monotonic() + self._async_timeout_s
+        # -- phase stamps: the wave's accounting window opened when the
+        # LAST wave released (self._wave_mark); sweep busy time and inbox
+        # dwell accumulated since then are this wave's pipeline phases
+        t_entry = _time.perf_counter_ns()
+        mark = self._wave_mark
+        ready_clock = max(clock, plane.tracker.local())
+        # the ready broadcast carries this worker's wave-entry wall time
+        # and its pre-wave busy time so every worker elects the holding
+        # worker from IDENTICAL data (critpath.attribute_holder): last
+        # entry when the spread is real, busiest pipeline when everyone
+        # joined within scheduler jitter
+        entry_wall = _time.time()
+        busy_pre_ms = (
+            self._busy_ns_total - (mark[0] if mark else 0)
+        ) / 1e6
+        plane.broadcast_status(
+            {
+                "wc": epoch,
+                "cr": [
+                    epoch, ready_clock, bool(fin),
+                    entry_wall, round(busy_pre_ms, 3),
+                ],
+            }
+        )
+        readys = {ctx.worker_id: ready_clock}
+        ready_order = [(ctx.worker_id, ready_clock, entry_wall)]
+        busy_by = {ctx.worker_id: busy_pre_ms}
+        was_final = bool(fin)
+        while len(readys) < ctx.n_workers:
+            plane.drain()  # keeps inbox bounds free; nothing is processed
+            for w, st in plane.peer_status.items():
+                cr = st.get("cr")
+                if cr is not None and cr[0] == epoch:
+                    if w not in readys:
+                        ready_order.append(
+                            (w, cr[1], cr[3] if len(cr) > 3 else 0.0)
+                        )
+                        busy_by[w] = cr[4] if len(cr) > 4 else 0.0
+                    readys[w] = cr[1]
+                    if len(cr) > 2 and cr[2]:
+                        was_final = True
+            if len(readys) >= ctx.n_workers:
+                break
+            now_mono = _time.monotonic()
+            if now_mono > deadline:
+                ages = plane.tracker.ages(now_mono)
+                missing = ", ".join(
+                    f"w{w}"
+                    + (
+                        f" (quiet {ages[w]:.1f}s)"
+                        if ages.get(w) is not None
+                        else " (never heard)"
+                    )
+                    for w in range(ctx.n_workers)
+                    if w not in readys
+                )
+                raise RuntimeError(
+                    f"worker {ctx.worker_id}: commit wave {epoch} timed "
+                    f"out collecting ready clocks ({len(readys)}/"
+                    f"{ctx.n_workers}; waiting on {missing}; "
+                    "PATHWAY_COLLECTIVE_TIMEOUT_S)"
+                )
+            plane.waker.wait(0.002)
+            plane.waker.clear()
+        # T is strictly greater than every worker's promise: settle
+        # sweeps at T can lawfully post data derived from <=T arrivals
+        T = (max(readys.values()) + 2) & ~1
+        clock = max(clock, T)
+        plane.hold_above = T
+        t_ready = _time.perf_counter_ns()
+        votes = QuiesceVotes(ctx.n_workers, ctx.worker_id, f"cw{epoch}")
+        busy_before_settle = self._busy_ns_total
+        self._async_settle(plane, votes, deadline, label=T)
+        t_settled = _time.perf_counter_ns()
+        settle_rounds = votes.round
+        if plane.tracker.local() < T:
+            plane.tracker.advance_local(T, now=_time.monotonic())
+        self.persistence.commit(T)
+        self._last_clock = max(self._last_clock, T)
+        plane.hold_above = None
+        plane.broadcast_status({"wc": -1, "cr": None, "ep": epoch + 1})
+        t_end = _time.perf_counter_ns()
+        # -- build the wave document and fold it into the counters
+        commit_ns = t_end - t_settled
+        snapshot_ns, release_ns = commit_ns, 0
+        ph = getattr(self.persistence, "last_commit_phase_ns", None)
+        if ph:
+            # the manager's own split: snapshotting proper vs delivery
+            # barrier + post-commit release (io/delivery.py boundary)
+            release_ns = min(
+                commit_ns, int(ph.get("barrier", 0)) + int(ph.get("release", 0))
+            )
+            snapshot_ns = commit_ns - release_ns
+        phases_ms = {
+            # busy sweep time since the last wave — includes this wave's
+            # settle sweeps, which is why settle subtracts them below
+            "sweep": (
+                self._busy_ns_total - (mark[0] if mark else 0)
+            ) / 1e6,
+            "inbox_dwell": (
+                plane.dwell_total_ns - (mark[1] if mark else 0)
+            ) / 1e6,
+            "frontier_wait": (t_ready - t_entry) / 1e6,
+            "settle": max(
+                0.0,
+                (t_settled - t_ready)
+                - (self._busy_ns_total - busy_before_settle),
+            ) / 1e6,
+            "snapshot": snapshot_ns / 1e6,
+            "release": release_ns / 1e6,
+        }
+        duration_ns = t_end - t_entry
+        doc = self.stats._waves.record_wave(
+            epoch=epoch,
+            T=T,
+            t=_time.time(),
+            duration_ms=duration_ns / 1e6,
+            interval_ms=(t_entry - mark[2]) / 1e6 if mark else 0.0,
+            phases_ms=phases_ms,
+            settle_rounds=settle_rounds,
+            ready_order=ready_order,
+            busy_ms=busy_by,
+            fin=was_final,
+        )
+        self.stats.note_wave(doc, duration_ns)
+        self._wave_mark = (self._busy_ns_total, plane.dwell_total_ns, t_end)
+        return clock, was_final
+
+    def _async_settle(self, plane, votes, deadline: float,
+                      label: int) -> None:
+        """Drive the quiesce protocol for one commit wave: deliver every
+        queued arrival <= label (sweeps run at exactly ``label``), vote,
+        repeat until two consecutive clean rounds prove nothing at or
+        below the boundary is in flight anywhere."""
+        import time as _time
+
+        while True:
+            plane.drain()
+            while plane.releasable():
+                self._next_tick_ingest_ns = plane.pending_ingest_ns()
+                self._tick(label, [])
+            if votes.needs_cast():
+                payload = votes.cast(
+                    plane.sent_events, plane.recv_events,
+                    plane.take_activity(),
+                )
+                plane.broadcast_status({"vote": payload})
+            for w, v in plane.take_votes(votes.phase):
+                votes.observe(w, v)
+            if votes.step():
+                return
+            if _time.monotonic() > deadline:
+                raise RuntimeError(
+                    f"worker {self.ctx.worker_id}: commit-wave settle "
+                    f"({votes.phase}) timed out at round {votes.round} "
+                    "(PATHWAY_COLLECTIVE_TIMEOUT_S)"
+                )
+            plane.waker.wait(0.002)
+            plane.waker.clear()
 
     def _recover(self, realtime: list[RealtimeSource]) -> int:
         """Restore operator state from the newest usable snapshot, replay
@@ -1102,6 +1572,16 @@ class Executor:
         tick_wall_t0 = _wall.time_ns()
         ingest_ns = self._next_tick_ingest_ns
         self._next_tick_ingest_ns = None
+        plane = getattr(self.ctx, "async_plane", None)
+        if plane is not None:
+            # async mode: Exchange posts forward the ORIGIN's ingest stamp
+            # with the data, so the sink worker's ingest→emit observation
+            # measures the true cross-worker path (the BSP loop shipped
+            # this through the cycle allgather instead)
+            plane.cur_ingest_ns = ingest_ns
+            # fresh per-sweep slot: take() fills it with the oldest
+            # arrival's route/dwell stamps for the staged e2e split
+            plane.sweep_oldest = None
         out_rows_before = self.stats.output_rows
         inbox: dict[int, dict[int, list[Delta]]] = {}
         seeded: dict[int, list[Delta]] = {}
@@ -1184,13 +1664,23 @@ class Executor:
                     self.stats.note_node_time(
                         node, _wall.perf_counter_ns() - node_t0
                     )
-        self.stats.tick_duration.observe(_wall.perf_counter_ns() - tick_t0)
+        sweep_ns = _wall.perf_counter_ns() - tick_t0
+        self.stats.tick_duration.observe(sweep_ns)
+        self._busy_ns_total += sweep_ns
         if ingest_ns is not None and self.stats.output_rows > out_rows_before:
             # rows stamped at connector ingest reached a terminal output
-            # node within this sweep — one ingest→emit observation; the
-            # pre-sweep time counts as the route stage
+            # node within this sweep — one ingest→emit observation,
+            # staged: when the oldest arrival this sweep delivered IS the
+            # stamped row, its frame meta supplies route/dwell; a locally
+            # sourced row spent its pre-sweep time in the route stage
+            route_ns = dwell_ns = 0
+            oldest = plane.sweep_oldest if plane is not None else None
+            if oldest is not None and oldest[0] == ingest_ns:
+                route_ns, dwell_ns = oldest[1], oldest[2]
+            else:
+                route_ns = max(0, tick_wall_t0 - ingest_ns)
             self.stats.note_e2e(
-                ingest_ns, max(0, tick_wall_t0 - ingest_ns), 0, tick_wall_t0
+                ingest_ns, route_ns, dwell_ns, tick_wall_t0
             )
         self.stats.note_tick(time)
         for cb in self._on_time_end:

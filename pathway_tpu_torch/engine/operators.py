@@ -5,8 +5,9 @@ Copy of ``pathway_tpu/engine/operators.py`` with its operator snapshots (``Group
 (``split_state``/``merge_states`` of the arena, the join's arrangements with the rk→jk map and its
 cache, the temporal buffers, the pinned composites) and the spill tier (``GroupByReduce``'s dense
 cold blocks and general cold buckets, ``_SortedSide``'s spilled runs; snapshots materialize both).
-Left out: the analyzer's hooks, the async plane's branch of ``Exchange``, the key-load sketch and
-the JAX array case of ``_as_column``.
+``Exchange`` has both of the reference's branches: the blocking all-to-all of the BSP loop and the
+async plane's posts. Left out: the analyzer's hooks, the key-load sketch and the JAX array case of
+``_as_column``.
 
 Each class re-designs one family of the reference engine's ~60 ``Graph``
 trait operations (``src/engine/graph.rs:664-1011``, implemented at
@@ -297,6 +298,32 @@ class Exchange(Node):
                     ix = np.flatnonzero(shards == w)
                     if len(ix):
                         buckets[w] = d.take(ix)
+        plane = getattr(ctx, "async_plane", None)
+        if plane is not None:
+            # frontier-driven mode: post peer buckets fire-and-forget and
+            # merge whatever peers already delivered for this channel —
+            # no rendezvous, no waiting on the slowest worker. Delivery is
+            # eager (timely's model: data moves asynchronously, only
+            # notifications/commits follow the frontier); accumulation
+            # commutes, so out-of-order cross-worker merge is lawful.
+            own = buckets[ctx.worker_id]
+            sent_rows = sum(
+                len(b) for i, b in enumerate(buckets)
+                if b is not None and i != ctx.worker_id
+            )
+            plane.post(self.channel, time, buckets)
+            received, _ingest = plane.take(self.channel)
+            if own is not None and len(own):
+                received.append(own)
+            stats = getattr(self, "_engine_stats", None)
+            if stats is not None:
+                stats.note_exchange(
+                    sent_rows + (len(own) if own is not None else 0),
+                    sum(len(r) for r in received),
+                )
+            if not received:
+                return None
+            return concat_deltas(received, self.column_names)
         if hasattr(ctx.comm, "exchange_deltas"):
             # device path (MeshComm): dense columns ride the card via
             # bucketed_all_to_all; object columns take the host path

@@ -47,9 +47,11 @@ engine-side :class:`DeliverySink` owns everything else:
   dead-letter queue for poison rows (non-retryable serialize/reject
   errors) with loud metrics instead of silent drop or a crashed worker.
 
-Copy of ``pathway_tpu/io/delivery.py`` without the ``sink.write`` chaos site
-and the frontier-driven (async) executor's boundary-only acks: the port's
-sharded runs are bulk-synchronous, so every ack writes the cursor.
+Copy of ``pathway_tpu/io/delivery.py`` without the ``sink.write`` chaos site.
+Under the frontier-driven (async) executor the sinks ack at commit
+boundaries only (``DeliverySink.boundary_acks``,
+``DeliveryManager.use_boundary_acks``); under the BSP loop every ack writes
+the cursor.
 
 Knobs: ``PATHWAY_SINK_QUEUE_BATCHES``, ``PATHWAY_SINK_RETRY_MAX``,
 ``PATHWAY_SINK_RETRY_FIRST_DELAY_MS``, ``PATHWAY_SINK_RETRY_BACKOFF``,
@@ -445,6 +447,16 @@ class DeliverySink:
         self._backend = backend
         #: True when delivery is gated to persistence commit boundaries
         self.transactional = transactional
+        #: frontier-driven (async) execution: the durable ack cursor only
+        #: advances at commit boundaries (``drain(bump_to=T)``), never per
+        #: batch. Async sweep labels are not reproducible across a
+        #: crash-replay (replay runs at recorded input times, live runs at
+        #: per-worker mint times), so a mid-window cursor would be a dedup
+        #: frontier in a coordinate system the replay does not share —
+        #: boundary-only acks keep the cursor on the commit times both
+        #: runs agree on, and the resume token rolls the external system
+        #: back to that boundary before the window redelivers.
+        self.boundary_acks = False
         self._queue_bound = queue_batches or _env_i(
             "PATHWAY_SINK_QUEUE_BATCHES", 64
         )
@@ -612,13 +624,17 @@ class DeliverySink:
             self._pending_rows -= len(batch)
             self._enqueue_blocking(batch)
 
-    def release_all(self) -> None:
+    def release_all(self) -> int | None:
         """End-of-run: everything still pending (END_TIME flush batches
-        included) — called only after the final metadata commit."""
+        included) — called only after the final metadata commit. Returns
+        the newest time released (None when nothing was pending)."""
+        newest = None
         while self._pending:
             batch = self._pending.popleft()
             self._pending_rows -= len(batch)
             self._enqueue_blocking(batch)
+            newest = batch.time
+        return newest
 
     def drain(self, timeout: float | None = None,
               bump_to: int | None = None) -> bool:
@@ -861,6 +877,12 @@ class DeliverySink:
         self.stats.delivery_lag_seconds = max(
             0.0, _time.monotonic() - batch.enqueued_at
         )
+        if self.boundary_acks:
+            # async mode: the durable cursor + resume token persist only
+            # at the commit-boundary bump (drain(bump_to=T)); a crash
+            # mid-window rolls the external system back to the boundary
+            # token and the whole window redelivers after replay
+            return
         self.acked_time = max(self.acked_time, batch.time)
         self.stats.acked_time = self.acked_time
         self._write_cursor(token)
@@ -892,6 +914,13 @@ class DeliveryManager:
 
     def add(self, sink: DeliverySink) -> None:
         self.sinks.append(sink)
+
+    def use_boundary_acks(self) -> None:
+        """Frontier-driven executor: persist ack cursors only at commit
+        boundaries (see DeliverySink.boundary_acks). Called once when the
+        async streaming loop takes over, before any release."""
+        for s in self.sinks:
+            s.boundary_acks = True
 
     def has_sinks(self) -> bool:
         return bool(self.sinks)
@@ -933,7 +962,25 @@ class DeliveryManager:
         for s in self.sinks:
             if not s.transactional:
                 continue
-            s.release_all()
+            newest = s.release_all()
+            if s.boundary_acks:
+                # async mode defers cursor writes to boundary bumps — the
+                # final drain must bump past the END_TIME flush batches,
+                # or a kill after a CLEAN finish would re-deliver the
+                # regenerated END batch on the supervised restart. It bumps
+                # to the newest batch released here and no further, as a
+                # per-batch ack would: the reference bumps to END_TIME
+                # even when no END batch exists, and a restarted run's
+                # output (at later wall-clock times, all below END_TIME)
+                # is then skipped as already delivered
+                if not s.drain(timeout=timeout, bump_to=newest):
+                    raise RuntimeError(
+                        f"sink {s.name!r} failed to drain within "
+                        f"PATHWAY_SINK_DRAIN_TIMEOUT_S={timeout}s at end "
+                        f"of run ({len(s._queue)} batch(es) still queued)"
+                    )
+                s.shutdown()
+                continue
             if not s.drain(timeout=timeout):
                 raise RuntimeError(
                     f"sink {s.name!r} failed to drain within "

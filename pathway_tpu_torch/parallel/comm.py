@@ -10,21 +10,53 @@ allocators (``external/timely-dataflow/communication/src/allocator/``). Here:
   on the card (``parallel/exchange.py``, ``engine/mesh_exchange.py``); object
   columns take the host path.
 
-Every worker sweeps the same node order for the same tick sequence and every
-exchange is a blocking all-to-all: when a tick's sweep finishes on all
-workers, that logical time is complete everywhere.
+Two progress protocols share these backends:
 
-Copy of ``pathway_tpu/parallel/comm.py`` (``Comm``, ``LocalComm``,
-``WorkerContext``, ``single_worker_context``) without the async plane, the
-serve plane and the chaos site.
+- **Bulk-synchronous lock-step** (``PATHWAY_ASYNC_EXEC=0``): every worker
+  sweeps the same node order for the same tick sequence, and every
+  exchange is a blocking all-to-all — when a tick's sweep finishes on
+  all workers, that logical time is complete everywhere.
+- **Frontier-driven asynchronous execution** (the default for sharded
+  streaming over ``LocalComm``): exchanges become fire-and-forget *posts*
+  into per-worker inboxes (``async_post_exchange``/``async_drain``),
+  workers advance on data availability, and consistency comes from
+  frontier broadcasts riding the same wire (``async_broadcast``). The
+  blocking collectives above remain in use for recovery replay, the
+  END_TIME flush sweep, and ``PATHWAY_ASYNC_EXEC=0``.
+
+Copy of ``pathway_tpu/parallel/comm.py`` (``Comm`` with its async API,
+``LocalComm`` with its async plane, ``WorkerContext`` with
+``async_plane``, ``single_worker_context``, ``async_queue_bound``) without
+the serve plane (it waits with sharded serving) and the chaos site. Still
+to come: ``ClusterComm`` (``parallel/cluster.py``, the TCP transport across
+processes, whose async plane the reference also has) and
+``MultiHostMeshComm``, both with the device exchange across processes; the
+commit waves' report renderer (``observability/critpath.py``'s
+``render_report``) comes with the CLI.
 """
 
 from __future__ import annotations
 
+import collections
 import threading
 from typing import Any, Sequence
 
 __all__ = ["Comm", "LocalComm", "WorkerContext", "single_worker_context"]
+
+#: default bound of each worker's async DATA inbox, in posted batches;
+#: the knob is PATHWAY_ASYNC_QUEUE_BATCHES. Posts themselves NEVER block
+#: (two workers mid-sweep posting into each other's full inboxes would
+#: deadlock) — the bound is enforced by the executor pausing its source
+#: polls while any destination sits at it (Comm.async_congested locally,
+#: peer-status inbox depths otherwise), which keeps a fast worker from
+#: buffering a slow peer's whole backlog in memory
+ASYNC_QUEUE_BATCHES = 256
+
+
+def async_queue_bound() -> int:
+    from ..internals.config import _env_int
+
+    return max(1, _env_int("PATHWAY_ASYNC_QUEUE_BATCHES", ASYNC_QUEUE_BATCHES))
 
 
 class Comm:
@@ -57,6 +89,60 @@ class Comm:
         """Backpressure/throughput gauges. Best-effort reads of live
         structures — no locks the data plane would contend on."""
         return {}
+
+    # -- asynchronous (frontier-driven) plane ---------------------------
+    #
+    # Events are plain tuples:
+    #   ("x", channel, time, src_worker, delta, ingest_ns, seq, enq_ns)
+    #                                                           — data
+    #   ("c", src_worker, payload)                              — control
+    # ``enq_ns`` is the sender's wall-clock enqueue stamp (time_ns at
+    # post): the receiver's drain measures the enqueue→drain inbox dwell
+    # from it — the per-frame meta behind the commit-wave ``inbox_dwell``
+    # phase (observability/critpath.py). ``seq`` is the sender's per-post
+    # counter: the receiver dedupes duplicated frames by (src, seq), the
+    # async analog of the BSP rendezvous slot where a duplicate
+    # overwrote its own slot. Control broadcasts are never bounded (the
+    # progress protocol must not deadlock behind the data it is trying to
+    # drain); data backpressure is async_congested below.
+
+    def supports_async(self) -> bool:
+        return False
+
+    def async_attach(self, worker_id: int, waker: Any) -> None:
+        """Register ``worker_id``'s inbox + wake event (set on every
+        delivery so the executor's idle park ends at data arrival)."""
+        raise NotImplementedError
+
+    def async_post_exchange(
+        self, worker_id: int, channel: int, time: int,
+        buckets: Sequence[Any], ingest_ns: "int | None" = None,
+        seq: "int | None" = None, enq_ns: "int | None" = None,
+    ) -> int:
+        """Fire-and-forget exchange: ``buckets[w]`` goes to worker ``w``'s
+        async inbox (None/own slot skipped). Never waits for peers.
+        Returns the number of data events that WILL be delivered — the
+        quiesce ledger (sent/received totals) counts exactly these."""
+        raise NotImplementedError
+
+    def async_broadcast(self, worker_id: int, payload: Any) -> None:
+        """Deliver a control event to every OTHER worker's inbox."""
+        raise NotImplementedError
+
+    def async_drain(self, worker_id: int) -> list:
+        """Everything delivered to ``worker_id`` since the last drain, in
+        arrival order. Raises RuntimeError once the mesh is broken —
+        the async path's failure-propagation hook."""
+        raise NotImplementedError
+
+    def async_congested(self, worker_id: int) -> bool:
+        """True when some destination's data backlog sits at the
+        PATHWAY_ASYNC_QUEUE_BATCHES bound. Posts themselves never block
+        (two workers mid-sweep posting to each other's full inboxes
+        would deadlock); instead the executor checks this BEFORE polling
+        its sources — ingestion pauses, queued work drains, and the
+        backlog stays bounded by what was already in flight."""
+        return False
 
 
 
@@ -104,8 +190,20 @@ class LocalComm(Comm):
 
     def abort(self) -> None:
         """Break all barriers so peers blocked in a collective unwind
-        instead of deadlocking (worker panic propagation)."""
+        instead of deadlocking (worker panic propagation) — and poison
+        the async plane so drains/posts raise instead of parking."""
         self._barrier.abort()
+        st = getattr(self, "_async", None)
+        if st is not None:
+            with st["cond"]:
+                if st["broken"] is None:
+                    st["broken"] = (
+                        "a peer worker failed — aborting this worker's "
+                        "dataflow (cross-worker panic propagation)"
+                    )
+                st["cond"].notify_all()
+            for waker in st["wakers"].values():
+                waker.set()
 
     def exchange(self, channel, tick, worker_id, buckets):
         """In-process all-to-all. Frames pass **by reference** — the
@@ -150,10 +248,104 @@ class LocalComm(Comm):
     def barrier(self, worker_id: int):
         self._barrier.wait()
 
+    # -- async plane (frontier-driven execution) ------------------------
+
+    def supports_async(self) -> bool:
+        return True
+
+    def _async_state(self):
+        # lazy (BSP runs never pay for the structures), created under the
+        # slot lock so concurrent workers agree on ONE state dict
+        st = getattr(self, "_async", None)
+        if st is None:
+            with self._lock:
+                st = getattr(self, "_async", None)
+                if st is None:
+                    st = self._async = {
+                        "cond": threading.Condition(),
+                        "q": {
+                            w: collections.deque()
+                            for w in range(self.n_workers)
+                        },
+                        "data": {w: 0 for w in range(self.n_workers)},
+                        "wakers": {},
+                        "broken": None,
+                        "bound": async_queue_bound(),
+                    }
+        return st
+
+    def async_attach(self, worker_id: int, waker: Any) -> None:
+        self._async_state()["wakers"][worker_id] = waker
+
+    def _async_deliver(self, dest: int, event: tuple, is_data: bool) -> None:
+        # never blocks: backpressure is the executor's async_congested
+        # check before source polls (a blocking post here could deadlock
+        # two workers mid-sweep posting into each other's full inboxes)
+        st = self._async_state()
+        with st["cond"]:
+            if st["broken"] is not None:
+                raise RuntimeError(st["broken"])
+            st["q"][dest].append(event)
+            if is_data:
+                st["data"][dest] += 1
+            st["cond"].notify_all()
+        waker = st["wakers"].get(dest)
+        if waker is not None:
+            waker.set()
+
+    def async_congested(self, worker_id: int) -> bool:
+        st = self._async_state()
+        return any(
+            n >= st["bound"] for w, n in st["data"].items() if w != worker_id
+        )
+
+    def async_post_exchange(self, worker_id, channel, time, buckets,
+                            ingest_ns=None, seq=None, enq_ns=None):
+        delivered = 0
+        for dest, payload in enumerate(buckets):
+            if payload is None or dest == worker_id:
+                continue
+            self._async_deliver(
+                dest,
+                ("x", channel, time, worker_id, payload, ingest_ns, seq,
+                 enq_ns),
+                is_data=True,
+            )
+            delivered += 1
+        return delivered
+
+    def async_broadcast(self, worker_id, payload):
+        for dest in range(self.n_workers):
+            if dest != worker_id:
+                self._async_deliver(
+                    dest, ("c", worker_id, payload), is_data=False
+                )
+
+    def async_drain(self, worker_id: int) -> list:
+        st = self._async_state()
+        with st["cond"]:
+            if st["broken"] is not None:
+                raise RuntimeError(st["broken"])
+            q = st["q"][worker_id]
+            out = list(q)
+            q.clear()
+            st["data"][worker_id] = 0
+            st["cond"].notify_all()
+        return out
+
     def comm_stats(self) -> dict[str, float]:
         # slots outstanding = collectives some worker entered but not all
         # left — a sustained nonzero depth means a straggler worker
-        return {"pending_collectives": float(len(self._slots))}
+        out = {"pending_collectives": float(len(self._slots))}
+        st = getattr(self, "_async", None)
+        if st is not None:
+            out["async_inbox_depth"] = float(
+                sum(len(q) for q in st["q"].values())
+            )
+            out["async_inbox_capacity"] = float(
+                st["bound"] * self.n_workers
+            )
+        return out
 
 
 class WorkerContext:
@@ -163,6 +355,11 @@ class WorkerContext:
         self.worker_id = worker_id
         self.n_workers = n_workers
         self.comm = comm
+        #: set by the executor while the frontier-driven streaming loop is
+        #: live (parallel/asyncplane.AsyncPlane); None = blocking BSP
+        #: collectives (batch mode, recovery replay, END_TIME flush,
+        #: PATHWAY_ASYNC_EXEC=0). Exchange nodes consult this per call.
+        self.async_plane: Any = None
 
     @property
     def is_sharded(self) -> bool:

@@ -23,10 +23,16 @@ Per tick + exchange channel, the protocol is:
 
 Total host synchronization: 2 barriers per channel-tick.
 
+The device collective is bulk-synchronous by construction, so a sharded
+streaming run over ``MeshComm`` keeps the BSP loop unless
+``PATHWAY_ASYNC_EXEC=1``; then record exchange posts through the inner
+``LocalComm``'s async plane and this class's device path stays idle.
+
 Copy of ``pathway_tpu/parallel/meshcomm.py``'s ``MeshComm`` with the
-protocol unchanged, on a torch device instead of a JAX mesh; the async
-plane's delegation and ``MultiHostMeshComm`` (a collective across
-processes) are left out.
+protocol unchanged and its async plane's delegation, on a torch device
+instead of a JAX mesh; it also delegates ``async_congested``, which the
+reference's leaves at the base class's ``False``. ``MultiHostMeshComm`` (a
+collective across processes) is left out.
 
 Reference being replaced: timely's ``zero_copy`` allocator
 (``external/timely-dataflow/communication/src/allocator/zero_copy/``).
@@ -103,6 +109,30 @@ class MeshComm(Comm):
         with self._slot_lock:
             self._slots.clear()
         self.inner.close()
+
+    # async (frontier-driven) plane: host-path delegation — the device
+    # collective is inherently bulk-synchronous, so PATHWAY_ASYNC_EXEC=1
+    # with mesh exchange routes record exchange over the host plane
+    def supports_async(self) -> bool:
+        return self.inner.supports_async()
+
+    def async_attach(self, worker_id, waker):
+        self.inner.async_attach(worker_id, waker)
+
+    def async_post_exchange(self, worker_id, channel, time, buckets,
+                            ingest_ns=None, seq=None, enq_ns=None):
+        return self.inner.async_post_exchange(
+            worker_id, channel, time, buckets, ingest_ns, seq, enq_ns
+        )
+
+    def async_broadcast(self, worker_id, payload):
+        self.inner.async_broadcast(worker_id, payload)
+
+    def async_drain(self, worker_id):
+        return self.inner.async_drain(worker_id)
+
+    def async_congested(self, worker_id):
+        return self.inner.async_congested(worker_id)
 
     def comm_stats(self) -> dict[str, float]:
         out = dict(self.inner.comm_stats())

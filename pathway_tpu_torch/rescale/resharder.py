@@ -168,9 +168,10 @@ def _worker_view(root: PersistenceBackend, ns: str) -> PersistenceBackend:
 
 def _node_class(name: str):
     """Resolve a snapshot descriptor's operator class name against every
-    loaded ``Node`` subclass (engine operators, the external-index
-    composite, the stateful object scanner)."""
+    loaded ``Node`` subclass (engine operators, the iterate and
+    external-index composites, the stateful object scanner)."""
     from ..engine import external_index as _ei  # noqa: F401
+    from ..engine import iterate as _it  # noqa: F401
     from ..engine import operators as _ops  # noqa: F401
     from ..engine.executor import Node
     from ..io import _object_scanner as _scan  # noqa: F401

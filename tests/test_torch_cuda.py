@@ -20,7 +20,8 @@ of only the arrived rows into pinned buffers equal to the host's, and the engine
 on the card equals the engine on the host; the expression machine bit for bit against its plain version (float
 ``**`` within 2 ulp), and the Table API's ``pw.run(device="cuda")`` equal to numpy; a persisted
 index restored on the card answers bit for bit as a run that was not stopped; a persisted groupby
-rescaled 2 -> 4 workers on the card ends at the host's table.
+rescaled 2 -> 4 workers on the card ends at the host's table; the RAG through the engine at 2
+workers under the async loop answers as a direct search of its index.
 """
 
 from __future__ import annotations
@@ -1094,6 +1095,75 @@ def test_engine_with_the_exchange_on_the_card_equals_the_host(cuda):
     on_card = run(cuda)
     assert bucket_exchange.launches > before
     assert on_card == run("cpu")
+
+
+def test_rag_through_the_engine_under_async_on_the_card(cuda, monkeypatch):
+    """Phase 16 (c)'s graph at a small size: chunks from a realtime source embedded by a
+    ``Rowwise`` into ``ExternalIndexNode`` (gathered to worker 0), queries once the index holds
+    every chunk, at 2 workers over ``LocalComm``, where the loop is async by default: the plane
+    carries the exchange, both kernels launch, and every answer equals a direct search of the same
+    index."""
+    import threading
+
+    from pathway_tpu_torch.engine import keys as K, operators as ops
+    from pathway_tpu_torch.engine.delta import Delta
+    from pathway_tpu_torch.engine.executor import Executor, RealtimeSource
+    from pathway_tpu_torch.engine.external_index import ExternalIndexNode
+    from pathway_tpu_torch.parallel.comm import LocalComm, WorkerContext
+
+    monkeypatch.delenv("PATHWAY_ASYNC_EXEC", raising=False)
+    emb = Embedder(EmbedderConfig(vocab_size=30522, dim=64, n_layers=2, n_heads=2, max_len=64),
+                   seed=0, device=cuda)
+    texts = np.array([f"chunk {i} about topic {i % 17} and word {i * 7 % 31}" for i in range(512)],
+                     dtype=object)
+    queries = np.array([f"topic {i} and word {i}" for i in range(8)], dtype=object)
+    doc_keys = K.mix_columns([np.arange(512)], 512, salt=4, register=False)
+    q_keys = K.mix_columns([np.arange(8)], 8, salt=5, register=False)
+    index = BruteForceKnnEngine(64, reserved_space=512, embedder=emb, device=cuda)
+
+    def feed(columns, batches, ready=None):
+        class Feed(RealtimeSource):
+            def __init__(self):
+                super().__init__(columns)
+                self._left = list(batches)
+
+            def poll(self):
+                if not self._left or (ready is not None and not ready()):
+                    return []
+                return [self._left.pop(0)]
+
+            def is_finished(self):
+                return not self._left
+
+        return Feed()
+
+    comm = LocalComm(2)
+    caps, exs = [], []
+    for w in range(2):
+        docs = feed(["text"], [Delta(keys=doc_keys[s:s + 64], data={"text": texts[s:s + 64]})
+                               for s in range(0, 512, 64)])
+        embedded = ops.Rowwise(docs, {"__data__": lambda c, k: emb.embed_texts(list(c["text"]))})
+        qs = feed(["__query__", "__limit__"], [Delta(
+            keys=q_keys, data={"__query__": queries, "__limit__": np.full(8, 5, np.int64)})],
+            ready=lambda: index._slots.high >= 512)
+        engine = index if w == 0 else BruteForceKnnEngine(64, reserved_space=1, device=cuda)
+        node = ExternalIndexNode(embedded, qs, engine, asof_now=True)
+        caps.append(ops.Capture(node))
+        exs.append(Executor([docs, embedded, qs, node, caps[-1]], ctx=WorkerContext(w, 2, comm)))
+    assert all(ex._use_async() for ex in exs)
+    before = (masked_attention.launches, topk_scores.launches)
+    threads = [threading.Thread(target=e.run, daemon=True) for e in exs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    assert not any(t.is_alive() for t in threads)
+    assert "async_inbox_depth" in comm.comm_stats()
+    assert masked_attention.launches > before[0] and topk_scores.launches > before[1]
+    replies = {int(k): row[0] for k, row in caps[0].state.iter_items()}
+    direct = index.search(list(queries), [5] * 8, [None] * 8)
+    assert [replies[int(k)] for k in q_keys] == [
+        tuple((int(a), float(b)) for a, b in row) for row in direct]
 
 
 def _vm_table():

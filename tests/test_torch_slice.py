@@ -163,7 +163,9 @@ def test_static_scan_finds_no_jax_or_pathway_tpu_import():
             "io/_object_scanner.py", "io/s3.py", "examples/rag_server/serve.py",
             "persistence/__init__.py", "persistence/backends.py", "persistence/layout.py",
             "persistence/snapshots.py", "persistence/manager.py", "rescale/__init__.py",
-            "rescale/resharder.py", "engine/spill.py"} <= scanned
+            "rescale/resharder.py", "engine/spill.py", "engine/frontier.py",
+            "observability/critpath.py", "parallel/asyncplane.py", "engine/iterate.py",
+            "internals/iterate.py"} <= scanned
     for path in files:
         src = path.read_text()
         assert not _IMPORT.findall(src), path
@@ -402,6 +404,46 @@ _BLOCKED_RUN = textwrap.dedent("""
                                    .reduce(n=pt.reducers.count()), device="cpu")["n"].tolist()
     assert n == 3000, n
     assert spill.get_budget().budget_bytes == 1048, spill.get_budget()
+
+    # the async plane and pw.iterate: the csv wordcount persisted at 2 workers over LocalComm
+    # takes the frontier-driven loop by default and commits in waves; then a fixpoint
+    import pathway_tpu_torch.engine.frontier
+    import pathway_tpu_torch.observability.critpath
+    import pathway_tpu_torch.parallel.asyncplane
+    from pathway_tpu_torch.engine import executor as E
+
+    waves = []
+    orig_wave = E.Executor._async_commit_wave
+
+    def counting(self, *a, **k):
+        waves.append(self.ctx.worker_id)
+        return orig_wave(self, *a, **k)
+
+    E.Executor._async_commit_wave = counting
+    for var in ("PATHWAY_STATE_MEMORY_BUDGET_MB", "PATHWAY_STATE_SPILL_DIR",
+                "PATHWAY_MESH_EXCHANGE"):
+        os.environ.pop(var, None)
+    os.environ["PATHWAY_THREADS"] = "2"
+    spill._reset_for_tests()
+    cfg = persistence.Config.simple_config(persistence.Backend.filesystem(f"{work}/pstate2"),
+                                           snapshot_interval_ms=10)
+    pt.G.clear()
+    words = pt.io.python.read(Feed(), schema=pt.schema_from_types(a=int, g=int),
+                              autocommit_duration_ms=None, name="feed")
+    pt.io.csv.write(words.groupby(pt.this.g).reduce(pt.this.g, n=pt.reducers.count()),
+                    f"{work}/async.csv")
+    pt.run(device="cpu", persistence_config=cfg)
+    assert sorted(set(waves)) == [0, 1], waves
+    with open(f"{work}/async.csv") as f:
+        rows = [line.split(",") for line in f.read().splitlines()[1:]]
+    net = {}
+    for g, n, _t, d in rows:
+        net[(g, n)] = net.get((g, n), 0) + int(d)
+    assert {k for k, v in net.items() if v} == want, net
+    pt.G.clear()
+    t = pt.debug.table_from_markdown("a\\n1\\n3\\n50")
+    res = pt.iterate(lambda t: t.select(a=pt.if_else(t.a < 100, t.a * 2, t.a)), t=t)
+    assert sorted(pt.debug.table_to_pandas(res, device="cpu")["a"]) == [100, 128, 192]
     loaded = sorted(
         m for m, mod in sys.modules.items() if mod is not None
         and (m.startswith("jax") or m == "pathway_tpu" or m.startswith("pathway_tpu."))
