@@ -1,8 +1,8 @@
 """Drive the PyTorch port's RAG ingest and retrieval path, its training step, its parallel paths, its
 dataflow engine, its Table API, its indexing stdlib, its RAG serve path over HTTP, its file
 connectors with the RAG example served from a directory, its persistence and recovery, its
-elastic rescale and spill tier, and its frontier-driven async plane with ``pw.iterate``, on one
-NVIDIA card.
+elastic rescale and spill tier, its frontier-driven async plane with ``pw.iterate``, and its
+temporal stdlib on Nexmark's event model, on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -230,7 +230,24 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    65,536 nodes and 262,144 undirected edges at 1 worker, the labels held
    against ``scipy.sparse.csgraph.connected_components``; its rounds, seconds (within 120) and
    ``expression_vm`` launches.
-17. Each engine-path kernel's launches and summed device time per path, one JSON line with each
+17. Nexmark windows through ``pw.temporal`` (windows, the window, interval and as-of joins), each
+   query a ``pw.run(device="cuda")`` over ``pw.io.python`` sources fed by a seeded numpy
+   generator of the Nexmark benchmark's event model (``nexmark_events``: persons, auctions and
+   bids as 1:3:46, 10,000 events per event-second in time order, hot auctions, bidders and
+   sellers as the generator's ratios say; 1,000,000 events, 920,000 bids, in commits of 10,000
+   events). (a) Q1 (``price * 0.908`` on the dense ``price`` column, an ``expression_vm``
+   program once past the gate) and Q7 (the highest bid per 10 s ``tumbling`` window under
+   ``exactly_once_behavior()``) at 1 worker, then at 2 (async, the default); ``expression_vm``
+   must launch in both. (b) Q5: bids per auction over ``sliding(hop=2 s, duration=10 s)``, each
+   window's maximum and its hot items. (c) Q8: persons who opened an auction in the same 10 s
+   window (``window_join_inner``). (d) ``interval_join_inner`` of each auction with the bids
+   within [0, 10 s] after it, and ``asof_join`` of each bid with its bidder's person record
+   (backward). Every output is held against a plain numpy and Python computation on the same
+   events; each leg's rows/s (its input rows over the wall of ``pw.run``, host clock), its
+   window or match count, and the launch counts (zeroed just before each run, read just after)
+   are logged. ``NEXMARK_LEG_EVENTS`` holds each leg's cut: (b) and (d) over the first 500,000
+   events.
+18. Each engine-path kernel's launches and summed device time per path, one JSON line with each
    kernel's numbers, then the closing JSON line.
 
 It needs one CUDA card and exits non-zero, printing no result, without one. It imports nothing
@@ -4875,6 +4892,348 @@ def run_async_iterate(device, *, wc_rows: int = 300_000, wc_files: int = 10,
     return result
 
 
+NEXMARK_EVENTS = 1_000_000  # the generator's events: persons, auctions and bids as 1:3:46
+NEXMARK_COMMIT = 10_000  # events a commit, each table's share of them through pw.io.python
+NEXMARK_WINDOW_MS = 10_000
+#: the first events of the generator's that each leg takes: Q5 ((b), five windows a bid), then
+#: the joins (d) were cut by halves from NEXMARK_EVENTS after the phase's legs took 125.3 s of
+#: its 120 at full size on the card (PERF.md section 4); (a) never below 262,144
+NEXMARK_LEG_EVENTS = {"q1q7": NEXMARK_EVENTS, "q5": 500_000, "q8": NEXMARK_EVENTS,
+                      "joins": 500_000}
+NEXMARK_BUDGET_S = 120.0
+# the Beam generator's word lists (PersonGenerator)
+NEXMARK_STATES = ("AZ", "CA", "ID", "OR", "WA", "WY")
+NEXMARK_FIRST = ("Peter", "Paul", "Luke", "John", "Saul", "Vicky", "Kate", "Julie", "Sarah",
+                 "Deiter", "Walter")
+NEXMARK_LAST = ("Shultz", "Abrams", "Spencer", "White", "Bartels", "Walton", "Smith", "Jones",
+                "Noris")
+
+
+def nexmark_events(n_events: int, seed: int = 17) -> dict:
+    """The Nexmark benchmark's event model (github.com/nexmark/nexmark, after Apache Beam's
+    ``NexmarkConfiguration`` defaults and ``GeneratorConfig``), seeded, in numpy: event ``n`` is
+    a person at offset 0 of each run of 50 events, an auction at offsets 1-3 and a bid at 4-49;
+    its time is ``n // 10`` ms (the first-event rate of 10,000 events per event-second, 100 us
+    apart, in order). Ids start at 1000. A bid's auction is, with odds 1 in ``hotAuctionRatio``
+    = 2 against, the first of the newest pair of auctions, else one of the 100 in flight (up to
+    10 ahead); its bidder, 3 in 4, the hot bidder of the newest four persons, else one of the
+    1000 active (up to 10 ahead); an auction's seller likewise, with ``hotSellersRatio`` = 4.
+    Prices are ``round(10 ** (6 u) * 100)`` cents. Returns {"person"|"auction"|"bid": columns},
+    each with ``i`` (its row's index) and ``n`` (its event number)."""
+    rng = np.random.default_rng(seed)
+    n = np.arange(n_events, dtype=np.int64)
+    epoch, off = n // 50, n % 50
+    t = n // 10
+    last_person = epoch  # the person of each run of 50 comes first
+    last_auction = epoch * 3 + np.clip(off - 1, -1, 2)
+
+    def next_person(lp):
+        num = lp + 1
+        active = np.minimum(num, 1000)
+        return num - active + rng.integers(0, active + 10)
+
+    out = {}
+    m = off == 0
+    k = int(m.sum())
+    first = rng.integers(0, len(NEXMARK_FIRST), k)
+    last = rng.integers(0, len(NEXMARK_LAST), k)
+    out["person"] = {
+        "i": np.arange(k, dtype=np.int64), "n": n[m], "pid": epoch[m] + 1000,
+        "name": [f"{NEXMARK_FIRST[a]} {NEXMARK_LAST[b]}" for a, b in zip(first, last)],
+        "state": [NEXMARK_STATES[s] for s in rng.integers(0, len(NEXMARK_STATES), k)],
+        "t": t[m]}
+    m = (off >= 1) & (off <= 3)
+    k = int(m.sum())
+    lp = last_person[m]
+    hot = rng.integers(0, 4, k) > 0
+    seller = np.where(hot, (lp // 4) * 4, next_person(lp))
+    out["auction"] = {
+        "i": np.arange(k, dtype=np.int64), "n": n[m], "aid": epoch[m] * 3 + off[m] - 1 + 1000,
+        "seller": seller + 1000, "category": 10 + rng.integers(0, 5, k), "t": t[m]}
+    m = off >= 4
+    k = int(m.sum())
+    la, lp = last_auction[m], last_person[m]
+    lo = np.maximum(la - 100, 0)
+    auction = np.where(rng.integers(0, 2, k) > 0, (la // 2) * 2,
+                       lo + rng.integers(0, la - lo + 1 + 10))
+    bidder = np.where(rng.integers(0, 4, k) > 0, (lp // 4) * 4 + 1, next_person(lp))
+    price = np.rint(10.0 ** (rng.random(k) * 6.0) * 100.0).astype(np.int64)
+    out["bid"] = {"i": np.arange(k, dtype=np.int64), "n": n[m], "auction": auction + 1000,
+                  "bidder": bidder + 1000, "price": price, "t": t[m]}
+    return out
+
+
+NEXMARK_SCHEMAS = {"person": dict(i=int, pid=int, name=str, state=str, t=int),
+                   "auction": dict(i=int, aid=int, seller=int, category=int, t=int),
+                   "bid": dict(i=int, auction=int, bidder=int, price=int, t=int)}
+
+
+def nexmark_source(pw, ev: dict, kind: str, n_events: int):
+    """``pw.io.python.read`` of one table of the events: its rows of each ``NEXMARK_COMMIT``
+    events in one ``next_batch`` and a commit."""
+    cols = ev[kind]
+    names = list(NEXMARK_SCHEMAS[kind])
+    cuts = np.searchsorted(cols["n"], np.arange(0, n_events + NEXMARK_COMMIT, NEXMARK_COMMIT))
+
+    class Feed(pw.io.python.ConnectorSubject):
+        def run(self):
+            for lo, hi in zip(cuts[:-1], cuts[1:]):
+                self.next_batch({c: cols[c][lo:hi] for c in names})
+                self.commit()
+
+    return pw.io.python.read(Feed(), schema=pw.schema_from_types(**NEXMARK_SCHEMAS[kind]),
+                             autocommit_duration_ms=None)
+
+
+def subscribed(pw, table) -> list:
+    """Subscribe ``on_batch`` to ``table``; the list its batches go into."""
+    seen: list = []
+    names = table.column_names()
+    pw.io.subscribe(table, on_batch=lambda tm, b: seen.append(
+        (b.keys.copy(), b.diffs.copy(), {c: np.asarray(b.data[c]).copy() for c in names})))
+    return seen
+
+
+def live_rows(seen: list, names: list) -> dict:
+    """A subscribed stream's final table {column: array}: per row key the newest insert, for
+    keys whose diffs net to 1; fails unless every key nets to 0 or 1."""
+    if not seen:
+        return {c: np.zeros(0) for c in names}
+    keys = np.concatenate([k for k, _, _ in seen])
+    diffs = np.concatenate([d for _, d, _ in seen])
+    order = np.lexsort((np.arange(len(keys)), keys))  # by key, then arrival
+    keys, diffs = keys[order], diffs[order]
+    starts = np.flatnonzero(np.r_[True, keys[1:] != keys[:-1]])
+    net = np.add.reduceat(diffs, starts)
+    if ((net != 0) & (net != 1)).any():
+        raise AssertionError("a subscribed stream does not consolidate to one row a key")
+    alive = set(keys[starts][net == 1].tolist())
+    pos = np.flatnonzero(diffs > 0)
+    newest = pos[np.flatnonzero(np.r_[keys[pos][1:] != keys[pos][:-1], True])]
+    keep = np.array([i for i in newest if int(keys[i]) in alive], dtype=np.int64)
+    return {c: np.concatenate([b[c] for _, _, b in seen])[order][keep] for c in names}
+
+
+def rows_of(cols: dict, names: list) -> collections.Counter:
+    return collections.Counter(zip(*(np.asarray(cols[c]).tolist() for c in names)))
+
+
+def nexmark_run(device, build, workers: int, tag: str, launches: dict) -> tuple[dict, float]:
+    """``build(pw)`` -> {name: table}, each subscribed; ``pw.run(device=)`` at ``workers`` over
+    ``LocalComm`` (the default loop: async past 1 worker), its launch counts zeroed just before
+    and read just after into ``launches[tag]``. Returns ({name: final columns}, seconds)."""
+    import pathway_tpu_torch as pw
+
+    pw.G.clear()
+    tables = build(pw)
+    seen = {name: (subscribed(pw, t), t.column_names()) for name, t in tables.items()}
+    env = {"PATHWAY_THREADS": str(workers), "PATHWAY_MESH_EXCHANGE": "0",
+           "PATHWAY_INGEST_COALESCE_WINDOWS": "0"}
+    with scoped_env(env), scoped_async(None), counted(tag, launches):
+        try:
+            t0 = time.perf_counter()
+            pw.run(device=device)
+            seconds = time.perf_counter() - t0
+        finally:
+            pw.G.clear()
+    return {name: live_rows(s, names) for name, (s, names) in seen.items()}, seconds
+
+
+def plain_windows(t: np.ndarray, hop: int, duration: int) -> tuple[np.ndarray, np.ndarray]:
+    """(row index, window start) of every window of ``sliding(hop, duration)`` (``tumbling``
+    when hop == duration) that holds each time: starts s = k * hop with s <= t < s + duration."""
+    rows, starts = [], []
+    top = (t // hop) * hop
+    for j in range(duration // hop):
+        rows.append(np.arange(len(t)))
+        starts.append(top - j * hop)
+    return np.concatenate(rows), np.concatenate(starts)
+
+
+def group_max_count(keys: np.ndarray, vals: np.ndarray) -> dict:
+    """{key: (max of vals, count)} over rows grouped by ``keys``."""
+    order = np.lexsort((vals, keys))
+    keys, vals = keys[order], vals[order]
+    ends = np.flatnonzero(np.r_[keys[1:] != keys[:-1], True])
+    counts = np.diff(np.r_[-1, ends])
+    return {int(k): (int(v), int(c)) for k, v, c in zip(keys[ends], vals[ends], counts)}
+
+
+def nexmark_q1q7(pw, ev, n_events):
+    bids = nexmark_source(pw, ev, "bid", n_events)
+    q1 = bids.select(pw.this.i, pw.this.auction, pw.this.bidder, pw.this.t,
+                     price_eur=pw.this.price * 0.908)
+    q7 = bids.windowby(pw.this.t, window=pw.temporal.tumbling(duration=NEXMARK_WINDOW_MS),
+                       behavior=pw.temporal.exactly_once_behavior()).reduce(
+        start=pw.this._pw_window_start, top=pw.reducers.max(pw.this.price),
+        n=pw.reducers.count())
+    return {"q1": q1, "q7": q7}
+
+
+def check_q1q7(out: dict, bid: dict) -> int:
+    q1 = out["q1"]
+    order = np.argsort(q1["i"])
+    if len(order) != len(bid["i"]) or not (q1["i"][order] == bid["i"]).all():
+        raise AssertionError("Q1 did not return every bid once")
+    for c in ("auction", "bidder", "t"):
+        if not (q1[c][order] == bid[c]).all():
+            raise AssertionError(f"Q1's {c} differs from the bids'")
+    want = bid["price"].astype(np.float64) * 0.908
+    if not (q1["price_eur"][order].astype(np.float64) == want).all():
+        raise AssertionError("Q1's price * 0.908 differs from numpy's")
+    want7 = group_max_count((bid["t"] // NEXMARK_WINDOW_MS) * NEXMARK_WINDOW_MS, bid["price"])
+    got7 = {int(s): (int(m), int(c)) for s, m, c in zip(out["q7"]["start"], out["q7"]["top"],
+                                                          out["q7"]["n"])}
+    if got7 != want7:
+        raise AssertionError("Q7's highest bid per window differs from numpy's")
+    return len(got7)
+
+
+def nexmark_q5(pw, ev, n_events):
+    bids = nexmark_source(pw, ev, "bid", n_events)
+    counts = bids.windowby(
+        pw.this.t, window=pw.temporal.sliding(hop=2_000, duration=NEXMARK_WINDOW_MS),
+        instance=pw.this.auction).reduce(auction=pw.this._pw_instance,
+                                         start=pw.this._pw_window_start, n=pw.reducers.count())
+    top = counts.groupby(pw.this.start).reduce(pw.this.start, top=pw.reducers.max(pw.this.n))
+    hot = counts.join(top, counts.start == top.start).select(
+        counts.start, counts.auction, counts.n, top=top.top).filter(pw.this.n == pw.this.top)
+    return {"counts": counts, "hot": hot}
+
+
+def check_q5(out: dict, bid: dict) -> int:
+    rows, starts = plain_windows(bid["t"], 2_000, NEXMARK_WINDOW_MS)
+    auc = bid["auction"][rows]
+    pair = np.stack([starts, auc], 1)
+    uniq, counts = np.unique(pair, axis=0, return_counts=True)
+    want = collections.Counter(zip(uniq[:, 1].tolist(), uniq[:, 0].tolist(), counts.tolist()))
+    if rows_of(out["counts"], ["auction", "start", "n"]) != want:
+        raise AssertionError("Q5's bids per auction and window differ from numpy's")
+    top = group_max_count(uniq[:, 0], counts)
+    hot = collections.Counter((int(s), int(a), int(c)) for (s, a), c in zip(uniq, counts)
+                              if c == top[int(s)][0])
+    if rows_of(out["hot"], ["start", "auction", "n"]) != hot:
+        raise AssertionError("Q5's hot items differ from numpy's")
+    return len(top)
+
+
+def nexmark_q8(pw, ev, n_events):
+    persons = nexmark_source(pw, ev, "person", n_events)
+    auctions = nexmark_source(pw, ev, "auction", n_events)
+    q8 = persons.window_join_inner(
+        auctions, persons.t, auctions.t, pw.temporal.tumbling(duration=NEXMARK_WINDOW_MS),
+        persons.pid == auctions.seller).select(persons.pid, persons.name, auctions.aid)
+    return {"q8": q8}
+
+
+def check_q8(out: dict, person: dict, auction: dict) -> int:
+    w_p = {int(p): int(t) // NEXMARK_WINDOW_MS for p, t in zip(person["pid"], person["t"])}
+    names = dict(zip(person["pid"].tolist(), person["name"]))
+    want = collections.Counter(
+        (s, names[s], a) for a, s, t in zip(auction["aid"].tolist(), auction["seller"].tolist(),
+                                            auction["t"].tolist())
+        if s in w_p and w_p[s] == t // NEXMARK_WINDOW_MS)
+    if rows_of(out["q8"], ["pid", "name", "aid"]) != want:
+        raise AssertionError("Q8's new sellers differ from numpy's")
+    return len({p for p, _, _ in want})
+
+
+def nexmark_joins(pw, ev, n_events):
+    persons = nexmark_source(pw, ev, "person", n_events)
+    auctions = nexmark_source(pw, ev, "auction", n_events)
+    bids = nexmark_source(pw, ev, "bid", n_events)
+    fresh = auctions.interval_join_inner(
+        bids, auctions.t, bids.t, pw.temporal.interval(0, NEXMARK_WINDOW_MS),
+        pw.left.aid == pw.right.auction).select(pw.left.aid, bi=pw.right.i)
+    who = bids.asof_join(persons, bids.t, persons.t, bids.bidder == persons.pid).select(
+        bi=pw.left.i, state=pw.right.state)
+    return {"interval": fresh, "asof": who}
+
+
+def check_joins(out: dict, person: dict, auction: dict, bid: dict) -> tuple[int, int]:
+    created = dict(zip(auction["aid"].tolist(), auction["t"].tolist()))
+    want = collections.Counter(
+        (a, i) for i, a, t in zip(bid["i"].tolist(), bid["auction"].tolist(), bid["t"].tolist())
+        if a in created and 0 <= t - created[a] <= NEXMARK_WINDOW_MS)
+    if rows_of(out["interval"], ["aid", "bi"]) != want:
+        raise AssertionError("the interval join differs from numpy's")
+    joined = dict(zip(person["pid"].tolist(), zip(person["t"].tolist(), person["state"])))
+    want_asof = collections.Counter(
+        (i, joined[b][1] if b in joined and joined[b][0] <= t else None)
+        for i, b, t in zip(bid["i"].tolist(), bid["bidder"].tolist(), bid["t"].tolist()))
+    if rows_of(out["asof"], ["bi", "state"]) != want_asof:
+        raise AssertionError("the as-of join differs from numpy's")
+    return sum(want.values()), sum(1 for (_, s) in want_asof if s is not None)
+
+
+def run_nexmark(device, *, n_events: int = NEXMARK_EVENTS, leg_events: dict | None = None
+                ) -> dict:
+    """Phase 17: the Nexmark generator's ``n_events`` events through ``pw.temporal`` with
+    ``pw.run(device=...)``, each leg over the first ``leg_events[leg]`` of them (by default
+    ``NEXMARK_LEG_EVENTS``), every output held against numpy and Python on the same events; each
+    leg's rows/s (its input rows over the wall of ``pw.run``, host clock) and window or match
+    count logged with the card's name and power limit."""
+    cuda = device.type == "cuda"
+    card = card_line() if cuda else "cpu"
+    leg_events = {k: min(n, n_events)
+                  for k, n in {**NEXMARK_LEG_EVENTS, **(leg_events or {})}.items()}
+    t0 = time.perf_counter()
+    ev = nexmark_events(n_events)
+    log(f"nexmark: {n_events} events ({len(ev['person']['i'])} persons, "
+        f"{len(ev['auction']['i'])} auctions, {len(ev['bid']['i'])} bids) generated in "
+        f"{time.perf_counter() - t0:.1f} s")
+    result: dict = {"launches": {}, "rates": {}, "windows": {}, "s": {}}
+
+    def events_of(n: int) -> dict:
+        return {kind: {c: v[:int(np.searchsorted(cols["n"], n))] for c, v in cols.items()}
+                for kind, cols in ev.items()}
+
+    n = leg_events["q1q7"]
+    sub = events_of(n)
+    n_bids = len(sub["bid"]["i"])
+    for workers in (1, 2):
+        tag = f"nexmark_q1q7_{workers}w"
+        out, s = nexmark_run(device, lambda pw: nexmark_q1q7(pw, sub, n), workers, tag,
+                             result["launches"])
+        windows = check_q1q7(out, sub["bid"])
+        result["rates"][tag] = n_bids / s
+        result["windows"][tag] = windows
+        result["s"][tag] = s
+        log(f"nexmark (a) Q1 and Q7 at {workers} worker{'s' * (workers > 1)}: {n_bids} bids of "
+            f"{n} events in {s:.2f} s, {n_bids / s:.1f} rows/s; {len(out['q1']['i'])} Q1 "
+            f"rows, {windows} Q7 windows, each equal to numpy's; expression_vm launches "
+            f"{result['launches'][tag]['expression_vm']} [{card}]")
+    legs = (("b", "q5", nexmark_q5, ("bid",), "windows",
+             lambda out, e: check_q5(out, e["bid"])),
+            ("c", "q8", nexmark_q8, ("person", "auction"), "persons matched",
+             lambda out, e: check_q8(out, e["person"], e["auction"])),
+            ("d", "joins", nexmark_joins, ("person", "auction", "bid"),
+             "(interval pairs, bids with their bidder)",
+             lambda out, e: check_joins(out, e["person"], e["auction"], e["bid"])))
+    for letter, name, build, kinds, what, check in legs:
+        n = leg_events[name]
+        sub = events_of(n)
+        fed = sum(len(sub[k]["i"]) for k in kinds)
+        tag = f"nexmark_{name}"
+        out, s = nexmark_run(device, lambda pw, b=build: b(pw, sub, n), 1, tag,
+                             result["launches"])
+        got = check(out, sub)
+        result["rates"][tag] = fed / s
+        result["windows"][tag] = got
+        result["s"][tag] = s
+        log(f"nexmark ({letter}) {name} at 1 worker: {fed} rows ({'+'.join(kinds)}) of {n} "
+            f"events in {s:.2f} s, {fed / s:.1f} rows/s; {what} {got}, every output equal to "
+            f"numpy's [{card}]")
+    total = sum(result["s"].values())
+    log(f"nexmark: the runs took {total:.1f} s of the phase's {NEXMARK_BUDGET_S:.0f} "
+        f"({', '.join(f'{k} {v:.1f} s' for k, v in result['s'].items())}) [{card}]")
+    if cuda:
+        for workers in (1, 2):
+            if not result["launches"][f"nexmark_q1q7_{workers}w"]["expression_vm"]:
+                raise AssertionError(f"expression_vm not launched by Q1 at {workers} workers")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -5057,6 +5416,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     asynced = run_async_iterate(device)
 
+    phase("Nexmark windows")
+    nexmark = run_nexmark(device)
+
     by_path = {**engine["device_ms_by_path"], **api["device_ms_by_path"]}
     all_launches = {**engine["launches"], **api["launches"]}
     for name in PATH_KERNELS:
@@ -5103,7 +5465,8 @@ def main() -> int:
                    **{p: c[name] for p, c in files["launches"].items()},
                    **{p: c[name] for p, c in persistence["launches"].items()},
                    **{p: c[name] for p, c in rescaled["launches"].items()},
-                   **{p: c[name] for p, c in asynced["launches"].items()}}
+                   **{p: c[name] for p, c in asynced["launches"].items()},
+                   **{p: c[name] for p, c in nexmark["launches"].items()}}
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,

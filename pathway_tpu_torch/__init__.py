@@ -13,7 +13,9 @@ lock-step loop); the Table API down to ``run()`` (``internals``: tables, express
 schemas, the parse graph, the graph runner and the expression compiler; ``io.python``,
 ``io.subscribe``, ``debug``, ``reducers``, ``udfs``), so that ``import pathway_tpu_torch as pw``
 reads like the reference; ``persistence`` (checkpoints of input and operator state, recovery,
-exactly-once delivery-managed output); ``pw.iterate``; the native keyspace module under the
+exactly-once delivery-managed output); ``pw.iterate``; ``pw.temporal`` (windows, the
+interval, window and as-of joins, their behaviours), ``pw.ordered``, ``pw.statistical``,
+``pw.stateful`` and ``pw.universes``; the native keyspace module under the
 engine (``native``, built with the host C compiler at first use); ``pw.indexing`` (KNN, BM25,
 hybrid and sorted indexes) and ``Table.sort``; the RAG serving path (``xpacks.llm``: the local parsers, the splitters and
 embedders as UDFs, the live ``DocumentStore`` and ``DocumentStoreServer``; ``io.http``'s
@@ -32,6 +34,8 @@ package imports neither ``jax`` nor anything of ``pathway_tpu``.
 
 from . import reducers, udfs
 from .internals import dtype as _dt
+from .internals.config import PathwayConfig, get_pathway_config
+from .internals.custom_reducers import BaseCustomAccumulator
 from .internals.expression import (
     ColumnExpression,
     ColumnReference,
@@ -52,6 +56,8 @@ from .internals.joins import Joinable, JoinMode, JoinResult
 from .internals.json import Json
 from .internals.parse_graph import G, Universe
 from .internals.iterate import iterate, iterate_universe
+from .internals.monitoring import MonitoringLevel
+from .internals.py_object_wrapper import PyObjectWrapper
 from .internals.run import request_stop, run, run_all
 from .internals.schema import (
     Schema,
@@ -74,8 +80,8 @@ from .internals.table import (
 )
 from .internals.thisclass import left, right, this
 from .udfs import UDF, udf, udf_async
-from . import debug, io, persistence  # noqa: E402
-from .stdlib import indexing  # noqa: E402
+from . import debug, io, persistence, stdlib, universes  # noqa: E402
+from .stdlib import indexing, ordered, stateful, statistical, temporal  # noqa: E402
 
 from .models.embedder import (
     Embedder,
@@ -141,6 +147,7 @@ DateTimeUtc = _dt.DATE_TIME_UTC
 Duration = _dt.DURATION
 
 __all__ = [
+    "BaseCustomAccumulator",
     "ColumnExpression",
     "ColumnReference",
     "DateTimeNaive",
@@ -152,7 +159,10 @@ __all__ = [
     "JoinResult",
     "Joinable",
     "Json",
+    "MonitoringLevel",
+    "PathwayConfig",
     "Pointer",
+    "PyObjectWrapper",
     "Schema",
     "SchemaProperties",
     "Table",
@@ -171,6 +181,7 @@ __all__ = [
     "declare_type",
     "expression_vm",
     "fill_error",
+    "get_pathway_config",
     "groupby",
     "if_else",
     "indexing",
@@ -184,6 +195,7 @@ __all__ = [
     "join_right",
     "left",
     "make_tuple",
+    "ordered",
     "persistence",
     "reducers",
     "request_stop",
@@ -196,10 +208,15 @@ __all__ = [
     "schema_builder",
     "schema_from_dict",
     "schema_from_types",
+    "stateful",
+    "statistical",
+    "stdlib",
+    "temporal",
     "this",
     "udf",
     "udf_async",
     "udfs",
+    "universes",
     "unwrap",
     "BruteForceKnnEngine",
     "Embedder",

@@ -881,7 +881,12 @@ def all_unique_plain(keys: KeyArray) -> bool:
 
 def derive(keys: KeyArray, salt: int) -> KeyArray:
     """Derive child keys from parent keys (concat_reindex, flatten branches)."""
-    return _splitmix(keys ^ _splitmix(np.full(len(keys), np.uint64(salt), dtype=np.uint64)))
+    return derive_each(keys, np.full(len(keys), np.uint64(salt), dtype=np.uint64))
+
+
+def derive_each(keys: KeyArray, salts: np.ndarray) -> KeyArray:
+    """``derive`` with a salt for each key: ``derive_each(k, s)[i] == derive(k[i:i+1], s[i])``."""
+    return _splitmix(keys ^ _splitmix(salts.astype(np.uint64)))
 
 
 def derive_pair(left: KeyArray, right: KeyArray) -> KeyArray:

@@ -23,6 +23,8 @@ from __future__ import annotations
 
 from typing import Any, Callable
 
+import operator
+
 import numpy as np
 
 from . import keys as K
@@ -43,6 +45,11 @@ def _rows_equal(a: tuple | None, b: tuple | None) -> bool:
         return a is b
     if len(a) != len(b):
         return False
+    if all(map(operator.is_, a, b)):
+        # the same cells, as in a recomputed group's unchanged rows: equal (ndarray and Error
+        # cells too), unless a cell is a NaN, which the loop below finds unequal to itself
+        return float not in map(type, a) or not any(
+            type(x) is float and x != x for x in a)
     for x, y in zip(a, b):
         if isinstance(x, np.ndarray) or isinstance(y, np.ndarray):
             if not (
@@ -353,7 +360,13 @@ class IxStrictCheck(Node):
     keys). A probe may lawfully arrive ticks before its indexed row —
     incremental join semantics withhold it — but a probe still unmatched
     when the frontier CLOSES is a permanent dangling pointer and raises.
-    Infinite streams never close, so they only ever withhold."""
+    Infinite streams never close, so they only ever withhold.
+
+    Sharded, both inputs route by row key: the join's output keeps its
+    probe's key (``key_mode="left"``) but leaves the join on the worker of
+    ``__ptr__``, so without its own exchange a probe and its match reached
+    different workers' checks and each counted the other's probes as
+    missing (the reference's check has no exchange and raises so)."""
 
     STATE_FIELDS = ("_probes", "_matched")
 
@@ -361,6 +374,9 @@ class IxStrictCheck(Node):
         super().__init__([probes, joined], [])
         self._probes: dict[int, int] = {}
         self._matched: dict[int, int] = {}
+
+    def exchange_specs(self):
+        return [("key",), ("key",)]
 
     def process(self, time: int, ins: list[Delta | None]) -> Delta | None:
         p, j = ins
@@ -2933,14 +2949,13 @@ class Flatten(Node):
         d = ins[0]
         if d is None or not len(d):
             return None
-        keys_out: list[int] = []
-        rows_out: list[tuple] = []
-        diffs_out: list[int] = []
+        src: list[int] = []  # the input row of each output row
+        positions: list[int] = []
+        items_out: list = []
         names = self.column_names
-        flat_ix = names.index(self._col)
-        arrs = [d.data[c] for c in names]
+        flat = d.data[self._col]
         for i in range(len(d)):
-            value = arrs[flat_ix][i]
+            value = flat[i]
             items = None
             if value is not None and not isinstance(value, EngineError):
                 try:
@@ -2960,19 +2975,29 @@ class Flatten(Node):
                     "flatten",
                 )
                 continue
-            base = tuple(a[i] for a in arrs)
-            parent = np.array([d.keys[i]], dtype=np.uint64)
-            for pos, item in enumerate(items):
-                keys_out.append(int(K.derive(parent, pos * 2 + 0x7)[0]))
-                rows_out.append(base[:flat_ix] + (item,) + base[flat_ix + 1 :])
-                diffs_out.append(int(d.diffs[i]))
-        if not keys_out:
+            src.extend([i] * len(items))
+            positions.extend(range(len(items)))
+            items_out.extend(items)
+        if not src:
             return None
-        return Delta(
-            keys=np.array(keys_out, dtype=np.uint64),
-            data=rows_to_columns(rows_out, names),
-            diffs=np.array(diffs_out, dtype=np.int64),
-        )
+        idx = np.array(src, dtype=np.int64)
+        data = {}
+        for c in names:
+            if c == self._col:
+                data[c] = column_of_values(items_out)
+                continue
+            arr = d.data[c]
+            if isinstance(arr, np.ndarray) and arr.dtype in _DENSE_KEEP:
+                data[c] = arr[idx]  # what column_of_values makes of these cells
+            else:
+                data[c] = column_of_values([arr[i] for i in src])
+        # each child key is derive(parent, pos * 2 + 7), the whole batch in one call
+        salts = np.array(positions, dtype=np.uint64) * np.uint64(2) + np.uint64(0x7)
+        return Delta(keys=K.derive_each(d.keys[idx], salts), data=data, diffs=d.diffs[idx])
+
+
+#: column dtypes whose cells ``column_of_values`` turns back into the same dtype
+_DENSE_KEEP = (np.dtype(np.int64), np.dtype(np.float64), np.dtype(np.bool_))
 
 
 def _split_temporal_state(cls, state: dict, key_mask) -> dict:

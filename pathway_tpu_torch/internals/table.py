@@ -823,84 +823,85 @@ class Table(TableLike):
         )
 
     def windowby(self, time_expr: Any, *, window: Any, instance: Any = None, behavior: Any = None, **kwargs):
-        raise NotImplementedError(
-            "Table.windowby is not ported (ROADMAP.md Queue 3 item 12)"
-        )
+        from ..stdlib.temporal import windowby as _windowby
+
+        return _windowby(self, time_expr, window=window, instance=instance, behavior=behavior)
 
     def interval_join(self, other: "Table", self_time: Any, other_time: Any, interval: Any, *on: Any, **kwargs):
-        raise NotImplementedError(
-            "Table.interval_join is not ported (ROADMAP.md Queue 3 item 12)"
-        )
+        from ..stdlib.temporal import interval_join as _ij
+
+        return _ij(self, other, self_time, other_time, interval, *on, **kwargs)
 
     def interval_join_inner(self, other, self_time, other_time, interval, *on, **kw):
-        raise NotImplementedError(
-            "Table.interval_join_inner is not ported (ROADMAP.md Queue 3 item 12)"
-        )
+        from ..stdlib.temporal import interval_join_inner as _f
+
+        return _f(self, other, self_time, other_time, interval, *on, **kw)
 
     def interval_join_left(self, other, self_time, other_time, interval, *on, **kw):
-        raise NotImplementedError(
-            "Table.interval_join_left is not ported (ROADMAP.md Queue 3 item 12)"
-        )
+        from ..stdlib.temporal import interval_join_left as _f
+
+        return _f(self, other, self_time, other_time, interval, *on, **kw)
 
     def interval_join_right(self, other, self_time, other_time, interval, *on, **kw):
-        raise NotImplementedError(
-            "Table.interval_join_right is not ported (ROADMAP.md Queue 3 item 12)"
-        )
+        from ..stdlib.temporal import interval_join_right as _f
+
+        return _f(self, other, self_time, other_time, interval, *on, **kw)
 
     def interval_join_outer(self, other, self_time, other_time, interval, *on, **kw):
-        raise NotImplementedError(
-            "Table.interval_join_outer is not ported (ROADMAP.md Queue 3 item 12)"
-        )
+        from ..stdlib.temporal import interval_join_outer as _f
+
+        return _f(self, other, self_time, other_time, interval, *on, **kw)
 
     def window_join(self, other, self_time, other_time, window, *on, **kw):
-        raise NotImplementedError(
-            "Table.window_join is not ported (ROADMAP.md Queue 3 item 12)"
-        )
+        from ..stdlib.temporal import window_join as _f
+
+        return _f(self, other, self_time, other_time, window, *on, **kw)
 
     def window_join_inner(self, other, self_time, other_time, window, *on):
-        raise NotImplementedError(
-            "Table.window_join_inner is not ported (ROADMAP.md Queue 3 item 12)"
-        )
+        from ..stdlib.temporal import window_join_inner as _f
+
+        return _f(self, other, self_time, other_time, window, *on)
 
     def window_join_left(self, other, self_time, other_time, window, *on):
-        raise NotImplementedError(
-            "Table.window_join_left is not ported (ROADMAP.md Queue 3 item 12)"
-        )
+        from ..stdlib.temporal import window_join_left as _f
+
+        return _f(self, other, self_time, other_time, window, *on)
 
     def window_join_right(self, other, self_time, other_time, window, *on):
-        raise NotImplementedError(
-            "Table.window_join_right is not ported (ROADMAP.md Queue 3 item 12)"
-        )
+        from ..stdlib.temporal import window_join_right as _f
+
+        return _f(self, other, self_time, other_time, window, *on)
 
     def window_join_outer(self, other, self_time, other_time, window, *on):
-        raise NotImplementedError(
-            "Table.window_join_outer is not ported (ROADMAP.md Queue 3 item 12)"
-        )
+        from ..stdlib.temporal import window_join_outer as _f
+
+        return _f(self, other, self_time, other_time, window, *on)
 
     def asof_join(self, other, self_time, other_time, *on, **kw):
-        raise NotImplementedError(
-            "Table.asof_join is not ported (ROADMAP.md Queue 3 item 12)"
-        )
+        from ..stdlib.temporal import asof_join as _f
+
+        return _f(self, other, self_time, other_time, *on, **kw)
 
     def asof_join_left(self, other, self_time, other_time, *on, **kw):
-        raise NotImplementedError(
-            "Table.asof_join_left is not ported (ROADMAP.md Queue 3 item 12)"
-        )
+        from ..stdlib.temporal import asof_join_left as _f
+
+        return _f(self, other, self_time, other_time, *on, **kw)
 
     def asof_now_join(self, other, *on, **kw):
-        raise NotImplementedError(
-            "Table.asof_now_join is not ported (ROADMAP.md Queue 3 item 12)"
-        )
+        from ..stdlib.temporal import asof_now_join as _f
+
+        return _f(self, other, *on, **kw)
 
     def diff(self, timestamp: Any, *values: Any, instance: Any = None) -> "Table":
-        raise NotImplementedError(
-            "Table.diff is not ported (ROADMAP.md Queue 3 item 12)"
-        )
+        from ..stdlib.ordered import diff as _diff
+
+        return _diff(self, timestamp, *values, instance=instance)
 
     def interpolate(self, timestamp: Any, *values: Any, **kwargs: Any) -> "Table":
-        raise NotImplementedError(
-            "Table.interpolate is not ported (ROADMAP.md Queue 3 item 12)"
-        )
+        # reference attaches the stdlib fn as a Table method (table.py:75)
+        from ..stdlib.statistical import interpolate as _interp
+
+        return _interp(self, timestamp, *values, **kwargs)
 
     def live(self):
         raise NotImplementedError(

@@ -12,6 +12,10 @@ sinks' boundary-only acks) against the JAX package's, on the CPU.
 - The plane itself on one event sequence in both packages: the dedup by sequence number,
   ``hold_above``, backpressure, frontier and status merging, the vote log, the poisoned plane.
 - A commit wave that cannot collect every ready clock raises, in both packages.
+- A strict ``ix`` at 2 and 4 workers, async and BSP, gives the reference's 1-worker table: the
+  port's end-of-stream check keys both its inputs by the probe row, where the reference's raises a
+  false ``KeyError`` (``ROADMAP.md`` Queue 3, item 19). A key that is really missing still raises
+  at 1, 2 and 4 workers.
 - Exactly-once under async: a persisted transactional csv at 2 workers, in child processes,
   across a stop and a restart, and across a SIGKILL; every leg ran commit waves. Only the port
   runs these: the reference's transactional csv writes nothing in a restarted async run
@@ -194,8 +198,9 @@ def _join_retract_prog(pw):
 
 def _filter_ix_prog(pw):
     # a filtered stream read back through an optional ix on a static table: the ("key",) route,
-    # a stateless filter between two exchanges, and a pointer lookup. Optional: the strict ix's
-    # end-of-stream check raises at 2 workers in both packages (``ROADMAP.md`` Queue 3)
+    # a stateless filter between two exchanges, and a pointer lookup. Optional: the reference's
+    # strict ix raises a false KeyError at 2 workers (``ROADMAP.md`` Queue 3, "Not port
+    # faults"); the port's strict ix is held by ``_strict_ix_prog`` below
     labels = pw.debug.table_from_rows(pw.schema_from_types(k=int, label=str),
                                       [(i, f"l{i % 3}") for i in range(30)])
     labels = labels.with_id_from(labels.k)
@@ -217,6 +222,27 @@ def _filter_ix_prog(pw):
 
 PROGRAMS = {"wordcount": _wordcount_prog, "join_retract": _join_retract_prog,
             "filter_ix": _filter_ix_prog}
+
+
+def _strict_ix_prog(pw, missing: bool = False):
+    # 300 rows in 5 commits read through a strict ix on a 30-row static table; with
+    # ``missing``, one row of the third commit points at a key the table does not hold
+    labels = pw.debug.table_from_rows(pw.schema_from_types(k=int, label=str),
+                                      [(i, f"l{i % 3}") for i in range(30)])
+    labels = labels.with_id_from(labels.k)
+
+    class Feed(pw.io.python.ConnectorSubject):
+        def run(self):
+            for s in range(0, 300, 60):
+                ks = [(i * 7) % 30 for i in range(s, s + 60)]
+                if missing and s == 120:
+                    ks[5] = 31
+                self.next_batch({"k": ks, "v": list(range(s, s + 60))})
+                self.commit()
+
+    t = pw.io.python.read(Feed(), schema=pw.schema_from_types(k=int, v=int),
+                          autocommit_duration_ms=None)
+    return t.select(pw.this.v, label=labels.ix(labels.pointer_from(t.k)).label)
 
 
 def _final_table(pkg: str, prog, monkeypatch, threads: int, async_exec: str, fusion: str):
@@ -255,6 +281,28 @@ def test_tables_equal_the_reference(monkeypatch, prog, fusion, workers, async_ex
     theirs = _final_table("pathway_tpu", PROGRAMS[prog], monkeypatch, workers, async_exec, fusion)
     assert ours == theirs
     assert ours
+
+
+@pytest.mark.parametrize("workers,async_exec", [(2, "1"), (2, "0"), (4, "1"), (4, "0")])
+def test_strict_ix_sharded_equals_the_reference_one_worker(monkeypatch, workers, async_exec):
+    """The strict ix's end-of-stream check keys both its inputs by the probe row (``ROADMAP.md``
+    Queue 3, item 19): sharded, the port gives the reference's 1-worker table, where the
+    reference's check raises a false KeyError."""
+    want = _final_table("pathway_tpu", _strict_ix_prog, monkeypatch, 1, "0", "1")
+    got = _final_table("pathway_tpu_torch", _strict_ix_prog, monkeypatch, workers, async_exec,
+                       "1")
+    assert got == want
+    assert sum(got.values()) == 300 and len({label for _, label in got}) == 3
+
+
+@pytest.mark.parametrize("workers,async_exec", [(1, "0"), (2, "1"), (2, "0"), (4, "1")])
+def test_strict_ix_missing_key_still_raises(monkeypatch, workers, async_exec):
+    prog = lambda pw: _strict_ix_prog(pw, missing=True)  # noqa: E731
+    with pytest.raises(KeyError, match="1 row"):
+        _final_table("pathway_tpu_torch", prog, monkeypatch, workers, async_exec, "1")
+    if workers == 1:
+        with pytest.raises(KeyError, match="1 row"):
+            _final_table("pathway_tpu", prog, monkeypatch, workers, async_exec, "1")
 
 
 def test_async_run_records_its_loop_and_exchange(monkeypatch):
