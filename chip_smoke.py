@@ -1,8 +1,8 @@
 """Drive the PyTorch port's RAG ingest and retrieval path, its training step, its parallel paths, its
 dataflow engine, its Table API, its indexing stdlib, its RAG serve path over HTTP, its file
 connectors with the RAG example served from a directory, its persistence and recovery, its
-elastic rescale and spill tier, its frontier-driven async plane with ``pw.iterate``, and its
-temporal stdlib on Nexmark's event model, on one NVIDIA card.
+elastic rescale and spill tier, its frontier-driven async plane with ``pw.iterate``, its
+temporal stdlib on Nexmark's event model, and its ML, SQL and graph stdlib, on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -114,7 +114,7 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    engine holds every row), the query tick's host time (commit to the last answer's callback)
    and its idle share (a trace of the run's device activity, between two marker kernels launched
    at the commit and at the last answer) are logged. Then a ``HybridIndex`` of BM25 with the
-   brute-force index (reciprocal-rank fusion) over the first 8,192 chunks (its fill embeds one
+   brute-force index (reciprocal-rank fusion) over the first 4,096 chunks (its fill embeds one
    chunk at a time, so it is the phase's longest run), the same queries, held
    against ``HybridEngine.search`` called directly on the run's engine (untraced). The launch
    counts are zeroed just before each run and read just after.
@@ -207,8 +207,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    loop; this phase runs the async loop and one ``PATHWAY_ASYNC_EXEC=0`` run beside each. (a)
    The reference's skew lane (``bench.py:1261-1470``): 150,000 fast rows in batches of 5,000 over
    64 words of worker 0's shard, 40 slow rows over 8 words of worker 1's, each through a blocking
-   25 ms UDF, at 2 workers over ``LocalComm`` through ``pw.run(device="cuda")``, in 3 fresh
-   processes async and 3 with ``PATHWAY_ASYNC_EXEC=0`` (``--async-leg``): the fast shard's rows/s
+   25 ms UDF, at 2 workers over ``LocalComm`` through ``pw.run(device="cuda")``, in 2 fresh
+   processes async and 2 with ``PATHWAY_ASYNC_EXEC=0`` (``--async-leg``): the fast shard's rows/s
    until its last output update, its drain and total seconds, worker 0's busy fraction from
    ``Executor._idle_park_ns`` and ``EngineStats``' Exchange node times, the async/BSP ratio of
    the best runs; both arms' counts held against numpy's. (b) The reference's uniform A/B
@@ -227,7 +227,7 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    wave duration's p50, ``WaveRecorder``'s stage split (sweep, inbox_dwell, frontier_wait,
    settle, snapshot, release) and the holders and critical stages of the merged wave documents.
    (e) ``pw.iterate``'s min-label propagation (connected components) over a seeded graph of
-   65,536 nodes and 262,144 undirected edges at 1 worker, the labels held
+   32,768 nodes and 131,072 undirected edges at 1 worker, the labels held
    against ``scipy.sparse.csgraph.connected_components``; its rounds, seconds (within 120) and
    ``expression_vm`` launches.
 17. Nexmark windows through ``pw.temporal`` (windows, the window, interval and as-of joins), each
@@ -247,7 +247,26 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    window or match count, and the launch counts (zeroed just before each run, read just after)
    are logged. ``NEXMARK_LEG_EVENTS`` holds each leg's cut: (b) and (d) over the first 500,000
    events.
-18. Each engine-path kernel's launches and summed device time per path, one JSON line with each
+18. The stdlib and SQL (``pw.ml``, ``pw.sql``, ``pw.graphs``), each leg a
+   ``pw.run(device="cuda")`` checked against numpy on the same data. (a) kNN classification at
+   MNIST's shape: 60,000 seeded training vectors of 784 around ten class centres and 10,000
+   queries through ``pw.io.python`` (commits of 10,000, then of 1,000),
+   ``knn_lsh_classifier_train(L=20, type="euclidean", d=784)``, ``knn_lsh_classify(k=3)`` and
+   ``classifier_accuracy``; each label against the majority of the plain scorer's top 3 (a
+   difference allowed only where the scorer's tolerance leaves the vote open), and the accuracy
+   table against numpy's count; ``knn_topk`` must launch. Then ``knn_topk`` on the run's own
+   index mirror (the tile route, l2sq) with the first commit of 1,000 queries, held against the
+   plain scorer score by score (``check_topk_against_plain``). (b) Nexmark's Q0-Q3 and a grouped
+   count and maximum per auction through ``pw.sql`` over the first ``SQL_EVENTS`` of phase
+   17's events, at 1 worker and at 2 (async); ``expression_vm`` must launch. (c) Graph500's
+   Kronecker graphs (A=0.57, B=C=0.19, edge factor 16, duplicates and self-loops kept):
+   ``pagerank(steps=5)`` at scale 14 exactly equal to numpy's integer recurrence,
+   ``bellman_ford`` at scale 12 (integer weights 1-255 as floats) equal to a numpy relaxation to
+   the fixpoint, and one Louvain level at scale 12 whose ``exact_modularity`` equals numpy's
+   modularity of the clustering it returned (within 1e-12 a cluster: the sums run in another
+   order). Each leg logs its rows/s, seconds and the launch counts (zeroed just before each run,
+   read just after).
+19. Each engine-path kernel's launches and summed device time per path, one JSON line with each
    kernel's numbers, then the closing JSON line.
 
 It needs one CUDA card and exits non-zero, printing no result, without one. It imports nothing
@@ -259,6 +278,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import functools
+import itertools
 import json
 import math
 import os
@@ -2599,12 +2619,12 @@ def check_answers(label: str, got: dict, want: dict) -> int:
 
 def run_indexing(device, *, n_chunks: int = 16384, n_rows: int = 1 << 20, n_rows_2: int = 1 << 18,
                  chunk_commit: int = 1024, vec_commit: int = 1 << 16, n_queries: int = 64,
-                 k: int = 10, hybrid_chunks: int = 8192, cfg=None) -> dict:
+                 k: int = 10, hybrid_chunks: int = 4096, cfg=None) -> dict:
     """The phase; sizes as the defaults say on the card (a CPU rehearsal passes small ones):
     ``n_rows`` at 1 worker, ``n_rows_2`` (at most ``n_rows``) at 2, the hybrid over the first
     ``hybrid_chunks`` of the ``n_chunks`` chunks (it embeds a chunk at a time: cut from 16,384 to
-    8,192 when phase 16 came, PERF.md section 4). Returns each run's launch counts, rates and
-    times."""
+    8,192 when phase 16 came and to 4,096 when phase 18 did, PERF.md section 4). Returns each
+    run's launch counts, rates and times."""
     import pathway_tpu_torch as pw
     from pathway_tpu_torch.models.embedder import Embedder
     from pathway_tpu_torch.ops.index_engines import BruteForceKnnEngine
@@ -4244,12 +4264,15 @@ def run_rescale_spill(device, *, store: str | None, interval_ms: int = 1000, dat
 
 #: (a) the reference's skew lane (``bench.py:1261-1470``): fast rows in batches over 64 words of
 #: worker 0's shard, slow rows over 8 words of worker 1's, each through a blocking 25 ms UDF
-SKEW_FAST, SKEW_BATCH, SKEW_SLOW, SKEW_PAUSE_MS, SKEW_REPS = 150_000, 5_000, 40, 25, 3
+#: SKEW_REPS was 3 until phase 18 came: the script took 1,152.8 s of the contract's 1,200 on a
+#: slow host (PERF.md section 4)
+SKEW_FAST, SKEW_BATCH, SKEW_SLOW, SKEW_PAUSE_MS, SKEW_REPS = 150_000, 5_000, 40, 25, 2
 #: (b) the reference's uniform A/B (``bench.py:2030-2085``): its wordcount, a warm-up of 100,000
 #: rows, then the best of 2 runs of 500,000 in commits of 10,000, each arm in a fresh process
 UNIFORM_ROWS, UNIFORM_WARMUP, UNIFORM_BATCH = 500_000, 100_000, 10_000
-#: (e) min-label propagation over a seeded graph, at 1 worker, within ITERATE_BUDGET_S
-CC_NODES, CC_EDGES, ITERATE_BUDGET_S = 1 << 16, 1 << 18, 120.0
+#: (e) min-label propagation over a seeded graph, at 1 worker, within ITERATE_BUDGET_S; cut by
+#: half (from 65,536 nodes and 262,144 edges) with SKEW_REPS, for the same reason
+CC_NODES, CC_EDGES, ITERATE_BUDGET_S = 1 << 15, 1 << 17, 120.0
 
 
 def skew_words(workers: int = 2) -> tuple[list, list]:
@@ -5231,6 +5254,431 @@ def run_nexmark(device, *, n_events: int = NEXMARK_EVENTS, leg_events: dict | No
         for workers in (1, 2):
             if not result["launches"][f"nexmark_q1q7_{workers}w"]["expression_vm"]:
                 raise AssertionError(f"expression_vm not launched by Q1 at {workers} workers")
+    result["events"] = ev  # phase 18's SQL leg reads the same events
+    return result
+
+
+# -- phase 18: the stdlib and SQL ------------------------------------------------------------------
+
+MNIST_TRAIN, MNIST_TEST, MNIST_DIM, MNIST_CLASSES = 60_000, 10_000, 784, 10
+MNIST_TRAIN_COMMIT, MNIST_QUERY_COMMIT = 10_000, 1_000
+SQL_EVENTS = 500_000  # the first of phase 17's events that leg (b) takes
+GRAPH_SCALES = {"pagerank": 14, "bellman_ford": 12, "louvain": 12}
+STDLIB_BUDGET_S = 120.0
+SQL_QUERIES = {
+    "q0": ("SELECT auction, bidder, price, t FROM bid", ("bid",)),
+    "q1": ("SELECT auction, bidder, price * 0.908 AS price, t FROM bid", ("bid",)),
+    "q2": ("SELECT auction, price FROM bid WHERE auction % 123 = 0", ("bid",)),
+    "q3": ("SELECT P.name, P.state, A.aid FROM auction AS A JOIN person AS P ON A.seller = P.pid "
+           "WHERE A.category = 10 AND (P.state = 'OR' OR P.state = 'ID' OR P.state = 'CA')",
+           ("auction", "person")),
+    # not a Nexmark query: a grouped count and maximum
+    "per_auction": ("SELECT auction, COUNT(*) AS n, MAX(price) AS top FROM bid GROUP BY auction",
+                    ("bid",)),
+}
+
+
+def mnist_shaped(seed: int = 19) -> dict:
+    """MNIST's shape (LeCun et al.: 60,000 training and 10,000 test images of 28 x 28 = 784
+    features, ten classes), seeded: each vector a class centre (standard normal) plus normal
+    noise of 1.25, its label the class."""
+    rng = np.random.default_rng(seed)
+    centres = rng.standard_normal((MNIST_CLASSES, MNIST_DIM)).astype(np.float32)
+    out = {}
+    for part, n in (("train", MNIST_TRAIN), ("test", MNIST_TEST)):
+        label = rng.integers(0, MNIST_CLASSES, n)
+        noise = rng.standard_normal((n, MNIST_DIM)).astype(np.float32) * np.float32(1.25)
+        out[part] = (centres[label] + noise, label)
+    return out
+
+
+def vote_options(labels: list, scores: list, tol: float, k: int) -> set:
+    """Every label the majority of a top ``k`` can take where scores within ``tol`` of each other
+    may come in either order: the rows clear above the k-th score stay, any of those within
+    ``tol`` of it may fill the rest, and a tie of counts goes to the nearest of the tied labels'
+    rows, which may be any of them within ``tol`` of the best."""
+    kth = scores[k - 1]
+    certain = [j for j in range(k) if scores[j] - kth > tol]
+    band = [j for j in range(len(scores)) if j not in certain and abs(scores[j] - kth) <= tol]
+    out = set()
+    for combo in itertools.combinations(band, k - len(certain)):
+        chosen = certain + list(combo)
+        count = collections.Counter(labels[j] for j in chosen)
+        top = max(count.values())
+        tied = [j for j in chosen if count[labels[j]] == top]
+        best = max(scores[j] for j in tied)
+        out |= {labels[j] for j in tied if best - scores[j] <= tol}
+    return out
+
+
+def plain_votes(device, train: np.ndarray, train_label: np.ndarray, test: np.ndarray,
+                k: int = 3, extra: int = 32, chunk: int = 1000) -> list:
+    """Per query, the labels the majority of the plain scorer's top ``k`` (l2sq) can take within
+    ``topk_tolerance`` (``vote_options`` over its top ``k + extra``; one label where no two
+    scores that matter lie within it)."""
+    from pathway_tpu_torch.ops.knn import topk_scores_plain
+
+    index = torch.from_numpy(train).to(device)
+    options = []
+    for s in range(0, len(test), chunk):
+        q = torch.from_numpy(test[s:s + chunk]).to(device)
+        sc, ids = topk_scores_plain(q, index, k + extra, "l2sq")
+        tol = topk_tolerance(sc, q, index, "l2sq")[:, k - 1].tolist()
+        labels = train_label[ids.cpu().numpy()].tolist()
+        for row, scores, t in zip(labels, sc.tolist(), tol):
+            if abs(scores[-1] - scores[k - 1]) <= t:
+                raise AssertionError("more scores within the tolerance than the check fetched")
+            options.append(vote_options(row, scores, t, k))
+    return options
+
+
+def run_knn_classify(device, launches: dict, k: int = 3) -> dict:
+    """(a): MNIST-shaped vectors through ``pw.io.python`` into ``pw.ml``'s kNN classifier, then
+    ``knn_topk`` on the run's own index mirror and one commit of queries held against the plain
+    scorer, score by score (``check_topk_against_plain``)."""
+    from pathway_tpu_torch.ops.knn import plan, topk_scores, topk_scores_plain
+
+    data = mnist_shaped()
+    (train, train_label), (test, test_label) = data["train"], data["test"]
+    n_train, n_test = len(train), len(test)
+    held: list = []
+
+    def build(pw):
+        class Train(pw.io.python.ConnectorSubject):
+            def run(self):
+                for s in range(0, n_train, MNIST_TRAIN_COMMIT):
+                    e = min(s + MNIST_TRAIN_COMMIT, n_train)
+                    self.next_batch({"i": list(range(s, e)), "data": list(train[s:e]),
+                                     "label": train_label[s:e]})
+                    self.commit()
+
+        class Queries(pw.io.python.ConnectorSubject):
+            def run(self):  # once the index holds every training row
+                deadline = _wall() + 600
+                while not engines or max(rows_held(e) for e in engines) < n_train:
+                    if _wall() > deadline:
+                        raise AssertionError("the index did not take the training rows in 600 s")
+                    time.sleep(0.005)
+                for s in range(0, n_test, MNIST_QUERY_COMMIT):
+                    e = min(s + MNIST_QUERY_COMMIT, n_test)
+                    self.next_batch({"i": list(range(s, e)), "data": list(test[s:e]),
+                                     "label": test_label[s:e]})
+                    self.commit()
+
+        # keyed by ``i``: without a primary key each row's key would hash its 784 floats
+        schema = pw.schema_builder({"i": pw.column_definition(primary_key=True, dtype=int),
+                                    "data": pw.column_definition(dtype=object),
+                                    "label": pw.column_definition(dtype=int)})
+        tr = pw.io.python.read(Train(), schema=schema, autocommit_duration_ms=None)
+        qs = pw.io.python.read(Queries(), schema=schema, autocommit_duration_ms=None)
+        model = pw.ml.knn_lsh_classifier_train(tr.select(data=pw.this.data), L=20,
+                                               type="euclidean", d=MNIST_DIM)
+        engines = keep_engines(model._index)
+        held.append(engines)
+        predicted = pw.ml.knn_lsh_classify(model, tr.select(label=pw.this.label),
+                                           qs.select(data=pw.this.data), k=k)
+        accuracy = pw.ml.classifier_accuracy(predicted.predicted_label, qs.label)
+        return {"predicted": predicted.select(qi=qs.i, pred=predicted.predicted_label),
+                "accuracy": accuracy}
+
+    out, s = nexmark_run(device, build, 1, "stdlib_knn", launches)
+    pred = out["predicted"]
+    if len(pred["qi"]) != n_test:
+        raise AssertionError(f"{len(pred['qi'])} of {n_test} queries classified")
+    got = np.empty(n_test, dtype=np.int64)
+    got[pred["qi"].astype(np.int64)] = pred["pred"].astype(np.int64)
+    options = plain_votes(device, train, train_label, test, k)
+    outside = sum(int(g) not in o for g, o in zip(got.tolist(), options))
+    if outside:
+        raise AssertionError(f"{outside} labels are none the plain scorer's top {k} can vote "
+                             f"for within its tolerance")
+    open_ = sum(len(o) > 1 for o in options)
+    right = int((got == test_label).sum())
+    acc = {bool(v): int(c) for v, c in zip(out["accuracy"]["value"], out["accuracy"]["cnt"])}
+    if acc != {b: c for b, c in ((True, right), (False, n_test - right)) if c}:
+        raise AssertionError(f"classifier_accuracy {acc} differs from numpy's count {right}")
+
+    # the kernel at the leg's shape: one commit of queries against the run's index mirror
+    engine = max(held[0], key=rows_held)
+    if rows_held(engine) != n_train or engine._mirror is None:
+        raise AssertionError("the classifier's index does not hold every training row")
+    q = torch.from_numpy(test[:MNIST_QUERY_COMMIT]).to(device)
+    mirror, valid = engine._mirror, engine._mirror_valid
+    s_k, i_k = topk_scores(q, mirror, k, engine.metric, valid=valid)
+    s_p, i_p = topk_scores_plain(q, mirror, k + 1, engine.metric, valid=valid)
+    check_topk_against_plain(s_k, i_k, s_p, i_p, topk_tolerance(s_p, q, mirror, engine.metric))
+    err = (s_k - s_p[:, :k]).abs().max().item()
+    sms = torch.cuda.get_device_properties(device).multi_processor_count \
+        if device.type == "cuda" else 132
+    route = plan(len(q), mirror.shape[0], MNIST_DIM, k, sms).route
+    return {"s": s, "rows": n_train + n_test, "accuracy": right / n_test, "open": open_,
+            "score_err": err, "metric": engine.metric, "index_rows": int(mirror.shape[0]),
+            "route": route}
+
+
+def plain_sql(sub: dict) -> dict:
+    """Each of ``SQL_QUERIES``' answers as a Counter of rows, from numpy and Python."""
+    bid, auction, person = sub["bid"], sub["auction"], sub["person"]
+    keep = bid["auction"] % 123 == 0
+    state = dict(zip(person["pid"].tolist(), zip(person["name"], person["state"])))
+    q3 = collections.Counter(
+        (state[s][0], state[s][1], a) for a, s, c in zip(
+            auction["aid"].tolist(), auction["seller"].tolist(), auction["category"].tolist())
+        if c == 10 and s in state and state[s][1] in ("OR", "ID", "CA"))
+    per = group_max_count(bid["auction"], bid["price"])
+    return {
+        "q0": rows_of(bid, ["auction", "bidder", "price", "t"]),
+        "q1": rows_of({**bid, "price": bid["price"].astype(np.float64) * 0.908},
+                      ["auction", "bidder", "price", "t"]),
+        "q2": rows_of({c: bid[c][keep] for c in ("auction", "price")}, ["auction", "price"]),
+        "q3": q3,
+        "per_auction": collections.Counter((a, c, m) for a, (m, c) in per.items()),
+    }
+
+
+SQL_COLUMNS = {"q0": ["auction", "bidder", "price", "t"], "q1": ["auction", "bidder", "price", "t"],
+               "q2": ["auction", "price"], "q3": ["name", "state", "aid"],
+               "per_auction": ["auction", "n", "top"]}
+
+
+def run_sql(device, ev: dict, n_events: int, launches: dict) -> dict:
+    """(b): ``SQL_QUERIES`` through ``pw.sql`` over the first ``n_events`` events, at 1 and 2
+    workers, each output against numpy's."""
+    sub = {kind: {c: v[:int(np.searchsorted(cols["n"], n_events))] for c, v in cols.items()}
+           for kind, cols in ev.items()}
+    want = plain_sql(sub)
+    fed = sum(len(sub[k]["i"]) for k in ("bid", "auction", "person"))
+
+    def build(pw):
+        src = {kind: nexmark_source(pw, sub, kind, n_events) for kind in sub}
+        return {name: pw.sql(q, **{k: src[k] for k in kinds})
+                for name, (q, kinds) in SQL_QUERIES.items()}
+
+    result = {}
+    for workers in (1, 2):
+        tag = f"stdlib_sql_{workers}w"
+        out, s = nexmark_run(device, build, workers, tag, launches)
+        for name, cols in SQL_COLUMNS.items():
+            if rows_of(out[name], cols) != want[name]:
+                raise AssertionError(f"pw.sql's {name} at {workers} workers differs from numpy's")
+        result[tag] = {"s": s, "rows": fed, "out_rows": {n: sum(w.values())
+                                                          for n, w in want.items()}}
+    return result
+
+
+def kronecker_edges(scale: int, edge_factor: int = 16, seed: int = 18):
+    """Graph500's Kronecker generator (graph500.org, the specification's ``kronecker_generator``:
+    initiator A=0.57, B=0.19, C=0.19, ``edge_factor`` x 2^scale edges, the vertex labels and
+    then the edges permuted), seeded numpy; duplicate edges and self-loops kept."""
+    rng = np.random.default_rng(seed + scale)
+    n, m = 1 << scale, edge_factor << scale
+    a, b, c = 0.57, 0.19, 0.19
+    ab, c_norm, a_norm = a + b, c / (1 - (a + b)), a / (a + b)
+    u = np.zeros(m, np.int64)
+    v = np.zeros(m, np.int64)
+    for bit in range(scale):
+        ii = rng.random(m) > ab
+        jj = rng.random(m) > np.where(ii, c_norm, a_norm)
+        u += ii.astype(np.int64) << bit
+        v += jj.astype(np.int64) << bit
+    perm = rng.permutation(n)
+    order = rng.permutation(m)
+    return perm[u][order], perm[v][order]
+
+
+def plain_pagerank(u: np.ndarray, v: np.ndarray, steps: int) -> dict:
+    """``pw.graphs.pagerank``'s integer recurrence in numpy: {vertex: rank}."""
+    verts = np.unique(np.r_[u, v])
+    iu, iv = np.searchsorted(verts, u), np.searchsorted(verts, v)
+    deg = np.bincount(iu, minlength=len(verts))
+    rank = np.full(len(verts), 6_000, np.int64)
+    for _ in range(steps):
+        flow = np.where(deg == 0, 0, (rank * 5) // np.maximum(deg * 6, 1))
+        recv = np.zeros(len(verts), np.int64)
+        np.add.at(recv, iv, flow[iu])
+        new = recv + 1_000
+        if (new == rank).all():
+            break
+        rank = new
+    return dict(zip(verts.tolist(), rank.tolist()))
+
+
+def plain_bellman_ford(n: int, u, v, w, source: int) -> np.ndarray:
+    """Distances from ``source`` by relaxing every edge until nothing changes (np.minimum.at
+    keeps the least of duplicate edges)."""
+    dist = np.full(n, np.inf)
+    dist[source] = 0.0
+    while True:
+        new = dist.copy()
+        np.minimum.at(new, v, dist[u] + w)
+        if np.array_equal(new, dist):
+            return dist
+        dist = new
+
+
+def plain_modularity(u, v, w, cluster: dict) -> tuple[float, int]:
+    """``exact_modularity``'s sum over clusters of internal weight / m - (degree / 2m)^2."""
+    cu = np.array([cluster[x] for x in u.tolist()])
+    cv = np.array([cluster[x] for x in v.tolist()])
+    m = float(w.sum())
+    labels, inv = np.unique(np.r_[cu, cv], return_inverse=True)
+    deg = np.zeros(len(labels))
+    np.add.at(deg, inv, np.r_[w, w])
+    internal = np.zeros(len(labels))
+    same = cu == cv
+    np.add.at(internal, inv[:len(u)][same], w[same])
+    return math.fsum(internal / m - (deg / (2.0 * m)) ** 2), len(labels)
+
+
+def edge_source(pw, u: np.ndarray, v: np.ndarray, w: np.ndarray | None = None):
+    """``pw.io.python.read`` of the whole graph in one commit: each edge's index ``i`` (so that
+    duplicates stay rows of their own), ``a``, ``b`` and, given, ``w``. One commit, because
+    ``pw.iterate`` reruns its fixpoint from the inputs' whole state at each commit."""
+
+    class Edges(pw.io.python.ConnectorSubject):
+        def run(self):
+            cols = {"i": np.arange(len(u)), "a": u, "b": v}
+            if w is not None:
+                cols["w"] = w
+            self.next_batch(cols)
+            self.commit()
+
+    types = dict(i=int, a=int, b=int, **({"w": float} if w is not None else {}))
+    return pw.io.python.read(Edges(), schema=pw.schema_from_types(**types),
+                             autocommit_duration_ms=None)
+
+
+def vertex_table(pw, n: int):
+    """Vertices 0..n-1 keyed by ``pointer_from(node)``."""
+    t = pw.debug.table_from_rows(pw.schema_from_types(node=int), [(i,) for i in range(n)])
+    return t.with_id_from(t.node)
+
+
+def run_graphs(device, launches: dict, scales: dict | None = None) -> dict:
+    """(c): PageRank, Bellman-Ford and a Louvain level over Kronecker graphs, each against
+    numpy."""
+    scales = {**GRAPH_SCALES, **(scales or {})}
+    result = {}
+
+    sc = scales["pagerank"]
+    u, v = kronecker_edges(sc)
+
+    def build_pagerank(pw):
+        verts = vertex_table(pw, 1 << sc)
+        raw = edge_source(pw, u, v)
+        ranks = pw.graphs.pagerank.pagerank(
+            raw.select(u=verts.pointer_from(raw.a), v=verts.pointer_from(raw.b)), steps=5)
+        return {"ranks": ranks.select(node=verts.ix(ranks.id).node, rank=ranks.rank)}
+
+    out, s = nexmark_run(device, build_pagerank, 1, "stdlib_pagerank", launches)
+    got = dict(zip(out["ranks"]["node"].tolist(), out["ranks"]["rank"].tolist()))
+    if got != plain_pagerank(u, v, 5):
+        raise AssertionError("pagerank differs from numpy's integer recurrence")
+    result["pagerank"] = {"s": s, "rows": len(u), "scale": sc, "vertices": len(got)}
+
+    sc = scales["bellman_ford"]
+    n = 1 << sc
+    u, v = kronecker_edges(sc)
+    w = np.random.default_rng(sc).integers(1, 256, len(u)).astype(np.float64)
+    source = int(np.bincount(u, minlength=n).argmax())
+
+    def build_bellman_ford(pw):
+        verts = vertex_table(pw, n)
+        raw = edge_source(pw, u, v, w)
+        dist = pw.graphs.bellman_ford.bellman_ford(
+            verts.select(is_source=verts.node == source),
+            raw.select(u=verts.pointer_from(raw.a), v=verts.pointer_from(raw.b), dist=raw.w))
+        return {"dist": dist.select(node=verts.ix(dist.id).node, d=dist.dist_from_source)}
+
+    out, s = nexmark_run(device, build_bellman_ford, 1, "stdlib_bellman_ford", launches)
+    got = np.full(n, np.nan)
+    got[out["dist"]["node"].astype(np.int64)] = out["dist"]["d"].astype(np.float64)
+    want = plain_bellman_ford(n, u, v, w, source)
+    if not np.array_equal(got, want):
+        raise AssertionError("bellman_ford differs from numpy's relaxation")
+    result["bellman_ford"] = {"s": s, "rows": len(u), "scale": sc,
+                              "reached": int(np.isfinite(want).sum())}
+
+    sc = scales["louvain"]
+    n = 1 << sc
+    u, v = kronecker_edges(sc)
+    w = np.ones(len(u))
+
+    def build_louvain(pw):
+        from pathway_tpu_torch.stdlib.graphs.louvain_communities import (
+            exact_modularity, louvain_communities)
+
+        verts = vertex_table(pw, n)
+        raw = edge_source(pw, u, v, w)
+        g = pw.graphs.WeightedGraph.from_vertices_and_weighted_edges(
+            verts, raw.select(u=verts.pointer_from(raw.a), v=verts.pointer_from(raw.b),
+                              weight=raw.w))
+        clusters = louvain_communities(g)
+        return {"clusters": clusters.select(node=verts.ix(clusters.id).node,
+                                            c=verts.ix(clusters.c).node),
+                "q": exact_modularity(g, clusters)}
+
+    out, s = nexmark_run(device, build_louvain, 1, "stdlib_louvain", launches)
+    cluster = dict(zip(out["clusters"]["node"].tolist(), out["clusters"]["c"].tolist()))
+    want_q, n_clusters = plain_modularity(u, v, w, cluster)
+    (got_q,) = out["q"]["modularity"].tolist()
+    if abs(got_q - want_q) > 1e-12 * n_clusters:
+        raise AssertionError(f"exact_modularity {got_q!r} differs from numpy's {want_q!r}")
+    result["louvain"] = {"s": s, "rows": len(u), "scale": sc, "clusters": n_clusters,
+                         "modularity": got_q}
+    return result
+
+
+def run_stdlib(device, *, ev: dict | None = None, sql_events: int = SQL_EVENTS,
+               graph_scales: dict | None = None) -> dict:
+    """Phase 18: (a) the kNN classifier at MNIST's shape, (b) ``pw.sql`` over Nexmark (``ev``,
+    phase 17's events, or the generator's anew), (c) the graph algorithms, each leg's output
+    held against numpy, its rows/s (its input rows over the wall of ``pw.run``, host clock),
+    seconds and launch counts logged with the card's name and power limit."""
+    cuda = device.type == "cuda"
+    card = card_line() if cuda else "cpu"
+    result: dict = {"launches": {}, "legs": {}}
+    watched = ("knn_topk", "expression_vm", "bucket_exchange")
+
+    def counts(tag: str) -> str:
+        return ", ".join(f"{k} {result['launches'][tag][k]}" for k in watched)
+
+    knn = run_knn_classify(device, result["launches"])
+    result["legs"]["stdlib_knn"] = knn
+    log(f"stdlib (a) kNN classification, {MNIST_TRAIN} x {MNIST_DIM} training vectors and "
+        f"{MNIST_TEST} queries, k=3, 1 worker: {knn['s']:.2f} s, {knn['rows'] / knn['s']:.1f} "
+        f"rows/s; accuracy {knn['accuracy']:.4f}, equal to numpy's count; every label one the "
+        f"plain scorer's top 3 votes for within its tolerance ({knn['open']} queries where the "
+        f"tolerance leaves two labels open); knn_topk on the run's index ({knn['index_rows']} "
+        f"x {MNIST_DIM}, {knn['metric']}, the {knn['route']} route) and {MNIST_QUERY_COMMIT} "
+        f"queries against the plain "
+        f"scorer: max |score err| {knn['score_err']:.3e}, ids equal where scores are clear of "
+        f"the tolerance; launches: {counts('stdlib_knn')} [{card}]")
+    if ev is None:
+        ev = nexmark_events(max(NEXMARK_EVENTS, sql_events))
+    sql = run_sql(device, ev, sql_events, result["launches"])
+    result["legs"].update(sql)
+    for tag, leg in sql.items():
+        log(f"stdlib (b) pw.sql over {sql_events} Nexmark events at {tag[-2]} worker(s): "
+            f"{leg['rows']} rows in {leg['s']:.2f} s, {leg['rows'] / leg['s']:.1f} rows/s; "
+            f"output rows {leg['out_rows']}, each query equal to numpy's; launches: "
+            f"{counts(tag)} [{card}]")
+    graphs = run_graphs(device, result["launches"], graph_scales)
+    for name, leg in graphs.items():
+        tag = f"stdlib_{name}"
+        result["legs"][tag] = leg
+        extra = {k: v for k, v in leg.items() if k not in ("s", "rows", "scale")}
+        log(f"stdlib (c) {name} at scale {leg['scale']} ({leg['rows']} edges), 1 worker: "
+            f"{leg['s']:.2f} s, {leg['rows'] / leg['s']:.1f} rows/s; {extra}, equal to numpy's; "
+            f"launches: {counts(tag)} [{card}]")
+    total = sum(leg["s"] for leg in result["legs"].values())
+    log(f"stdlib: the runs took {total:.1f} s of the phase's {STDLIB_BUDGET_S:.0f} "
+        f"({', '.join(f'{k} {v['s']:.1f} s' for k, v in result['legs'].items())}) [{card}]")
+    if cuda:
+        if not result["launches"]["stdlib_knn"]["knn_topk"]:
+            raise AssertionError("knn_topk not launched by the kNN classifier")
+        if not any(result["launches"][f"stdlib_sql_{w}w"]["expression_vm"] for w in (1, 2)):
+            raise AssertionError("expression_vm not launched by pw.sql")
     return result
 
 
@@ -5419,6 +5867,10 @@ def main() -> int:
     phase("Nexmark windows")
     nexmark = run_nexmark(device)
 
+    phase("stdlib and SQL")
+    torch.cuda.empty_cache()
+    stdlib = run_stdlib(device, ev=nexmark.pop("events"))
+
     by_path = {**engine["device_ms_by_path"], **api["device_ms_by_path"]}
     all_launches = {**engine["launches"], **api["launches"]}
     for name in PATH_KERNELS:
@@ -5466,7 +5918,8 @@ def main() -> int:
                    **{p: c[name] for p, c in persistence["launches"].items()},
                    **{p: c[name] for p, c in rescaled["launches"].items()},
                    **{p: c[name] for p, c in asynced["launches"].items()},
-                   **{p: c[name] for p, c in nexmark["launches"].items()}}
+                   **{p: c[name] for p, c in nexmark["launches"].items()},
+                   **{p: c[name] for p, c in stdlib["launches"].items()}}
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,

@@ -15,7 +15,8 @@ schemas, the parse graph, the graph runner and the expression compiler; ``io.pyt
 reads like the reference; ``persistence`` (checkpoints of input and operator state, recovery,
 exactly-once delivery-managed output); ``pw.iterate``; ``pw.temporal`` (windows, the
 interval, window and as-of joins, their behaviours), ``pw.ordered``, ``pw.statistical``,
-``pw.stateful`` and ``pw.universes``; the native keyspace module under the
+``pw.stateful`` and ``pw.universes``; ``pw.utils``, ``pw.graphs``, ``pw.ml``, ``pw.sql`` and the
+row transformers (``pw.transformer``, ``pw.AsyncTransformer``); the native keyspace module under the
 engine (``native``, built with the host C compiler at first use); ``pw.indexing`` (KNN, BM25,
 hybrid and sorted indexes) and ``Table.sort``; the RAG serving path (``xpacks.llm``: the local parsers, the splitters and
 embedders as UDFs, the live ``DocumentStore`` and ``DocumentStoreServer``; ``io.http``'s
@@ -59,6 +60,7 @@ from .internals.iterate import iterate, iterate_universe
 from .internals.monitoring import MonitoringLevel
 from .internals.py_object_wrapper import PyObjectWrapper
 from .internals.run import request_stop, run, run_all
+from .internals.sql import sql
 from .internals.schema import (
     Schema,
     SchemaProperties,
@@ -81,7 +83,17 @@ from .internals.table import (
 from .internals.thisclass import left, right, this
 from .udfs import UDF, udf, udf_async
 from . import debug, io, persistence, stdlib, universes  # noqa: E402
-from .stdlib import indexing, ordered, stateful, statistical, temporal  # noqa: E402
+from .stdlib import graphs, indexing, ml, ordered, stateful, statistical, temporal  # noqa: E402
+from .stdlib.utils.async_transformer import AsyncTransformer  # noqa: E402
+from .internals.row_transformer import (  # noqa: E402
+    ClassArg,
+    attribute,
+    input_attribute,
+    input_method,
+    method,
+    output_attribute,
+    transformer,
+)
 
 from .models.embedder import (
     Embedder,
@@ -146,8 +158,15 @@ DateTimeNaive = _dt.DATE_TIME_NAIVE
 DateTimeUtc = _dt.DATE_TIME_UTC
 Duration = _dt.DURATION
 
+# ``pw.utils`` is the stdlib's utils (col, filtering, the async and pandas transformers), as in the
+# reference. The package ``utils/`` (the metadata filter compiler) was imported above, so the
+# import system keeps it under its own name, where ``from .utils.filters import ...`` finds it.
+from .stdlib import utils  # noqa: E402
+
 __all__ = [
+    "AsyncTransformer",
     "BaseCustomAccumulator",
+    "ClassArg",
     "ColumnExpression",
     "ColumnReference",
     "DateTimeNaive",
@@ -174,6 +193,7 @@ __all__ = [
     "apply_async",
     "apply_with_type",
     "assert_table_has_schema",
+    "attribute",
     "cast",
     "coalesce",
     "column_definition",
@@ -182,9 +202,12 @@ __all__ = [
     "expression_vm",
     "fill_error",
     "get_pathway_config",
+    "graphs",
     "groupby",
     "if_else",
     "indexing",
+    "input_attribute",
+    "input_method",
     "io",
     "iterate",
     "iterate_universe",
@@ -195,7 +218,10 @@ __all__ = [
     "join_right",
     "left",
     "make_tuple",
+    "method",
+    "ml",
     "ordered",
+    "output_attribute",
     "persistence",
     "reducers",
     "request_stop",
@@ -208,16 +234,19 @@ __all__ = [
     "schema_builder",
     "schema_from_dict",
     "schema_from_types",
+    "sql",
     "stateful",
     "statistical",
     "stdlib",
     "temporal",
     "this",
+    "transformer",
     "udf",
     "udf_async",
     "udfs",
     "universes",
     "unwrap",
+    "utils",
     "BruteForceKnnEngine",
     "Embedder",
     "EmbedderConfig",

@@ -16,6 +16,17 @@ its state is ``RESHARD = "pinned"``: under a rescale the base class's
 ``split_state`` hands every destination the piece unchanged and
 ``merge_states`` keeps source worker 0's piece.
 
+Under the async plane the gathered inputs of one commit reach worker 0 at
+different sweeps (an input derived through an exchange lags the raw one), so
+an inner run can see a probe of the body's strict ``ix`` ahead of its indexed
+row. As ``IxStrictCheck`` withholds such a probe until its frontier closes,
+the node withholds that round's output there and retries on the next input; a
+round still dangling when the outer stream ends raises
+(``operators.DanglingPointerError``). Outside the async loop every input of a
+tick has arrived, and such a round raises at once. (The reference raises on the
+first such round under the async plane too: ``ROADMAP.md`` Queue 3, "Not port
+faults".)
+
 Copy of ``pathway_tpu/engine/iterate.py``.
 """
 
@@ -27,6 +38,7 @@ import numpy as np
 
 from .delta import Delta, rows_equal, rows_to_columns
 from .executor import Node
+from .operators import DanglingPointerError, holds_dangling
 from .state import RowState
 
 __all__ = ["Iterate", "IterateOutput", "states_equal"]
@@ -78,12 +90,17 @@ class Iterate(Node):
         self._out_last: dict[str, dict[int, tuple]] = {n: {} for n in out_specs}
         self.pending: dict[str, Delta] = {}
         self.out_specs = out_specs
+        self._dangling: DanglingPointerError | None = None
 
     # pending is transient (drained by IterateOutput within the same tick);
     # only the input mirror and last-emitted outputs are durable
     STATE_FIELDS = ("_in_state", "_out_last")
 
     RESHARD = "pinned"  # gather-routed composite: state lives on worker 0
+    _ctx = None  # the sharded run's context (``on_shard``); None on one worker
+
+    def on_shard(self, ctx) -> None:
+        self._ctx = ctx
 
     def exchange_specs(self):
         # the inner fixpoint is a single-worker composite: gather inputs to
@@ -102,7 +119,14 @@ class Iterate(Node):
             name: {k: st._rows[k] for k in st._rows if k in st}
             for name, st in self._in_state.items()
         }
-        results = self._driver(snapshots)
+        try:
+            results = self._driver(snapshots)
+        except DanglingPointerError as e:
+            if not holds_dangling(self._ctx):
+                raise
+            self._dangling = e  # held until more input arrives, or raised at the end
+            return None
+        self._dangling = None
         emitted_any = False
         for name, cols in self.out_specs.items():
             new = results[name]
@@ -138,6 +162,11 @@ class Iterate(Node):
             data={"__tick__": np.asarray([int(time)], dtype=object)},
             diffs=np.asarray([1], dtype=np.int64),
         )
+
+    def on_end(self) -> Delta | None:
+        if self._dangling is not None:
+            raise self._dangling
+        return None
 
 
 class IterateOutput(Node):

@@ -353,6 +353,22 @@ class Exchange(Node):
         return concat_deltas(received, self.column_names)
 
 
+class DanglingPointerError(KeyError):
+    """A pointer to a row that is not there: a strict ``ix`` probe still unmatched when its
+    frontier closed, or a row transformer's lookup of a row of another class (a ``KeyError``,
+    as the reference raises). Under the async plane a row can arrive ahead of the row it points
+    to, so the nodes that recompute from whole inputs (``GroupedRecompute``, ``Iterate``) hold
+    such a result there until more input comes and raise it at the latest when their frontier
+    closes, as ``IxStrictCheck`` does; elsewhere (one worker, the BSP loop, recovery replay and
+    the end-of-stream sweep) every input of a tick has arrived, and they raise at once."""
+
+
+def holds_dangling(ctx) -> bool:
+    """Whether a node may hold a ``DanglingPointerError`` for later input: only while the
+    frontier-driven async loop is live (``ctx.async_plane``)."""
+    return getattr(ctx, "async_plane", None) is not None
+
+
 class IxStrictCheck(Node):
     """End-of-stream guard behind non-optional ``ix`` (reference ix
     missing-key KeyError, test_common.py:2480): tracks probe rows (input 0,
@@ -394,7 +410,7 @@ class IxStrictCheck(Node):
             if c > 0 and self._matched.get(k, 0) <= 0
         )
         if missing:
-            raise KeyError(
+            raise DanglingPointerError(
                 f"ix: {missing} row(s) reference key(s) missing from the "
                 "indexed table (use optional=True for left-join semantics)"
             )
@@ -2655,6 +2671,19 @@ class Join(Node):
         diffs_l = delta.diffs.tolist()
         cols = [np.asarray(delta.data[c]) for c in self.column_names]
         state = self._idstate
+        if (
+            (delta.diffs == 1).all()
+            and len(set(keys_l)) == n
+            and state.keys().isdisjoint(keys_l)
+        ):
+            # inserts of ids new to the join, each once (a fresh run's or an
+            # ``iterate`` round's whole input): every id's projection is its
+            # one row, so the delta passes through and each row is recorded
+            # as the loop below would record it
+            state.update(zip(keys_l, (
+                {sg: [row, 1]} for sg, row in zip(sigs, zip(*cols))
+            )))
+            return delta
         old_proj = {k: self._project_id_key(k) for k in set(keys_l)}
         for i, (k, sg, df) in enumerate(zip(keys_l, sigs, diffs_l)):
             ent = state.setdefault(k, {})
@@ -2741,8 +2770,13 @@ class GroupedRecompute(Node):
             {} for _ in inputs
         ]  # per input: group_key -> {row_key: [[row, count], ...]}
         self._prev_out: dict[int, dict[int, tuple]] = {}
+        self._dangling: dict[int, DanglingPointerError] = {}
 
     STATE_FIELDS = ("_state", "_prev_out")
+    _ctx = None  # the sharded run's context (``on_shard``); None on one worker
+
+    def on_shard(self, ctx) -> None:
+        self._ctx = ctx
 
     def exchange_specs(self):
         return [
@@ -2803,9 +2837,16 @@ class GroupedRecompute(Node):
                         rows[rk] = positive[0][0]
                 rows_per_input.append(rows)
             if any(rows_per_input):
-                new_out = dict(self._fn(gk, *rows_per_input, time))
+                try:
+                    new_out = dict(self._fn(gk, *rows_per_input, time))
+                except DanglingPointerError as e:
+                    if not holds_dangling(self._ctx):
+                        raise
+                    self._dangling[gk] = e  # the group keeps its output until more input
+                    continue
             else:
                 new_out = {}
+            self._dangling.pop(gk, None)
             old_out = self._prev_out.get(gk, {})
             for ok, row in old_out.items():
                 if not _rows_equal(row, new_out.get(ok)):
@@ -2828,6 +2869,11 @@ class GroupedRecompute(Node):
             data=rows_to_columns(out_rows, self.column_names),
             diffs=np.array(out_diffs, dtype=np.int64),
         )
+
+    def on_end(self) -> Delta | None:
+        for e in self._dangling.values():
+            raise e
+        return None
 
 
 class UpdateRows(Node):

@@ -1713,3 +1713,52 @@ def test_example_serves_a_file_directory_on_the_card(cuda, monkeypatch, tmp_path
     assert [d["dist"] for d in answer] == sorted(d["dist"] for d in answer)
     assert inputs == [{"path": None}] * 24  # the binary read carries no _metadata
     assert after[0] > before[0] and after[1] == before[1] + 1, (before, after)
+
+
+def test_knn_index_on_the_card_launches_the_scorer(cuda):
+    """``pw.ml.KNNIndex`` (``distance_type="euclidean"``, the ``l2sq`` metric) at MNIST's width
+    through ``pw.run(device="cuda")``: the scorer launches, and each query's nearest item is the
+    training row it was drawn next to, at numpy's squared distance within two bf16 ulps of the
+    largest possible dot (``topk_tol``: the scorer's dot products are bf16)."""
+    import pathway_tpu_torch as pw
+
+    rng = np.random.default_rng(29)
+    n, d, q, k = 4096, 784, 16, 3
+    vecs = rng.standard_normal((n, d)).astype(np.float32)
+    near = rng.choice(n, q, replace=False)
+    queries = vecs[near] + 0.01 * rng.standard_normal((q, d)).astype(np.float32)
+
+    class Rows(pw.io.python.ConnectorSubject):
+        def run(self):
+            for s in range(0, n, 1024):
+                self.next_batch({"rid": list(range(s, s + 1024)), "data": list(vecs[s:s + 1024])})
+                self.commit()
+
+    pw.G.clear()
+    data = pw.io.python.read(Rows(), schema=pw.schema_from_types(rid=int, data=object),
+                             autocommit_duration_ms=None)
+    qt = pw.debug.table_from_rows(pw.schema_from_types(qi=int, data=object),
+                                  [(i, queries[i]) for i in range(q)])
+    index = pw.ml.KNNIndex(data.data, data, n_dimensions=d, distance_type="euclidean")
+    res = index.get_nearest_items(qt.data, k=k, with_distances=True)
+    res = res.select(qi=qt.ix(res.id).qi, rid=res.rid, dist=res.dist)
+    got = {}
+
+    def on_change(key, row, time, is_addition):
+        if is_addition:
+            got[row["qi"]] = (list(row["rid"]), list(row["dist"]))
+
+    pw.io.subscribe(res, on_change=on_change)
+    before = topk_scores.launches
+    try:
+        pw.run(device="cuda")
+    finally:
+        pw.G.clear()
+    assert topk_scores.launches > before
+    assert sorted(got) == list(range(q))
+    for i in range(q):
+        rids, dists = got[i]
+        assert len(rids) == k and rids[0] == near[i]
+        want = np.array([[((queries[i] - vecs[near[i]]) ** 2).sum()]])
+        tol = topk_tol(-want, queries[i:i + 1], vecs, "l2sq")
+        assert abs(dists[0] - want[0, 0]) <= tol[0, 0]

@@ -31,16 +31,13 @@ import datetime
 import os
 import subprocess
 import sys
-import threading
 import time
-from collections import Counter
 
 import numpy as np
 import pytest
 
 from torch_case_runs import Side, cases, run_case
-from torch_io_runs import run_bounded
-from torch_state_runs import ns
+from torch_state_runs import final_table as _final_table
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -204,39 +201,6 @@ PROGRAMS = {
     "interval_outer": _interval_outer, "window_join_left": _window_join, "asof": _asof,
     "asof_nearest": _asof_nearest, "diff": _diff, "interpolate": _interpolate,
 }
-
-
-def _final_table(pkg: str, prog, monkeypatch, workers: int = 1, async_exec: str | None = None):
-    """The run's final table {row key: row} from its subscription; fails on a negative
-    multiplicity or two live rows under one key."""
-    p = ns(pkg)
-    pw = p.pw
-    pw.G.clear()
-    acc: Counter = Counter()
-    lock = threading.Lock()
-    table = prog(pw)
-    names = table.column_names()
-
-    def on_change(key, row, time, is_addition):
-        with lock:
-            acc[(int(key), tuple(row[c] for c in names))] += 1 if is_addition else -1
-
-    pw.io.subscribe(table, on_change=on_change)
-    monkeypatch.setenv("PATHWAY_THREADS", str(workers))
-    if async_exec is not None:
-        monkeypatch.setenv("PATHWAY_ASYNC_EXEC", async_exec)
-    try:
-        run_bounded(pw, 120, **p.run)
-    finally:
-        monkeypatch.setenv("PATHWAY_THREADS", "1")
-        monkeypatch.delenv("PATHWAY_ASYNC_EXEC", raising=False)
-        pw.G.clear()
-    assert all(n >= 0 for n in acc.values()), f"negative multiplicity: {-acc}"
-    live = +acc
-    assert all(n == 1 for n in live.values())
-    out = {k: r for k, r in live}
-    assert len(out) == len(live), "two live rows under one key"
-    return out
 
 
 _REFERENCE: dict[str, dict] = {}

@@ -121,3 +121,92 @@ def stream_run(p, build, batches: list, threads: int, cfg=None, *, mesh: bool = 
                 os.environ[k] = v
         pw.G.clear()
     return final, updates
+
+
+def final_table(pkg: str, prog, monkeypatch, workers: int = 1, async_exec: str | None = None):
+    """The run's final table {row key: row} from its subscription; fails on a negative
+    multiplicity or two live rows under one key."""
+    p = ns(pkg)
+    pw = p.pw
+    pw.G.clear()
+    acc: Counter = Counter()
+    lock = threading.Lock()
+    table = prog(pw)
+    names = table.column_names()
+
+    def on_change(key, row, time, is_addition):
+        with lock:
+            acc[(int(key), tuple(row[c] for c in names))] += 1 if is_addition else -1
+
+    pw.io.subscribe(table, on_change=on_change)
+    monkeypatch.setenv("PATHWAY_THREADS", str(workers))
+    if async_exec is not None:
+        monkeypatch.setenv("PATHWAY_ASYNC_EXEC", async_exec)
+    try:
+        run_bounded(pw, 120, **p.run)
+    finally:
+        monkeypatch.setenv("PATHWAY_THREADS", "1")
+        monkeypatch.delenv("PATHWAY_ASYNC_EXEC", raising=False)
+        pw.G.clear()
+    assert all(n >= 0 for n in acc.values()), f"negative multiplicity: {-acc}"
+    live = +acc
+    assert all(n == 1 for n in live.values())
+    out = {k: r for k, r in live}
+    assert len(out) == len(live), "two live rows under one key"
+    return out
+
+
+def keyed_feed(pw, batches: list[tuple[dict, int]], **types):
+    """``pw.io.python.read`` of ``batches`` over the schema ``types`` (column ``i`` the primary
+    key): each (columns, diff) one ``next_batch`` and a commit, a diff of -1 retracting rows sent
+    before under the same key."""
+    schema = pw.schema_builder({c: pw.column_definition(primary_key=c == "i", dtype=t)
+                                for c, t in types.items()})
+
+    class Feed(pw.io.python.ConnectorSubject):
+        def run(self):
+            for cols, diff in batches:
+                self.next_batch(cols, diffs=[diff] * len(cols["i"]))
+                self.commit()
+                time.sleep(0.01)
+
+    return pw.io.python.read(Feed(), schema=schema, autocommit_duration_ms=None)
+
+
+HELD_OPEN_S = 60.0
+
+
+def held_open_feed(pw, cols: dict, **types):
+    """``pw.io.python.read`` of one commit of ``cols`` (column ``i`` the primary key) whose stream
+    then stays open until the engine stops the subject, or ``HELD_OPEN_S`` seconds have passed:
+    a run over it that raises in less time raised before its stream ended."""
+    schema = pw.schema_builder({c: pw.column_definition(primary_key=c == "i", dtype=t)
+                                for c, t in types.items()})
+
+    class Feed(pw.io.python.ConnectorSubject):
+        def run(self):
+            self.next_batch(cols)
+            self.commit()
+            deadline = time.monotonic() + HELD_OPEN_S
+            while not self.stopped and time.monotonic() < deadline:
+                time.sleep(0.01)
+
+    return pw.io.python.read(Feed(), schema=schema, autocommit_duration_ms=None)
+
+
+def raises_before_the_stream_ends(pkg: str, build, match: str) -> None:
+    """``pw.run`` at 1 worker over ``build(pw)`` raises ``KeyError`` matching ``match`` well
+    before a ``held_open_feed`` stream ends."""
+    p = ns(pkg)
+    pw = p.pw
+    pw.G.clear()
+    try:
+        pw.io.subscribe(build(pw), on_change=lambda key, row, time, is_addition: None)
+        t0 = time.monotonic()
+        import pytest
+
+        with pytest.raises(KeyError, match=match):
+            pw.run(**p.run)
+        assert time.monotonic() - t0 < HELD_OPEN_S / 2, "raised only when the stream ended"
+    finally:
+        pw.G.clear()
