@@ -2,7 +2,8 @@
 dataflow engine, its Table API, its indexing stdlib, its RAG serve path over HTTP, its file
 connectors with the RAG example served from a directory, its persistence and recovery, its
 elastic rescale and spill tier, its frontier-driven async plane with ``pw.iterate``, its
-temporal stdlib on Nexmark's event model, and its ML, SQL and graph stdlib, on one NVIDIA card.
+temporal stdlib on Nexmark's event model, its ML, SQL and graph stdlib, and its SQLite, Delta
+Lake and Debezium connectors, on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -114,7 +115,7 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    engine holds every row), the query tick's host time (commit to the last answer's callback)
    and its idle share (a trace of the run's device activity, between two marker kernels launched
    at the commit and at the last answer) are logged. Then a ``HybridIndex`` of BM25 with the
-   brute-force index (reciprocal-rank fusion) over the first 4,096 chunks (its fill embeds one
+   brute-force index (reciprocal-rank fusion) over the first 2,048 chunks (its fill embeds one
    chunk at a time, so it is the phase's longest run), the same queries, held
    against ``HybridEngine.search`` called directly on the run's engine (untraced). The launch
    counts are zeroed just before each run and read just after.
@@ -193,7 +194,7 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    ``pw.io.csv.write``: files 1-4 at 2 workers, 5-7 at 4 with the mesh exchange through the
    elastic boot, an offline ``rescale(backend, 1)``, 8-10 at 1; the csv holds every count once
    and nets to ``collections.Counter``; ``bucket_exchange`` must launch with 4 destinations. (c)
-   ``dense_graph`` (columns unchanged) over 1,048,576 rows and 2^20 groups in commits of 65,536,
+   ``dense_graph`` (columns unchanged) over 524,288 rows and 2^20 groups in commits of 65,536,
    in a child interpreter with ``PATHWAY_STATE_MEMORY_BUDGET_MB=32``,
    ``PATHWAY_KEY_REGISTRY_CAP=262144`` and a spill directory: at 1 worker, then at 4 with the
    mesh exchange over the first 262,144 rows at a sixteenth of the budget (each budget halved
@@ -207,11 +208,11 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    loop; this phase runs the async loop and one ``PATHWAY_ASYNC_EXEC=0`` run beside each. (a)
    The reference's skew lane (``bench.py:1261-1470``): 150,000 fast rows in batches of 5,000 over
    64 words of worker 0's shard, 40 slow rows over 8 words of worker 1's, each through a blocking
-   25 ms UDF, at 2 workers over ``LocalComm`` through ``pw.run(device="cuda")``, in 2 fresh
-   processes async and 2 with ``PATHWAY_ASYNC_EXEC=0`` (``--async-leg``): the fast shard's rows/s
+   25 ms UDF, at 2 workers over ``LocalComm`` through ``pw.run(device="cuda")``, in a fresh
+   process async and one with ``PATHWAY_ASYNC_EXEC=0`` (``--async-leg``): the fast shard's rows/s
    until its last output update, its drain and total seconds, worker 0's busy fraction from
-   ``Executor._idle_park_ns`` and ``EngineStats``' Exchange node times, the async/BSP ratio of
-   the best runs; both arms' counts held against numpy's. (b) The reference's uniform A/B
+   ``Executor._idle_park_ns`` and ``EngineStats``' Exchange node times, the async/BSP ratio;
+   both arms' counts held against numpy's. (b) The reference's uniform A/B
    (``bench.py:2030-2085``): its wordcount, 500,000 rows in commits of 10,000 after a warm-up of
    100,000, the best of 2, at 1 worker, 2 async and 2 BSP, a fresh process each: rows/s and both
    efficiencies. (c) At 2 workers over ``LocalComm``, async: phase 9's RAG through
@@ -227,7 +228,7 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    wave duration's p50, ``WaveRecorder``'s stage split (sweep, inbox_dwell, frontier_wait,
    settle, snapshot, release) and the holders and critical stages of the merged wave documents.
    (e) ``pw.iterate``'s min-label propagation (connected components) over a seeded graph of
-   32,768 nodes and 131,072 undirected edges at 1 worker, the labels held
+   16,384 nodes and 65,536 undirected edges at 1 worker, the labels held
    against ``scipy.sparse.csgraph.connected_components``; its rounds, seconds (within 120) and
    ``expression_vm`` launches.
 17. Nexmark windows through ``pw.temporal`` (windows, the window, interval and as-of joins), each
@@ -245,8 +246,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    (backward). Every output is held against a plain numpy and Python computation on the same
    events; each leg's rows/s (its input rows over the wall of ``pw.run``, host clock), its
    window or match count, and the launch counts (zeroed just before each run, read just after)
-   are logged. ``NEXMARK_LEG_EVENTS`` holds each leg's cut: (b) and (d) over the first 500,000
-   events.
+   are logged. ``NEXMARK_LEG_EVENTS`` holds each leg's cut: (a) and (b) over the first
+   500,000 events, (d) over the first 250,000.
 18. The stdlib and SQL (``pw.ml``, ``pw.sql``, ``pw.graphs``), each leg a
    ``pw.run(device="cuda")`` checked against numpy on the same data. (a) kNN classification at
    MNIST's shape: 60,000 seeded training vectors of 784 around ten class centres and 10,000
@@ -260,13 +261,29 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    count and maximum per auction through ``pw.sql`` over the first ``SQL_EVENTS`` of phase
    17's events, at 1 worker and at 2 (async); ``expression_vm`` must launch. (c) Graph500's
    Kronecker graphs (A=0.57, B=C=0.19, edge factor 16, duplicates and self-loops kept):
-   ``pagerank(steps=5)`` at scale 14 exactly equal to numpy's integer recurrence,
-   ``bellman_ford`` at scale 12 (integer weights 1-255 as floats) equal to a numpy relaxation to
+   ``pagerank(steps=5)`` at scale 13 exactly equal to numpy's integer recurrence,
+   ``bellman_ford`` at scale 11 (integer weights 1-255 as floats) equal to a numpy relaxation to
    the fixpoint, and one Louvain level at scale 12 whose ``exact_modularity`` equals numpy's
    modularity of the clustering it returned (within 1e-12 a cluster: the sums run in another
    order). Each leg logs its rows/s, seconds and the launch counts (zeroed just before each run,
    read just after).
-19. Each engine-path kernel's launches and summed device time per path, one JSON line with each
+19. The connectors over Nexmark, each leg a ``pw.run(device="cuda")`` at 1 worker over the bids of
+   phase 17's first events (``CONNECTOR_LEG_EVENTS``: 250,000 for (a) and (b), 50,000 for (c)),
+   into Nexmark Q1's conversion (``price * 0.908``) and a count and largest converted price per
+   auction, each table held against numpy's over the same rows. (a) SQLite CDC: a writer thread
+   fills a SQLite file (WAL) in transactions of 10,000 events' bids, then 10 that give 10% of the
+   bids a new price and delete 5%, each after the tick that reflects the one before;
+   ``pw.io.sqlite.read(mode="streaming")``; the database's final rows, the bids key by key and
+   the aggregate against numpy's. (b) Delta Lake: its bids through ``pw.io.python`` into
+   ``pw.io.deltalake.write`` (a version a transaction), then ``read(mode="streaming")`` while a
+   writer appends 9 versions of (a)'s changes (retractions in the ``diff`` column) and a tenth
+   that removes version 1's file. (c) Debezium: (a)'s change stream of its first bids as
+   envelopes (``c``, ``u``, ``d``) in a jsonlines file through ``pw.io.debezium.read``. Each leg's
+   rows/s (rows written, or read, over the wall from ``pw.run`` to the tick that reflects the last
+   write; (c) over its run) and its ``expression_vm`` launches are logged; the kernel is held
+   against its plain version bitwise on (a)'s own lowered program and batch, and must launch.
+   One line names, for each gated connector, whether its client package is importable here.
+20. Each engine-path kernel's launches and summed device time per path, one JSON line with each
    kernel's numbers, then the closing JSON line.
 
 It needs one CUDA card and exits non-zero, printing no result, without one. It imports nothing
@@ -2619,11 +2636,12 @@ def check_answers(label: str, got: dict, want: dict) -> int:
 
 def run_indexing(device, *, n_chunks: int = 16384, n_rows: int = 1 << 20, n_rows_2: int = 1 << 18,
                  chunk_commit: int = 1024, vec_commit: int = 1 << 16, n_queries: int = 64,
-                 k: int = 10, hybrid_chunks: int = 4096, cfg=None) -> dict:
+                 k: int = 10, hybrid_chunks: int = 2048, cfg=None) -> dict:
     """The phase; sizes as the defaults say on the card (a CPU rehearsal passes small ones):
     ``n_rows`` at 1 worker, ``n_rows_2`` (at most ``n_rows``) at 2, the hybrid over the first
     ``hybrid_chunks`` of the ``n_chunks`` chunks (it embeds a chunk at a time: cut from 16,384 to
-    8,192 when phase 16 came and to 4,096 when phase 18 did, PERF.md section 4). Returns each
+    8,192 when phase 16 came, to 4,096 when phase 18 did and to 2,048 when phase 19 did,
+    PERF.md section 4). Returns each
     run's launch counts, rates and times."""
     import pathway_tpu_torch as pw
     from pathway_tpu_torch.models.embedder import Embedder
@@ -3916,8 +3934,9 @@ def run_persistence(device, *, data=None, want=None, phase11_fill_rows_per_s=Non
 #: groups in commits of SPILL_COMMIT, at 1 worker, then over the first SPILL_ROWS_4 rows at 4
 #: workers with the mesh exchange, in a child interpreter under SPILL_BUDGET_MB a worker and a
 #: key registry cut to SPILL_REGISTRY_CAP, with a spill directory. The 4-worker run is cut from
-#: 524,288 rows to 262,144: the phase took 161.6 s of the 120 it may (PERF.md section 4)
-SPILL_ROWS, SPILL_GROUPS, SPILL_COMMIT, SPILL_ROWS_4 = 1 << 20, 1 << 20, 1 << 16, 1 << 18
+#: 524,288 rows to 262,144: the phase took 161.6 s of the 120 it may; the 1-worker runs from
+#: 1,048,576 rows to 524,288 when phase 19 came, to keep the script's time (PERF.md section 4)
+SPILL_ROWS, SPILL_GROUPS, SPILL_COMMIT, SPILL_ROWS_4 = 1 << 19, 1 << 20, 1 << 16, 1 << 18
 SPILL_BUDGET_MB, SPILL_REGISTRY_CAP = 32.0, 1 << 18
 
 
@@ -4265,14 +4284,16 @@ def run_rescale_spill(device, *, store: str | None, interval_ms: int = 1000, dat
 #: (a) the reference's skew lane (``bench.py:1261-1470``): fast rows in batches over 64 words of
 #: worker 0's shard, slow rows over 8 words of worker 1's, each through a blocking 25 ms UDF
 #: SKEW_REPS was 3 until phase 18 came: the script took 1,152.8 s of the contract's 1,200 on a
-#: slow host (PERF.md section 4)
-SKEW_FAST, SKEW_BATCH, SKEW_SLOW, SKEW_PAUSE_MS, SKEW_REPS = 150_000, 5_000, 40, 25, 2
+#: slow host; 2 until phase 19 came, which took it past 900 s to ``done`` on such a host (PERF.md
+#: section 4)
+SKEW_FAST, SKEW_BATCH, SKEW_SLOW, SKEW_PAUSE_MS, SKEW_REPS = 150_000, 5_000, 40, 25, 1
 #: (b) the reference's uniform A/B (``bench.py:2030-2085``): its wordcount, a warm-up of 100,000
 #: rows, then the best of 2 runs of 500,000 in commits of 10,000, each arm in a fresh process
 UNIFORM_ROWS, UNIFORM_WARMUP, UNIFORM_BATCH = 500_000, 100_000, 10_000
 #: (e) min-label propagation over a seeded graph, at 1 worker, within ITERATE_BUDGET_S; cut by
-#: half (from 65,536 nodes and 262,144 edges) with SKEW_REPS, for the same reason
-CC_NODES, CC_EDGES, ITERATE_BUDGET_S = 1 << 15, 1 << 17, 120.0
+#: half (from 65,536 nodes and 262,144 edges) with SKEW_REPS, for the same reason, and by half
+#: again when phase 19 came (PERF.md section 4)
+CC_NODES, CC_EDGES, ITERATE_BUDGET_S = 1 << 14, 1 << 16, 120.0
 
 
 def skew_words(workers: int = 2) -> tuple[list, list]:
@@ -4920,9 +4941,9 @@ NEXMARK_COMMIT = 10_000  # events a commit, each table's share of them through p
 NEXMARK_WINDOW_MS = 10_000
 #: the first events of the generator's that each leg takes: Q5 ((b), five windows a bid), then
 #: the joins (d) were cut by halves from NEXMARK_EVENTS after the phase's legs took 125.3 s of
-#: its 120 at full size on the card (PERF.md section 4); (a) never below 262,144
-NEXMARK_LEG_EVENTS = {"q1q7": NEXMARK_EVENTS, "q5": 500_000, "q8": NEXMARK_EVENTS,
-                      "joins": 500_000}
+#: its 120 at full size on the card; (a) by half and (d) by half again when phase 19 came, to
+#: keep the script's time (PERF.md section 4); (a) never below 262,144
+NEXMARK_LEG_EVENTS = {"q1q7": 500_000, "q5": 500_000, "q8": NEXMARK_EVENTS, "joins": 250_000}
 NEXMARK_BUDGET_S = 120.0
 # the Beam generator's word lists (PersonGenerator)
 NEXMARK_STATES = ("AZ", "CA", "ID", "OR", "WA", "WY")
@@ -5017,11 +5038,12 @@ def subscribed(pw, table) -> list:
     return seen
 
 
-def live_rows(seen: list, names: list) -> dict:
+def live_rows(seen: list, names: list, with_keys: bool = False) -> dict:
     """A subscribed stream's final table {column: array}: per row key the newest insert, for
-    keys whose diffs net to 1; fails unless every key nets to 0 or 1."""
+    keys whose diffs net to 1; fails unless every key nets to 0 or 1. ``with_keys`` adds the
+    row keys as column ``__key__``."""
     if not seen:
-        return {c: np.zeros(0) for c in names}
+        return {c: np.zeros(0) for c in names + ["__key__"] * with_keys}
     keys = np.concatenate([k for k, _, _ in seen])
     diffs = np.concatenate([d for _, d, _ in seen])
     order = np.lexsort((np.arange(len(keys)), keys))  # by key, then arrival
@@ -5034,7 +5056,10 @@ def live_rows(seen: list, names: list) -> dict:
     pos = np.flatnonzero(diffs > 0)
     newest = pos[np.flatnonzero(np.r_[keys[pos][1:] != keys[pos][:-1], True])]
     keep = np.array([i for i in newest if int(keys[i]) in alive], dtype=np.int64)
-    return {c: np.concatenate([b[c] for _, _, b in seen])[order][keep] for c in names}
+    out = {c: np.concatenate([b[c] for _, _, b in seen])[order][keep] for c in names}
+    if with_keys:
+        out["__key__"] = keys[keep]
+    return out
 
 
 def rows_of(cols: dict, names: list) -> collections.Counter:
@@ -5263,7 +5288,8 @@ def run_nexmark(device, *, n_events: int = NEXMARK_EVENTS, leg_events: dict | No
 MNIST_TRAIN, MNIST_TEST, MNIST_DIM, MNIST_CLASSES = 60_000, 10_000, 784, 10
 MNIST_TRAIN_COMMIT, MNIST_QUERY_COMMIT = 10_000, 1_000
 SQL_EVENTS = 500_000  # the first of phase 17's events that leg (b) takes
-GRAPH_SCALES = {"pagerank": 14, "bellman_ford": 12, "louvain": 12}
+#: PageRank cut from scale 14 and Bellman-Ford from 12 when phase 19 came (PERF.md section 4)
+GRAPH_SCALES = {"pagerank": 13, "bellman_ford": 11, "louvain": 12}
 STDLIB_BUDGET_S = 120.0
 SQL_QUERIES = {
     "q0": ("SELECT auction, bidder, price, t FROM bid", ("bid",)),
@@ -5682,6 +5708,508 @@ def run_stdlib(device, *, ev: dict | None = None, sql_events: int = SQL_EVENTS,
     return result
 
 
+# -- phase 19: the connectors over Nexmark --------------------------------------------------------
+
+#: the first of phase 17's events whose bids each leg takes: (a) SQLite, (b) Delta Lake, and (c)
+#: Debezium, which replays (a)'s change stream of the bids among its own first events. (a) was
+#: halved from 500,000 (it re-reads the whole table each transaction, as the reference does), (b)
+#: with it, and (c) cut to 50,000 (a commit an envelope, as the reference commits) to keep the
+#: legs inside the phase's 60 s and the script inside its time (PERF.md section 4)
+CONNECTOR_LEG_EVENTS = {"sqlite": 250_000, "delta": 250_000, "debezium": 50_000}
+CONNECTOR_TXN_EVENTS = 10_000  # events whose bids one transaction (one Delta version) inserts
+CONNECTOR_CHANGE_TXNS = 10  # then transactions that change 10% of the prices and delete 5%
+CONNECTOR_BUDGET_S = 60.0
+CONNECTOR_WAIT_S = 120.0  # longest wait for the tick that reflects a write
+BID_COLUMNS = ("i", "auction", "bidder", "price", "t")
+#: each gated connector's client package, as the connector imports it
+GATED_CLIENTS = {
+    "kafka": "confluent_kafka", "redpanda": "confluent_kafka", "debezium (Kafka)": "confluent_kafka",
+    "postgres": "psycopg", "postgres (psycopg2)": "psycopg2", "mongodb": "pymongo",
+    "elasticsearch": "elasticsearch", "nats": "nats", "airbyte (docker)": "airbyte_serverless",
+    "bigquery": "google.cloud.bigquery", "gdrive": "googleapiclient", "s3": "boto3",
+    "minio": "boto3", "http": "requests", "logstash": "requests",
+    "sharepoint": "office365", "pyfilesystem (fs)": "fs", "deltalake": "pyarrow",
+}
+
+
+def client_importable(module: str) -> bool:
+    import importlib.util
+
+    try:
+        return importlib.util.find_spec(module) is not None
+    except ModuleNotFoundError:  # a parent package is missing
+        return False
+
+
+def bid_plan(bid: dict, n_events: int, seed: int = 23) -> dict:
+    """The bids of the first ``n_events`` events, their insert transactions (one a
+    ``CONNECTOR_TXN_EVENTS`` events), and ``CONNECTOR_CHANGE_TXNS`` change transactions that give
+    10% of the bids a new price and delete 5% others, none of them a bid of the first insert
+    transaction (leg (b) removes that transaction's file), each bid changed at most once."""
+    n_bids = int(np.searchsorted(bid["n"], n_events))
+    cols = {c: np.ascontiguousarray(bid[c][:n_bids]) for c in BID_COLUMNS}
+    cuts = np.searchsorted(bid["n"][:n_bids],
+                           np.arange(0, n_events + CONNECTOR_TXN_EVENTS, CONNECTOR_TXN_EVENTS))
+    inserts = [(int(lo), int(hi)) for lo, hi in zip(cuts[:-1], cuts[1:]) if hi > lo]
+    rng = np.random.default_rng(seed)
+    pool = rng.permutation(np.arange(inserts[0][1], n_bids))
+    n_up, n_del = n_bids // 10, n_bids // 20
+    up, gone = pool[:n_up], pool[n_up:n_up + n_del]
+    new_price = np.rint(10.0 ** (rng.random(n_up) * 6.0) * 100.0).astype(np.int64)
+    new_price += new_price == cols["price"][up]  # every update changes its row
+    changes = [{"update": u, "price": p, "delete": d} for u, p, d in zip(
+        np.array_split(up, CONNECTOR_CHANGE_TXNS), np.array_split(new_price, CONNECTOR_CHANGE_TXNS),
+        np.array_split(gone, CONNECTOR_CHANGE_TXNS))]
+    return {"cols": cols, "inserts": inserts, "changes": changes, "n_bids": n_bids}
+
+
+def restrict_plan(plan: dict, bid: dict, n_events: int) -> dict:
+    """``plan`` restricted to the bids of the first ``n_events`` events: its inserts and changes
+    of those bids, in the same transactions."""
+    n = int(np.searchsorted(bid["n"][:plan["n_bids"]], n_events))
+    changes = [{"update": ch["update"][ch["update"] < n], "price": ch["price"][ch["update"] < n],
+                "delete": ch["delete"][ch["delete"] < n]} for ch in plan["changes"]]
+    return {"cols": {c: v[:n] for c, v in plan["cols"].items()}, "changes": changes,
+            "inserts": [(lo, min(hi, n)) for lo, hi in plan["inserts"] if lo < n], "n_bids": n}
+
+
+def plan_final(plan: dict, n_changes: int, dropped: tuple = ()) -> dict:
+    """The bids' columns after the inserts and the first ``n_changes`` change transactions, less
+    the rows of the insert transactions at the indices ``dropped``."""
+    price = plan["cols"]["price"].copy()
+    alive = np.ones(plan["n_bids"], dtype=bool)
+    for ch in plan["changes"][:n_changes]:
+        price[ch["update"]] = ch["price"]
+        alive[ch["delete"]] = False
+    for j in dropped:
+        lo, hi = plan["inserts"][j]
+        alive[lo:hi] = False
+    return {c: (price if c == "price" else plan["cols"][c])[alive] for c in BID_COLUMNS}
+
+
+def q1_per_auction(pw, bids):
+    """Nexmark Q1's currency conversion, then the count and the largest converted price per
+    auction."""
+    q1 = bids.select(pw.this.auction, price_eur=pw.this.price * 0.908)
+    return q1.groupby(pw.this.auction).reduce(pw.this.auction, n=pw.reducers.count(),
+                                              top=pw.reducers.max(pw.this.price_eur))
+
+
+def plain_q1_per_auction(final: dict) -> dict:
+    """``q1_per_auction`` in numpy: {auction: (count, largest price * 0.908)}."""
+    eur = final["price"].astype(np.float64) * 0.908
+    order = np.lexsort((eur, final["auction"]))
+    keys, vals = final["auction"][order], eur[order]
+    ends = np.flatnonzero(np.r_[keys[1:] != keys[:-1], True])
+    counts = np.diff(np.r_[-1, ends])
+    return {int(k): (int(c), float(v)) for k, c, v in zip(keys[ends], counts, vals[ends])}
+
+
+def check_bids(label: str, got: dict, want: dict, keys) -> None:
+    """The leg's final table of bids (``live_rows(..., with_keys=True)``) against numpy's final
+    rows: row by row by ``i``, and key by key against ``keys(want)``."""
+    order = np.argsort(got["i"], kind="stable")
+    if len(order) != len(want["i"]):
+        raise AssertionError(f"{label}: {len(order)} bids, numpy has {len(want['i'])}")
+    for c in BID_COLUMNS:
+        if not (np.asarray(got[c])[order] == want[c]).all():
+            raise AssertionError(f"{label}: column {c} differs from numpy's")
+    if not (got["__key__"][order] == keys(want)).all():
+        raise AssertionError(f"{label}: the row keys differ from the keys of numpy's rows")
+
+
+def check_per_auction(label: str, got: dict, want: dict) -> int:
+    table = {int(a): (int(n), float(t)) for a, n, t in zip(got["auction"], got["n"], got["top"])}
+    if table != want:
+        raise AssertionError(f"{label}: the count and largest price per auction differ from "
+                             f"numpy's")
+    return len(table)
+
+
+def pk_keys(final: dict) -> np.ndarray:
+    """The port's row keys of rows whose primary key is ``i`` (sqlite's ``hash_values`` of the
+    key tuple; the python connector's ``mix_columns`` of the key column is the same key)."""
+    from pathway_tpu_torch.engine import keys as K
+
+    return K.hash_values([(int(i),) for i in final["i"]], register=False)
+
+
+def content_keys(final: dict) -> np.ndarray:
+    """The port's row keys of Delta rows: the hash of each row's data tuple."""
+    from pathway_tpu_torch.engine import keys as K
+
+    cols = [final[c].tolist() for c in BID_COLUMNS]
+    return K.hash_values(list(zip(*cols)), register=False)
+
+
+def bid_schema(pw):
+    return pw.schema_builder({c: pw.column_definition(dtype=int, primary_key=c == "i")
+                              for c in BID_COLUMNS})
+
+
+class ReflectedRows:
+    """``on_batch`` of a source table: counts the rows of its ticks so that a writer can wait for
+    the tick that reflects what it wrote, and keeps the batches for ``live_rows``."""
+
+    def __init__(self, pw, table):
+        self.seen = subscribed(pw, table)
+        import threading
+
+        self.count = 0
+        self.cond = threading.Condition()
+        pw.io.subscribe(table, on_batch=self._on_batch)
+
+    def _on_batch(self, time_, batch) -> None:
+        with self.cond:
+            self.count += len(batch.keys)
+            self.cond.notify_all()
+
+    def wait_for(self, n: int) -> None:
+        with self.cond:
+            if not self.cond.wait_for(lambda: self.count >= n, timeout=CONNECTOR_WAIT_S):
+                raise AssertionError(f"no tick reflected {n} rows within {CONNECTOR_WAIT_S} s "
+                                     f"(saw {self.count})")
+
+
+def run_while_writing(device, write, tag: str, launches: dict) -> tuple[float, float]:
+    """``pw.run(device=)`` at 1 worker while ``write()`` runs on a thread; ``write`` returns once
+    the tick that reflects its last write has come, and the run is stopped then. Returns (seconds
+    from ``pw.run`` to that tick, seconds of the run)."""
+    import threading
+
+    import pathway_tpu_torch as pw
+
+    errors: list = []
+    marks: dict = {}
+
+    def writer() -> None:
+        try:
+            write()
+            marks["end"] = time.perf_counter()
+        except BaseException as e:  # raised below, after the run
+            errors.append(e)
+        finally:
+            pw.request_stop()
+
+    env = {"PATHWAY_THREADS": "1", "PATHWAY_INGEST_COALESCE_WINDOWS": "0"}
+    th = threading.Thread(target=writer, daemon=True)
+    with scoped_env(env), counted(tag, launches):
+        try:
+            t0 = time.perf_counter()
+            th.start()
+            pw.run(device=device)
+            run_s = time.perf_counter() - t0
+        finally:
+            th.join(CONNECTOR_WAIT_S)
+            pw.G.clear()
+    if errors:
+        raise errors[0]
+    return marks["end"] - t0, run_s
+
+
+def sqlite_leg(device, plan: dict, work: str, launches: dict) -> dict:
+    """(a): a writer fills a SQLite file (WAL) with the plan's insert transactions, then its
+    change transactions, each after the tick that reflects the one before;
+    ``pw.io.sqlite.read(mode="streaming")`` feeds ``q1_per_auction``."""
+    import sqlite3
+
+    import pathway_tpu_torch as pw
+
+    db = os.path.join(work, "bids.db")
+    con = sqlite3.connect(db, check_same_thread=False)
+    con.execute("PRAGMA journal_mode=WAL")
+    con.execute("CREATE TABLE bids (i INTEGER PRIMARY KEY, auction INTEGER, bidder INTEGER, "
+                "price INTEGER, t INTEGER)")
+    con.commit()
+    cols = plan["cols"]
+    rows = list(zip(*(cols[c].tolist() for c in BID_COLUMNS)))
+    pw.G.clear()
+    t = pw.io.sqlite.read(db, "bids", bid_schema(pw), mode="streaming")
+    raw = ReflectedRows(pw, t)
+    per_auction = subscribed(pw, q1_per_auction(pw, t))
+    written = {"inserts": 0, "updates": 0, "deletes": 0}
+
+    def write() -> None:
+        want = 0
+        for lo, hi in plan["inserts"]:
+            con.executemany("INSERT INTO bids VALUES (?, ?, ?, ?, ?)", rows[lo:hi])
+            con.commit()
+            written["inserts"] += hi - lo
+            want += hi - lo
+            raw.wait_for(want)
+        for ch in plan["changes"]:
+            con.executemany("UPDATE bids SET price = ? WHERE i = ?",
+                            zip(ch["price"].tolist(), cols["i"][ch["update"]].tolist()))
+            con.executemany("DELETE FROM bids WHERE i = ?",
+                            [(i,) for i in cols["i"][ch["delete"]].tolist()])
+            con.commit()
+            written["updates"] += len(ch["update"])
+            written["deletes"] += len(ch["delete"])
+            want += 2 * len(ch["update"]) + len(ch["delete"])
+            raw.wait_for(want)
+
+    try:
+        to_last, run_s = run_while_writing(device, write, "connectors_sqlite", launches)
+        db_rows = con.execute("SELECT i, auction, bidder, price, t FROM bids ORDER BY i").fetchall()
+    finally:
+        con.close()
+    final = plan_final(plan, len(plan["changes"]))
+    if db_rows != list(zip(*(final[c].tolist() for c in BID_COLUMNS))):
+        raise AssertionError("sqlite: the database's final rows differ from numpy's")
+    check_bids("sqlite", live_rows(raw.seen, list(BID_COLUMNS), with_keys=True), final, pk_keys)
+    groups = check_per_auction("sqlite", live_rows(per_auction, ["auction", "n", "top"]),
+                               plain_q1_per_auction(final))
+    n_written = sum(written.values())
+    return {"s": to_last, "run_s": run_s, "rows": n_written, "written": written,
+            "rows_per_s": n_written / to_last, "groups": groups, "final_rows": len(final["i"]),
+            "db": db}
+
+
+def delta_leg(device, plan: dict, work: str, launches: dict) -> dict:
+    """(b): the plan's insert transactions through ``pw.io.python`` into
+    ``pw.io.deltalake.write`` (a Delta version a transaction), then
+    ``pw.io.deltalake.read(mode="streaming")`` while a writer appends all but the last of the
+    change transactions as versions and a last version that removes the first transaction's
+    file."""
+    from types import SimpleNamespace
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.io.deltalake import (DeltaTableWriter, _list_versions,
+                                                _read_file_rows, _version_actions)
+
+    uri = os.path.join(work, "bids_delta")
+    cols = plan["cols"]
+    names = list(BID_COLUMNS)
+    pw.G.clear()
+
+    class Feed(pw.io.python.ConnectorSubject):
+        def run(self):
+            for lo, hi in plan["inserts"]:
+                self.next_batch({c: cols[c][lo:hi] for c in names})
+                self.commit()
+
+    src = pw.io.python.read(Feed(), schema=pw.schema_from_types(**{c: int for c in names}),
+                            autocommit_duration_ms=None)
+    pw.io.deltalake.write(src, uri, min_commit_frequency=None)
+    with scoped_env({"PATHWAY_THREADS": "1", "PATHWAY_INGEST_COALESCE_WINDOWS": "0"}), \
+            counted("connectors_delta_write", launches):
+        try:
+            t0 = time.perf_counter()
+            pw.run(device=device)
+            write_s = time.perf_counter() - t0
+        finally:
+            pw.G.clear()
+    versions = _list_versions(uri)
+    (first_file,), _ = _version_actions(uri, versions[1])
+    lo, hi = plan["inserts"][0]
+    first_i = sorted(r[0] for r in _read_file_rows(uri, first_file, names))
+    if first_i != cols["i"][lo:hi].tolist():
+        raise AssertionError("deltalake: version 1 does not hold the first transaction's bids")
+    changes = plan["changes"][:-1]
+    n_inserted = plan["n_bids"]
+
+    t = pw.io.deltalake.read(uri, schema=pw.schema_from_types(**{c: int for c in names}),
+                             mode="streaming", autocommit_duration_ms=100)
+    raw = ReflectedRows(pw, t)
+    per_auction = subscribed(pw, q1_per_auction(pw, t))
+
+    def write() -> None:
+        writer = DeltaTableWriter(uri, names, None, min_commit_frequency_ms=None)
+        want = n_inserted
+        for k, ch in enumerate(changes):
+            before = {c: cols[c][np.r_[ch["update"], ch["delete"]]] for c in names}
+            after = {c: cols[c][ch["update"]] for c in names}
+            after["price"] = ch["price"]
+            data = {c: np.r_[before[c], after[c]].tolist() for c in names}
+            diffs = [-1] * len(before["i"]) + [1] * len(after["i"])
+            writer.add_batch(len(versions) + k, SimpleNamespace(data=data, diffs=diffs))
+            writer.flush()
+            want += len(diffs)
+        writer._commit_actions([{"remove": {"path": first_file, "dataChange": True}}])
+        raw.wait_for(want + hi - lo)
+
+    to_last, run_s = run_while_writing(device, write, "connectors_delta_read", launches)
+    final = plan_final(plan, len(changes), dropped=(0,))
+    check_bids("deltalake", live_rows(raw.seen, names, with_keys=True), final, content_keys)
+    groups = check_per_auction("deltalake", live_rows(per_auction, ["auction", "n", "top"]),
+                               plain_q1_per_auction(final))
+    read_rows = raw.count
+    return {"write_s": write_s, "write_rows_per_s": n_inserted / write_s,
+            "versions_written": len(versions) - 1, "s": to_last, "run_s": run_s,
+            "read_rows": read_rows, "rows_per_s": read_rows / to_last, "groups": groups,
+            "final_rows": len(final["i"]), "versions_appended": len(changes) + 1}
+
+
+def debezium_envelopes(plan: dict, path: str) -> int:
+    """The plan's change stream as Debezium envelopes in a jsonlines file: an insert ``c``, an
+    update ``u`` (before and after), a delete ``d`` (before), in transaction order."""
+    cols = plan["cols"]
+    rows = list(zip(*(cols[c].tolist() for c in BID_COLUMNS)))
+    n = 0
+    with open(path, "w") as f:
+        def emit(op, before, after):
+            payload = {"op": op}
+            if before is not None:
+                payload["before"] = dict(zip(BID_COLUMNS, before))
+            if after is not None:
+                payload["after"] = dict(zip(BID_COLUMNS, after))
+            f.write(json.dumps({"payload": payload}) + "\n")
+
+        for lo, hi in plan["inserts"]:
+            for r in rows[lo:hi]:
+                emit("c", None, r)
+            n += hi - lo
+        for ch in plan["changes"]:
+            for j, p in zip(ch["update"].tolist(), ch["price"].tolist()):
+                emit("u", rows[j], rows[j][:3] + (p,) + rows[j][4:])
+            for j in ch["delete"].tolist():
+                emit("d", rows[j], None)
+            n += len(ch["update"]) + len(ch["delete"])
+    return n
+
+
+def debezium_leg(device, plan: dict, work: str, launches: dict) -> dict:
+    """(c): (a)'s change stream as Debezium envelopes through ``pw.io.debezium.read`` over the
+    file transport into ``q1_per_auction``."""
+    import pathway_tpu_torch as pw
+
+    path = os.path.join(work, "bids_cdc.jsonl")
+    n_envelopes = debezium_envelopes(plan, path)
+    pw.G.clear()
+    t = pw.io.debezium.read(input_file=path, schema=bid_schema(pw), autocommit_duration_ms=None)
+    raw = subscribed(pw, t)
+    per_auction = subscribed(pw, q1_per_auction(pw, t))
+    with scoped_env({"PATHWAY_THREADS": "1"}), counted("connectors_debezium", launches):
+        try:
+            t0 = time.perf_counter()
+            pw.run(device=device)
+            s = time.perf_counter() - t0
+        finally:
+            pw.G.clear()
+    final = plan_final(plan, len(plan["changes"]))
+    check_bids("debezium", live_rows(raw, list(BID_COLUMNS), with_keys=True), final, pk_keys)
+    groups = check_per_auction("debezium", live_rows(per_auction, ["auction", "n", "top"]),
+                               plain_q1_per_auction(final))
+    return {"s": s, "rows": n_envelopes, "rows_per_s": n_envelopes / s, "groups": groups,
+            "final_rows": len(final["i"])}
+
+
+@contextlib.contextmanager
+def first_program(into: dict):
+    """Keep the first program that the expression machine's host launcher runs in the block, with
+    its input columns (the phase's own lowered program and one of its batches)."""
+    from pathway_tpu_torch.ops import expression_kernel as vm
+
+    real = vm.HostLauncher.run
+
+    def run(self, program, cols, n):
+        if "program" not in into:
+            into.update(program=program, cols=[np.array(c) for c in cols], n=n)
+        return real(self, program, cols, n)
+
+    vm.HostLauncher.run = run
+    try:
+        yield
+    finally:
+        vm.HostLauncher.run = real
+
+
+def check_first_program(device, captured: dict) -> dict:
+    """``expression_vm`` against its plain version on the captured program and batch: every
+    output column bitwise."""
+    from pathway_tpu_torch.ops.expression_kernel import run_program, run_program_plain
+
+    prog, n = captured["program"], captured["n"]
+    inputs = [torch.from_numpy(np.ascontiguousarray(
+        c.view(np.int64) if c.dtype == np.uint64 else c)).to(device) for c in captured["cols"]]
+    got, want = run_program(prog, inputs), run_program_plain(prog, inputs)
+    torch.cuda.synchronize()
+    err = 0.0
+    for (name, _), g, w in zip(prog.outputs, got, want):
+        if not torch.equal(g, w):
+            raise AssertionError(f"expression_vm: output {name} of the phase's program differs "
+                                 f"from its plain version")
+        if g.dtype.is_floating_point:
+            err = max(err, float((g - w).abs().max()) if g.numel() else 0.0)
+    return {"rows": n, "instructions": int(prog.code.shape[0]), "max_abs_err": err}
+
+
+def run_connectors(device, *, ev: dict | None = None, leg_events: dict | None = None) -> dict:
+    """Phase 19: the bids of phase 17's events (``ev``, or the generator's anew) through (a)
+    SQLite CDC, (b) Delta Lake and (c) Debezium, each leg's tables held against numpy's on the
+    same rows; ``expression_vm`` held against its plain version on (a)'s program and batch; each
+    leg's rows/s (host clock) and launch counts logged with the card's name and power limit; and
+    which gated connectors' client packages this machine has."""
+    import shutil
+    import tempfile
+
+    cuda = device.type == "cuda"
+    card = card_line() if cuda else "cpu"
+    leg_events = {**CONNECTOR_LEG_EVENTS, **(leg_events or {})}
+    if ev is None:
+        ev = nexmark_events(max(leg_events.values()))
+    result: dict = {"launches": {}, "legs": {}}
+    log("connectors: client packages importable here: " + ", ".join(
+        f"{name} ({mod}) {'yes' if client_importable(mod) else 'no'}"
+        for name, mod in GATED_CLIENTS.items()))
+    work = tempfile.mkdtemp(prefix="connectors_phase_")
+    captured: dict = {}
+    try:
+        plan = bid_plan(ev["bid"], leg_events["sqlite"])
+        with first_program(captured):
+            a = sqlite_leg(device, plan, work, result["launches"])
+        result["legs"]["sqlite"] = a
+        log(f"connectors (a) SQLite CDC over the bids of {leg_events['sqlite']} events: "
+            f"{a['rows']} rows written ({a['written']['inserts']} inserts, "
+            f"{a['written']['updates']} updates, {a['written']['deletes']} deletes in "
+            f"{len(plan['inserts']) + len(plan['changes'])} transactions) in {a['s']:.2f} s to "
+            f"the tick of the last, {a['rows_per_s']:.1f} rows/s; {a['final_rows']} bids and "
+            f"{a['groups']} auctions, equal to numpy's; expression_vm launches "
+            f"{result['launches']['connectors_sqlite']['expression_vm']} [{card}]")
+        if captured:
+            held = check_first_program(device, captured) if cuda else None
+            if held is not None:
+                result["held"] = held
+                log(f"connectors: expression_vm against its plain version on (a)'s program "
+                    f"({held['instructions']} instructions) and batch of {held['rows']} rows: "
+                    f"every output equal bitwise [{card}]")
+        plan_b = plan if leg_events["delta"] == leg_events["sqlite"] else bid_plan(
+            ev["bid"], leg_events["delta"])
+        b = delta_leg(device, plan_b, work, result["launches"])
+        result["legs"]["delta"] = b
+        log(f"connectors (b) Delta Lake over the bids of {leg_events['delta']} events: written "
+            f"through pw.io.python in {b['write_s']:.2f} s ({b['versions_written']} versions), "
+            f"{b['write_rows_per_s']:.1f} rows/s; read streaming while {b['versions_appended']} "
+            f"versions were appended (the last removes version 1's file): {b['read_rows']} rows "
+            f"in {b['s']:.2f} s to the tick of the last, {b['rows_per_s']:.1f} rows/s; "
+            f"{b['final_rows']} bids and {b['groups']} auctions, equal to numpy's; expression_vm "
+            f"launches {result['launches']['connectors_delta_write']['expression_vm']} (write), "
+            f"{result['launches']['connectors_delta_read']['expression_vm']} (read) [{card}]")
+        plan_c = restrict_plan(plan, ev["bid"], min(leg_events["debezium"],
+                                                    leg_events["sqlite"]))
+        c = debezium_leg(device, plan_c, work, result["launches"])
+        result["legs"]["debezium"] = c
+        log(f"connectors (c) Debezium over the change stream of the bids of "
+            f"{leg_events['debezium']} events: {c['rows']} envelopes in {c['s']:.2f} s, "
+            f"{c['rows_per_s']:.1f} rows/s; {c['final_rows']} bids key by key and {c['groups']} "
+            f"auctions, equal to numpy's; expression_vm launches "
+            f"{result['launches']['connectors_debezium']['expression_vm']} [{card}]")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    a.pop("db", None)
+    total = a["s"] + b["write_s"] + b["s"] + c["s"]
+    result["s"] = total
+    log(f"connectors: the runs took {total:.1f} s of the phase's {CONNECTOR_BUDGET_S:.0f} "
+        f"(sqlite {a['s']:.1f} s, delta write {b['write_s']:.1f} s, delta read {b['s']:.1f} s, "
+        f"debezium {c['s']:.1f} s) [{card}]")
+    if cuda:
+        if not any(v["expression_vm"] for v in result["launches"].values()):
+            raise AssertionError("expression_vm not launched by the connectors phase")
+        if "held" not in result:
+            raise AssertionError("expression_vm: no program of the phase was captured")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -5869,7 +6397,10 @@ def main() -> int:
 
     phase("stdlib and SQL")
     torch.cuda.empty_cache()
-    stdlib = run_stdlib(device, ev=nexmark.pop("events"))
+    stdlib = run_stdlib(device, ev=nexmark["events"])
+
+    phase("the connectors over Nexmark")
+    connectors = run_connectors(device, ev=nexmark.pop("events"))
 
     by_path = {**engine["device_ms_by_path"], **api["device_ms_by_path"]}
     all_launches = {**engine["launches"], **api["launches"]}
@@ -5902,7 +6433,8 @@ def main() -> int:
         "bucket_exchange": ("pathway_tpu_torch/csrc/bucket_exchange.cu",
                             "pathway_tpu/parallel/exchange.py:51", engine["exchange_err"]),
         "expression_vm": ("pathway_tpu_torch/csrc/expression_vm.cu",
-                          "pathway_tpu/internals/expression_compiler.py:272", api["max_abs_err"]),
+                          "pathway_tpu/internals/expression_compiler.py:272",
+                          max(api["max_abs_err"], connectors["held"]["max_abs_err"])),
     }
     kernels = []
     for name, (source, replaces, err) in sources.items():
@@ -5919,7 +6451,8 @@ def main() -> int:
                    **{p: c[name] for p, c in rescaled["launches"].items()},
                    **{p: c[name] for p, c in asynced["launches"].items()},
                    **{p: c[name] for p, c in nexmark["launches"].items()},
-                   **{p: c[name] for p, c in stdlib["launches"].items()}}
+                   **{p: c[name] for p, c in stdlib["launches"].items()},
+                   **{p: c[name] for p, c in connectors["launches"].items()}}
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,

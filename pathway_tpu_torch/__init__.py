@@ -20,7 +20,9 @@ row transformers (``pw.transformer``, ``pw.AsyncTransformer``); the native keysp
 engine (``native``, built with the host C compiler at first use); ``pw.indexing`` (KNN, BM25,
 hybrid and sorted indexes) and ``Table.sort``; the RAG serving path (``xpacks.llm``: the local parsers, the splitters and
 embedders as UDFs, the live ``DocumentStore`` and ``DocumentStoreServer``; ``io.http``'s
-``rest_connector``; the ``serve`` plane's admission control and merge). Hand-written CUDA
+``rest_connector``; the ``serve`` plane's admission control and merge); every connector of
+``pw.io`` (those without their client package raise when called), ``xpacks.connectors`` and
+``pw.demo``. Hand-written CUDA
 kernels carry their device work: masked attention and its gradient (``ops.attention``), fused
 scoring with top-k and the sharded search's merge (``ops.knn``), the InfoNCE loss with its
 gradient (``ops.infonce``), the ring's block step (``ops.ring``), the exchange's bucketing
@@ -82,7 +84,7 @@ from .internals.table import (
 )
 from .internals.thisclass import left, right, this
 from .udfs import UDF, udf, udf_async
-from . import debug, io, persistence, stdlib, universes  # noqa: E402
+from . import debug, demo, io, persistence, stdlib, universes  # noqa: E402
 from .stdlib import graphs, indexing, ml, ordered, stateful, statistical, temporal  # noqa: E402
 from .stdlib.utils.async_transformer import AsyncTransformer  # noqa: E402
 from .internals.row_transformer import (  # noqa: E402
@@ -198,6 +200,7 @@ __all__ = [
     "coalesce",
     "column_definition",
     "debug",
+    "demo",
     "declare_type",
     "expression_vm",
     "fill_error",

@@ -5,11 +5,8 @@ SourceNode/Subscribe machinery. Implemented connectors live in submodules
 (``fs``, ``csv``, ``jsonlines``, ``plaintext``, ``python``, ``http``, ...);
 ``subscribe`` is the universal callback sink (reference ``io.subscribe``).
 
-Copy of ``pathway_tpu/io/__init__.py`` with the file connectors (``fs``,
-``csv``, ``jsonlines``, ``plaintext``, and ``s3``'s object stream under
-``fs``), the delivery-managed writers (``delivery``, ``null``), the
-``python`` connector and ``http``'s REST server; the other connectors are not
-ported.
+Copy of ``pathway_tpu/io/__init__.py``: every connector. Those whose client package is
+absent raise the reference's ``ImportError`` when called (``_gated``), never on import.
 """
 
 from __future__ import annotations
@@ -20,27 +17,61 @@ from ..internals.parse_graph import G
 from ..internals.table import Table
 
 from . import (  # noqa: E402,F401
+    airbyte,
+    bigquery,
     csv,
+    debezium,
     delivery,
+    deltalake,
+    elasticsearch,
     fs,
+    gdrive,
     http,
     jsonlines,
+    kafka,
+    logstash,
+    minio,
+    mongodb,
+    nats,
     null,
     plaintext,
+    postgres,
+    pubsub,
+    pyfilesystem,
     python,
+    redpanda,
     s3,
+    slack,
+    sqlite,
 )
 
 __all__ = [
+    "airbyte",
+    "bigquery",
     "csv",
+    "debezium",
     "delivery",
+    "deltalake",
+    "elasticsearch",
     "fs",
+    "gdrive",
     "http",
     "jsonlines",
+    "kafka",
+    "logstash",
+    "minio",
+    "mongodb",
+    "nats",
     "null",
     "plaintext",
+    "postgres",
+    "pubsub",
+    "pyfilesystem",
     "python",
+    "redpanda",
     "s3",
+    "slack",
+    "sqlite",
     "subscribe",
     "OnChangeCallback",
     "OnFinishCallback",

@@ -1762,3 +1762,207 @@ def test_knn_index_on_the_card_launches_the_scorer(cuda):
         want = np.array([[((queries[i] - vecs[near[i]]) ** 2).sum()]])
         tol = topk_tol(-want, queries[i:i + 1], vecs, "l2sq")
         assert abs(dists[0] - want[0, 0]) <= tol[0, 0]
+
+
+def _bid_rows(n: int, seed: int) -> list:
+    rng = np.random.default_rng(seed)
+    return [(i, int(a), int(p)) for i, (a, p) in
+            enumerate(zip(rng.integers(0, 40, n), rng.integers(100, 10**6, n)))]
+
+
+def _per_auction(pw, bids):
+    q1 = bids.select(pw.this.auction, price_eur=pw.this.price * 0.908)
+    return q1.groupby(pw.this.auction).reduce(pw.this.auction, n=pw.reducers.count(),
+                                              top=pw.reducers.max(pw.this.price_eur))
+
+
+def _plain_per_auction(rows: list) -> dict:
+    out: dict = {}
+    for _, a, p in rows:
+        n, top = out.get(a, (0, -1.0))
+        out[a] = (n + 1, max(top, p * 0.908))
+    return out
+
+
+def _live(pw, table) -> dict:
+    """The final table {row key: row} of ``table``'s subscription."""
+    live: dict = {}
+    names = table.column_names()
+
+    def on_change(key, row, time, is_addition):
+        tup = tuple(row[c] for c in names)
+        if is_addition:
+            live[int(key)] = tup
+        elif live.get(int(key)) == tup:
+            del live[int(key)]
+
+    pw.io.subscribe(table, on_change=on_change)
+    return live
+
+
+def _run_while(pw, write, seen: dict, n_rows: int) -> None:
+    """``pw.run(device="cuda")`` while ``write()`` runs on a thread; stopped once ``seen`` (a
+    final table) holds ``n_rows`` rows after the write, within 60 s."""
+    import threading
+    import time
+
+    def writer():
+        try:
+            write()
+            deadline = time.monotonic() + 60
+            while len(seen) != n_rows and time.monotonic() < deadline:
+                time.sleep(0.05)
+            time.sleep(0.3)
+        finally:
+            pw.request_stop()
+
+    th = threading.Thread(target=writer, daemon=True)
+    th.start()
+    try:
+        pw.run(device="cuda")
+    finally:
+        th.join(60)
+        pw.G.clear()
+
+
+def test_sqlite_cdc_on_the_card_launches_expression_vm(cuda, monkeypatch, tmp_path):
+    """``pw.io.sqlite.read(mode="streaming")`` into Nexmark Q1's conversion and a count and
+    maximum per auction on the card, past the expression tier's gates: inserts, updates and
+    deletes in transactions; the tables equal Python's over the database's final rows, and the
+    kernel launched."""
+    import sqlite3
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.internals import expression_compiler as ec
+    from pathway_tpu_torch.ops.expression_kernel import expression_vm
+
+    monkeypatch.setattr(ec, "JIT_THRESHOLD", 64)
+    monkeypatch.setattr(ec, "JIT_WARMUP_BATCHES", 2)
+    rows = _bid_rows(3000, 41)
+    db = str(tmp_path / "bids.db")
+    con = sqlite3.connect(db, check_same_thread=False)
+    con.execute("PRAGMA journal_mode=WAL")
+    con.execute("CREATE TABLE bids (i INTEGER PRIMARY KEY, auction INTEGER, price INTEGER)")
+    con.commit()
+    pw.G.clear()
+    schema = pw.schema_builder({"i": pw.column_definition(dtype=int, primary_key=True),
+                                "auction": pw.column_definition(dtype=int),
+                                "price": pw.column_definition(dtype=int)})
+    t = pw.io.sqlite.read(db, "bids", schema, mode="streaming")
+    raw = _live(pw, t)
+    agg = _live(pw, _per_auction(pw, t))
+    final = {r[0]: r for r in rows}
+
+    def write():
+        import time
+
+        for s in range(0, 3000, 500):
+            con.executemany("INSERT INTO bids VALUES (?, ?, ?)", rows[s:s + 500])
+            con.commit()
+            time.sleep(0.3)
+        con.executemany("UPDATE bids SET price = price + 1 WHERE i = ?",
+                        [(i,) for i in range(0, 3000, 7)])
+        con.executemany("DELETE FROM bids WHERE i = ?", [(i,) for i in range(3, 3000, 11)])
+        con.commit()
+        for i in range(0, 3000, 7):
+            final[i] = (i, final[i][1], final[i][2] + 1)
+        for i in range(3, 3000, 11):
+            final.pop(i)
+
+    before = expression_vm.launches
+    _run_while(pw, write, raw, 3000 - len(range(3, 3000, 11)))
+    con.close()
+    assert expression_vm.launches > before
+    assert sorted(raw.values()) == sorted(final.values())
+    assert {r[0]: (r[1], r[2]) for r in agg.values()} == _plain_per_auction(final.values())
+
+
+def test_delta_streaming_read_on_the_card(cuda, monkeypatch, tmp_path):
+    """``pw.io.deltalake.write`` on the card, then ``read(mode="streaming")`` while versions with
+    retractions and a file's removal are appended: the tables equal Python's, and the kernel
+    launched on the read."""
+    from types import SimpleNamespace
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.internals import expression_compiler as ec
+    from pathway_tpu_torch.io.deltalake import DeltaTableWriter, _list_versions, _version_actions
+    from pathway_tpu_torch.ops.expression_kernel import expression_vm
+
+    monkeypatch.setattr(ec, "JIT_THRESHOLD", 64)
+    monkeypatch.setattr(ec, "JIT_WARMUP_BATCHES", 2)
+    rows = _bid_rows(3000, 43)
+    uri = str(tmp_path / "bids_delta")
+
+    class Feed(pw.io.python.ConnectorSubject):
+        def run(self):
+            for s in range(0, 3000, 500):
+                part = rows[s:s + 500]
+                self.next_batch({"i": [r[0] for r in part], "auction": [r[1] for r in part],
+                                 "price": [r[2] for r in part]})
+                self.commit()
+
+    pw.G.clear()
+    src = pw.io.python.read(Feed(), schema=pw.schema_from_types(i=int, auction=int, price=int),
+                            autocommit_duration_ms=None)
+    pw.io.deltalake.write(src, uri, min_commit_frequency=None)
+    pw.run(device="cuda")
+    pw.G.clear()
+    (first_file,), _ = _version_actions(uri, _list_versions(uri)[1])
+    t = pw.io.deltalake.read(uri, schema=pw.schema_from_types(i=int, auction=int, price=int),
+                             mode="streaming", autocommit_duration_ms=100)
+    raw = _live(pw, t)
+    agg = _live(pw, _per_auction(pw, t))
+    gone = [r for r in rows[1000:] if r[0] % 9 == 0]
+    final = [r for r in rows[500:] if r not in gone]
+
+    def write():
+        writer = DeltaTableWriter(uri, ["i", "auction", "price"], None, None)
+        cols = {"i": [r[0] for r in gone], "auction": [r[1] for r in gone],
+                "price": [r[2] for r in gone]}
+        writer.add_batch(100, SimpleNamespace(data=cols, diffs=[-1] * len(gone)))
+        writer.flush()
+        writer._commit_actions([{"remove": {"path": first_file, "dataChange": True}}])
+
+    before = expression_vm.launches
+    _run_while(pw, write, raw, len(final))
+    assert expression_vm.launches > before
+    assert sorted(raw.values()) == sorted(final)
+    assert {r[0]: (r[1], r[2]) for r in agg.values()} == _plain_per_auction(final)
+
+
+def test_debezium_replay_on_the_card(cuda, tmp_path):
+    """``pw.io.debezium.read`` of create, update and delete envelopes on the card: the table equals
+    the rows they leave, keyed by the primary key, and the count and maximum per auction equal
+    Python's."""
+    import json
+
+    import pathway_tpu_torch as pw
+
+    rows = _bid_rows(400, 47)
+    final = {r[0]: r for r in rows}
+    lines = [{"payload": {"op": "c", "after": dict(zip(("i", "auction", "price"), r))}}
+             for r in rows]
+    for r in rows[::5]:
+        after = (r[0], r[1], r[2] + 3)
+        lines.append({"payload": {"op": "u", "before": dict(zip(("i", "auction", "price"), r)),
+                                  "after": dict(zip(("i", "auction", "price"), after))}})
+        final[r[0]] = after
+    for r in rows[1::7]:
+        lines.append({"payload": {"op": "d", "before": dict(zip(("i", "auction", "price"),
+                                                               final[r[0]]))}})
+        final.pop(r[0])
+    path = tmp_path / "cdc.jsonl"
+    path.write_text("\n".join(json.dumps(x) for x in lines))
+    pw.G.clear()
+    schema = pw.schema_builder({"i": pw.column_definition(dtype=int, primary_key=True),
+                                "auction": pw.column_definition(dtype=int),
+                                "price": pw.column_definition(dtype=int)})
+    t = pw.io.debezium.read(input_file=str(path), schema=schema, autocommit_duration_ms=None)
+    raw = _live(pw, t)
+    agg = _live(pw, _per_auction(pw, t))
+    try:
+        pw.run(device="cuda")
+    finally:
+        pw.G.clear()
+    assert sorted(raw.values()) == sorted(final.values())
+    assert {r[0]: (r[1], r[2]) for r in agg.values()} == _plain_per_auction(final.values())

@@ -286,7 +286,7 @@ def test_the_port_lacks_only_the_names_of_later_slices():
     import pathway_tpu_torch
 
     missing = {n for n in pathway_tpu.__all__ if not hasattr(pathway_tpu_torch, n)}
-    assert missing == {"analyze", "load_yaml", "demo", "viz", "LiveTable",
+    assert missing == {"analyze", "load_yaml", "viz", "LiveTable",
                        "enable_interactive_mode", "is_interactive_mode_enabled",
                        "global_error_log", "local_error_log"}
 

@@ -178,10 +178,12 @@ def _redirect(env: dict, side: Side, pw: Any):
     return redirect
 
 
-def run_case(module_name: str, name: str, side: Side, **fixtures: Any) -> list[dict]:
+def run_case(module_name: str, name: str, side: Side, prepare=None, **fixtures: Any) -> list[dict]:
     """Execute the source of test module ``module_name`` afresh over ``side``'s package and call
-    its function ``name`` (with ``fixtures`` as arguments); return the tables it computed. The
-    fresh module sits in ``sys.modules`` for the call, so its classes pickle."""
+    its function ``name`` with ``fixtures`` as arguments, and with those that
+    ``prepare(module globals)`` returns (fixtures built from the module's own classes); return the
+    tables it computed. The fresh module sits in ``sys.modules`` for the call, so its classes
+    pickle."""
     path = os.path.join(TESTS, module_name + ".py")
     mod = types.ModuleType(f"{module_name}__{side.pkg}")
     mod.__file__ = path
@@ -196,6 +198,8 @@ def run_case(module_name: str, name: str, side: Side, **fixtures: Any) -> list[d
         try:
             exec(code, env)
             env.update({k: v for k, v in binds.items() if k in env})
+            if prepare is not None:
+                fixtures.update(prepare(env))
             env[name](**fixtures)
         finally:
             side.pw.G.clear()
