@@ -2,8 +2,9 @@
 dataflow engine, its Table API, its indexing stdlib, its RAG serve path over HTTP, its file
 connectors with the RAG example served from a directory, its persistence and recovery, its
 elastic rescale and spill tier, its frontier-driven async plane with ``pw.iterate``, its
-temporal stdlib on Nexmark's event model, its ML, SQL and graph stdlib, and its SQLite, Delta
-Lake and Debezium connectors, on one NVIDIA card.
+temporal stdlib on Nexmark's event model, its ML, SQL and graph stdlib, its SQLite, Delta
+Lake and Debezium connectors, and its RAG question answering with the last root names
+(``pw.analyze``, ``pw.load_yaml``, the error log, ``LiveTable``), on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -283,7 +284,34 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    write; (c) over its run) and its ``expression_vm`` launches are logged; the kernel is held
    against its plain version bitwise on (a)'s own lowered program and batch, and must launch.
    One line names, for each gated connector, whether its client package is importable here.
-20. Each engine-path kernel's launches and summed device time per path, one JSON line with each
+20. RAG question answering over HTTP (``xpacks/llm``: ``question_answering``, ``rerankers``,
+   ``vector_store``) and the last root names, at 1 worker, each run a ``pw.run(device="cuda")``.
+   Phase 12's documents (4,096 chunks; one document in 512 planted so that its parse raises)
+   into a ``DocumentStore`` (``TorchEmbedder``'s default encoder, ``BruteForceKnnFactory``),
+   served in one run by ``QASummaryRestServer`` over ``BaseRAGQuestionAnswerer(search_topk=6)``
+   and ``QARestServer`` over ``AdaptiveRAGQuestionAnswerer(n_starting_documents=2, factor=2,
+   max_iterations=4)``, each chat a deterministic ``BaseChat`` of this script. (a) 64 questions
+   through ``RAGClient.answer`` after 4 untimed: the chat answers with its context's paths in
+   prompt order; each context against a direct ``knn_topk`` search of the store's engine (scores
+   within one bf16 ulp, texts equal where the scores are clear); p50, p95, p99 and the launches
+   per request; ``/v1/retrieve``, ``/v1/statistics``, ``/v2/list_documents`` and
+   ``/v1/pw_ai_summary`` once each against the store's own answers. (b) The same 64 questions to
+   the adaptive answerer, each with a sentinel chunk at a known rank (1 to 16) of its direct
+   search: the answer and the chat-call count against the geometric rule; p50. (c)
+   ``EncoderReranker`` and ``rerank_topk_filter(k=3)`` over (a)'s 384 (question, context) pairs
+   through ``pw.run``: each score against the cosine from one batched ``embed_texts_device``
+   call (``RERANK_ATOL``), pairs/s and launches per pair. (d) ``VectorStoreServer`` over the
+   first 1,024 chunks, 16 ``VectorStoreClient.query`` (k=6) against its engine searched
+   directly. (e) ``pw.analyze`` on (a)'s graph before its run, on the card and on the host (the
+   same diagnostics; no launch); ``pw.global_error_log()`` in (a)'s run (a parse error and a
+   flatten skip for each planted document); ``pw.load_yaml`` of (a)'s store and answerer, 8
+   answers against (a)'s; a ``LiveTable`` of the store's statistics to ``/v1/statistics``'s
+   count. ``masked_attention`` at B=1 and ``knn_topk`` at a question's shape, each on inputs the
+   phase gave it, against their plain versions. The launch counts are zeroed just before each
+   counted block (a run, or (a)'s fill with its warm-up and other routes, (a)'s timed answers,
+   (b)'s) and read just after; the direct searches and the batched embed that the answers are
+   held against run outside every block.
+21. Each engine-path kernel's launches and summed device time per path, one JSON line with each
    kernel's numbers, then the closing JSON line.
 
 It needs one CUDA card and exits non-zero, printing no result, without one. It imports nothing
@@ -2607,21 +2635,24 @@ def query_tick_device(prof) -> dict:
             "top": [(ms, counts[name], name) for name, ms in by_name.most_common(4)]}
 
 
-def check_answers(label: str, got: dict, want: dict) -> int:
+def check_answers(label: str, got: dict, want: dict, *, extra: int = 0) -> int:
     """Each query's answer through ``pw.run`` against the direct search's on the same rows, by
-    query id: the same length, scores within one bf16 ulp, ids equal wherever the direct score is
-    more than one ulp from its neighbours'. Returns the number of ids that differ inside such
-    near ties."""
+    query id: the direct search exactly ``extra`` matches longer (a caller that searches one
+    further passes 1, so that a near tie across the answer's last place may swap), scores within
+    one bf16 ulp, ids equal wherever the direct score is more than one ulp from its neighbours'.
+    Returns the number of ids that differ inside such near ties."""
     if got.keys() != want.keys():
         raise AssertionError(f"{label}: answers for {len(got)} queries, direct {len(want)}")
     swapped = 0
     for q, w in want.items():
         g = got[q]
-        if len(g) != len(w):
-            raise AssertionError(f"{label}: {len(g)} matches, the direct search {len(w)}")
+        if len(w) != len(g) + extra:
+            raise AssertionError(f"{label}: {len(g)} matches, the direct search {len(w)} "
+                                 f"({extra} beyond the answer's expected)")
         ws = torch.tensor([s for _, s in w], dtype=torch.float64)
         tol = bf16_ulp(ws)
-        if (torch.tensor([s for _, s in g], dtype=torch.float64) - ws).abs().gt(tol).any():
+        if (torch.tensor([s for _, s in g], dtype=torch.float64) - ws[:len(g)]).abs().gt(
+                tol[:len(g)]).any():
             raise AssertionError(f"{label}: a score differs from the direct search's by more "
                                  f"than one bf16 ulp")
         for i, ((gi, _), (wi, _)) in enumerate(zip(g, w)):
@@ -6210,6 +6241,629 @@ def run_connectors(device, *, ev: dict | None = None, leg_events: dict | None = 
     return result
 
 
+# -- phase 20: RAG question answering over HTTP, and the last root names -------------------------
+
+QA_TOPK = 6  # the standard answerer's search_topk
+QA_ADAPTIVE = {"n_starting_documents": 2, "factor": 2, "max_iterations": 4}
+QA_PLANT_EVERY = 512  # one document in 512 is planted so that its parse raises
+QA_PLANTED = b"%planted: this document fails its parse\n"
+RERANK_K = 3
+# the reranker's cosine against the one from a batched ``embed_texts_device``: each text runs at
+# its own length bucket (16-128 tokens) in both, its pad columns masked out, so its embedding is
+# the same whatever else the batch holds; the two cosines differ only in how their 384 products
+# are summed (the reranker's in float64 over the f32 embeddings, here an f32 dot on the card, at
+# most 384 f32 epsilons of the sum of |products|, 2.3e-5 for unit vectors) and in the reranker's
+# normalisation of its vectors
+RERANK_ATOL = 1e-4
+QA_BUDGET_S = 60.0
+
+#: what the phase's chats, parser and documents read (filled by ``run_qa`` before each run)
+QA_STATE: dict = {}
+
+
+def qa_prompt(query: str, texts) -> str:
+    """The standard answerer's prompt: the question and its context texts as JSON, in order."""
+    return json.dumps({"query": query, "texts": list(texts)})
+
+
+def qa_prompt_template():
+    return qa_prompt
+
+
+@functools.cache
+def qa_classes() -> dict:
+    """The phase's parser and its two deterministic chats (``BaseChat`` subclasses)."""
+    import threading
+
+    from pathway_tpu_torch.xpacks.llm import prompts
+    from pathway_tpu_torch.xpacks.llm.llms import BaseChat
+    from pathway_tpu_torch.xpacks.llm.parsers import ParseLocal
+
+    lock = threading.Lock()
+
+    class PlantedParser(ParseLocal):
+        """``ParseLocal``, raising on a planted document."""
+
+        def __wrapped__(self, contents, **kwargs):
+            if bytes(contents).startswith(QA_PLANTED):
+                raise ValueError("a planted document fails its parse")
+            return super().__wrapped__(contents, **kwargs)
+
+    class PathChat(BaseChat):
+        """Answers with the path of each context text, in prompt order (``qa_prompt``); a
+        summary request with the number of texts it got."""
+
+        def _call_model(self, messages, **kwargs):
+            content = messages[-1]["content"]
+            if content.startswith("Summarize"):
+                body = content.split("\n\n", 1)[1].rsplit("\n\nSummary:", 1)[0]
+                return f"a summary of {len(body.splitlines())} texts"
+            return "\n".join(QA_STATE["path_of"][t] for t in json.loads(content)["texts"])
+
+    class SentinelChat(BaseChat):
+        """Answers only when its question's sentinel text is among the prompt's articles, and
+        otherwise with ``NO_INFO_ANSWER``; counts its calls by question and number of
+        articles."""
+
+        def _call_model(self, messages, **kwargs):
+            content = messages[-1]["content"]
+            articles, question = content.split("Articles:\n", 1)[1].rsplit("\n\nQ: ", 1)
+            question = question.removesuffix("\nA:")
+            with lock:
+                QA_STATE["calls"][(question, len(articles))] += 1
+            if QA_STATE["sentinel"][question] in articles:
+                return f"the sentinel of {question}"
+            return prompts.NO_INFO_ANSWER
+
+    return {"parser": PlantedParser, "paths": PathChat, "sentinel": SentinelChat}
+
+
+def qa_parser():
+    return qa_classes()["parser"]()
+
+
+def qa_chat(kind: str):
+    return qa_classes()[kind]()
+
+
+def qa_encoder():
+    return QA_STATE["encoder"]
+
+
+def qa_docs_table():
+    """The phase's documents through a ``ConnectorSubject`` in commits of ``docs_commit``."""
+    import pathway_tpu_torch as pw
+
+    docs, commit = QA_STATE["docs"], QA_STATE["docs_commit"]
+
+    class Docs(pw.io.python.ConnectorSubject):
+        def run(self):
+            for s in range(0, len(docs), commit):
+                part = docs[s:s + commit]
+                self.next_batch({"data": [d for d, _ in part],
+                                 "_metadata": [m for _, m in part]})
+                self.commit()
+
+    return pw.io.python.read(Docs(), schema=pw.schema_from_types(data=bytes, _metadata=dict),
+                             autocommit_duration_ms=None)
+
+
+#: leg (e): (a)'s store and standard answerer as one YAML description
+QA_YAML = """
+$encoder: !{mod}.qa_encoder {{}}
+$docs: !{mod}.qa_docs_table {{}}
+store: !pw.xpacks.llm.document_store.DocumentStore
+  docs: $docs
+  retriever_factory: !pw.indexing.BruteForceKnnFactory
+    dimensions: {dim}
+    embedder: $encoder
+  parser: !{mod}.qa_parser {{}}
+  splitter: !pw.xpacks.llm.splitters.TokenCountSplitter
+    max_tokens: 256
+answerer: !pw.xpacks.llm.question_answering.BaseRAGQuestionAnswerer
+  llm: !{mod}.qa_chat
+    kind: paths
+  indexer: $store
+  search_topk: {k}
+  prompt_template: !{mod}.qa_prompt_template {{}}
+"""
+
+
+def geometric_calls(rank: int, n: int, factor: int, max_iterations: int) -> int:
+    """The chat calls the geometric strategy makes before a document at ``rank`` (1-based) is in
+    its context: n, n * factor, ... documents, at most ``max_iterations`` asks."""
+    calls = 1
+    while n < rank and calls < max_iterations:
+        n, calls = n * factor, calls + 1
+    return calls
+
+
+@contextlib.contextmanager
+def kernel_inputs(into: dict):
+    """Keep the inputs of the block's first ``masked_attention`` launch at B=1 and of its first
+    ``knn_topk`` launch (the embedder's and the index engine's own calls)."""
+    from pathway_tpu_torch.models import embedder as emb_mod
+    from pathway_tpu_torch.ops import index_engines
+
+    attn, topk = emb_mod.masked_attention, index_engines.topk_scores
+
+    def attention(q, k, v, mask, *a, **kw):
+        if q.shape[0] == 1 and "attention" not in into:
+            into["attention"] = tuple(t.detach().clone() for t in (q, k, v, mask))
+        return attn(q, k, v, mask, *a, **kw)
+
+    def scores(queries, index, k, metric, *a, **kw):
+        if "knn" not in into:
+            into["knn"] = (queries.detach().clone(), index.detach().clone(), k, metric,
+                           {n: (t.detach().clone() if torch.is_tensor(t) else t)
+                            for n, t in kw.items()})
+        return topk(queries, index, k, metric, *a, **kw)
+
+    emb_mod.masked_attention, index_engines.topk_scores = attention, scores
+    try:
+        yield
+    finally:
+        emb_mod.masked_attention, index_engines.topk_scores = attn, topk
+
+
+def check_phase_kernels(captured: dict) -> dict:
+    """``masked_attention`` at B=1 and ``knn_topk`` at the question's shape, each on the inputs
+    the phase gave it, against the plain version (the attention within ATTN_ATOL + ATTN_RTOL, the
+    scores within one bf16 ulp, ids equal where the scores are clear)."""
+    from pathway_tpu_torch.ops.knn import topk_scores, topk_scores_plain
+
+    q, k, v, mask = captured["attention"]
+    attn_err = attention_error(f"phase 20 B=1 S={q.shape[2]}", q, k, v, mask)
+    queries, index, kk, metric, kw = captured["knn"]
+    s_k, i_k = topk_scores(queries, index, kk, metric, **kw)
+    s_p, i_p = topk_scores_plain(queries, index, kk + 1, metric, **kw)
+    torch.cuda.synchronize()
+    check_topk_against_plain(s_k, i_k, s_p, i_p, topk_tolerance(s_p, queries, index, metric))
+    knn_err = (s_k - s_p[:, :kk]).abs().max().item()
+    return {"attention_shape": tuple(q.shape), "attention_err": attn_err,
+            "knn_shape": (queries.shape[0], index.shape[0], queries.shape[1], kk),
+            "knn_err": knn_err}
+
+
+def ask_all(client, questions: list, **kw) -> tuple[list, list]:
+    """Each question through ``client.answer``: the answers and each request's ms (host
+    clock)."""
+    answers, ms = [], []
+    for q in questions:
+        t = time.perf_counter()
+        answers.append(client.answer(q, **kw))
+        ms.append((time.perf_counter() - t) * 1e3)
+    return answers, ms
+
+
+def context_pairs(answer: dict) -> list:
+    """An answer's context documents as [(text, score)]: ``dist`` is the negated score."""
+    return [(d["text"], -float(d["dist"])) for d in answer["context_docs"]]
+
+
+def run_qa_servers(device, encoder, *, warm: list, questions: list, k: int, launches: dict,
+                   captured: dict) -> dict:
+    """Legs (a) and (b) in one ``pw.run`` (two servers over one store), with (e)'s analysis
+    before it and its error log in it. The launch counts, each zeroed before its block and read
+    after it: the fill, the warm-up answers and the other routes in ``launches["qa"]``, (a)'s
+    timed requests in ``["qa_answer"]`` and (b)'s in ``["qa_adaptive"]``; the direct search
+    between them counts in none."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.xpacks.llm import prompts
+    from pathway_tpu_torch.xpacks.llm.document_store import DocumentStore
+    from pathway_tpu_torch.xpacks.llm.question_answering import (
+        AdaptiveRAGQuestionAnswerer, BaseRAGQuestionAnswerer, RAGClient)
+    from pathway_tpu_torch.xpacks.llm.servers import QARestServer, QASummaryRestServer
+    from pathway_tpu_torch.xpacks.llm.splitters import TokenCountSplitter
+
+    docs_in = QA_STATE["docs"]
+    pw.G.clear()
+    store = DocumentStore(qa_docs_table(), pw.indexing.BruteForceKnnFactory(
+        dimensions=encoder.cfg.dim, embedder=encoder),
+        parser=qa_parser(), splitter=TokenCountSplitter(max_tokens=256))
+    engines = keep_engines(store.index)
+    chunks: dict = {}
+    pw.io.subscribe(store.chunked_documents, on_change=lambda key, row, time, is_addition: (
+        chunks.__setitem__(int(key), (row["text"], row["_metadata"]["path"]))
+        if is_addition else None))
+    errors = collections.Counter()
+    pw.io.subscribe(pw.global_error_log(), on_change=lambda key, row, time, is_addition: (
+        errors.update({(row["context"], row["message"]): 1 if is_addition else -1})))
+    rag = BaseRAGQuestionAnswerer(qa_chat("paths"), store, search_topk=k,
+                                  prompt_template=qa_prompt)
+    adaptive = AdaptiveRAGQuestionAnswerer(qa_chat("sentinel"), store, **QA_ADAPTIVE)
+    port, port_b = free_port(), free_port()
+    server = QASummaryRestServer("127.0.0.1", port, rag)
+    QARestServer("127.0.0.1", port_b, adaptive)  # registers its routes; the one run serves both
+
+    out: dict = {}
+    with counted("qa_analysis", launches):
+        t0 = time.perf_counter()
+        report = pw.analyze(device=device)
+        out["analyze_s"] = time.perf_counter() - t0
+        report_cpu = pw.analyze(device="cpu")
+    if any(launches["qa_analysis"].values()):
+        raise AssertionError(f"pw.analyze launched kernels: {launches['qa_analysis']}")
+    out["analysis"] = {"operators": report.stats["operators"],
+                       "ids": collections.Counter(d.id for d in report.diagnostics),
+                       "cpu_ids": collections.Counter(d.id for d in report_cpu.diagnostics)}
+    if [d.id for d in report.diagnostics] != [d.id for d in report_cpu.diagnostics]:
+        raise AssertionError("pw.analyze: the card's diagnostics differ from the host's")
+    del engines[:]  # the analyses' engines; the run builds its own
+
+    n_planted = sum(d.startswith(QA_PLANTED) for d, _ in docs_in)
+    client, client_b = (RAGClient(url=f"http://127.0.0.1:{p}", timeout=120)
+                        for p in (port, port_b))
+    t0 = time.perf_counter()
+    server.run(threaded=True, device=device)
+    try:
+        # the fill, the warm-up answers and one call of each other route; then, outside every
+        # counted window (the engine idle: an answer's launches are made before it returns), the
+        # direct search that the answers are held against
+        with counted("qa", launches):
+            out["fill_s"] = wait_for_count(server, port, len(docs_in), 900) - t0
+            n_chunks = len(chunks)
+            held = {rows_held(e) for e in engines}
+            if held != {n_chunks}:
+                raise AssertionError(f"the engines hold {held} chunks, the store {n_chunks}")
+            QA_STATE["path_of"] = {text: path for text, path in chunks.values()}
+            text_of = {key: text for key, (text, _) in chunks.items()}
+            warm_answers, _ = ask_all(client, warm, return_context_docs=True)
+            status, retrieved = post_json(port, "/v1/retrieve", {"query": questions[0], "k": k})
+            if status != 200:
+                raise AssertionError(f"/v1/retrieve answered {status}")
+            want_stats = {"file_count": len(docs_in),
+                          "last_modified": max(m["modified_at"] for _, m in docs_in)}
+            status, stats = post_json(port, "/v1/statistics", {})
+            if status != 200 or stats != want_stats:
+                raise AssertionError(f"/v1/statistics answered {stats}, the documents "
+                                     f"{want_stats}")
+            status, body = post_json(port, "/v2/list_documents", {})
+            if status != 200 or sorted(d["path"] for d in body) != sorted(
+                    m["path"] for _, m in docs_in):
+                raise AssertionError("/v2/list_documents does not list every document")
+            texts = [t for t, _ in context_pairs(warm_answers[0])]
+            status, body = post_json(port, "/v1/pw_ai_summary", {"text_list": texts})
+            expect = qa_chat("paths").__wrapped__(prompts.prompt_summarize(texts))
+            if status != 200 or body != expect:
+                raise AssertionError(f"/v1/pw_ai_summary answered {body!r}, not {expect!r}")
+            out["stats"] = stats
+        direct = engines[0].search(questions, [17] * len(questions), [None] * len(questions))
+        # one beyond the answer's k, so that a near tie across its last place may swap
+        want = {i: [(text_of[key], s) for key, s in row[:k + 1]]
+                for i, row in enumerate(direct)}
+        check_answers("qa /v1/retrieve", {0: answer_pairs(retrieved, lambda d: d["text"])},
+                      {0: want[0]}, extra=1)
+
+        # (a) the standard answerer: each answer's paths against its context, the context
+        # against the direct search
+        with counted("qa_answer", launches), kernel_inputs(captured):
+            answers, ms = ask_all(client, questions, return_context_docs=True)
+        got = {i: context_pairs(a) for i, a in enumerate(answers)}
+        for i, a in enumerate(answers):
+            paths = [QA_STATE["path_of"][t] for t, _ in got[i]]
+            if a["response"].split("\n") != paths:
+                raise AssertionError(f"(a) answer {i}: the chat's paths {a['response']!r} "
+                                     f"are not its context's {paths}")
+        swapped = check_answers("qa answers", got, want, extra=1)
+        out["a"] = {"p50": float(np.percentile(ms, 50)),
+                    "p95": float(np.percentile(ms, 95)),
+                    "p99": float(np.percentile(ms, 99)), "swapped": swapped,
+                    "answers": answers, "slowest": (int(np.argmax(ms)), float(max(ms))),
+                    "per_request": {n: launches["qa_answer"][n] / len(questions)
+                                    for n in ("masked_attention", "knn_topk")}}
+
+        # (b) the adaptive answerer: a sentinel at a known rank (1 to 16) of each question's
+        # direct search; its rank in the run's own context (the same, but inside a near tie)
+        # sets the geometric rule's answer and chat calls
+        planted, QA_STATE["sentinel"] = {}, {}
+        QA_STATE["calls"] = collections.Counter()
+        for i, q in enumerate(questions):
+            planted[q] = i % 16 + 1
+            QA_STATE["sentinel"][q] = text_of[direct[i][i % 16][0]]
+        with counted("qa_adaptive", launches):
+            answers_b, ms_b = ask_all(client_b, questions, return_context_docs=True)
+        full = {i: [(text_of[key], s) for key, s in row] for i, row in enumerate(direct)}
+        swapped_b = check_answers("qa adaptive contexts",
+                                  {i: context_pairs(a) for i, a in enumerate(answers_b)},
+                                  full, extra=1)
+        # each question's answer runs twice, once for its row and once more for the row's
+        # retraction once it is answered (``delete_completed_queries``), as in the reference:
+        # so each prompt of the geometric rule reaches the chat twice
+        asked = collections.defaultdict(list)
+        for (q, _), n in QA_STATE["calls"].items():
+            asked[q].append(n)
+        ranks, moved = collections.Counter(), 0
+        for q, a in zip(questions, answers_b):
+            context = [t for t, _ in context_pairs(a)]
+            sentinel = QA_STATE["sentinel"][q]
+            rank = context.index(sentinel) + 1 if sentinel in context else len(context) + 1
+            ranks[rank] += 1
+            moved += rank != planted[q]
+            calls = geometric_calls(rank, QA_ADAPTIVE["n_starting_documents"],
+                                    QA_ADAPTIVE["factor"], QA_ADAPTIVE["max_iterations"])
+            answer = (f"the sentinel of {q}" if rank <= len(context)
+                      else prompts.NO_INFO_ANSWER)
+            if a["response"] != answer or sorted(asked[q]) != [2] * calls:
+                raise AssertionError(f"(b) {q!r}: sentinel at rank {rank}, answer "
+                                     f"{a['response']!r} after prompts asked "
+                                     f"{sorted(asked[q])} times, not {calls} prompts twice")
+        out["b"] = {"p50": float(np.percentile(ms_b, 50)),
+                    "calls": sum(QA_STATE["calls"].values()),
+                    "prompts": len(QA_STATE["calls"]), "ranks": ranks, "moved": moved,
+                    "swapped": swapped_b}
+        out["want"] = want
+    finally:
+        stop_server(server)
+    parse_errors = sum(n for (ctx, msg), n in errors.items() if "planted" in msg)
+    other = {key: n for key, n in errors.items() if "planted" not in key[1] and n}
+    if parse_errors != n_planted or any(n != n_planted for n in other.values()):
+        raise AssertionError(f"the error log holds {dict(errors)} for {n_planted} planted "
+                             f"documents")
+    out.update(n_docs=len(docs_in), n_chunks=n_chunks, n_planted=n_planted,
+               errors={f"{ctx}: {msg}": n for (ctx, msg), n in errors.items() if n})
+    return out
+
+
+def run_rerank(device, encoder, answers: list, questions: list, launches: dict) -> dict:
+    """Leg (c): ``EncoderReranker`` over each question's context documents through ``pw.run``
+    (its launches in ``launches["qa_rerank"]``), each score against the cosine of the two texts'
+    embeddings from one batched ``embed_texts_device`` call after it, and ``rerank_topk_filter``
+    against the run's own scores."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.xpacks.llm.embedders import TorchEmbedder
+    from pathway_tpu_torch.xpacks.llm.rerankers import EncoderReranker, rerank_topk_filter_expr
+
+    rows = [(qi, q, d["text"]) for qi, (q, a) in enumerate(zip(questions, answers))
+            for d in a["context_docs"]]
+    pw.G.clear()
+    pairs = pw.debug.table_from_rows(pw.schema_from_types(qid=int, query=str, doc=str), rows)
+    reranker = EncoderReranker(TorchEmbedder(encoder, device=device))
+    scored = pairs.select(pw.this.qid, pw.this.doc,
+                          score=reranker(pw.this.doc, pw.this.query))
+    top = scored.groupby(pw.this.qid).reduce(
+        pw.this.qid, docs=pw.reducers.tuple(pw.this.doc),
+        scores=pw.reducers.tuple(pw.this.score)).select(
+        pw.this.qid, top=rerank_topk_filter_expr(pw.this.docs, pw.this.scores, k=RERANK_K))
+    got, tops = {}, {}
+    pw.io.subscribe(scored, on_change=lambda key, row, time, is_addition: got.__setitem__(
+        (row["qid"], row["doc"]), row["score"]) if is_addition else None)
+    pw.io.subscribe(top, on_change=lambda key, row, time, is_addition: tops.__setitem__(
+        row["qid"], row["top"]) if is_addition else None)
+    with counted("qa_rerank", launches):
+        t0 = time.perf_counter()
+        pw.run(device=device)
+        seconds = time.perf_counter() - t0
+    pw.G.clear()
+    texts = sorted({t for _, q, d in rows for t in (q, d)})
+    with torch.no_grad():
+        vecs = encoder.embed_texts_device(texts).float()
+    at = {t: i for i, t in enumerate(texts)}
+    want = {(qi, d): float(vecs[at[d]] @ vecs[at[q]]) for qi, q, d in rows}
+    if got.keys() != want.keys():
+        raise AssertionError(f"(c) {len(got)} scores for {len(want)} pairs")
+    err = max(abs(got[key] - want[key]) for key in want)
+    if err > RERANK_ATOL:
+        raise AssertionError(f"(c) a reranker score is {err:.3e} from the batched cosine "
+                             f"(atol {RERANK_ATOL})")
+    for qi in range(len(questions)):
+        mine = sorted(((s, d) for (i, d), s in got.items() if i == qi), key=lambda p: -p[0])
+        docs, scores = tops[qi]
+        if list(scores) != [s for s, _ in mine[:RERANK_K]] or set(docs) != {
+                d for s, d in mine[:RERANK_K]}:
+            raise AssertionError(f"(c) question {qi}: top {RERANK_K} {tops[qi]} is not the "
+                                 f"highest of the run's scores")
+    return {"pairs": len(rows), "s": seconds, "pairs_per_s": len(rows) / seconds,
+            "max_err": err,
+            "per_pair": {name: launches["qa_rerank"][name] / len(rows)
+                         for name in ("masked_attention", "knn_topk")}}
+
+
+def run_vector_store(device, encoder, chunk_texts: list, *, queries: list, k: int,
+                     launches: dict) -> dict:
+    """Leg (d): ``VectorStoreServer`` over chunk texts (the run's launches in
+    ``launches["qa_vector_store"]``), ``VectorStoreClient.query`` against the run's engine
+    searched directly after the run."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.io.http._server import terminate_all
+    from pathway_tpu_torch.xpacks.llm.embedders import TorchEmbedder
+    from pathway_tpu_torch.xpacks.llm.vector_store import VectorStoreClient, VectorStoreServer
+
+    pw.G.clear()
+    docs = pw.debug.table_from_rows(pw.schema_from_types(data=str, _metadata=dict), [
+        (t, {"path": f"chunks/{i:05d}"}) for i, t in enumerate(chunk_texts)])
+    server = VectorStoreServer(docs, embedder=TorchEmbedder(encoder, device=device))
+    engines = keep_engines(server.index)
+    text_of: dict = {}
+    pw.io.subscribe(server.store.chunked_documents, on_change=lambda key, row, time, is_addition: (
+        text_of.__setitem__(int(key), row["text"]) if is_addition else None))
+    port = free_port()
+    client = VectorStoreClient(url=f"http://127.0.0.1:{port}", timeout=120)
+    with counted("qa_vector_store", launches):
+        t0 = time.perf_counter()
+        server.run_server("127.0.0.1", port, threaded=True, device=device)
+        try:
+            wait_for_count(server, port, len(chunk_texts), 900)
+            fill = time.perf_counter() - t0
+            got = {i: answer_pairs(client.query(q, k=k), lambda d: d["text"])
+                   for i, q in enumerate(queries)}
+        finally:
+            pw.request_stop()
+            terminate_all()
+            for t in server._threads:
+                t.join(60)
+            pw.G.clear()
+    if any(t.is_alive() for t in server._threads):
+        raise AssertionError("(d) the vector store's engine thread did not stop within 60 s")
+    if server.run_error is not None:
+        raise server.run_error
+    if rows_held(engines[0]) != len(chunk_texts):
+        raise AssertionError(f"(d) the engine holds {rows_held(engines[0])} of "
+                             f"{len(chunk_texts)} chunks")
+    # one beyond k, so that a near tie across the answer's last place may swap
+    direct = engines[0].search(queries, [k + 1] * len(queries), [None] * len(queries))
+    want = {i: [(text_of[key], s) for key, s in row] for i, row in enumerate(direct)}
+    swapped = check_answers("vector store", got, want, extra=1)
+    return {"fill_s": fill, "s": time.perf_counter() - t0, "swapped": swapped}
+
+
+def run_qa_yaml(device, questions: list, answers: list, want: dict, k: int) -> dict:
+    """Leg (e)'s YAML: (a)'s store and standard answerer from ``QA_YAML`` through
+    ``pw.load_yaml``, served by ``QARestServer``; its answers to ``questions`` against (a)'s."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.xpacks.llm.question_answering import RAGClient
+    from pathway_tpu_torch.xpacks.llm.servers import QARestServer
+
+    pw.G.clear()
+    built = pw.load_yaml(QA_YAML.format(mod=__name__, dim=QA_STATE["encoder"].cfg.dim, k=k))
+    port = free_port()
+    server = QARestServer("127.0.0.1", port, built["answerer"])
+    client = RAGClient(url=f"http://127.0.0.1:{port}", timeout=120)
+    t0 = time.perf_counter()
+    server.run(threaded=True, device=device)
+    try:
+        wait_for_count(server, port, len(QA_STATE["docs"]), 900)
+        got_answers, _ = ask_all(client, questions, return_context_docs=True)
+    finally:
+        stop_server(server)
+    got = {i: context_pairs(a) for i, a in enumerate(got_answers)}
+    swapped = check_answers("qa from YAML", got, {i: want[i] for i in got}, extra=1)
+    for i, (g, w) in enumerate(zip(got_answers, answers)):
+        if [t for t, _ in context_pairs(g)] == [t for t, _ in context_pairs(w)] and \
+                g["response"] != w["response"]:
+            raise AssertionError(f"(e) YAML answer {i} differs from (a)'s on the same context")
+    return {"s": time.perf_counter() - t0, "swapped": swapped,
+            "store": type(built["store"]).__name__, "answerer": type(built["answerer"]).__name__}
+
+
+def run_qa_live_stats(device, want: dict) -> dict:
+    """Leg (e)'s ``LiveTable``: the store's statistics over the phase's documents on a
+    background run, to the count that ``/v1/statistics`` reported."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.xpacks.llm.document_store import DocumentStore
+
+    pw.G.clear()
+    store = DocumentStore(qa_docs_table(), pw.indexing.BruteForceKnnFactory(
+        dimensions=QA_STATE["encoder"].cfg.dim, embedder=QA_STATE["encoder"]),
+        parser=qa_parser())
+    q = pw.debug.table_from_rows(DocumentStore.StatisticsQuerySchema, [()])
+    t0 = time.perf_counter()
+    live = store.statistics_query(q).live(device=device)
+    if not live._stopped.wait(300) or live.failed():
+        raise AssertionError(f"the live statistics table did not finish: {live._error!r}")
+    (row,) = live.snapshot().rows.values()
+    pw.G.clear()
+    if row[0] != want:
+        raise AssertionError(f"the live statistics ended at {row[0]}, /v1/statistics at {want}")
+    return {"s": time.perf_counter() - t0, "result": row[0], "frontier": live.frontier()}
+
+
+def run_qa(device, *, n_chunks: int = 4096, docs_commit: int = 256, n_questions: int = 64,
+           warmup: int = 4, vs_chunks: int = 1024, vs_queries: int = 16, yaml_questions: int = 8,
+           cfg=None) -> dict:
+    """Phase 20; sizes as the defaults say on the card (a CPU rehearsal passes small ones and a
+    small encoder). Returns each leg's launch counts, rates and times."""
+    from pathway_tpu_torch.models.embedder import Embedder
+
+    cuda = device.type == "cuda"
+    card = card_line() if cuda else "cpu"
+    launches: dict = {}
+    captured: dict = {}
+    start = time.perf_counter()
+    import urllib.request
+
+    # RAGClient and VectorStoreClient post through urllib's global opener: make it the local one
+    # (no proxy, the certificates loaded once)
+    urllib.request.install_opener(local_opener())
+    log("qa: importable here: " + ", ".join(
+        f"{mod} {'yes' if client_importable(mod) else 'no'}" for mod in ("yaml", "bokeh", "panel")))
+    docs_in, chunk_texts = serve_documents(n_chunks)
+    QA_STATE.clear()
+    QA_STATE.update(
+        docs=[(QA_PLANTED + d if i % QA_PLANT_EVERY == 0 else d, m)
+              for i, (d, m) in enumerate(docs_in)],
+        docs_commit=docs_commit, encoder=Embedder(cfg, seed=0, device=device))
+    rng = np.random.default_rng(20)
+    questions = [chunk_texts[i].split(".")[0]
+                 for i in rng.choice(n_chunks, n_questions + warmup, replace=False)]
+    warm, questions = questions[:warmup], questions[warmup:]
+    encoder = QA_STATE["encoder"]
+    with scoped_env({"PATHWAY_THREADS": "1", "PATHWAY_MESH_EXCHANGE": "0"}):
+        qa = run_qa_servers(device, encoder, warm=warm, questions=questions, k=QA_TOPK,
+                            launches=launches, captured=captured)
+        a, b = qa["a"], qa["b"]
+        log(f"qa (a): {qa['n_docs']} documents ({qa['n_planted']} planted to fail their parse) "
+            f"of {qa['n_chunks']} chunks into DocumentStore under QASummaryRestServer and "
+            f"QARestServer, filled in {qa['fill_s']:.2f} s; {len(questions)} answers "
+            f"(BaseRAGQuestionAnswerer, search_topk={QA_TOPK}) after {warmup} untimed: p50 "
+            f"{a['p50']:.3f} ms, p95 {a['p95']:.3f} ms, p99 {a['p99']:.3f} ms (host clock; the "
+            f"slowest, request {a['slowest'][0]}, {a['slowest'][1]:.3f} ms); each "
+            f"chat's paths its context's, each context the direct knn_topk search's "
+            f"({a['swapped']} swapped inside near ties); launches per request {a['per_request']}; "
+            f"/v1/retrieve, /v1/statistics {qa['stats']}, /v2/list_documents and "
+            f"/v1/pw_ai_summary as the store answers them [{card}]")
+        log(f"qa (b): AdaptiveRAGQuestionAnswerer({QA_ADAPTIVE}) on the same store, "
+            f"{len(questions)} questions with a sentinel planted at ranks 1-16 of their direct "
+            f"search, at ranks {dict(sorted(b['ranks'].items()))} of the run's context "
+            f"({b['moved']} moved inside near ties; each context the direct search's, "
+            f"{b['swapped']} swapped inside near ties): each answer and its prompts the "
+            f"geometric rule's "
+            f"({b['prompts']} prompts, each asked twice: the answer runs again for the query's "
+            f"retraction); p50 {b['p50']:.3f} ms [{card}]")
+        an = qa["analysis"]
+        log(f"qa (e): pw.analyze(device={device.type!r}) before the run: {an['operators']} "
+            f"operators, diagnostics {dict(an['ids'])} in {qa['analyze_s']:.3f} s; with "
+            f"device='cpu' {dict(an['cpu_ids'])} [{card}]")
+        log(f"qa (e): pw.global_error_log() in the run: {qa['errors']} for {qa['n_planted']} "
+            f"planted documents [{card}]")
+        if cuda:
+            torch.cuda.empty_cache()
+        rerank = run_rerank(device, encoder, a["answers"], questions, launches)
+        log(f"qa (c): EncoderReranker and rerank_topk_filter(k={RERANK_K}) over (a)'s context "
+            f"documents, {rerank['pairs']} pairs in {rerank['s']:.2f} s, "
+            f"{rerank['pairs_per_s']:.1f} pairs/s; each score within {rerank['max_err']:.3e} of "
+            f"the batched cosine (atol {RERANK_ATOL}); launches per pair {rerank['per_pair']} "
+            f"[{card}]")
+        vs = run_vector_store(device, encoder, chunk_texts[:vs_chunks],
+                              queries=questions[:vs_queries], k=QA_TOPK, launches=launches)
+        log(f"qa (d): VectorStoreServer over {vs_chunks} chunks (one forward a chunk: "
+            f"TorchEmbedder as its embedder) filled in {vs['fill_s']:.2f} s; {vs_queries} "
+            f"VectorStoreClient.query (k={QA_TOPK}) equal to its engine searched directly "
+            f"({vs['swapped']} swapped inside near ties); launches "
+            f"{launches['qa_vector_store']} [{card}]")
+        with counted("qa_yaml", launches):
+            yml = run_qa_yaml(device, questions[:yaml_questions], a["answers"][:yaml_questions],
+                              qa["want"], QA_TOPK)
+        log(f"qa (e): pw.load_yaml built {yml['store']} and {yml['answerer']}; its "
+            f"{yaml_questions} answers equal (a)'s ({yml['swapped']} swapped inside near ties) "
+            f"in {yml['s']:.2f} s [{card}]")
+        with counted("qa_live", launches):
+            live = run_qa_live_stats(device, qa["stats"])
+        log(f"qa (e): LiveTable of the store's statistics ended at {live['result']} (frontier "
+            f"{live['frontier']}) in {live['s']:.2f} s, as /v1/statistics [{card}]")
+    held = check_phase_kernels(captured) if cuda else None
+    if held is not None:
+        log(f"qa: masked_attention at {held['attention_shape']} and knn_topk at (q, n, d, k) = "
+            f"{held['knn_shape']}, each on the phase's own inputs, against their plain versions: "
+            f"max |err| {held['attention_err']:.3e} and {held['knn_err']:.3e} [{card}]")
+    seconds = time.perf_counter() - start
+    log(f"qa: the phase took {seconds:.1f} s of its {QA_BUDGET_S:.0f} [{card}]")
+    if cuda:
+        for path, names in (("qa", ("masked_attention", "knn_topk")),
+                            ("qa_answer", ("masked_attention", "knn_topk")),
+                            ("qa_adaptive", ("masked_attention", "knn_topk")),
+                            ("qa_rerank", ("masked_attention",)),
+                            ("qa_vector_store", ("masked_attention", "knn_topk")),
+                            ("qa_yaml", ("masked_attention", "knn_topk"))):
+            missing = [n for n in names if launches[path][n] == 0]
+            if missing:
+                raise AssertionError(f"{missing} not launched on the {path} path")
+    return {"launches": launches,
+            "a": {k: v for k, v in a.items() if k != "answers"},
+            "b": b, "rerank": rerank, "vector_store": vs, "yaml": yml, "live": live,
+            "analyze_s": qa["analyze_s"], "held": held, "s": seconds}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -6402,6 +7056,10 @@ def main() -> int:
     phase("the connectors over Nexmark")
     connectors = run_connectors(device, ev=nexmark.pop("events"))
 
+    phase("RAG question answering and the last root names")
+    torch.cuda.empty_cache()
+    qa = run_qa(device)
+
     by_path = {**engine["device_ms_by_path"], **api["device_ms_by_path"]}
     all_launches = {**engine["launches"], **api["launches"]}
     for name in PATH_KERNELS:
@@ -6418,11 +7076,13 @@ def main() -> int:
     sources = {
         "masked_attention": ("pathway_tpu_torch/csrc/masked_attention.cu",
                              "pathway_tpu/models/embedder.py:90",
-                             max(attn_err, times["masked_attention"]["err"])),
+                             max(attn_err, times["masked_attention"]["err"],
+                                 qa["held"]["attention_err"])),
         "masked_attention_bwd": ("pathway_tpu_torch/csrc/masked_attention_bwd.cu",
                                  "pathway_tpu/models/pipeline.py:72",
                                  max(bwd_err, times["masked_attention_bwd"]["err"])),
-        "knn_topk": ("pathway_tpu_torch/csrc/knn_topk.cu", "pathway_tpu/ops/knn.py:46", knn_err),
+        "knn_topk": ("pathway_tpu_torch/csrc/knn_topk.cu", "pathway_tpu/ops/knn.py:46",
+                     max(knn_err, qa["held"]["knn_err"])),
         "infonce": ("pathway_tpu_torch/csrc/infonce.cu", "pathway_tpu/models/pipeline.py:61",
                     nce_err),
         "ring_attention": ("pathway_tpu_torch/csrc/ring_attention.cu",
@@ -6452,7 +7112,8 @@ def main() -> int:
                    **{p: c[name] for p, c in asynced["launches"].items()},
                    **{p: c[name] for p, c in nexmark["launches"].items()},
                    **{p: c[name] for p, c in stdlib["launches"].items()},
-                   **{p: c[name] for p, c in connectors["launches"].items()}}
+                   **{p: c[name] for p, c in connectors["launches"].items()},
+                   **{p: c[name] for p, c in qa["launches"].items()}}
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,

@@ -22,7 +22,10 @@ hybrid and sorted indexes) and ``Table.sort``; the RAG serving path (``xpacks.ll
 embedders as UDFs, the live ``DocumentStore`` and ``DocumentStoreServer``; ``io.http``'s
 ``rest_connector``; the ``serve`` plane's admission control and merge); every connector of
 ``pw.io`` (those without their client package raise when called), ``xpacks.connectors`` and
-``pw.demo``. Hand-written CUDA
+``pw.demo``; the rest of ``xpacks.llm`` (chats, prompts, rerankers, the vector store and the RAG
+question answerers with their REST servers); ``pw.analyze`` and lint mode (``analysis``),
+``pw.load_yaml``, the error-log tables, ``LiveTable`` with interactive mode, and ``pw.viz``.
+Hand-written CUDA
 kernels carry their device work: masked attention and its gradient (``ops.attention``), fused
 scoring with top-k and the sharded search's merge (``ops.knn``), the InfoNCE loss with its
 gradient (``ops.infonce``), the ring's block step (``ops.ring``), the exchange's bucketing
@@ -57,12 +60,14 @@ from .internals.expression import (
 from .internals.groupbys import GroupedTable
 from .internals.joins import Joinable, JoinMode, JoinResult
 from .internals.json import Json
+from .internals.error_log_table import global_error_log, local_error_log
 from .internals.parse_graph import G, Universe
 from .internals.iterate import iterate, iterate_universe
 from .internals.monitoring import MonitoringLevel
 from .internals.py_object_wrapper import PyObjectWrapper
 from .internals.run import request_stop, run, run_all
 from .internals.sql import sql
+from .internals.yaml_loader import load_yaml
 from .internals.schema import (
     Schema,
     SchemaProperties,
@@ -85,7 +90,12 @@ from .internals.table import (
 from .internals.thisclass import left, right, this
 from .udfs import UDF, udf, udf_async
 from . import debug, demo, io, persistence, stdlib, universes  # noqa: E402
-from .stdlib import graphs, indexing, ml, ordered, stateful, statistical, temporal  # noqa: E402
+from .stdlib import graphs, indexing, ml, ordered, stateful, statistical, temporal, viz  # noqa: E402
+from .internals.interactive import (  # noqa: E402
+    LiveTable,
+    enable_interactive_mode,
+    is_interactive_mode_enabled,
+)
 from .stdlib.utils.async_transformer import AsyncTransformer  # noqa: E402
 from .internals.row_transformer import (  # noqa: E402
     ClassArg,
@@ -96,6 +106,7 @@ from .internals.row_transformer import (  # noqa: E402
     output_attribute,
     transformer,
 )
+from .analysis import analyze  # noqa: E402
 
 from .models.embedder import (
     Embedder,
@@ -180,6 +191,7 @@ __all__ = [
     "JoinResult",
     "Joinable",
     "Json",
+    "LiveTable",
     "MonitoringLevel",
     "PathwayConfig",
     "Pointer",
@@ -191,6 +203,7 @@ __all__ = [
     "Type",
     "UDF",
     "Universe",
+    "analyze",
     "apply",
     "apply_async",
     "apply_with_type",
@@ -202,9 +215,11 @@ __all__ = [
     "debug",
     "demo",
     "declare_type",
+    "enable_interactive_mode",
     "expression_vm",
     "fill_error",
     "get_pathway_config",
+    "global_error_log",
     "graphs",
     "groupby",
     "if_else",
@@ -212,6 +227,7 @@ __all__ = [
     "input_attribute",
     "input_method",
     "io",
+    "is_interactive_mode_enabled",
     "iterate",
     "iterate_universe",
     "join",
@@ -220,6 +236,8 @@ __all__ = [
     "join_outer",
     "join_right",
     "left",
+    "load_yaml",
+    "local_error_log",
     "make_tuple",
     "method",
     "ml",
@@ -250,6 +268,7 @@ __all__ = [
     "universes",
     "unwrap",
     "utils",
+    "viz",
     "BruteForceKnnEngine",
     "Embedder",
     "EmbedderConfig",

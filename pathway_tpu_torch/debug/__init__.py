@@ -6,8 +6,7 @@ round-trips :270,343, StreamGenerator :496).
 
 Copy of ``pathway_tpu/debug/__init__.py``. Every function that runs a graph
 takes ``device=`` (default ``"cuda"``, as ``pw.run``); pandas is imported
-inside the functions that use it. ``_format_snapshot`` (the interactive
-mode's renderer) is left out with that mode.
+inside the functions that use it.
 """
 
 from __future__ import annotations
@@ -377,6 +376,17 @@ class StreamGenerator:
         return self.table_from_list_of_batches_by_workers(
             [{0: b} for b in batches], schema
         )
+
+
+def _format_snapshot(names: list[str], rows: dict[int, tuple], frontier: int) -> str:
+    """Render a LiveTable snapshot (internals/interactive.py) in the same
+    table format compute_and_print uses, returned as a string."""
+    header = ["id"] + names
+    lines = [
+        [_format_pointer(key)] + [_format_cell(v, True) for v in row]
+        for key, row in sorted(rows.items())
+    ]
+    return _render_table(header, lines) + f"\n[frontier {frontier}]"
 
 
 def table_from_parquet(path, id_from=None, unsafe_trusted_ids=False):

@@ -304,6 +304,35 @@ class Node:
             for f in fields
         }
 
+    #: fingerprint-transparent nodes (Exchange) take their input's
+    #: structural fingerprint verbatim: sharding inserts them between
+    #: stateful operators, and an analysis of a sharded graph must agree
+    #: with an unsharded lowering of the same script
+    FINGERPRINT_TRANSPARENT = False
+
+    #: static-analysis verdict on this operator's state growth
+    #: (``analysis/passes.py``'s unbounded-state pass): None = stateless or no
+    #: verdict; False = state grows with the number of distinct keys/rows
+    #: seen (groupby arenas, join arrangements — unbounded over a
+    #: never-ending source unless something upstream forgets); True = state
+    #: is bounded by construction (temporal buffers drain on watermark
+    #: progress).
+    ANALYSIS_STATE_BOUNDED: "bool | None" = None
+
+    def analysis_forgets(self) -> bool:
+        """Does this operator RETRACT rows once the watermark passes them
+        (bounding every stateful consumer downstream)? ForgetAfter with
+        ``forget_state`` answers True; the analyzer treats such a node as
+        a state-growth firewall on the source→stateful-operator path."""
+        return False
+
+    def analysis_signature(self) -> tuple:
+        """Operator-specific structural parameters folded into the stable
+        operator fingerprint (``analysis/graph.py``). Must be identity-free:
+        derived from construction parameters only, never node ids or
+        object identities, so two compiles of the same script agree."""
+        return ()
+
     def __init__(self, inputs: list["Node"], column_names: list[str]):
         self.node_id = next(Node._ids)
         self.inputs = list(inputs)

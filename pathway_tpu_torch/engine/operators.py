@@ -95,6 +95,11 @@ class Rowwise(Node):
     """expression_table (graph.rs:708): one compiled function per output
     column, evaluated over the whole batch."""
 
+    def analysis_exprs(self) -> dict:
+        """Compiled per-column kernels for the analyzer (each may carry
+        ``_pw_expr``/``_pw_dtype`` breadcrumbs from compile_expr)."""
+        return self._exprs
+
     def __init__(self, inp: Node, exprs: dict[str, CompiledExpr]):
         super().__init__([inp], list(exprs.keys()))
         self._exprs = exprs
@@ -108,6 +113,9 @@ class Rowwise(Node):
 
 
 class Filter(Node):
+    def analysis_exprs(self) -> dict:
+        return {"__pred__": self._predicate}
+
     def __init__(self, inp: Node, predicate: CompiledExpr):
         super().__init__([inp], inp.column_names)
         self._predicate = predicate
@@ -165,6 +173,9 @@ class RemoveErrors(Node):
 class Reindex(Node):
     """Replace row keys with a precomputed key column (with_id_from /
     groupby key routing / restrict)."""
+
+    def analysis_signature(self) -> tuple:
+        return (self._key_column, tuple(self._keep))
 
     def __init__(self, inp: Node, key_column: str, keep: list[str] | None = None):
         keep = keep if keep is not None else [c for c in inp.column_names if c != key_column]
@@ -258,6 +269,10 @@ class Exchange(Node):
     """
 
     always_run = True
+
+    # sharding inserts Exchanges the offline (unsharded) lowering never
+    # sees; transparent fingerprints keep both compiles' manifests equal
+    FINGERPRINT_TRANSPARENT = True
 
     def __init__(self, inp: Node, route_spec: tuple, ctx):
         super().__init__([inp], inp.column_names)
@@ -441,6 +456,21 @@ class GroupByReduce(Node):
       arena demotes to this path permanently if a later batch brings a
       non-numeric argument column.
     """
+
+    #: group state grows with the number of distinct keys — unbounded over
+    #: a never-ending source unless something upstream forgets
+    ANALYSIS_STATE_BOUNDED = False
+
+    def analysis_signature(self) -> tuple:
+        return (
+            tuple(self._group_cols),
+            tuple(
+                (name, type(r).__name__, tuple(args))
+                for name, r, args in self._reducers
+            ),
+            self._key_from_column,
+            self._skip_errors,
+        )
 
     def __init__(
         self,
@@ -1991,6 +2021,18 @@ class Join(Node):
     'left' (keep left row id — backs ``.ix`` / ``id_from=left``), 'right'.
     """
 
+    #: both sides' arrangements retain every row seen — unbounded over a
+    #: never-ending source unless something upstream forgets
+    ANALYSIS_STATE_BOUNDED = False
+
+    def analysis_signature(self) -> tuple:
+        return (
+            self._ljk, self._rjk,
+            tuple(self._lcols), tuple(self._rcols),
+            self._mode, self._key_mode,
+            self._emit_matched, self._react_to_right,
+        )
+
     def __init__(
         self,
         left: Node,
@@ -3165,6 +3207,13 @@ class BufferUntil(Node):
     split_state = classmethod(_split_temporal_state)
     merge_states = classmethod(_merge_temporal_states)
 
+    #: the buffer drains as the watermark advances — bounded by lateness,
+    #: not by stream length
+    ANALYSIS_STATE_BOUNDED = True
+
+    def analysis_signature(self) -> tuple:
+        return (self._col, self._wm_col)
+
     def __init__(self, inp: Node, threshold_col: str, watermark_col: str | None = None):
         super().__init__([inp], inp.column_names)
         self._col = threshold_col
@@ -3247,6 +3296,17 @@ class ForgetAfter(Node):
     split_state = classmethod(_split_temporal_state)
     merge_states = classmethod(_merge_temporal_states)
 
+    #: live-set is bounded by the watermark horizon, not stream length
+    ANALYSIS_STATE_BOUNDED = True
+
+    def analysis_forgets(self) -> bool:
+        # with forget_state, rows are RETRACTED once the watermark passes
+        # them — every stateful consumer downstream sees bounded state
+        return self._forget
+
+    def analysis_signature(self) -> tuple:
+        return (self._col, self._forget, self._wm_col)
+
     def __init__(
         self,
         inp: Node,
@@ -3328,6 +3388,13 @@ class Deduplicate(Node):
     state the same way)."""
 
     STATE_FIELDS = ("_state",)
+
+    #: one accepted-row entry per distinct instance key, kept forever —
+    #: unbounded over a never-ending source of fresh instances
+    ANALYSIS_STATE_BOUNDED = False
+
+    def analysis_signature(self) -> tuple:
+        return (self._value_col, self._instance_col)
 
     def __init__(self, inp: Node, value_col: str, instance_col: str | None, acceptor):
         super().__init__([inp], inp.column_names)

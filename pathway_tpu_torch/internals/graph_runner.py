@@ -250,6 +250,11 @@ class GraphRunner:
         if key in self._cache:
             return self._cache[key]
         node = self._lower(table)
+        scope = getattr(table, "_error_scope", None)
+        if scope is not None and getattr(node, "error_scope", None) is None:
+            # pw.local_error_log() attribution: errors raised while this
+            # node processes carry the scope its table was built under
+            node.error_scope = scope
         self._cache[key] = node
         return node
 

@@ -7,8 +7,7 @@ content cache (shared universes for identical definitions — what makes
 id-sensitive table equality asserts work, cf. reference
 ``debug/__init__.py:396-403``) and universe equivalences.
 
-Copy of ``pathway_tpu/internals/parse_graph.py`` without the lint mode's
-source-location breadcrumbs on sinks.
+Copy of ``pathway_tpu/internals/parse_graph.py``.
 """
 
 from __future__ import annotations
@@ -66,6 +65,17 @@ class ParseGraph:
         self.solver.register_as_disjoint(*universes, promised=True)
 
     def add_sink(self, sink: Any) -> None:
+        from . import lintmode
+
+        if lintmode.ACTIVE and isinstance(sink, dict):
+            # static analysis: anchor sink diagnostics to the script line
+            # that registered the output connector
+            loc = lintmode.script_location()
+            if loc is not None:
+                target = sink.get("delivery")
+                (target if isinstance(target, dict) else sink)[
+                    "_lint_loc"
+                ] = loc
         self.sinks.append(sink)
 
 

@@ -5,9 +5,10 @@ Copy of ``pathway_tpu/internals/run.py``. ``run`` takes ``device=``
 exchange; with no card it raises unless the caller passes ``device="cpu"``.
 ``persistence_config=`` runs the graph under ``persistence.run_with_persistence``
 (durable state, exactly-once delivery-managed output, recovery on restart).
-Left out: the lint mode's build-only run, the CLI's record/replay
-environment, the monitoring dashboard and HTTP server, and the supervised
-SIGTERM wind-down.
+Under lint mode (``internals/lintmode.py``, armed by ``analysis/lint.py``)
+``run`` records its ``persistence_config`` and returns without building a
+runner. Left out: the CLI's record/replay environment, the monitoring
+dashboard and HTTP server, and the supervised SIGTERM wind-down.
 """
 
 from __future__ import annotations
@@ -36,6 +37,14 @@ def run(
     input, snapshots operator state and recovers from the backend's state.
     The reference's display keywords (``debug``, ``monitoring_level``,
     ``with_http_server``, ...) are accepted and have no effect."""
+    from . import lintmode
+
+    if lintmode.ACTIVE:
+        # `pw.analyze` under lint mode drives the script only to BUILD its
+        # graph; execution (and every side effect behind it) is skipped and
+        # the analyzer reads the parse graph + this captured config
+        lintmode.note_run(persistence_config)
+        return
     runner = GraphRunner(device=device)
     with _lock:
         _current["runner"] = runner

@@ -6,10 +6,8 @@ executes until ``pw.run``/debug computes outputs. Each node kind maps to one
 engine operator family (see ``internals/graph_runner.py``).
 
 Copy of ``pathway_tpu/internals/table.py``. ``sort`` runs on the port's
-``stdlib._sorted``; the other methods the reference backs with its ``stdlib``
-(windows, interval/window/as-of joins, diff, interpolate, plot, show, live)
-raise ``NotImplementedError``; no error-log scope or lint-mode breadcrumb is
-recorded.
+``stdlib._sorted``; ``live`` takes ``device=`` (default ``"cuda"``) for the
+background run of ``internals/interactive.py::LiveTable``.
 """
 
 from __future__ import annotations
@@ -54,9 +52,18 @@ class Table(TableLike):
         self._schema = schema
         self._universe = universe
         self._table_seq = next(Table._id_seq)
-        #: pw.local_error_log() scope active when this table was built; the
-        #: port has no error-log tables, so no scope is ever active
-        self._error_scope = None
+        from . import lintmode
+
+        if lintmode.ACTIVE:
+            # static analysis: remember which script line built this table
+            # so diagnostics (and `# pathway: ignore[...]` suppressions)
+            # can anchor to source
+            lintmode.note_table(self._table_seq)
+        from .error_log_table import current_build_scope
+
+        #: pw.local_error_log() scope active when this table was built —
+        #: its nodes' runtime row errors carry the scope
+        self._error_scope = current_build_scope()
         #: user-pinned stable operator name (``named``); None = unnamed
         self._pw_name: str | None = None
 
@@ -138,14 +145,19 @@ class Table(TableLike):
     # -- live visualization (reference table.py:96 binds stdlib.viz) --------
 
     def plot(self, plotting_function, sorting_col: str | None = None):
-        raise NotImplementedError(
-            "Table.plot is not ported (ROADMAP.md Queue 3 item 12)"
-        )
+        """Live-updating Bokeh plot of this table (reference viz.plot):
+        ``plotting_function(source) -> figure`` gets a ColumnDataSource
+        that streams append-only ticks incrementally after ``pw.run()``.
+        Without bokeh/panel, returns the LiveTableSource mirror."""
+        from ..stdlib.viz import plot as _plot
+
+        return _plot(self, plotting_function, sorting_col)
 
     def show(self, sorting_col: str | None = None, **kwargs):
-        raise NotImplementedError(
-            "Table.show is not ported (ROADMAP.md Queue 3 item 12)"
-        )
+        """Live table widget (reference viz.table_viz/show)."""
+        from ..stdlib.viz import table_viz as _table_viz
+
+        return _table_viz(self, sorting_col, **kwargs)
 
     def _has_realtime_inputs(self) -> bool:
         seen: set[int] = set()
@@ -903,10 +915,15 @@ class Table(TableLike):
 
         return _interp(self, timestamp, *values, **kwargs)
 
-    def live(self):
-        raise NotImplementedError(
-            "Table.live is not ported (ROADMAP.md Queue 3 item 12)"
-        )
+    def live(self, device: Any = "cuda"):
+        """Run this table's subgraph on a background engine thread on
+        ``device`` and return a continuously-updated handle (reference
+        interactive.py:130 ``LiveTable``; observe with
+        snapshot()/frontier()/subscribe())."""
+        from .interactive import LiveTable
+
+        return LiveTable(self, device=device)
+
 
 def _expression_table(expr: Any):
     """The unique concrete table an expression refers to (for ix context)."""

@@ -1011,6 +1011,7 @@ def deliver(
     name: str | None = None,
     default_name: str | None = None,
     retry_policy: RetryPolicy | None = None,
+    meta: dict | None = None,
 ) -> None:
     """Register a delivery-managed sink for ``table``. Connector modules
     call this instead of raw ``subscribe``: ``adapter_factory`` builds
@@ -1031,6 +1032,7 @@ def deliver(
     taken = {
         s["delivery"]["name"] for s in G.sinks if s.get("delivery")
     }
+    decollided = False
     if name is not None:
         sink_id = _sanitize(name)
         if sink_id in taken:
@@ -1048,6 +1050,7 @@ def deliver(
             while f"{sink_id}-{i}" in taken:
                 i += 1
             sink_id = f"{sink_id}-{i}"
+            decollided = True
     G.add_sink({
         "kind": "subscribe",
         "table": table,
@@ -1055,5 +1058,11 @@ def deliver(
             "adapter_factory": adapter_factory,
             "name": sink_id,
             "retry_policy": retry_policy,
+            # static-analysis breadcrumbs (analysis/passes.py sink pass):
+            # whether the id came from a de-collision suffix, and
+            # connector-declared metadata (output path etc.)
+            "derived": name is None,
+            "decollided": decollided,
+            "meta": meta or {},
         },
     })

@@ -617,6 +617,7 @@ def write(table: Table, filename: str | os.PathLike, *, format: str = "csv",
         name=name,
         default_name=f"fs-{os.path.basename(filename)}",
         retry_policy=retry_policy,
+        meta={"path": filename},
     )
 
 

@@ -1,13 +1,34 @@
-"""Shared helpers for the llm xpack (HTTP client base, result packing).
+"""Shared helpers for the llm xpack (HTTP client base, result packing, the servers' engine
+thread).
 
-Copy of ``pathway_tpu/xpacks/llm/_utils.py``.
+Copy of ``pathway_tpu/xpacks/llm/_utils.py``, with ``run_on_thread``, which the servers'
+``run(threaded=True)`` and ``run_server(threaded=True)`` share.
 """
 
 from __future__ import annotations
 
 import json as _json
+import threading
 import urllib.request
 from typing import Any
+
+from ...internals.run import run as pw_run
+
+
+def run_on_thread(owner: Any, **run_kwargs: Any) -> threading.Thread:
+    """``run(**run_kwargs)`` on a started daemon thread; what it raises is kept in
+    ``owner.run_error`` for the caller, who joins the thread."""
+
+    def target() -> None:
+        try:
+            pw_run(**run_kwargs)
+        except BaseException as e:  # kept for the caller, who joins the thread
+            owner.run_error = e
+            raise
+
+    t = threading.Thread(target=target, daemon=True)
+    t.start()
+    return t
 
 
 def doc_dicts(texts, metas, scores) -> tuple[dict, ...]:

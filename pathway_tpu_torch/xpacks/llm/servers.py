@@ -4,9 +4,8 @@
 
 ``run`` takes ``device=`` (default ``"cuda"``) and passes it to the port's ``run``; with no card
 it raises unless the caller passes ``device="cpu"``. ``run(threaded=True)`` runs the engine on a
-daemon thread and keeps what it raised in ``run_error``. The QA servers use their question
-answerer only through its attributes; ``question_answering.py`` is not ported yet (ROADMAP
-Queue 1 item 13).
+daemon thread and keeps what it raised in ``run_error``. The QA servers serve the routes of
+``question_answering.py``'s answerers.
 """
 
 from __future__ import annotations
@@ -17,6 +16,7 @@ from typing import Any
 import torch
 
 from ...internals.run import run as pw_run
+from ._utils import run_on_thread
 from .document_store import DocumentStore
 
 __all__ = ["BaseRestServer", "DocumentStoreServer", "QARestServer", "QASummaryRestServer"]
@@ -59,17 +59,8 @@ class BaseRestServer:
                 )
             enable(cache_backend)
         if threaded:
-            def target() -> None:
-                try:
-                    pw_run(device=device, **kwargs)
-                except BaseException as e:  # kept for the caller, who joins the thread
-                    self.run_error = e
-                    raise
-
-            t = threading.Thread(target=target, daemon=True)
-            t.start()
-            self._thread = t
-            return t
+            self._thread = run_on_thread(self, device=device, **kwargs)
+            return self._thread
         pw_run(device=device, **kwargs)
 
 

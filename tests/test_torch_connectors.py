@@ -28,7 +28,6 @@ Tolerance: none; every table is compared exactly.
 
 from __future__ import annotations
 
-import ast
 import contextlib
 import http.server
 import importlib
@@ -45,7 +44,7 @@ from collections import Counter
 import pyarrow.parquet  # noqa: F401  (first imported here: see io/deltalake.py::_import_pyarrow)
 import pytest
 
-from torch_case_runs import TESTS, Side, cases, norm, run_case
+from torch_case_runs import TESTS, Side, case_args, cases, norm, run_case
 from torch_io_runs import run_bounded
 from torch_state_runs import PACKAGES, ns
 
@@ -70,16 +69,9 @@ def _clean_env(monkeypatch, tmp_path):
 # -- the reference's cases ---------------------------------------------------------------------
 
 
-def _case_args(module: str, name: str) -> list[str]:
-    with open(os.path.join(TESTS, module + ".py")) as f:
-        tree = ast.parse(f.read())
-    (fn,) = [n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == name]
-    return [a.arg for a in fn.args.args]
-
-
 PARAMS = []
 for _m, _n in CASES:
-    if "offset" in _case_args(_m, _n):  # test_ported_demo.py's range stream, at its offsets
+    if "offset" in case_args(_m, _n):  # test_ported_demo.py's range stream, at its offsets
         PARAMS += [(_m, _n, {"offset": o}) for o in (0, 10, -10)]
     else:
         PARAMS.append((_m, _n, {}))
@@ -164,7 +156,7 @@ def _nats_backlog(env):
                          ids=[f"{m}::{n}" + "".join(f"[{v}]" for v in x.values())
                               for m, n, x in PARAMS])
 def test_reference_case_through_both_packages(module, name, extra, tmp_path, monkeypatch):
-    args = _case_args(module, name)
+    args = case_args(module, name)
     got = {}
     for pkg in PACKAGES:
         fixtures = dict(extra)

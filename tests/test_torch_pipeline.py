@@ -231,6 +231,15 @@ _BLOCKED_STEP = textwrap.dedent("""
 
     loss, scores, ids = pt.run_one_step(device="cpu")
     assert np.isfinite(loss) and scores.shape == ids.shape == (4, 2)
+    from pathway_tpu_torch.xpacks.llm import question_answering  # noqa: F401
+
+    objs = pt.load_yaml("s: !pathway_tpu.xpacks.llm.splitters.NullSplitter\\n"
+                        "e: !pw.xpacks.llm.embedders.TpuEmbedder {device: cpu}\\n")
+    assert [type(o).__name__ for o in objs.values()] == ["NullSplitter", "TorchEmbedder"]
+    t = pt.debug.table_from_markdown("a\\n1\\n2")
+    pt.io.subscribe(t.select(b=pt.this.a + 1), on_change=lambda **kw: None)
+    assert pt.analyze(device="cpu").stats["operators"] >= 3
+    pt.G.clear()
     loaded = [m for m, mod in sys.modules.items() if mod is not None
               and (m.startswith("jax") or m.split(".")[0] == "pathway_tpu")]
     assert not loaded, loaded

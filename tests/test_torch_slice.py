@@ -171,12 +171,27 @@ def test_static_scan_finds_no_jax_or_pathway_tpu_import():
             "io/mongodb.py", "io/nats.py", "io/postgres.py", "io/pubsub.py",
             "io/pyfilesystem.py", "io/redpanda.py", "io/slack.py", "io/sqlite.py",
             "xpacks/connectors/__init__.py", "xpacks/connectors/sharepoint.py",
-            "demo/__init__.py"} <= scanned
+            "demo/__init__.py", "analysis/__init__.py", "analysis/graph.py", "analysis/lint.py",
+            "analysis/passes.py", "analysis/report.py", "internals/lintmode.py",
+            "internals/yaml_loader.py", "internals/error_log_table.py",
+            "internals/interactive.py", "stdlib/viz/__init__.py", "xpacks/llm/llms.py",
+            "xpacks/llm/prompts.py", "xpacks/llm/rerankers.py", "xpacks/llm/vector_store.py",
+            "xpacks/llm/question_answering.py"} <= scanned
+    # the YAML loader imports the modules its tags name; it maps the reference's package to the
+    # port's and refuses JAX (held below), so it is the one module allowed to import by name
+    loader = PACKAGE / "internals" / "yaml_loader.py"
     for path in files:
         src = path.read_text()
         assert not _IMPORT.findall(src), path
-        if path.parent.name != "tests" and path.name != "chip_smoke.py":
+        if path.parent.name != "tests" and path.name != "chip_smoke.py" and path != loader:
             assert "import_module(" not in src and "__import__(" not in src, path
+    from pathway_tpu_torch.internals.yaml_loader import _resolve_dotted
+
+    for name in ("jax.numpy.zeros", "jaxlib.version"):
+        with pytest.raises(ImportError, match="imports no JAX"):
+            _resolve_dotted(name)
+    assert _resolve_dotted("pathway_tpu.xpacks.llm.splitters.NullSplitter").__module__ == \
+        "pathway_tpu_torch.xpacks.llm.splitters"
 
 
 _BLOCKED_RUN = textwrap.dedent("""
@@ -450,6 +465,28 @@ _BLOCKED_RUN = textwrap.dedent("""
     t = pt.debug.table_from_markdown("a\\n1\\n3\\n50")
     res = pt.iterate(lambda t: t.select(a=pt.if_else(t.a < 100, t.a * 2, t.a)), t=t)
     assert sorted(pt.debug.table_to_pandas(res, device="cpu")["a"]) == [100, 128, 192]
+    pt.G.clear()
+    from pathway_tpu_torch.xpacks.llm import question_answering as qa
+
+    docs = pt.debug.table_from_rows(pt.schema_from_types(data=str, _metadata=dict),
+                                    [("the answer is here", {"path": "a.txt"})])
+    store = pt.xpacks.llm.DocumentStore(docs, pt.indexing.BruteForceKnnFactory(
+        dimensions=4, embedder=lambda s: np.ones(4)))
+
+    class Chat(pt.xpacks.llm.llms.BaseChat):
+        def _call_model(self, messages, **kwargs):
+            return "replied"
+
+    rag = qa.BaseRAGQuestionAnswerer(Chat(), store, search_topk=1)
+    q = pt.debug.table_from_rows(rag.AnswerQuerySchema, [("where?", None, None, False)])
+    answer = rag.answer_query(q)
+    pt.io.subscribe(answer, on_change=lambda **kw: None)
+    report = pt.analyze(device="cpu")
+    assert report.stats["operators"] > 5, report.stats
+    assert pt.debug.table_to_pandas(answer, device="cpu")["result"].tolist() == ["replied"]
+    pt.G.clear()
+    objs = pt.load_yaml("s: !pw.xpacks.llm.splitters.NullSplitter\\n")
+    assert type(objs["s"]).__name__ == "NullSplitter"
     loaded = sorted(
         m for m, mod in sys.modules.items() if mod is not None
         and (m.startswith("jax") or m == "pathway_tpu" or m.startswith("pathway_tpu."))

@@ -260,8 +260,23 @@ def test_run_defaults_to_the_card():
 
 
 def test_stdlib_methods_name_the_queue_item():
-    t = tpw.debug.table_from_rows(tpw.schema_from_types(a=int), [(1,)])
-    # windowby, the temporal joins, diff and interpolate are ported (tests/test_torch_temporal.py)
-    for call in (lambda: t.plot(None), lambda: t.show(), lambda: t.live()):
-        with pytest.raises(NotImplementedError, match="Queue 3 item 12"):
-            call()
+    """``plot``, ``show`` and ``live``, the last of Queue 3 item 12's methods, do what the
+    reference's do: without bokeh and panel ``plot`` and ``show`` return the live mirror, whose
+    columns after ``pw.run`` are the reference's, and ``live`` (on the port with ``device=``)
+    runs the table on a background thread to the reference's snapshot."""
+    out = {}
+    for pw, kw in ((rpw, {}), (tpw, {"device": "cpu"})):
+        pw.G.clear()
+        t = pw.debug.table_from_rows(pw.schema_from_types(a=int, b=str),
+                                     [(2, "x"), (1, "y"), (3, "z")])
+        plotted = t.plot(lambda source: None, sorting_col="a")
+        shown = t.show()
+        live = t.live(**kw)
+        assert live._stopped.wait(20) and not live.failed(), live._error
+        pw.run(**kw)
+        out[pw.__name__] = (type(plotted).__name__, plotted.columns(), type(shown).__name__,
+                            sorted(zip(*shown.columns().values())),
+                            sorted(live.snapshot().rows.values()))
+        pw.G.clear()
+    assert out["pathway_tpu_torch"] == out["pathway_tpu"]
+    assert out["pathway_tpu"][1] == {"a": [1, 2, 3], "b": ["y", "x", "z"]}

@@ -60,8 +60,11 @@ class _Proxy:
 class Side:
     """One package's bindings for a reference test function, and the tables it recorded."""
 
-    def __init__(self, pkg: str) -> None:
+    def __init__(self, pkg: str, **pw_overrides: Any) -> None:
+        """``pw_overrides``: more of the package's root names to bind in the cases' ``pw`` (an
+        entry point with the port's ``device="cpu"``, a recording wrapper)."""
         self.pkg = pkg
+        self.pw_overrides = pw_overrides
         self.port = pkg == "pathway_tpu_torch"
         self.pw = importlib.import_module(pkg)
         self.testing = importlib.import_module(f"{pkg}.testing")
@@ -146,6 +149,7 @@ class Side:
                          table_to_pandas=self._table_to_pandas),
             internals=_Proxy(pw.internals, graph_runner=gr),
             io=_Proxy(pw.io, subscribe=self._subscribe),
+            **self.pw_overrides,
         )
         out = {
             "pw": proxied,
@@ -216,3 +220,11 @@ def cases(module_names: list[str]) -> list[tuple[str, str]]:
         out += [(m, n.name) for n in tree.body
                 if isinstance(n, ast.FunctionDef) and n.name.startswith("test_")]
     return out
+
+
+def case_args(module_name: str, name: str) -> list[str]:
+    """The argument names (fixtures) of test function ``name`` of module ``module_name``."""
+    with open(os.path.join(TESTS, module_name + ".py")) as f:
+        tree = ast.parse(f.read())
+    (fn,) = [n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == name]
+    return [a.arg for a in fn.args.args]
