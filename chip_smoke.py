@@ -3,8 +3,10 @@ dataflow engine, its Table API, its indexing stdlib, its RAG serve path over HTT
 connectors with the RAG example served from a directory, its persistence and recovery, its
 elastic rescale and spill tier, its frontier-driven async plane with ``pw.iterate``, its
 temporal stdlib on Nexmark's event model, its ML, SQL and graph stdlib, its SQLite, Delta
-Lake and Debezium connectors, and its RAG question answering with the last root names
-(``pw.analyze``, ``pw.load_yaml``, the error log, ``LiveTable``), on one NVIDIA card.
+Lake and Debezium connectors, its RAG question answering with the last root names
+(``pw.analyze``, ``pw.load_yaml``, the error log, ``LiveTable``), and its observability plane
+(the monitoring HTTP server, signals and SLO alerts, the profiler, key-load accounting, the flight
+recorder, OTLP telemetry), on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -116,7 +118,7 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    engine holds every row), the query tick's host time (commit to the last answer's callback)
    and its idle share (a trace of the run's device activity, between two marker kernels launched
    at the commit and at the last answer) are logged. Then a ``HybridIndex`` of BM25 with the
-   brute-force index (reciprocal-rank fusion) over the first 2,048 chunks (its fill embeds one
+   brute-force index (reciprocal-rank fusion) over the first 1,024 chunks (its fill embeds one
    chunk at a time, so it is the phase's longest run), the same queries, held
    against ``HybridEngine.search`` called directly on the run's engine (untraced). The launch
    counts are zeroed just before each run and read just after.
@@ -229,7 +231,7 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    wave duration's p50, ``WaveRecorder``'s stage split (sweep, inbox_dwell, frontier_wait,
    settle, snapshot, release) and the holders and critical stages of the merged wave documents.
    (e) ``pw.iterate``'s min-label propagation (connected components) over a seeded graph of
-   16,384 nodes and 65,536 undirected edges at 1 worker, the labels held
+   16,384 nodes and 32,768 undirected edges at 1 worker, the labels held
    against ``scipy.sparse.csgraph.connected_components``; its rounds, seconds (within 120) and
    ``expression_vm`` launches.
 17. Nexmark windows through ``pw.temporal`` (windows, the window, interval and as-of joins), each
@@ -248,7 +250,7 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    events; each leg's rows/s (its input rows over the wall of ``pw.run``, host clock), its
    window or match count, and the launch counts (zeroed just before each run, read just after)
    are logged. ``NEXMARK_LEG_EVENTS`` holds each leg's cut: (a) and (b) over the first
-   500,000 events, (d) over the first 250,000.
+   500,000 events, (d) over the first 125,000.
 18. The stdlib and SQL (``pw.ml``, ``pw.sql``, ``pw.graphs``), each leg a
    ``pw.run(device="cuda")`` checked against numpy on the same data. (a) kNN classification at
    MNIST's shape: 60,000 seeded training vectors of 784 around ten class centres and 10,000
@@ -262,8 +264,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    count and maximum per auction through ``pw.sql`` over the first ``SQL_EVENTS`` of phase
    17's events, at 1 worker and at 2 (async); ``expression_vm`` must launch. (c) Graph500's
    Kronecker graphs (A=0.57, B=C=0.19, edge factor 16, duplicates and self-loops kept):
-   ``pagerank(steps=5)`` at scale 13 exactly equal to numpy's integer recurrence,
-   ``bellman_ford`` at scale 11 (integer weights 1-255 as floats) equal to a numpy relaxation to
+   ``pagerank(steps=5)`` at scale 12 exactly equal to numpy's integer recurrence,
+   ``bellman_ford`` at scale 10 (integer weights 1-255 as floats) equal to a numpy relaxation to
    the fixpoint, and one Louvain level at scale 12 whose ``exact_modularity`` equals numpy's
    modularity of the clustering it returned (within 1e-12 a cluster: the sums run in another
    order). Each leg logs its rows/s, seconds and the launch counts (zeroed just before each run,
@@ -298,10 +300,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    ``/v1/pw_ai_summary`` once each against the store's own answers. (b) The same 64 questions to
    the adaptive answerer, each with a sentinel chunk at a known rank (1 to 16) of its direct
    search: the answer and the chat-call count against the geometric rule; p50. (c)
-   ``EncoderReranker`` and ``rerank_topk_filter(k=3)`` over (a)'s 384 (question, context) pairs
-   through ``pw.run``: each score against the cosine from one batched ``embed_texts_device``
+   ``EncoderReranker`` and ``rerank_topk_filter(k=3)`` over the (question, context) pairs of
+   (a)'s first 32 answers (192) through ``pw.run``: each score against the cosine from one batched ``embed_texts_device``
    call (``RERANK_ATOL``), pairs/s and launches per pair. (d) ``VectorStoreServer`` over the
-   first 1,024 chunks, 16 ``VectorStoreClient.query`` (k=6) against its engine searched
+   first 256 chunks, 16 ``VectorStoreClient.query`` (k=6) against its engine searched
    directly. (e) ``pw.analyze`` on (a)'s graph before its run, on the card and on the host (the
    same diagnostics; no launch); ``pw.global_error_log()`` in (a)'s run (a parse error and a
    flatten skip for each planted document); ``pw.load_yaml`` of (a)'s store and answerer, 8
@@ -311,7 +313,29 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    counted block (a run, or (a)'s fill with its warm-up and other routes, (a)'s timed answers,
    (b)'s) and read just after; the direct searches and the batched embed that the answers are
    held against run outside every block.
-21. Each engine-path kernel's launches and summed device time per path, one JSON line with each
+21. The observability plane (``observability/``, ``engine/http_server.py``, the tracer, OTLP
+   telemetry). (a) Phase 10's chain (one program a chain) at 2 workers over ``LocalComm`` (the
+   async loop) in three arms, alternated twice: bare (``PATHWAY_PROFILE=0``,
+   ``PATHWAY_KEYLOAD=0``), default (nothing set), and observed (``pw.run(with_http_server=True,
+   monitoring_level=MonitoringLevel.ALL)`` on a free port, a trace file, a flight ring, two SLO
+   rules of which one must fire, and OTLP export to a collector on loopback, flushed each
+   second). Each table equals numpy's and each arm's programs run equal its ``expression_vm``
+   launches; each arm's rows/s and the default and observed overheads against bare. During an
+   observed run a thread reads every endpoint every 0.5 s: every ``/metrics`` parses, every
+   histogram is cumulative with its ``+Inf`` bucket equal to its count, both workers are named,
+   and ``/healthz`` and ``/readyz`` answer 200 once every worker has swept a tick. At its end,
+   before the server stops: the input rows on ``/metrics``, ``/snapshot``'s fusion and UDF
+   sections against the run (the bare run's counters, the chains its executors lowered), the
+   trace file's tick and node spans of both workers, the collector's trace and metrics posts,
+   the flight ring's run and tick records of both workers, ``/alerts`` (the one rule fired),
+   and ``/profile``'s operator tags against ``/attribution``'s ranking. ``expression_vm``
+   against its plain version on the observed run's own program, bitwise. (b)
+   ``DocumentStoreServer`` over phase 12's 4,096 chunks with the monitoring server on: 64 timed
+   ``/v1/retrieve`` (k=3) after 4 untimed, their p50, p95 and p99 beside phase 12's p50; the
+   serve plane's families on ``/metrics``, its admitted count moved by the requests sent; 6
+   ``masked_attention`` and 1 ``knn_topk`` launches a request, both kernels against their plain
+   versions on one request's own inputs.
+22. Each engine-path kernel's launches and summed device time per path, one JSON line with each
    kernel's numbers, then the closing JSON line.
 
 It needs one CUDA card and exits non-zero, printing no result, without one. It imports nothing
@@ -2321,9 +2345,14 @@ def time_expression_vm(device, cols: dict, commit: int) -> dict:
 
 @contextlib.contextmanager
 def scoped_env(env: dict):
-    """The environment variables ``env`` set for the block, the old values back after it."""
+    """The environment variables ``env`` set for the block (a None value unsets one), the old
+    values back after it."""
     saved = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
+    for k, v in env.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
     try:
         yield
     finally:
@@ -2350,14 +2379,15 @@ def scoped_async(value: str | None):
 
 
 def run_pipeline(device, cols: dict, commit: int, n_groups: int, workers: int, lifted: bool,
-                 mesh: bool | None = None, async_exec: str | None = None):
+                 mesh: bool | None = None, async_exec: str | None = None, **run_kw):
     """``pw.run(device=...)`` of the phase's streaming pipeline: a ``ConnectorSubject`` that
     ``next_batch``es the columns in commits of ``commit`` rows, the chain, the groupby, and
     ``pw.io.subscribe(on_batch=...)``. Returns (final table group -> (sum, count), seconds of
     the run). Each commit is its own tick (``PATHWAY_INGEST_COALESCE_WINDOWS=0``), so every
     gate sees the same batches in every run. Past 1 worker with the mesh exchange unless
     ``mesh`` is False; ``async_exec`` sets ``PATHWAY_ASYNC_EXEC`` (unset: the default loop, async
-    over ``LocalComm`` and BSP over the mesh exchange)."""
+    over ``LocalComm`` and BSP over the mesh exchange). ``run_kw`` goes to ``pw.run``
+    (``with_http_server``, ``monitoring_level``)."""
     import pathway_tpu_torch as pw
 
     n = len(cols["a"])
@@ -2384,7 +2414,7 @@ def run_pipeline(device, cols: dict, commit: int, n_groups: int, workers: int, l
     with scoped_env(env), scoped_async(async_exec):
         try:
             t0 = time.perf_counter()
-            pw.run(device=device)
+            pw.run(device=device, **run_kw)
             seconds = time.perf_counter() - t0
         finally:
             pw.G.clear()
@@ -2667,12 +2697,12 @@ def check_answers(label: str, got: dict, want: dict, *, extra: int = 0) -> int:
 
 def run_indexing(device, *, n_chunks: int = 16384, n_rows: int = 1 << 20, n_rows_2: int = 1 << 18,
                  chunk_commit: int = 1024, vec_commit: int = 1 << 16, n_queries: int = 64,
-                 k: int = 10, hybrid_chunks: int = 2048, cfg=None) -> dict:
+                 k: int = 10, hybrid_chunks: int = 1024, cfg=None) -> dict:
     """The phase; sizes as the defaults say on the card (a CPU rehearsal passes small ones):
     ``n_rows`` at 1 worker, ``n_rows_2`` (at most ``n_rows``) at 2, the hybrid over the first
     ``hybrid_chunks`` of the ``n_chunks`` chunks (it embeds a chunk at a time: cut from 16,384 to
-    8,192 when phase 16 came, to 4,096 when phase 18 did and to 2,048 when phase 19 did,
-    PERF.md section 4). Returns each
+    8,192 when phase 16 came, to 4,096 when phase 18 did, to 2,048 when phase 19 did and to
+    1,024 when phase 21 did, PERF.md section 4). Returns each
     run's launch counts, rates and times."""
     import pathway_tpu_torch as pw
     from pathway_tpu_torch.models.embedder import Embedder
@@ -4323,8 +4353,8 @@ SKEW_FAST, SKEW_BATCH, SKEW_SLOW, SKEW_PAUSE_MS, SKEW_REPS = 150_000, 5_000, 40,
 UNIFORM_ROWS, UNIFORM_WARMUP, UNIFORM_BATCH = 500_000, 100_000, 10_000
 #: (e) min-label propagation over a seeded graph, at 1 worker, within ITERATE_BUDGET_S; cut by
 #: half (from 65,536 nodes and 262,144 edges) with SKEW_REPS, for the same reason, and by half
-#: again when phase 19 came (PERF.md section 4)
-CC_NODES, CC_EDGES, ITERATE_BUDGET_S = 1 << 14, 1 << 16, 120.0
+#: again when phase 19 came and when phase 21 did (PERF.md section 4)
+CC_NODES, CC_EDGES, ITERATE_BUDGET_S = 1 << 14, 1 << 15, 120.0
 
 
 def skew_words(workers: int = 2) -> tuple[list, list]:
@@ -4973,8 +5003,9 @@ NEXMARK_WINDOW_MS = 10_000
 #: the first events of the generator's that each leg takes: Q5 ((b), five windows a bid), then
 #: the joins (d) were cut by halves from NEXMARK_EVENTS after the phase's legs took 125.3 s of
 #: its 120 at full size on the card; (a) by half and (d) by half again when phase 19 came, to
-#: keep the script's time (PERF.md section 4); (a) never below 262,144
-NEXMARK_LEG_EVENTS = {"q1q7": 500_000, "q5": 500_000, "q8": NEXMARK_EVENTS, "joins": 250_000}
+#: keep the script's time (PERF.md section 4), (d) by half again when phase 21 came; (a) never
+#: below 262,144
+NEXMARK_LEG_EVENTS = {"q1q7": 500_000, "q5": 500_000, "q8": NEXMARK_EVENTS, "joins": 125_000}
 NEXMARK_BUDGET_S = 120.0
 # the Beam generator's word lists (PersonGenerator)
 NEXMARK_STATES = ("AZ", "CA", "ID", "OR", "WA", "WY")
@@ -5319,8 +5350,9 @@ def run_nexmark(device, *, n_events: int = NEXMARK_EVENTS, leg_events: dict | No
 MNIST_TRAIN, MNIST_TEST, MNIST_DIM, MNIST_CLASSES = 60_000, 10_000, 784, 10
 MNIST_TRAIN_COMMIT, MNIST_QUERY_COMMIT = 10_000, 1_000
 SQL_EVENTS = 500_000  # the first of phase 17's events that leg (b) takes
-#: PageRank cut from scale 14 and Bellman-Ford from 12 when phase 19 came (PERF.md section 4)
-GRAPH_SCALES = {"pagerank": 13, "bellman_ford": 11, "louvain": 12}
+#: PageRank cut from scale 14 and Bellman-Ford from 12 when phase 19 came, to 12 and 10 when
+#: phase 21 did (PERF.md section 4)
+GRAPH_SCALES = {"pagerank": 12, "bellman_ford": 10, "louvain": 12}
 STDLIB_BUDGET_S = 120.0
 SQL_QUERIES = {
     "q0": ("SELECT auction, bidder, price, t FROM bid", ("bid",)),
@@ -5745,7 +5777,9 @@ def run_stdlib(device, *, ev: dict | None = None, sql_events: int = SQL_EVENTS,
 #: Debezium, which replays (a)'s change stream of the bids among its own first events. (a) was
 #: halved from 500,000 (it re-reads the whole table each transaction, as the reference does), (b)
 #: with it, and (c) cut to 50,000 (a commit an envelope, as the reference commits) to keep the
-#: legs inside the phase's 60 s and the script inside its time (PERF.md section 4)
+#: legs inside the phase's 60 s and the script inside its time (PERF.md section 4). (a) stays
+#: at 250,000: its 25 insert transactions take the expression machine past its 16 warm-up
+#: batches, and the phase holds the machine on (a)'s own program
 CONNECTOR_LEG_EVENTS = {"sqlite": 250_000, "delta": 250_000, "debezium": 50_000}
 CONNECTOR_TXN_EVENTS = 10_000  # events whose bids one transaction (one Delta version) inserts
 CONNECTOR_CHANGE_TXNS = 10  # then transactions that change 10% of the prices and delete 5%
@@ -6406,14 +6440,14 @@ def kernel_inputs(into: dict):
         emb_mod.masked_attention, index_engines.topk_scores = attn, topk
 
 
-def check_phase_kernels(captured: dict) -> dict:
+def check_phase_kernels(captured: dict, label: str = "phase 20") -> dict:
     """``masked_attention`` at B=1 and ``knn_topk`` at the question's shape, each on the inputs
     the phase gave it, against the plain version (the attention within ATTN_ATOL + ATTN_RTOL, the
     scores within one bf16 ulp, ids equal where the scores are clear)."""
     from pathway_tpu_torch.ops.knn import topk_scores, topk_scores_plain
 
     q, k, v, mask = captured["attention"]
-    attn_err = attention_error(f"phase 20 B=1 S={q.shape[2]}", q, k, v, mask)
+    attn_err = attention_error(f"{label} B=1 S={q.shape[2]}", q, k, v, mask)
     queries, index, kk, metric, kw = captured["knn"]
     s_k, i_k = topk_scores(queries, index, kk, metric, **kw)
     s_p, i_p = topk_scores_plain(queries, index, kk + 1, metric, **kw)
@@ -6759,7 +6793,8 @@ def run_qa_live_stats(device, want: dict) -> dict:
 
 
 def run_qa(device, *, n_chunks: int = 4096, docs_commit: int = 256, n_questions: int = 64,
-           warmup: int = 4, vs_chunks: int = 1024, vs_queries: int = 16, yaml_questions: int = 8,
+           warmup: int = 4, vs_chunks: int = 256, vs_queries: int = 16, yaml_questions: int = 8,
+           rerank_questions: int = 32,
            cfg=None) -> dict:
     """Phase 20; sizes as the defaults say on the card (a CPU rehearsal passes small ones and a
     small encoder). Returns each leg's launch counts, rates and times."""
@@ -6818,7 +6853,8 @@ def run_qa(device, *, n_chunks: int = 4096, docs_commit: int = 256, n_questions:
             f"planted documents [{card}]")
         if cuda:
             torch.cuda.empty_cache()
-        rerank = run_rerank(device, encoder, a["answers"], questions, launches)
+        rerank = run_rerank(device, encoder, a["answers"][:rerank_questions],
+                            questions[:rerank_questions], launches)
         log(f"qa (c): EncoderReranker and rerank_topk_filter(k={RERANK_K}) over (a)'s context "
             f"documents, {rerank['pairs']} pairs in {rerank['s']:.2f} s, "
             f"{rerank['pairs_per_s']:.1f} pairs/s; each score within {rerank['max_err']:.3e} of "
@@ -6862,6 +6898,540 @@ def run_qa(device, *, n_chunks: int = 4096, docs_commit: int = 256, n_questions:
             "a": {k: v for k, v in a.items() if k != "answers"},
             "b": b, "rerank": rerank, "vector_store": vs, "yaml": yml, "live": live,
             "analyze_s": qa["analyze_s"], "held": held, "s": seconds}
+
+
+# -- phase 21: the observability plane --------------------------------------------------------
+
+
+OBS_BUDGET_S = 60.0
+OBS_REPS = 2  # each arm runs twice, alternated: bare, default, observed, bare, default, observed
+OBS_SCRAPE_S = 0.5
+OBS_ENDPOINTS = ("/metrics", "/snapshot", "/query", "/attribution", "/alerts", "/profile",
+                 "/healthz", "/readyz")
+#: one rule that must fire (any tick takes time) and one that must not
+OBS_SLO_RULES = [
+    {"name": "tick_p95", "expr": "p95(tick_duration_ms)", "op": ">", "threshold": 0.0,
+     "for_s": 0.0},
+    {"name": "tick_p95_hour", "expr": "p95(tick_duration_ms)", "op": ">",
+     "threshold": 3_600_000.0, "for_s": 0.0},
+]
+#: the arms' environments (None: unset); the observed arm adds its server, trace file, flight
+#: ring, rules and collector
+OBS_ARMS = {"bare": {"PATHWAY_PROFILE": "0", "PATHWAY_KEYLOAD": "0"},
+            "default": {"PATHWAY_PROFILE": None, "PATHWAY_KEYLOAD": None},
+            "observed": {"PATHWAY_PROFILE": None, "PATHWAY_KEYLOAD": None}}
+#: one default-on hook at a time (``scripts/torch_obs_phase.py --split``): which of the two the
+#: default arm's cost is
+OBS_SPLIT_ARMS = {"keyload_only": {"PATHWAY_PROFILE": "0", "PATHWAY_KEYLOAD": None},
+                  "profile_only": {"PATHWAY_PROFILE": None, "PATHWAY_KEYLOAD": "0"}}
+
+
+class OtlpCollector:
+    """A loopback OTLP/HTTP collector on a thread of its own: each POST's path and body."""
+
+    def __init__(self) -> None:
+        import http.server
+        import threading
+
+        received = self.received = []
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_POST(self):  # noqa: N802 - http.server API
+                n = int(self.headers.get("Content-Length", 0))
+                received.append((self.path, json.loads(self.rfile.read(n) or b"null")))
+                self.send_response(200)
+                self.send_header("Content-Length", "2")
+                self.end_headers()
+                self.wfile.write(b"{}")
+
+            def log_message(self, *a):
+                pass
+
+        self.server = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.port = self.server.server_address[1]
+        self.thread = threading.Thread(target=self.server.serve_forever, daemon=True)
+        self.thread.start()
+
+    def close(self) -> None:
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(10)
+
+
+def http_get(port: int, path: str, timeout: float = 30.0) -> tuple[int, str]:
+    """One GET to the local server: (status, body)."""
+    import urllib.error
+
+    try:
+        with local_opener().open(f"http://127.0.0.1:{port}{path}", timeout=timeout) as resp:
+            return resp.status, resp.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def check_histograms(series: dict) -> int:
+    """Each histogram of a parsed exposition cumulative and monotone in ``le``, its ``+Inf``
+    bucket equal to its ``_count``; returns the histograms checked."""
+    buckets: dict = {}
+    for (name, labels), v in series.items():
+        if name.endswith("_bucket"):
+            lab = dict(labels)
+            le = lab.pop("le")
+            buckets.setdefault((name[:-len("_bucket")], tuple(sorted(lab.items()))), []).append(
+                (float("inf") if le == "+Inf" else float(le), v))
+    for (fam, lab), pts in buckets.items():
+        pts.sort()
+        counts = [v for _, v in pts]
+        if any(b < a for a, b in zip(counts, counts[1:])):
+            raise AssertionError(f"{fam}{dict(lab)}: bucket counts fall with le: {counts}")
+        if pts[-1][0] != float("inf") or pts[-1][1] != series.get((fam + "_count", lab)):
+            raise AssertionError(f"{fam}{dict(lab)}: the +Inf bucket {pts[-1]} is not the "
+                                 f"count {series.get((fam + '_count', lab))}")
+    return len(buckets)
+
+
+class Scraper:
+    """Reads every endpoint of a monitoring server every ``period`` s on a thread: each request's
+    host ms; each ``/metrics`` body parsed and its histograms checked; the workers its labels
+    name; ``/healthz`` and ``/readyz`` held to 200 in every scrape after one whose ``/snapshot``
+    showed every worker past its first tick. A refused connection (the server not up yet, or
+    gone) counts as no scrape; any other fault is kept and raised by ``check``."""
+
+    def __init__(self, port: int, n_workers: int, period: float = OBS_SCRAPE_S) -> None:
+        import threading
+
+        from pathway_tpu_torch.observability import parse_exposition
+
+        self.port, self.n_workers, self.period = port, n_workers, period
+        self.parse = parse_exposition
+        self.ms: dict = {p: [] for p in OBS_ENDPOINTS}
+        self.rounds = self.histograms = self.refused = 0
+        self.workers: set = set()
+        self.swept = False
+        self.probes_after_sweep = 0
+        self.faults: list = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+
+    def _loop(self) -> None:
+        while not self._stop.wait(self.period):
+            try:
+                self.scrape_once()
+            except ConnectionError:
+                self.refused += 1
+            except OSError as e:  # urllib wraps a refused connection
+                if isinstance(getattr(e, "reason", None), ConnectionError):
+                    self.refused += 1
+                else:
+                    self.faults.append(repr(e))
+            except Exception as e:  # kept, raised by check() on the phase's thread
+                self.faults.append(repr(e))
+
+    def scrape_once(self) -> None:
+        bodies = {}
+        for path in OBS_ENDPOINTS:
+            t0 = time.perf_counter()
+            bodies[path] = http_get(self.port, path)
+            self.ms[path].append((time.perf_counter() - t0) * 1e3)
+        self.rounds += 1
+        code, text = bodies["/metrics"]
+        if code != 200:
+            raise AssertionError(f"/metrics answered {code}")
+        series = self.parse(text)
+        self.histograms += check_histograms(series)
+        self.workers |= {dict(lab)["worker"] for _, lab in series if "worker" in dict(lab)}
+        for path in ("/snapshot", "/query", "/attribution", "/alerts", "/profile"):
+            if bodies[path][0] != 200:
+                raise AssertionError(f"{path} answered {bodies[path][0]}")
+            json.loads(bodies[path][1])
+        if self.swept:
+            self.probes_after_sweep += 1
+            for path in ("/healthz", "/readyz"):
+                if bodies[path][0] != 200:
+                    raise AssertionError(f"{path} answered {bodies[path][0]} after the first "
+                                         f"tick swept: {bodies[path][1]}")
+        snap = json.loads(bodies["/snapshot"][1])
+        ticked = [w for w in snap["workers"] if w["ticks"] >= 1]
+        self.swept = self.swept or len(ticked) == self.n_workers
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join(60)
+
+    def check(self) -> None:
+        if self.faults:
+            raise AssertionError(f"the scraper saw {len(self.faults)} fault(s): {self.faults[:3]}")
+        if not self.rounds or not self.probes_after_sweep:
+            raise AssertionError(f"{self.rounds} scrapes, {self.probes_after_sweep} after the "
+                                 f"first tick swept: the observed run ended too soon to be read")
+        want = {str(w) for w in range(self.n_workers)}
+        if not want <= self.workers:
+            raise AssertionError(f"/metrics named workers {sorted(self.workers)}, not {want}")
+
+
+@contextlib.contextmanager
+def final_reads(into: dict, port: int, before_stop=None):
+    """Every endpoint read over HTTP at the end of the block's run: after every worker has joined
+    and before the runner stops its server (``GraphRunner._stop_observability``), each body into
+    ``into``; ``before_stop`` runs first (the scraper's stop)."""
+    from pathway_tpu_torch.internals.graph_runner import GraphRunner
+
+    stop = GraphRunner._stop_observability
+
+    def read_then_stop(http_server, flusher, hub=None):
+        if before_stop is not None:
+            before_stop()
+        for path in OBS_ENDPOINTS:
+            into[path] = http_get(port, path)
+        stop(http_server, flusher, hub)
+
+    GraphRunner._stop_observability = staticmethod(read_then_stop)
+    try:
+        yield
+    finally:
+        GraphRunner._stop_observability = staticmethod(stop)
+
+
+#: the fusion counters a run moves by what it builds (chains, their members, the preambles) and
+#: its fallbacks (none); the rest count batches, which the async loop groups by arrival, so a
+#: worker's chain may or may not pass its warm-up (``jit_chains_total`` is held to the chains
+#: that hold a launcher at the run's end instead)
+OBS_BUILD_COUNTERS = ("chains_total", "fused_ops_total", "preambles_total", "fallbacks_total")
+
+
+def module_counters() -> dict:
+    """The process-wide fusion and UDF counters, as the hub's ``/snapshot`` sections read them."""
+    from pathway_tpu_torch.engine.fusion import fusion_stats_snapshot
+    from pathway_tpu_torch.internals.expression_compiler import udf_stats_snapshot
+
+    return {"fusion": fusion_stats_snapshot(), "udf": udf_stats_snapshot()}
+
+
+def counter_delta(after: dict, before: dict, keys=None) -> dict:
+    return {k: after[k] - before.get(k, 0.0) for k in (keys or after)}
+
+
+def check_observed_run(reads: dict, *, rows: int, n_workers: int, before: dict, bare: dict,
+                       executors: list, trace_file: str, flight_dir: str,
+                       collector: OtlpCollector) -> dict:
+    """What the observed arm's endpoints, trace file, flight ring and collector hold, each held
+    to what the run did; returns what it counted."""
+    from pathway_tpu_torch.observability import harvest, parse_exposition
+    from pathway_tpu_torch.observability.flightrecorder import ring_path
+    from pathway_tpu_torch.observability.profile_merge import operator_shares
+
+    for path, (code, body) in reads.items():
+        if code != 200:
+            raise AssertionError(f"{path} answered {code} at the run's end: {body[:300]}")
+    series = parse_exposition(reads["/metrics"][1])
+    check_histograms(series)
+    inputs = {dict(lab)["worker"]: v for (name, lab), v in series.items()
+              if name == "pathway_input_rows"}
+    if set(inputs) != {str(w) for w in range(n_workers)} or sum(inputs.values()) != rows:
+        raise AssertionError(f"pathway_input_rows {inputs}: not {rows} rows over "
+                             f"{n_workers} workers")
+    snap = json.loads(reads["/snapshot"][1])
+    # the sections /snapshot serves, moved over the arm, against what the bare arm's run of the
+    # same graph moved the module's counters by: the same chains built and lowered, the same UDF
+    # lanes
+    for section, keys in (("fusion", OBS_BUILD_COUNTERS), ("udf", None)):
+        if not snap.get(section):
+            raise AssertionError(f"/snapshot's {section} section is empty")
+        served = counter_delta(snap[section], before[section], keys)
+        if served != counter_delta(bare[section], {}, keys):
+            raise AssertionError(f"/snapshot's {section} section moved by {served} over the "
+                                 f"arm; the bare arm's run moved it by {bare[section]}")
+    from pathway_tpu_torch.engine.fusion import FusedChain
+
+    fusion = counter_delta(snap["fusion"], before["fusion"])
+    lowered = sum(1 for ex in executors for n in ex.nodes
+                  if isinstance(n, FusedChain) and n._launcher is not None)
+    if not lowered or fusion["jit_chains_total"] != lowered:
+        raise AssertionError(f"/snapshot's fusion section counts {fusion['jit_chains_total']} "
+                             f"chains lowered to one program; the run's executors hold "
+                             f"{lowered}")
+    keyload = [w.get("keyload") for w in snap["workers"]]
+    if not all(k and k["rows_total"] for k in keyload):
+        raise AssertionError(f"a worker's key-load section is empty: {keyload}")
+    with open(trace_file) as f:
+        events = json.load(f)["traceEvents"]
+    tid_worker = {e["tid"]: e["args"]["worker"] for e in events
+                  if e.get("name") == "engine.run" and e.get("ph") == "X"}
+    spans: dict = {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("tid") in tid_worker:
+            kind = "tick" if e["name"] == "tick" else "node" if "#" in e["name"] else None
+            if kind:
+                spans.setdefault(tid_worker[e["tid"]], {}).setdefault(kind, 0)
+                spans[tid_worker[e["tid"]]][kind] += 1
+    if sorted(spans) != list(range(n_workers)) or not all(
+            v.get("tick") and v.get("node") for v in spans.values()):
+        raise AssertionError(f"the trace file's tick and node spans by worker: {spans}")
+    posts = {path for path, _ in collector.received}
+    if not {"/v1/traces", "/v1/metrics"} <= posts:
+        raise AssertionError(f"the collector received {sorted(posts)}")
+    ring = harvest(ring_path(flight_dir, 0))
+    kinds = {(r["kind"], r.get("worker")) for r in ring["records"]}
+    for w in range(n_workers):
+        for kind in ("run.start", "run.end", "tick"):
+            if (kind, w) not in kinds:
+                raise AssertionError(f"the flight ring holds no {kind} record of worker {w}")
+    alerts = json.loads(reads["/alerts"][1])
+    fired = {e["rule"] for e in alerts["history"] if e["state"] == "firing"}
+    active = {e["rule"] for e in alerts["active"]}
+    if fired != {"tick_p95"} or active != {"tick_p95"}:
+        raise AssertionError(f"/alerts: fired {fired}, active {active}; only tick_p95 fires")
+    ranked = [r["operator"] for r in json.loads(reads["/attribution"][1])["ranked"]]
+    tagged = operator_shares(json.loads(reads["/profile"][1]))
+    if not set(tagged) & set(ranked):
+        raise AssertionError(f"/profile's operator tags {sorted(tagged)} name none of "
+                             f"/attribution's ranked operators {ranked}")
+    return {"input_rows": inputs, "fusion": fusion, "trace_spans": spans,
+            "posts": len(collector.received), "flight_records": len(ring["records"]),
+            "fired": sorted(fired), "profiled_ops": len(set(tagged) & set(ranked)),
+            "ranked_ops": len(ranked), "top_op": ranked[0] if ranked else None,
+            "keyload_rows": [k["rows_total"] for k in keyload]}
+
+
+def run_observed_table_api(device, *, rows: int, commit: int, groups: int, reps: int,
+                           launches: dict, captured: dict, work: str,
+                           arms: dict = OBS_ARMS) -> dict:
+    """Leg (a): phase 10's chain (one program a chain) at 2 workers over ``LocalComm`` (the
+    async loop) in the ``arms``, alternated ``reps`` times; each table equal to numpy's, each
+    arm's programs run equal to its launches. The observed arm is scraped while it runs and read
+    at its end."""
+    from pathway_tpu_torch.internals.monitoring import MonitoringLevel
+    from pathway_tpu_torch.ops.expression_kernel import HostLauncher
+
+    cuda = device.type == "cuda"
+    workers = 2
+    cols = pipeline_columns(rows, groups)
+    want = pipeline_reference(cols)
+    rates: dict = {arm: [] for arm in arms}
+    out: dict = {"rates": rates}
+    bare: dict = {}
+    for rep in range(reps):
+        for arm, env in arms.items():
+            path = f"obs_{arm}_{rep + 1}"
+            env = dict(env)
+            run_kw: dict = {}
+            observed = arm == "observed"
+            reads: dict = {}
+            collector = scraper = None
+            if observed:
+                port = free_port()
+                collector = OtlpCollector()
+                trace_file = os.path.join(work, f"trace-{rep}.json")
+                flight_dir = os.path.join(work, f"flight-{rep}")
+                env.update(PATHWAY_MONITORING_HTTP_PORT=str(port),
+                           PATHWAY_TRACE_FILE=trace_file, PATHWAY_FLIGHT_DIR=flight_dir,
+                           PATHWAY_FLIGHT_RING_KB="4096",
+                           PATHWAY_SLO_RULES=json.dumps(OBS_SLO_RULES),
+                           PATHWAY_MONITORING_SERVER=f"http://127.0.0.1:{collector.port}",
+                           PATHWAY_TELEMETRY_FLUSH_S="1")
+                run_kw = {"with_http_server": True, "monitoring_level": MonitoringLevel.ALL}
+                scraper = Scraper(port, workers)
+            before = module_counters()
+            HostLauncher.runs = 0
+            executors: list = []
+            with scoped_env(env), counted(path, launches), kept_executors(executors), \
+                    (final_reads(reads, port, scraper.stop) if observed
+                     else contextlib.nullcontext()), \
+                    (first_program(captured) if observed else contextlib.nullcontext()):
+                got, sec = run_pipeline(device, cols, commit, groups, workers, lifted=False,
+                                        mesh=False, **run_kw)
+            if got != want:
+                raise AssertionError(f"{path}: the table differs from the numpy computation")
+            ran, launched = HostLauncher.runs, launches[path]["expression_vm"]
+            if not ran or (cuda and launched != ran):
+                raise AssertionError(f"{path}: {ran} programs run, {launched} launched")
+            rates[arm].append(rows / sec)
+            if arm == "bare":
+                after = module_counters()
+                bare = {k: counter_delta(after[k], before[k]) for k in after}
+            line = f"obs (a) {path}: {rows} rows, {len(got)} groups equal to numpy; " \
+                   f"{ran} programs run, {launched} launches; {rows / sec:.1f} rows/s"
+            if observed:
+                collector.close()
+                scraper.check()
+                checked = check_observed_run(reads, rows=rows, n_workers=workers,
+                                             before=before, bare=bare, executors=executors,
+                                             trace_file=trace_file, flight_dir=flight_dir,
+                                             collector=collector)
+                metrics_ms = scraper.ms["/metrics"]
+                all_ms = [m for v in scraper.ms.values() for m in v]
+                out.setdefault("scrapes", []).append({
+                    "rounds": scraper.rounds, "refused": scraper.refused,
+                    "histograms": scraper.histograms,
+                    "metrics_p50_ms": float(np.percentile(metrics_ms, 50)),
+                    "all_p50_ms": float(np.percentile(all_ms, 50)),
+                    "round_p50_ms": float(np.median([np.median(r) for r in
+                                                     zip(*scraper.ms.values())])),
+                    **checked})
+                sc = out["scrapes"][-1]
+                line += (f"; {sc['rounds']} scrapes of {len(OBS_ENDPOINTS)} endpoints, every "
+                         f"/metrics parsed ({sc['histograms']} histograms cumulative, +Inf = "
+                         f"_count), workers 0 and 1 named, /healthz and /readyz 200 after the "
+                         f"first sweep; /metrics p50 {sc['metrics_p50_ms']:.3f} ms, all "
+                         f"endpoints p50 {sc['all_p50_ms']:.3f} ms; at the end: input rows "
+                         f"{sc['input_rows']}, fusion {sc['fusion']['jit_chains_total']:.0f} "
+                         f"chains lowered, trace spans {sc['trace_spans']}, {sc['posts']} OTLP "
+                         f"posts, {sc['flight_records']} flight records, fired {sc['fired']}, "
+                         f"{sc['profiled_ops']} of {sc['ranked_ops']} ranked operators in the "
+                         f"profile (top {sc['top_op']}), key-load rows {sc['keyload_rows']}")
+            log(line)
+    mean = {arm: float(np.mean(v)) for arm, v in rates.items()}
+    out["mean"] = mean
+    out["overhead"] = {arm: 1.0 - mean[arm] / mean["bare"] for arm in arms if arm != "bare"}
+    return out
+
+
+def run_observed_serve(device, *, n_chunks: int, docs_commit: int, requests: int, warmup: int,
+                       k: int, launches: dict, captured: dict, cfg=None) -> dict:
+    """Leg (b): ``DocumentStoreServer`` over phase 12's documents with the monitoring server on:
+    ``warmup`` untimed ``/v1/retrieve`` requests, then ``requests`` timed ones (host clock); the
+    serve plane's families on ``/metrics`` and its admitted count moved by the requests sent;
+    the kernels' launches in the timed block; one request's kernel inputs kept."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.models.embedder import Embedder
+    from pathway_tpu_torch.observability import parse_exposition
+    from pathway_tpu_torch.xpacks.llm.document_store import DocumentStore
+    from pathway_tpu_torch.xpacks.llm.embedders import TorchEmbedder
+    from pathway_tpu_torch.xpacks.llm.parsers import ParseLocal
+    from pathway_tpu_torch.xpacks.llm.splitters import TokenCountSplitter
+
+    cuda = device.type == "cuda"
+    embedder = TorchEmbedder(None if cfg is None else Embedder(cfg, seed=0, device=device),
+                             device=device)
+    docs_in, chunk_texts = serve_documents(n_chunks)
+
+    class Docs(pw.io.python.ConnectorSubject):
+        def run(self):
+            for s in range(0, len(docs_in), docs_commit):
+                part = docs_in[s:s + docs_commit]
+                self.next_batch({"data": [d for d, _ in part], "_metadata": [m for _, m in part]})
+                self.commit()
+
+    def admitted() -> float:
+        code, text = http_get(mport, "/metrics")
+        series = parse_exposition(text)
+        fams = sorted({name for name, _ in series if name.startswith("pathway_serve_")})
+        if code != 200 or "pathway_serve_queries_total" not in fams:
+            raise AssertionError(f"/metrics ({code}) carries no serve-plane families: {fams}")
+        return sum(v for (name, _), v in series.items() if name == "pathway_serve_queries_total")
+
+    pw.G.clear()
+    docs = pw.io.python.read(Docs(), schema=pw.schema_from_types(data=bytes, _metadata=dict),
+                             autocommit_duration_ms=None)
+    store = DocumentStore(docs, pw.indexing.BruteForceKnnFactory(
+        dimensions=embedder.embedder.cfg.dim, embedder=embedder.embedder),
+        parser=ParseLocal(), splitter=TokenCountSplitter(max_tokens=256))
+    rng = np.random.default_rng(21)
+    queries = [chunk_texts[i].split(".")[0] for i in rng.integers(0, n_chunks, warmup + requests)]
+    mport = free_port()
+    with scoped_env({"PATHWAY_MONITORING_HTTP_PORT": str(mport)}):
+        from pathway_tpu_torch.xpacks.llm.servers import DocumentStoreServer
+
+        port = free_port()
+        server = DocumentStoreServer("127.0.0.1", port, store)
+        server.run(threaded=True, device=device, with_http_server=True)
+        wait_for_count(server, port, len(docs_in), 900)
+        a0 = admitted()
+        for q in queries[:warmup]:
+            status, body = post_json(port, "/v1/retrieve", {"query": q, "k": k})
+            if status != 200 or len(body) != k:
+                raise AssertionError(f"/v1/retrieve answered {status}: {body}")
+        ms = []
+        with counted("obs_serve", launches), kernel_inputs(captured):
+            for q in queries[warmup:]:
+                t0 = time.perf_counter()
+                status, body = post_json(port, "/v1/retrieve", {"query": q, "k": k})
+                ms.append((time.perf_counter() - t0) * 1e3)
+                if status != 200 or len(body) != k:
+                    raise AssertionError(f"/v1/retrieve answered {status}: {body}")
+        moved = admitted() - a0
+        stop_server(server)
+    if moved != warmup + requests:
+        raise AssertionError(f"pathway_serve_queries_total moved by {moved}, not the "
+                             f"{warmup + requests} requests sent")
+    per = launches["obs_serve"]
+    if cuda and (per["masked_attention"] != 6 * requests or per["knn_topk"] != requests):
+        raise AssertionError(f"the timed requests launched {per}; each request launches 6 "
+                             f"masked_attention and 1 knn_topk")
+    return {"p50": float(np.percentile(ms, 50)), "p95": float(np.percentile(ms, 95)),
+            "p99": float(np.percentile(ms, 99)), "admitted": moved, "n_docs": len(docs_in)}
+
+
+def run_observability(device, *, rows: int = 1 << 22, commit: int = 1 << 16,
+                      groups: int = 1 << 16, reps: int = OBS_REPS, n_chunks: int = 4096,
+                      docs_commit: int = 256, requests: int = 64, warmup: int = 4, k: int = 3,
+                      serve_p50: float | None = None, threshold: int | None = None,
+                      split: bool = False, cfg=None) -> dict:
+    """Phase 21; sizes as the defaults say on the card (a CPU rehearsal passes small ones, a
+    lower expression ``threshold`` and a small encoder; ``split`` adds an arm for each default
+    hook alone). Returns the arms' rates and overheads,
+    the scrapes, the observed serve's latencies, the kernels held against their plain versions
+    and the launch counts by path."""
+    import tempfile
+
+    from pathway_tpu_torch.internals import expression_compiler as ec
+
+    cuda = device.type == "cuda"
+    card = card_line() if cuda else "cpu"
+    start = time.perf_counter()
+    launches: dict = {}
+    vm_captured: dict = {}
+    serve_captured: dict = {}
+    saved_threshold = ec.JIT_THRESHOLD
+    ec.JIT_THRESHOLD = threshold or saved_threshold
+    with tempfile.TemporaryDirectory(prefix="obs-") as work, scoped_env({
+            "PATHWAY_INGEST_COALESCE_WINDOWS": "0", "PATHWAY_MESH_EXCHANGE": "0",
+            "PATHWAY_ASYNC_EXEC": None, "PATHWAY_SIGNALS_SAMPLE_S": "0.25"}):
+        api = run_observed_table_api(device, rows=rows, commit=commit, groups=groups, reps=reps,
+                                     launches=launches, captured=vm_captured, work=work,
+                                     arms={**OBS_ARMS, **(OBS_SPLIT_ARMS if split else {})})
+    ec.JIT_THRESHOLD = saved_threshold
+    rates = ", ".join(f"{arm} {' and '.join(f'{r:.1f}' for r in v)}"
+                      for arm, v in api["rates"].items())
+    overheads = ", ".join(f"{arm} {v * 100:.2f}%" for arm, v in api["overhead"].items())
+    log(f"obs (a): rows/s by arm ({reps} runs each, alternated): {rates}; overhead against bare: "
+        f"{overheads} (the reference's budget: 3% a hook) [{card}]")
+    scrapes = api["scrapes"]
+    metrics_p50 = ", ".join(f"{sc['metrics_p50_ms']:.3f}" for sc in scrapes)
+    all_p50 = ", ".join(f"{sc['all_p50_ms']:.3f}" for sc in scrapes)
+    log(f"obs (a): scrape p50: /metrics {metrics_p50} ms, every endpoint {all_p50} ms (host "
+        f"clock, every {OBS_SCRAPE_S} s during the observed runs) [{card}]")
+    with scoped_env({"PATHWAY_THREADS": "1", "PATHWAY_MESH_EXCHANGE": "0"}):
+        serve = run_observed_serve(device, n_chunks=n_chunks, docs_commit=docs_commit,
+                                   requests=requests, warmup=warmup, k=k, launches=launches,
+                                   captured=serve_captured, cfg=cfg)
+    beside = f"; phase 12's p50 {serve_p50:.3f} ms" if serve_p50 is not None else ""
+    log(f"obs (b): DocumentStoreServer over {serve['n_docs']} documents of {n_chunks} chunks "
+        f"with the monitoring server on: /v1/retrieve (k={k}) p50 {serve['p50']:.3f} ms, p95 "
+        f"{serve['p95']:.3f} ms, p99 {serve['p99']:.3f} ms over {requests} after {warmup} "
+        f"untimed{beside}; pathway_serve_queries_total moved by {serve['admitted']:.0f}; "
+        f"launches {launches['obs_serve']} [{card}]")
+    held = None
+    if cuda:
+        vm = check_first_program(device, vm_captured)
+        kernels = check_phase_kernels(serve_captured, label="phase 21")
+        held = {"vm_err": vm["max_abs_err"], **kernels}
+        log(f"obs: expression_vm on the observed arm's own program ({vm['instructions']} "
+            f"instructions, {vm['rows']} rows) bitwise equal to its plain version; "
+            f"masked_attention at {kernels['attention_shape']} and knn_topk at (q, n, d, k) = "
+            f"{kernels['knn_shape']} on a request's own inputs: max |err| "
+            f"{kernels['attention_err']:.3e} and {kernels['knn_err']:.3e} [{card}]")
+        for path in launches:
+            name = "expression_vm" if path.startswith("obs_") and path != "obs_serve" \
+                else "masked_attention"
+            if not launches[path][name]:
+                raise AssertionError(f"{name} not launched on the {path} path")
+    seconds = time.perf_counter() - start
+    log(f"obs: the phase took {seconds:.1f} s of its {OBS_BUDGET_S:.0f} [{card}]")
+    return {"launches": launches, "rates": api["rates"], "mean": api["mean"],
+            "overhead": api["overhead"], "scrapes": scrapes, "serve": serve, "held": held,
+            "s": seconds}
 
 
 def main() -> int:
@@ -7060,6 +7630,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     qa = run_qa(device)
 
+    phase("the observability plane")
+    torch.cuda.empty_cache()
+    obs = run_observability(device, serve_p50=serve["rows"]["p50"])
+
     by_path = {**engine["device_ms_by_path"], **api["device_ms_by_path"]}
     all_launches = {**engine["launches"], **api["launches"]}
     for name in PATH_KERNELS:
@@ -7077,12 +7651,12 @@ def main() -> int:
         "masked_attention": ("pathway_tpu_torch/csrc/masked_attention.cu",
                              "pathway_tpu/models/embedder.py:90",
                              max(attn_err, times["masked_attention"]["err"],
-                                 qa["held"]["attention_err"])),
+                                 qa["held"]["attention_err"], obs["held"]["attention_err"])),
         "masked_attention_bwd": ("pathway_tpu_torch/csrc/masked_attention_bwd.cu",
                                  "pathway_tpu/models/pipeline.py:72",
                                  max(bwd_err, times["masked_attention_bwd"]["err"])),
         "knn_topk": ("pathway_tpu_torch/csrc/knn_topk.cu", "pathway_tpu/ops/knn.py:46",
-                     max(knn_err, qa["held"]["knn_err"])),
+                     max(knn_err, qa["held"]["knn_err"], obs["held"]["knn_err"])),
         "infonce": ("pathway_tpu_torch/csrc/infonce.cu", "pathway_tpu/models/pipeline.py:61",
                     nce_err),
         "ring_attention": ("pathway_tpu_torch/csrc/ring_attention.cu",
@@ -7094,7 +7668,8 @@ def main() -> int:
                             "pathway_tpu/parallel/exchange.py:51", engine["exchange_err"]),
         "expression_vm": ("pathway_tpu_torch/csrc/expression_vm.cu",
                           "pathway_tpu/internals/expression_compiler.py:272",
-                          max(api["max_abs_err"], connectors["held"]["max_abs_err"])),
+                          max(api["max_abs_err"], connectors["held"]["max_abs_err"],
+                              obs["held"]["vm_err"])),
     }
     kernels = []
     for name, (source, replaces, err) in sources.items():
@@ -7113,7 +7688,8 @@ def main() -> int:
                    **{p: c[name] for p, c in nexmark["launches"].items()},
                    **{p: c[name] for p, c in stdlib["launches"].items()},
                    **{p: c[name] for p, c in connectors["launches"].items()},
-                   **{p: c[name] for p, c in qa["launches"].items()}}
+                   **{p: c[name] for p, c in qa["launches"].items()},
+                   **{p: c[name] for p, c in obs["launches"].items()}}
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,

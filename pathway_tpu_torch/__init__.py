@@ -176,6 +176,9 @@ Duration = _dt.DURATION
 # import system keeps it under its own name, where ``from .utils.filters import ...`` finds it.
 from .stdlib import utils  # noqa: E402
 
+#: the reference's version string; the OTLP payloads carry it as ``service.version``
+__version__ = "0.1.0"
+
 __all__ = [
     "AsyncTransformer",
     "BaseCustomAccumulator",

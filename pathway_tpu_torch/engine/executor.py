@@ -26,10 +26,13 @@ persistence: the node snapshot protocol, the sources' offset protocol, the
 commit points (each tick in one worker; an agreed tick in BSP sharded runs, a
 frontier-agreed wave time under async) and recovery (``_recover``: restore
 the newest operator snapshot every worker holds, replay the input tail after
-it, seek the sources). Left out: the CLI's replay modes, and the hooks that
-are inert unless configured (chaos injection, the flight recorder, the
-profiler's operator slot, the upgrade fingerprints, key-load accounting,
-the wave spans of the tracer). The rescale protocol (``RESHARD``,
+it, seek the sources). The observability hooks are the reference's: the
+profiler's operator slot (``PATHWAY_PROFILE``, default on), key-load
+accounting on the Exchange buckets (``PATHWAY_KEYLOAD``, default on), the
+flight recorder's run, tick and async records (``PATHWAY_FLIGHT_DIR``) and
+the tracer's tick, node and commit-wave spans (``PATHWAY_TRACE_FILE``).
+Left out: the CLI's replay modes, chaos injection and the upgrade
+fingerprints. The rescale protocol (``RESHARD``,
 ``split_state``/``merge_states``) and the spill budget's hook after each tick
 are the reference's.
 """
@@ -123,10 +126,23 @@ class EngineStats:
         self.wave_duration = LogHistogram()
         #: cumulative per-phase ns across waves (critpath.PHASES keys)
         self.wave_stage_ns: dict[str, int] = {}
-        #: waves held per worker id (str keys)
+        #: waves held per worker id (str keys — prometheus label values)
         self.wave_held_total: dict[str, int] = {}
         #: per-worker WaveRecorder ring, attached by the async loop
         self._waves: Any = None
+        # -- key-group load accounting (observability/keyload.py) --
+        #: bounded SpaceSaving sketch over routed exchange buckets;
+        #: None when PATHWAY_KEYLOAD=0
+        from ..observability.keyload import maybe_account
+
+        self.keyload = maybe_account()
+        # -- continuous profiling (observability/profiler.py) --
+        #: the worker thread's operator-context slot: the executor (and
+        #: fused chains, which see stats via node._engine_stats) publish
+        #: the executing operator's label here so the sampling profiler
+        #: tags stacks with /attribution's labels; None when
+        #: PATHWAY_PROFILE=0 — one None check per node on the hot path
+        self._op_slot: Any = None
 
     def heartbeat(self) -> None:
         import time as _time
@@ -745,13 +761,24 @@ class Executor:
         #: (set by the streaming loops from connector stamps); consumed
         #: and cleared by _tick to observe ingest→emit latency
         self._next_tick_ingest_ns: int | None = None
+        self._tick_seq = 0
+        #: perf_counter_ns of the last flight-recorded tick (throttle)
+        self._flight_tick_ns = 0
         for node in self.nodes:
             # Exchange nodes report per-tick sent/received row counts into
-            # the worker's stats (backpressure signals)
+            # the worker's stats (backpressure signals on /metrics)
             node._engine_stats = self.stats
+            # the /attribution label the profiler's op slot publishes
+            # while this node executes (fused chains refine to members)
+            node._op_label = f"{type(node).__name__}#{node.node_id}"
         from ..internals.tracing import get_tracer
 
         self.tracer = get_tracer()
+        # black box (observability/flightrecorder.py): None unless a flight
+        # dir is configured — one None check per tick when disarmed
+        from ..observability.flightrecorder import get_recorder
+
+        self.flight = get_recorder()
         # spill-to-disk state budget (engine/spill.py): None unless
         # PATHWAY_STATE_MEMORY_BUDGET_MB is set — one None check per tick
         from . import spill as _spill
@@ -783,8 +810,13 @@ class Executor:
         return delta.take(np.flatnonzero(shards == self.ctx.worker_id))
 
     def run(self) -> None:
+        from ..observability import profiler as _profiler
         from . import keys as K
 
+        # register this worker thread with the sampling profiler: _tick
+        # (and fused chains) publish the executing operator's label into
+        # the slot; None when PATHWAY_PROFILE=0
+        self.stats._op_slot = _profiler.current_op_slot()
         # stateless dataflows (no keyed operator state anywhere) suspend
         # 128-bit key registration for the duration of the run: conflation
         # can only corrupt coexisting keyed STATE, and the registry probe
@@ -795,6 +827,13 @@ class Executor:
         for node in self.nodes:
             if isinstance(node, RealtimeSource):
                 node._keys_register = not stateless
+        if self.flight is not None:
+            self.flight.record(
+                "run.start",
+                worker=self.ctx.worker_id,
+                n_workers=self.ctx.n_workers,
+                n_nodes=len(self.nodes),
+            )
         try:
             if self.tracer is not None:
                 try:
@@ -813,9 +852,28 @@ class Executor:
                         self.tracer.flush()
             else:
                 self._run_inner()
+            if self.flight is not None:
+                self.flight.record(
+                    "run.end",
+                    worker=self.ctx.worker_id,
+                    ticks=self.stats.ticks,
+                    rows=self.stats.rows_total,
+                )
+        except BaseException as e:
+            if self.flight is not None:
+                # the ring is the only record a crashed worker leaves —
+                # name the failure before it propagates
+                self.flight.record(
+                    "run.error", worker=self.ctx.worker_id, error=repr(e)
+                )
+            raise
         finally:
             if stateless:
                 K._suspend_registration(-1)
+            # a parked pool thread must not keep counting as an engine
+            # thread in the profiler's op-tagged accounting
+            self.stats._op_slot = None
+            _profiler.release_op_slot()
 
     def _run_inner(self) -> None:
         realtime = [n for n in self.nodes if isinstance(n, RealtimeSource)]
@@ -1109,7 +1167,12 @@ class Executor:
         epoch = 0
         stop_seen = False
         term_votes: QuiesceVotes | None = None
+        stall_logged = False
         participated_final = False
+        if self.flight is not None:
+            self.flight.record(
+                "async.start", worker=ctx.worker_id, n_workers=ctx.n_workers
+            )
         try:
             plane.broadcast_status({"ep": 0})
             while True:
@@ -1239,6 +1302,17 @@ class Executor:
                     if term_votes.step():
                         break
                 if not worked:
+                    # stall observability: name a peer that stopped
+                    # advancing while others make progress (once)
+                    if not stall_logged:
+                        stalled = plane.tracker.stalled(now, 30.0)
+                        if stalled and self.flight is not None:
+                            self.flight.record(
+                                "async.stall",
+                                worker=ctx.worker_id,
+                                stalled=stalled,
+                            )
+                            stall_logged = True
                     park_t0 = _time.perf_counter_ns()
                     plane.waker.wait(0.005)
                     plane.waker.clear()
@@ -1257,6 +1331,11 @@ class Executor:
                     plane, clock, epoch, fin=True
                 )
                 epoch += 1
+            if self.flight is not None:
+                self.flight.record(
+                    "async.end", worker=ctx.worker_id,
+                    frontier=plane.tracker.local(), epochs=epoch,
+                )
         finally:
             for src in owned:
                 src.stop()
@@ -1287,6 +1366,11 @@ class Executor:
         # dwell accumulated since then are this wave's pipeline phases
         t_entry = _time.perf_counter_ns()
         mark = self._wave_mark
+        if self.flight is not None:
+            self.flight.record(
+                "wave.phase", worker=ctx.worker_id, epoch=epoch,
+                phase="frontier_wait",
+            )
         ready_clock = max(clock, plane.tracker.local())
         # the ready broadcast carries this worker's wave-entry wall time
         # and its pre-wave busy time so every worker elects the holding
@@ -1352,14 +1436,34 @@ class Executor:
         clock = max(clock, T)
         plane.hold_above = T
         t_ready = _time.perf_counter_ns()
+        tracer = self.tracer
+        if tracer is not None:
+            tracer.complete("wave.frontier_wait", t_entry, {"epoch": epoch})
+        if self.flight is not None:
+            self.flight.record(
+                "wave.phase", worker=ctx.worker_id, epoch=epoch,
+                phase="settle", time=T,
+            )
         votes = QuiesceVotes(ctx.n_workers, ctx.worker_id, f"cw{epoch}")
         busy_before_settle = self._busy_ns_total
         self._async_settle(plane, votes, deadline, label=T)
         t_settled = _time.perf_counter_ns()
         settle_rounds = votes.round
+        if tracer is not None:
+            tracer.complete(
+                "wave.settle", t_ready,
+                {"epoch": epoch, "rounds": settle_rounds},
+            )
         if plane.tracker.local() < T:
             plane.tracker.advance_local(T, now=_time.monotonic())
+        if self.flight is not None:
+            self.flight.record(
+                "wave.phase", worker=ctx.worker_id, epoch=epoch,
+                phase="snapshot", time=T,
+            )
         self.persistence.commit(T)
+        if tracer is not None:
+            tracer.complete("wave.snapshot", t_settled, {"epoch": epoch})
         self._last_clock = max(self._last_clock, T)
         plane.hold_above = None
         plane.broadcast_status({"wc": -1, "cr": None, "ep": epoch + 1})
@@ -1408,6 +1512,24 @@ class Executor:
         )
         self.stats.note_wave(doc, duration_ns)
         self._wave_mark = (self._busy_ns_total, plane.dwell_total_ns, t_end)
+        if self.flight is not None:
+            self.flight.record(
+                "async.commit", worker=ctx.worker_id, epoch=epoch, time=T,
+                holder=doc["holder"], critical=doc["critical_stage"],
+                dur_ms=round(duration_ns / 1e6, 3), rounds=settle_rounds,
+            )
+        if tracer is not None:
+            # the wave.commit parent is emitted LAST but began at
+            # t_entry: complete events nest by time-range enclosure on
+            # the worker's track, so the merged Perfetto timeline shows
+            # the wave span wrapping its phase children above
+            tracer.complete(
+                "wave.commit", t_entry,
+                {
+                    "epoch": epoch, "T": T, "holder": doc["holder"],
+                    "critical": doc["critical_stage"],
+                },
+            )
         return clock, was_final
 
     def _async_settle(self, plane, votes, deadline: float,
@@ -1592,6 +1714,7 @@ class Executor:
     def _tick(self, time: int, source_emissions: list[tuple[SourceNode, Delta]]) -> None:
         import time as _wall
 
+        self._tick_seq += 1
         tracer = self.tracer
         timed = tracer is not None or self.stats.detailed
         # tick duration is always histogrammed — two clock reads per tick
@@ -1620,7 +1743,13 @@ class Executor:
                 if src.persistent_id is not None:
                     self.persistence.record(time, src.persistent_id, delta)
         self._last_clock = max(self._last_clock, time) if time != END_TIME else self._last_clock
+        op_slot = self.stats._op_slot
         for node in self.nodes:
+            if op_slot is not None:
+                # publish the executing operator to the sampling profiler
+                # (one GIL-atomic attribute store per node; fused chains
+                # refine this to member labels as they sweep)
+                op_slot.label = node._op_label
             if timed:
                 node_t0 = _wall.perf_counter_ns()
             out_parts: list[Delta] = []
@@ -1693,6 +1822,10 @@ class Executor:
                     self.stats.note_node_time(
                         node, _wall.perf_counter_ns() - node_t0
                     )
+        if op_slot is not None:
+            # between sweeps nothing is executing — a parked worker's
+            # samples must not carry the last node's label
+            op_slot.label = None
         sweep_ns = _wall.perf_counter_ns() - tick_t0
         self.stats.tick_duration.observe(sweep_ns)
         self._busy_ns_total += sweep_ns
@@ -1736,6 +1869,24 @@ class Executor:
                     },
                 ),
             )
+        if self.flight is not None:
+            # throttled to one record per 10ms: the ring's job is the
+            # FINAL ticks before a crash, and async execution sweeps more
+            # often than the BSP loop ticked (arrival sweeps) — recording
+            # every sweep would rotate rarer forensic records (slo.alert,
+            # comm.broken) out of the ring faster
+            now_ns = _wall.perf_counter_ns()
+            if now_ns - self._flight_tick_ns >= 10_000_000:
+                self._flight_tick_ns = now_ns
+                self.flight.record(
+                    "tick",
+                    worker=self.ctx.worker_id,
+                    time=time if time != END_TIME else -1,
+                    seq=self._tick_seq - 1,
+                    dur_ms=round((now_ns - tick_t0) / 1e6, 3),
+                    rows=self.stats.rows_total,
+                    out=self.stats.output_rows,
+                )
         if self._state_budget is not None:
             # after the persistence commit: spilled segments materialize
             # into snapshots, so shedding right after one avoids paying an

@@ -47,8 +47,10 @@ expression register machine (``ops/expression_kernel.py``, the CUDA kernel
 ANDed, in one launch per batch past the reference's gates (threshold,
 warm-up, no object columns), on the device the runner lowered the chain's
 expressions for. A failure to build or launch the program raises; it does
-not fall back to the numpy tier. The per-operator EWMA attribution of the
-jitted path is left out with the observability hub.
+not fall back to the numpy tier. A program's run is attributed to the
+members by the reference's EWMA cost split of the numpy tier
+(``_attribute_by_weight``), and the profiler's operator slot names the
+executing member as the reference's does.
 """
 
 from __future__ import annotations
@@ -332,6 +334,9 @@ class FusedChain(Node):
         #: EngineStats.note_node keys emitted-row counts by these, so
         #: the rows and time series share labels inside a fused chain
         self.attribution_labels = tuple(self._labels)
+        #: EWMA per-member cost weights (ns) — the program tier reports
+        #: one launch's time; attribution splits it by these
+        self._weights = np.ones(len(members), dtype=np.float64)
         self._member_kind = [
             "filter" if isinstance(m, ops.Filter) else "rowwise"
             for m in members
@@ -464,16 +469,10 @@ class FusedChain(Node):
         d = ins[0]
         if d is None or not len(d):
             return None
-        # the program tier runs outside the fallback's try: past its gates
-        # a failure raises, it never falls back to the numpy tier
-        kernel_out = self._try_kernel(d)
-        if kernel_out is not None:
-            cols, mask = kernel_out
-            return self._exit(d.keys, cols, d.diffs, mask)
         stats = getattr(self, "_engine_stats", None)
         detailed = stats is not None and stats.detailed
         tracer = self._tracer()
-        t0 = _wall.perf_counter_ns() if tracer is not None else 0
+        t0 = _wall.perf_counter_ns() if tracer is not None or detailed else 0
         fell_back = False
         # progress record for the fallback: [next member index, cols,
         # keys, diffs, pending mask]. Completed members are NOT re-run
@@ -481,6 +480,16 @@ class FusedChain(Node):
         # creation logs once, exactly like the per-node path).
         state: list = [0, d.data, d.keys, d.diffs, None]
         try:
+            # the program tier runs outside the fallback's try: past its
+            # gates a failure raises, it never falls back to the numpy tier
+            kernel_out = self._try_kernel(d)
+            if kernel_out is not None:
+                cols, mask = kernel_out
+                if detailed:
+                    self._attribute_by_weight(
+                        stats, _wall.perf_counter_ns() - t0
+                    )
+                return self._exit(d.keys, cols, d.diffs, mask)
             try:
                 return self._process_fused(d, stats if detailed else None, state)
             except Exception:
@@ -521,9 +530,13 @@ class FusedChain(Node):
             diffs = diffs[idx]
             cols = {c: np.asarray(a)[idx] for c, a in cols.items()}
         d = Delta(keys=keys, data=dict(cols), diffs=diffs)
+        es = getattr(self, "_engine_stats", None)
+        op_slot = es._op_slot if es is not None else None
         for m in self.members[start:]:
             if d is None or not len(d):
                 return None
+            if op_slot is not None:
+                op_slot.label = f"{type(m).__name__}#{m.node_id}"
             if stats is not None:
                 t0 = _wall.perf_counter_ns()
             d = m.process(time, [d])
@@ -546,7 +559,14 @@ class FusedChain(Node):
         keys, diffs = d.keys, d.diffs
         mask: np.ndarray | None = None
         member_ns = None if stats is None else np.zeros(len(self.members))
+        es = getattr(self, "_engine_stats", None)
+        op_slot = es._op_slot if es is not None else None
         for i, (m, kind) in enumerate(zip(self.members, self._member_kind)):
+            if op_slot is not None:
+                # refine the executor's chain label to the executing
+                # MEMBER — /attribution ranks member labels, and profiler
+                # samples must join against that ranking
+                op_slot.label = self._labels[i]
             t0 = _wall.perf_counter_ns() if stats is not None else 0
             n = len(keys)
             if kind == "rowwise":
@@ -629,9 +649,21 @@ class FusedChain(Node):
     # -- attribution + tracing ------------------------------------------
 
     def _note_members(self, stats, member_ns) -> None:
+        total = float(member_ns.sum())
+        if total > 0:
+            # EWMA cost split: the program tier re-uses it
+            self._weights = 0.8 * self._weights + 0.2 * member_ns
         for label, ns in zip(self._labels, member_ns):
             if ns > 0:
                 stats.note_op_time(label, int(ns))
+
+    def _attribute_by_weight(self, stats, total_ns: int) -> None:
+        w = self._weights
+        tot = float(w.sum()) or 1.0
+        for label, wi in zip(self._labels, w):
+            share = int(total_ns * (wi / tot))
+            if share > 0:
+                stats.note_op_time(label, share)
 
     def _tracer(self):
         if not self._tracer_box:

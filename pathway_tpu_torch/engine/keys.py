@@ -33,8 +33,8 @@ tests hold the native paths against, bit for bit (``*_plain``); nothing else
 calls them. The registry's cold tier is the reference's: with
 ``PATHWAY_KEY_REGISTRY_SPILL_DIR`` (or ``PATHWAY_STATE_SPILL_DIR``) set, keys
 past the cap keep their 128-bit check in hashed blobs on disk
-(``_ColdKeyTier``) instead of raising. Left out: the flight recorder's
-cap-hit event.
+(``_ColdKeyTier``) instead of raising. The first cap hit is logged and
+recorded in the flight ring (``keyreg.cap_hit``), as the reference does.
 """
 
 from __future__ import annotations
@@ -576,6 +576,16 @@ class _KeyRegistry:
             "key registry reached PATHWAY_KEY_REGISTRY_CAP (%d): %s",
             self._cap, what,
         )
+        from ..observability.flightrecorder import get_recorder
+
+        rec = get_recorder()
+        if rec is not None:
+            rec.record(
+                "keyreg.cap_hit",
+                cap=self._cap,
+                mode=self.mode,
+                entries=self._hot.stats()[0],
+            )
 
     def register(self, lo: np.ndarray, hi: np.ndarray) -> int:
         """Index of the first pair whose LO lane is known under another HI

@@ -306,16 +306,31 @@ class Exchange(Node):
             return K.mix_columns(cols, len(d), salt=self._spec[2])
         raise AssertionError(self._spec)
 
+    def _account_keyload(self, stats, rk, shards, d: Delta) -> None:
+        """Feed the routed batch into the worker's key-group load sketch
+        (observability/keyload.py; PATHWAY_KEYLOAD=0 keeps this a single
+        attribute check). Byte size is the columns' buffer sizes — an
+        O(columns) estimate, no data pass."""
+        acct = getattr(stats, "keyload", None)
+        if acct is None or rk is None:
+            return
+        nbytes = getattr(d.keys, "nbytes", 0)
+        for col in d.data.values():
+            nbytes += getattr(col, "nbytes", 0)
+        acct.observe_exchange(rk, shards, nbytes)
+
     def process(self, time: int, ins: list[Delta | None]) -> Delta | None:
         ctx = self._ctx
         n_w = ctx.n_workers
         d = ins[0]
         buckets: list[Delta | None] = [None] * n_w
+        rk = shards = None
         if d is not None and len(d):
             if self._spec[0] == "gather":
                 buckets[0] = d
             else:
-                shards = K.shard_of(self._route_keys(d), n_w)
+                rk = self._route_keys(d)
+                shards = K.shard_of(rk, n_w)
                 for w in range(n_w):
                     ix = np.flatnonzero(shards == w)
                     if len(ix):
@@ -343,6 +358,7 @@ class Exchange(Node):
                     sent_rows + (len(own) if own is not None else 0),
                     sum(len(r) for r in received),
                 )
+                self._account_keyload(stats, rk, shards, d)
             if not received:
                 return None
             return concat_deltas(received, self.column_names)
@@ -363,6 +379,7 @@ class Exchange(Node):
                 sum(len(b) for b in buckets if b is not None),
                 sum(len(r) for r in received),
             )
+            self._account_keyload(stats, rk, shards, d)
         if not received:
             return None
         return concat_deltas(received, self.column_names)

@@ -1,8 +1,9 @@
 """Spill-to-disk state tier: per-process memory budget + scratch blob store.
 
-Copy of ``pathway_tpu/engine/spill.py``. Left out: the ``state.spill``
-chaos site, and the /metrics gauges, signals plane and ``top`` memory line
-that read :func:`memory_snapshot` there (this module keeps the function).
+Copy of ``pathway_tpu/engine/spill.py``. :func:`memory_snapshot` feeds the
+``/metrics`` memory gauges and the signals plane (``observability/hub.py``).
+Left out: the ``state.spill`` chaos site, and the ``top`` command's memory
+line.
 
 The two unbounded per-operator stores (``_SortedSide`` join runs and
 groupby arenas, ``engine/operators.py``) and the key registry's cold tier

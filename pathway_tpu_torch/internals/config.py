@@ -11,10 +11,15 @@ among them). The spill tier reads ``PATHWAY_STATE_MEMORY_BUDGET_MB`` and
 ``PATHWAY_STATE_SPILL_DIR`` (``engine/spill.py``), the key registry
 ``PATHWAY_KEY_REGISTRY_CAP``, ``PATHWAY_KEY_REGISTRY_OVERFLOW`` and
 ``PATHWAY_KEY_REGISTRY_SPILL_DIR`` (``engine/keys.py``), where and as the
-reference reads them. The replay
-storage (the CLI's record/replay), fault plans, supervision, monitoring and the
-cluster address book are left out with the runner branches that use them;
-persistence takes its settings from ``pw.persistence.Config``.
+reference reads them. The monitoring fields (``PATHWAY_TRACE_FILE``,
+``PATHWAY_MONITORING_SERVER``, ``PATHWAY_MONITORING_HTTP_SERVER``,
+``PATHWAY_MONITORING_HTTP_HOST``, ``PATHWAY_MONITORING_HTTP_PORT``,
+``PATHWAY_TELEMETRY_FLUSH_S``, ``PATHWAY_HEALTH_WEDGE_S``) are the
+reference's, with ``process_id`` (``PATHWAY_PROCESS_ID``), which the hub and
+the HTTP server's port read. The replay storage (the CLI's record/replay),
+fault plans, supervision and the cluster address book are left out with the
+runner branches that use them; persistence takes its settings from
+``pw.persistence.Config``.
 """
 
 from __future__ import annotations
@@ -53,12 +58,45 @@ def _env_float(name: str, default: float) -> float:
 
 @dataclass
 class PathwayConfig:
+    monitoring_server: str | None = field(
+        default_factory=lambda: os.environ.get("PATHWAY_MONITORING_SERVER"))
+    #: span tracing → Chrome-trace JSON (internals/tracing.py; the OTLP
+    #: telemetry analog of src/engine/telemetry.rs for a no-egress world)
+    trace_file: str | None = field(
+        default_factory=lambda: os.environ.get("PATHWAY_TRACE_FILE"))
+    # NOTE: PATHWAY_RUN_ID / PATHWAY_FLIGHT_DIR / PATHWAY_FLIGHT_RING_KB are
+    # deliberately NOT snapshotted here — the tracer must initialize even
+    # when config validation refuses the worker layout, and the flight
+    # recorder re-reads its env per restart generation; both read the
+    # environment directly (internals/tracing.py,
+    # observability/flightrecorder.py).
+    # observability (engine/http_server.py + observability/)
+    #: force the monitoring HTTP server on without a code change (the
+    #: with_http_server=True analog for spawn-style deployments)
+    monitoring_http_server: bool = field(
+        default_factory=lambda: _env_bool("PATHWAY_MONITORING_HTTP_SERVER"))
+    #: bind host for /metrics + probes; loopback unless opted into
+    monitoring_http_host: str = field(
+        default_factory=lambda: os.environ.get(
+            "PATHWAY_MONITORING_HTTP_HOST", "127.0.0.1"))
+    #: base port; process p serves on base + p (http_server.rs convention)
+    monitoring_http_port: int = field(
+        default_factory=lambda: _env_int(
+            "PATHWAY_MONITORING_HTTP_PORT", 20000))
+    #: periodic telemetry flush cadence (observability/exporter.py);
+    #: 0 disables, leaving only the end-of-run export
+    telemetry_flush_s: float = field(
+        default_factory=lambda: _env_float("PATHWAY_TELEMETRY_FLUSH_S", 60.0))
+    #: /healthz fails when an unfinished executor's heartbeat is older
+    health_wedge_timeout_s: float = field(
+        default_factory=lambda: _env_float("PATHWAY_HEALTH_WEDGE_S", 30.0))
     #: route dense Exchange columns through the card (parallel/meshcomm.py)
     #: instead of host memory
     mesh_exchange: bool = field(
         default_factory=lambda: _env_bool("PATHWAY_MESH_EXCHANGE"))
     threads: int = field(default_factory=lambda: _env_int("PATHWAY_THREADS", 1))
     processes: int = field(default_factory=lambda: _env_int("PATHWAY_PROCESSES", 1))
+    process_id: int = field(default_factory=lambda: _env_int("PATHWAY_PROCESS_ID", 0))
 
     def __post_init__(self) -> None:
         if self.threads * self.processes > MAX_WORKERS:

@@ -17,10 +17,15 @@ runs, ``Subscribe``'s ``skip_until`` at the persisted frontier, and the
 delivery plane (``io/delivery.py``): one ``DeliverySink`` a sink behind a
 ``Subscribe``, transactional (ack cursor in the worker's namespace, release
 at commit boundaries) on worker 0 when persistence is on, continuous
-otherwise. Left out: the multi-process cluster and cross-host mesh branches,
-the CLI's replay mode, the observability hub, HTTP server, dashboard and
-telemetry export, and ``Table.named`` pins (the port's nodes carry no
-upgrade identity).
+otherwise. The observability branch is the reference's: with
+``with_http_server`` (or ``PATHWAY_MONITORING_HTTP_SERVER``) an
+``ObservabilityHub`` over every worker's stats, its signals plane and
+profiler, and the monitoring HTTP server (``engine/http_server.py``); the
+periodic telemetry flusher (``PATHWAY_MONITORING_SERVER``, the trace file);
+the dashboard at ``monitoring_level``; the tracer's ``graph.build`` span and
+its flush and OTLP export at the run's end. Left out: the multi-process
+cluster and cross-host mesh branches, the CLI's replay mode, and
+``Table.named`` pins (the port's nodes carry no upgrade identity).
 """
 
 from __future__ import annotations
@@ -50,6 +55,8 @@ class GraphRunner:
         self._nodes: list[Node] = []
         self.executor: Executor | None = None
         self.persistence: Any = None  # PersistenceManager when pw.run has one
+        self.monitoring_level: int = 0
+        self.with_http_server: bool = False
         #: request_stop() may fire while the graph is still building (before
         #: the executor exists); the flag is handed to the executor on
         #: creation so early stops aren't lost
@@ -60,11 +67,98 @@ class GraphRunner:
     def _env(self) -> ColumnEnv:
         return ColumnEnv(device=self.device)
 
+    def _want_http_server(self) -> bool:
+        if self.with_http_server:
+            return True
+        try:
+            from .config import get_pathway_config
+
+            return get_pathway_config().monitoring_http_server
+        except RuntimeError:
+            return False
+
+    def _start_observability(self, workers, comm=None):
+        """Hub + HTTP endpoints + periodic telemetry flusher for this
+        process's workers. Returns (http_server, flusher, hub); each may
+        be None. ``workers`` is [(worker_id, EngineStats), ...]."""
+        from ..observability import ObservabilityHub
+        from ..observability.exporter import start_periodic_flusher
+        from .config import get_pathway_config
+
+        http_server = None
+        hub = None
+        if self._want_http_server():
+            from ..engine.http_server import start_http_server
+
+            try:
+                hub = ObservabilityHub.from_config(get_pathway_config())
+            except RuntimeError:
+                hub = ObservabilityHub()
+            for w, stats in workers:
+                hub.register_worker(w, stats)
+                # /metrics serves per-operator latency histograms, which
+                # need per-node timing on (the dashboard's ALL level)
+                stats.detailed = True
+            if comm is not None:
+                hub.register_comm(comm)
+            # signals plane: windowed time-series sampling of every
+            # registered worker + comm backend, SLO rule evaluation, and
+            # the /query‖/attribution‖/alerts surface (observability/
+            # timeseries.py, slo.py) — lives and dies with the hub
+            hub.start_signals()
+            try:
+                http_server, _ = start_http_server(hub)
+            except OSError as e:
+                # telemetry must not fail the run it observes: a taken
+                # port (another pipeline on this host) degrades to
+                # metrics-off, it does not abort the dataflow
+                import warnings
+
+                warnings.warn(
+                    f"monitoring HTTP server failed to start: {e}; "
+                    "continuing without /metrics",
+                    RuntimeWarning,
+                )
+                http_server = None
+        #: bound server exposed for tests/tools needing the ephemeral port
+        self._http_server_for_tests = http_server
+        flusher = start_periodic_flusher(hub)
+        return http_server, flusher, hub
+
+    @staticmethod
+    def _stop_observability(http_server, flusher, hub=None) -> None:
+        if flusher is not None:
+            flusher.stop()
+        if hub is not None:
+            hub.close()  # signals sampler thread
+        if http_server is not None:
+            http_server.shutdown()
+            http_server.server_close()
+
     def _execute(self) -> None:
         self.executor = Executor(self._nodes, persistence=self.persistence)
         if self.stop_requested:
             self.executor.request_stop()
-        self.executor.run()
+        stop_dashboard = None
+        http_server, flusher, _hub = self._start_observability(
+            [(0, self.executor.stats)]
+        )
+        if self.monitoring_level:
+            from .monitoring import start_dashboard
+
+            stop_dashboard = start_dashboard(
+                self.executor.stats, self.monitoring_level
+            )
+        try:
+            self.executor.run()
+        finally:
+            if stop_dashboard is not None:
+                stop_dashboard()
+            self._stop_observability(http_server, flusher, _hub)
+            from .telemetry import export_from_env
+            from .tracing import get_tracer
+
+            export_from_env(get_tracer())
 
     def run_tables(self, *tables: Table, include_sinks: bool = False):
         """Build + execute; return one Capture per requested table."""
@@ -77,6 +171,7 @@ class GraphRunner:
 
     def run(self) -> None:
         from .config import get_pathway_config
+        from .tracing import get_tracer, span
 
         cfg = get_pathway_config()
         if cfg.processes > 1:
@@ -87,9 +182,20 @@ class GraphRunner:
         if cfg.total_workers > 1:
             self._run_sharded(cfg)
             return
-        for sink in G.sinks:
-            self.lower_sink(sink)
-        self._execute()
+        try:
+            with span("graph.build", n_sinks=len(G.sinks)):
+                for sink in G.sinks:
+                    self.lower_sink(sink)
+            self._execute()
+        finally:
+            # a failed lowering still deserves its partial trace (executor
+            # flushes are no-ops when nothing new happened since)
+            tracer = get_tracer()
+            if tracer is not None:
+                tracer.flush()
+                from .telemetry import export_from_env
+
+                export_from_env(tracer)  # lowering-failure partial spans
 
     def _run_sharded(self, cfg) -> None:
         """Multi-worker execution (reference: timely workers over thread
@@ -111,6 +217,8 @@ class GraphRunner:
         pcfg = getattr(self, "persistence_config", None)
         managers: list[Any] = []
         executors: list[Executor] = []
+        from .tracing import span as _span
+
         errors: list[BaseException] = []
 
         def work(ex: Executor) -> None:
@@ -121,44 +229,63 @@ class GraphRunner:
                 comm.abort()
 
         # comm exists from here on: a failed build must still close it (and
-        # any managers)
+        # any managers), and still flush the partial trace
         try:
-            for w in range(n_workers):
-                worker_runner = GraphRunner(self.device)
-                if pcfg is not None:
-                    from ..persistence import PersistenceManager
+            with _span(
+                "graph.build", n_sinks=len(G.sinks), n_workers=n_workers
+            ):
+                for w in range(n_workers):
+                    worker_runner = GraphRunner(self.device)
+                    if pcfg is not None:
+                        from ..persistence import PersistenceManager
 
-                    manager = PersistenceManager(
-                        pcfg, worker_id=w, n_workers=n_workers
+                        manager = PersistenceManager(
+                            pcfg, worker_id=w, n_workers=n_workers
+                        )
+                        worker_runner.persistence = manager
+                        managers.append(manager)
+                    for sink in G.sinks:
+                        worker_runner.lower_sink(sink)
+                    executors.append(
+                        Executor(
+                            worker_runner._nodes,
+                            ctx=WorkerContext(w, n_workers, comm),
+                            persistence=worker_runner.persistence,
+                        )
                     )
-                    worker_runner.persistence = manager
-                    managers.append(manager)
-                for sink in G.sinks:
-                    worker_runner.lower_sink(sink)
-                executors.append(
-                    Executor(
-                        worker_runner._nodes,
-                        ctx=WorkerContext(w, n_workers, comm),
-                        persistence=worker_runner.persistence,
-                    )
-                )
             self.executor = executors[0]
             self._peer_executors = executors
             if self.stop_requested:
                 for ex in executors:
                     ex.request_stop()
-            threads = [
-                threading.Thread(target=work, args=(ex,), daemon=True)
-                for ex in executors
-            ]
-            for t in threads:
-                t.start()
-            for t in threads:
-                t.join()
+
+            # this process serves its workers' stats (one process: the
+            # port's runner refuses PATHWAY_PROCESSES > 1)
+            http_server, flusher, _hub = self._start_observability(
+                list(enumerate(ex.stats for ex in executors)), comm=comm
+            )
+            try:
+                threads = [
+                    threading.Thread(target=work, args=(ex,), daemon=True)
+                    for ex in executors
+                ]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join()
+            finally:
+                self._stop_observability(http_server, flusher, _hub)
         finally:
             comm.close()
             for manager in managers:
                 manager.close()
+            from .telemetry import export_from_env
+            from .tracing import get_tracer
+
+            tracer = get_tracer()
+            if tracer is not None:
+                tracer.flush()
+                export_from_env(tracer)
         if errors:
             primary = [
                 e for e in errors

@@ -7,8 +7,11 @@ exchange; with no card it raises unless the caller passes ``device="cpu"``.
 (durable state, exactly-once delivery-managed output, recovery on restart).
 Under lint mode (``internals/lintmode.py``, armed by ``analysis/lint.py``)
 ``run`` records its ``persistence_config`` and returns without building a
-runner. Left out: the CLI's record/replay environment, the monitoring
-dashboard and HTTP server, and the supervised SIGTERM wind-down.
+runner. ``monitoring_level=`` draws the dashboard (``internals/monitoring.py``)
+and ``with_http_server=True`` serves the monitoring endpoints
+(``engine/http_server.py``), as in the reference; each run re-reads
+``PATHWAY_TRACE_FILE`` (``tracing.init_from_env``). Left out: the CLI's
+record/replay environment and the supervised SIGTERM wind-down.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from typing import Any
 import torch
 
 from .graph_runner import GraphRunner
+from .monitoring import MonitoringLevel
 
 _current: dict[str, GraphRunner | None] = {"runner": None}
 _lock = threading.Lock()
@@ -27,6 +31,8 @@ _lock = threading.Lock()
 def run(
     *,
     device: str | torch.device = "cuda",
+    monitoring_level: int = MonitoringLevel.NONE,
+    with_http_server: bool = False,
     persistence_config: Any = None,
     **kwargs: Any,
 ) -> None:
@@ -35,8 +41,12 @@ def run(
     forever — stop from another thread with ``request_stop()``). With
     ``persistence_config`` (``pw.persistence.Config``) the run records its
     input, snapshots operator state and recovers from the backend's state.
-    The reference's display keywords (``debug``, ``monitoring_level``,
-    ``with_http_server``, ...) are accepted and have no effect."""
+    ``monitoring_level`` (``MonitoringLevel``) draws the live dashboard on
+    stderr; ``with_http_server`` serves ``/metrics``, ``/snapshot``,
+    ``/query``, ``/attribution``, ``/alerts``, ``/profile``, ``/healthz``
+    and ``/readyz`` on ``PATHWAY_MONITORING_HTTP_PORT`` (default 20000).
+    The reference's other keywords (``debug``, ``default_logging``,
+    ``runtime_typechecking``) are accepted and have no effect, as there."""
     from . import lintmode
 
     if lintmode.ACTIVE:
@@ -45,7 +55,12 @@ def run(
         # the analyzer reads the parse graph + this captured config
         lintmode.note_run(persistence_config)
         return
+    from .tracing import init_from_env
+
+    init_from_env()  # each pw.run re-reads PATHWAY_TRACE_FILE
     runner = GraphRunner(device=device)
+    runner.monitoring_level = monitoring_level
+    runner.with_http_server = with_http_server
     with _lock:
         _current["runner"] = runner
     try:

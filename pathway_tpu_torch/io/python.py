@@ -14,8 +14,8 @@ Copy of ``pathway_tpu/io/python.py``. Keys are derived by
 native module, as the reference's does; a columnar batch reaches the engine as
 a connector wire frame (``parallel/frames.py``), passed by reference. The
 ingest stage split (``INGEST_STAGE_STATS``, ``INGEST_CONNECTOR_STATS``) is on
-under ``PATHWAY_PROFILE`` (default on), the reference's switch; the port has
-no sampling profiler behind it.
+under ``PATHWAY_PROFILE`` (default on), the sampling profiler's switch
+(``observability/profiler.py::enabled``), as in the reference.
 """
 
 from __future__ import annotations
@@ -109,11 +109,9 @@ def _connector_stage(name: str) -> dict[str, int]:
 
 
 def _stages_on() -> bool:
-    """``PATHWAY_PROFILE`` (default on), re-read per call like the
-    reference's ``observability.profiler.enabled``."""
-    from ..internals.config import _env_bool
+    from ..observability.profiler import enabled
 
-    return _env_bool("PATHWAY_PROFILE", True)
+    return enabled()
 
 
 def _stage_sinks(conn: str):

@@ -11,8 +11,9 @@ SURVEY §2.9).
 The executor stamps wall-clock phase marks through every commit wave
 (``Executor._async_commit_wave``) and hands them here. This module is
 the pure half: holding-worker election, stage-split math, the per-wave
-document, the bounded per-worker history ring and cluster merge —
-unit-testable without threads or comm (``tests/test_torch_frontier.py``).
+document, the bounded per-worker history ring, cluster merge, and the
+``critpath`` report renderer — unit-testable without threads or comm
+(``tests/test_torch_frontier.py``, ``tests/test_torch_observability.py``).
 
 Wave phases (``PHASES`` order is also the tie-break order):
 
@@ -40,9 +41,9 @@ scheduling jitter) arrival order is noise, so attribution falls to the
 worker with the largest pre-wave pipeline occupancy — the frontier the
 cluster would wait on under any load increase.
 
-Copy of ``pathway_tpu/observability/critpath.py`` without
-``render_report``, the ``pathway-tpu critpath`` CLI's renderer, which
-waits with the CLI.
+Copy of ``pathway_tpu/observability/critpath.py``; the ``critpath`` command
+of the reference's CLI, which prints ``render_report``, stays out with the
+CLI.
 """
 
 from __future__ import annotations
@@ -58,6 +59,7 @@ __all__ = [
     "stage_split",
     "merge_worker_waves",
     "merge_process_waves",
+    "render_report",
 ]
 
 PHASES = (
@@ -348,3 +350,47 @@ def _finish_waves_doc(recent: list[dict], held: dict[str, int]) -> dict:
         else {},
         "last": recent[-1] if recent else None,
     }
+
+
+def render_report(waves_doc: dict | None, top_k: int = 10) -> str:
+    """The ``pathway-tpu critpath`` report: top-K slowest waves with
+    their holding worker and stage split, plus the holder tally."""
+    if not waves_doc or not waves_doc.get("recent"):
+        return "critpath: no commit waves recorded (async plane idle?)"
+    lines = []
+    held = waves_doc.get("holder_share") or {}
+    if held:
+        tally = "  ".join(
+            f"w{w}:{share * 100:.0f}%"
+            for w, share in sorted(
+                held.items(), key=lambda kv: (-kv[1], kv[0])
+            )
+        )
+        lines.append(
+            f"waves held ({sum((waves_doc.get('held_total') or {}).values())}"
+            f" waves): {tally}"
+        )
+    ranked = sorted(
+        waves_doc["recent"],
+        key=lambda d: -float(d.get("duration_ms", 0.0)),
+    )[: max(1, int(top_k))]
+    lines.append(
+        f"top {len(ranked)} slowest waves "
+        f"(of {len(waves_doc['recent'])} recorded):"
+    )
+    for d in ranked:
+        split = " ".join(
+            f"{p}={d.get('shares', {}).get(p, 0.0) * 100:.0f}%"
+            for p in PHASES
+            if d.get("shares", {}).get(p, 0.0) >= 0.005
+        )
+        holder = d.get("holder")
+        agreed = "" if d.get("agreed", True) else " (disputed)"
+        lines.append(
+            f"  wave {d.get('epoch')} T={d.get('T')} "
+            f"{d.get('duration_ms', 0.0):.1f}ms "
+            f"holder=w{holder if holder is not None else '?'}{agreed} "
+            f"critical={d.get('critical_stage')} "
+            f"rounds={d.get('settle_rounds', 0)} [{split}]"
+        )
+    return "\n".join(lines)

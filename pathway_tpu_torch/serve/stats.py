@@ -2,10 +2,10 @@
 
 Copy of ``pathway_tpu/serve/stats.py``. Module-global like
 ``io/python.py``'s INGEST_STAGE_STATS: every component of the serve plane
-bumps these under a lock. The reference's observability hub, prometheus
-families and signals series read them there; the port has none of these
-yet (ROADMAP Queue 1 item 13), so ``serve_stats_snapshot`` is read by its
-callers directly.
+bumps these under a lock. The observability hub's ``/snapshot`` and
+``/query``, the ``pathway_serve_*`` families of ``/metrics`` and the
+``serve.*`` signals series read them through ``serve_stats_snapshot``, as in
+the reference.
 
 The snapshot is EMPTY until the serve plane has actually done
 something.

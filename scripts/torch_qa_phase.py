@@ -25,7 +25,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--chunks", type=int, default=4096)
     ap.add_argument("--questions", type=int, default=64)
-    ap.add_argument("--vs-chunks", type=int, default=1024)
+    ap.add_argument("--vs-chunks", type=int, default=256)
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
     os.environ.setdefault("PATHWAY_KEY_REGISTRY_CAP", str(1 << 25))

@@ -21,7 +21,9 @@ on the card equals the engine on the host; the expression machine bit for bit ag
 ``**`` within 2 ulp), and the Table API's ``pw.run(device="cuda")`` equal to numpy; a persisted
 index restored on the card answers bit for bit as a run that was not stopped; a persisted groupby
 rescaled 2 -> 4 workers on the card ends at the host's table; the RAG through the engine at 2
-workers under the async loop answers as a direct search of its index.
+workers under the async loop answers as a direct search of its index; a 2-worker run on the card
+with the monitoring server on serves a ``/metrics`` that parses and counts every input row, its
+table equal to numpy's.
 """
 
 from __future__ import annotations
@@ -1966,3 +1968,68 @@ def test_debezium_replay_on_the_card(cuda, tmp_path):
         pw.G.clear()
     assert sorted(raw.values()) == sorted(final.values())
     assert {r[0]: (r[1], r[2]) for r in agg.values()} == _plain_per_auction(final.values())
+
+
+def test_observed_run_on_the_card_serves_metrics(cuda, monkeypatch):
+    """A 2-worker streaming run on the card with the monitoring server on: the chain runs on the
+    expression machine, ``/metrics`` (scraped after every worker joined, before the server stops)
+    parses, carries both workers and counts every input row, and the table equals numpy's."""
+    import socket
+    import urllib.request
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.internals import expression_compiler as ec
+    from pathway_tpu_torch.internals import graph_runner as gr
+    from pathway_tpu_torch.observability import parse_exposition
+    from pathway_tpu_torch.ops.expression_kernel import expression_vm
+
+    monkeypatch.setattr(ec, "JIT_THRESHOLD", 64)
+    monkeypatch.setattr(ec, "JIT_WARMUP_BATCHES", 2)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    monkeypatch.setenv("PATHWAY_THREADS", "2")
+    monkeypatch.setenv("PATHWAY_MONITORING_HTTP_PORT", str(port))
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+    scraped = []
+    stop = gr.GraphRunner._stop_observability
+
+    def scrape_then_stop(http_server, flusher, hub=None):
+        with opener.open(f"http://127.0.0.1:{port}/metrics", timeout=10) as r:
+            scraped.append(r.read().decode())
+        stop(http_server, flusher, hub)
+
+    monkeypatch.setattr(gr.GraphRunner, "_stop_observability", staticmethod(scrape_then_stop))
+    rng = np.random.default_rng(17)
+    g = rng.integers(0, 40, 8000)
+    x = rng.integers(-1024, 1024, 8000) / 16.0
+
+    class Feed(pw.io.python.ConnectorSubject):
+        def run(self):
+            for s in range(0, 8000, 1000):
+                self.next_batch({"g": g[s:s + 1000], "x": x[s:s + 1000]})
+                self.commit()
+
+    pw.G.clear()
+    src = pw.io.python.read(Feed(), schema=pw.schema_from_types(g=int, x=float),
+                            autocommit_duration_ms=None)
+    res = (src.select(g=pw.this.g, z=pw.this.x * 2.0 - 1.0).filter(pw.this.z > -32.0)
+           .groupby(pw.this.g).reduce(pw.this.g, s=pw.reducers.sum(pw.this.z)))
+    got = {}
+    pw.io.subscribe(res, on_change=lambda key, row, time, is_addition:
+                    got.__setitem__(row["g"], row["s"]) if is_addition else None)
+    before = expression_vm.launches
+    try:
+        pw.run(device="cuda", with_http_server=True)
+    finally:
+        pw.G.clear()
+    assert expression_vm.launches > before
+    z = x * 2.0 - 1.0
+    want = {}
+    for gg, zz in zip(g[z > -32.0], z[z > -32.0]):
+        want[int(gg)] = want.get(int(gg), 0.0) + zz
+    assert got == want
+    series = parse_exposition(scraped[0])
+    inputs = {dict(lab)["worker"]: v for (name, lab), v in series.items()
+              if name == "pathway_input_rows"}
+    assert set(inputs) == {"0", "1"} and sum(inputs.values()) == 8000

@@ -176,7 +176,13 @@ def test_static_scan_finds_no_jax_or_pathway_tpu_import():
             "internals/yaml_loader.py", "internals/error_log_table.py",
             "internals/interactive.py", "stdlib/viz/__init__.py", "xpacks/llm/llms.py",
             "xpacks/llm/prompts.py", "xpacks/llm/rerankers.py", "xpacks/llm/vector_store.py",
-            "xpacks/llm/question_answering.py"} <= scanned
+            "xpacks/llm/question_answering.py", "observability/__init__.py",
+            "observability/attribution.py", "observability/exporter.py",
+            "observability/flightrecorder.py", "observability/health.py", "observability/hub.py",
+            "observability/keyload.py", "observability/profile_merge.py",
+            "observability/profiler.py", "observability/prometheus.py", "observability/slo.py",
+            "observability/timeseries.py", "internals/telemetry.py", "internals/monitoring.py",
+            "internals/tracing.py", "engine/http_server.py"} <= scanned
     # the YAML loader imports the modules its tags name; it maps the reference's package to the
     # port's and refuses JAX (held below), so it is the one module allowed to import by name
     loader = PACKAGE / "internals" / "yaml_loader.py"
@@ -487,6 +493,40 @@ _BLOCKED_RUN = textwrap.dedent("""
     pt.G.clear()
     objs = pt.load_yaml("s: !pw.xpacks.llm.splitters.NullSplitter\\n")
     assert type(objs["s"]).__name__ == "NullSplitter"
+
+    # the observability plane: every module, and a 2-worker run serving /metrics
+    import os
+    import socket
+    import urllib.request
+
+    import pathway_tpu_torch.engine.http_server
+    import pathway_tpu_torch.internals.monitoring
+    import pathway_tpu_torch.internals.telemetry
+    import pathway_tpu_torch.internals.tracing
+    from pathway_tpu_torch import observability as obs
+    from pathway_tpu_torch.observability import (attribution, exporter, flightrecorder, health,
+                                                 hub, keyload, profile_merge, profiler,
+                                                 prometheus, slo, timeseries)
+
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    os.environ.update(PATHWAY_THREADS="2", PATHWAY_MONITORING_HTTP_PORT=str(port))
+    t = pt.debug.table_from_markdown("k | v\\n1 | 2\\n2 | 3\\n1 | 4")
+    g = t.groupby(pt.this.k).reduce(pt.this.k, s=pt.reducers.sum(pt.this.v))
+    scraped = []
+
+    def scrape():
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=10) as r:
+            scraped.append(r.read().decode())
+
+    pt.io.subscribe(g, on_change=lambda **kw: None, on_end=scrape)
+    pt.run(device="cpu", with_http_server=True)
+    del os.environ["PATHWAY_THREADS"]
+    fams = {name for name, _ in obs.parse_exposition(scraped[0])}
+    assert "pathway_engine_ticks" in fams, sorted(fams)
+    pt.G.clear()
     loaded = sorted(
         m for m, mod in sys.modules.items() if mod is not None
         and (m.startswith("jax") or m == "pathway_tpu" or m.startswith("pathway_tpu."))

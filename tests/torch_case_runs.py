@@ -60,10 +60,15 @@ class _Proxy:
 class Side:
     """One package's bindings for a reference test function, and the tables it recorded."""
 
-    def __init__(self, pkg: str, **pw_overrides: Any) -> None:
+    def __init__(self, pkg: str, reference_modules: tuple[str, ...] = (),
+                 **pw_overrides: Any) -> None:
         """``pw_overrides``: more of the package's root names to bind in the cases' ``pw`` (an
-        entry point with the port's ``device="cpu"``, a recording wrapper)."""
+        entry point with the port's ``device="cpu"``, a recording wrapper).
+        ``reference_modules``: subpackages the port does not have (``"autoscale"``) that the
+        cases' imports take from the JAX package on the port's side too, so that a case can hand
+        the port's output to a reference consumer."""
         self.pkg = pkg
+        self.reference_modules = reference_modules
         self.pw_overrides = pw_overrides
         self.port = pkg == "pathway_tpu_torch"
         self.pw = importlib.import_module(pkg)
@@ -118,6 +123,10 @@ class Side:
         self._table_to_dicts(table)
         return self.pw.debug.table_to_pandas(table, **k, **self._kw())
 
+    def _compute_and_print(self, table: Any, *a: Any, **k: Any):
+        self._table_to_dicts(table)
+        return self.pw.debug.compute_and_print(table, *a, **k, **self._kw())
+
     def _subscribe(self, table: Any, on_change: Any = None, *a: Any, **k: Any):
         mult: Counter = Counter()
         self._subs.append(mult)
@@ -146,7 +155,8 @@ class Side:
             pw,
             run=self._run,
             debug=_Proxy(pw.debug, table_to_dicts=self._table_to_dicts,
-                         table_to_pandas=self._table_to_pandas),
+                         table_to_pandas=self._table_to_pandas,
+                         compute_and_print=self._compute_and_print),
             internals=_Proxy(pw.internals, graph_runner=gr),
             io=_Proxy(pw.io, subscribe=self._subscribe),
             **self.pw_overrides,
@@ -171,11 +181,21 @@ def _redirect(env: dict, side: Side, pw: Any):
     def redirect(name, globals=None, locals=None, fromlist=(), level=0):
         if globals is env and level == 0 and name.split(".")[0] == "pathway_tpu":
             sub = name[len("pathway_tpu"):].lstrip(".")
-            mod = importlib.import_module(side.pkg + ("." + sub if sub else ""))
+            pkg = side.pkg
+            if sub.split(".")[0] in side.reference_modules:
+                pkg = "pathway_tpu"
+            mod = importlib.import_module(pkg + ("." + sub if sub else ""))
             if not fromlist:
                 return pw
             if sub == "internals.graph_runner":
                 return pw.internals.graph_runner
+            for attr in fromlist:
+                # ``from package import submodule``, as the import statement itself does
+                if not hasattr(mod, attr) and hasattr(mod, "__path__"):
+                    try:
+                        importlib.import_module(f"{mod.__name__}.{attr}")
+                    except ModuleNotFoundError:
+                        pass
             return mod
         return real_import(name, globals, locals, fromlist, level)
 
