@@ -4,9 +4,10 @@ connectors with the RAG example served from a directory, its persistence and rec
 elastic rescale and spill tier, its frontier-driven async plane with ``pw.iterate``, its
 temporal stdlib on Nexmark's event model, its ML, SQL and graph stdlib, its SQLite, Delta
 Lake and Debezium connectors, its RAG question answering with the last root names
-(``pw.analyze``, ``pw.load_yaml``, the error log, ``LiveTable``), and its observability plane
+(``pw.analyze``, ``pw.load_yaml``, the error log, ``LiveTable``), its observability plane
 (the monitoring HTTP server, signals and SLO alerts, the profiler, key-load accounting, the flight
-recorder, OTLP telemetry), on one NVIDIA card.
+recorder, OTLP telemetry), and its command line (record and replay, supervised recovery, ``top``,
+``critpath``, ``profile``, ``lint``, ``trace merge``, ``rescale``), on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -335,7 +336,27 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    serve plane's families on ``/metrics``, its admitted count moved by the requests sent; 6
    ``masked_attention`` and 1 ``knn_topk`` launches a request, both kernels against their plain
    versions on one request's own inputs.
-22. Each engine-path kernel's launches and summed device time per path, one JSON line with each
+22. The command line (``python -m pathway_tpu_torch.cli``), each program a fresh interpreter
+   under it, each command that needs no program in this process through ``main([...])``; any
+   nonzero exit code fails the run. (a) Phase 10's chain (one program a chain, written out) over a
+   python subject of 32 commits of 16,384 rows, written to a temporary script: under ``spawn
+   --record``, then under ``replay --mode speedrun``; both tables equal numpy's, the replay sees
+   the 32 recorded timestamps, ``expression_vm`` launches in both and its program is held bitwise
+   against the plain version on one of the run's batches; an unrecorded run of the same pipeline
+   in this process beside them (rows/s of each ``pw.run``). (b) Phase 14's persisted index (the
+   default encoder, seeded init, 1 worker) over 65,536 rows (4,096 chunks) under ``spawn
+   --supervise`` with a flight directory and the monitoring server on: generation 0 SIGKILLs
+   itself at the first commit that covers 3/4 of the rows; the supervisor harvests
+   ``crash-0-0.json`` and relaunches generation 1 (``PATHWAY_RESTART_COUNT=1``, the reason naming
+   the bundle), which restores, refills and answers 64 queries, held against the direct search in
+   that child, with ``masked_attention`` and ``knn_topk`` held on one query's inputs; while it
+   serves, ``top --frames 3 --no-clear``, ``critpath --json`` and ``profile --top 10`` read its
+   monitoring server; the supervisor exits 0 after exactly one restart. The seconds from the kill
+   to generation 1's answers, by part. (c) ``lint --device cuda`` of the port's RAG example exits
+   0; ``trace merge`` of (a)'s record run's trace file parses; ``rescale --dry-run --to 2`` of
+   (b)'s store reports. Each child's launch counts (from 0 in a fresh process) are read just
+   after its ``pw.run``, before the comparisons.
+23. Each engine-path kernel's launches and summed device time per path, one JSON line with each
    kernel's numbers, then the closing JSON line.
 
 It needs one CUDA card and exits non-zero, printing no result, without one. It imports nothing
@@ -3559,7 +3580,7 @@ def newest_meta(store: str) -> dict | None:
 def persisted_index_graph(pw, emb, *, texts, vecs, queries, k: int, chunk_commit: int,
                           vec_commit: int, ask: bool, device, marks: dict,
                           fed_path: str | None = None, queries_name: str = "queries",
-                          qid_base: int = 0) -> dict:
+                          qid_base: int = 0, after_ask=None) -> dict:
     """Phase 11's index as a persisted program: the chunk texts then the vectors, each commit
     sent once the index holds the ones before it, through a python source named ``rows`` into
     ``DataIndex`` over ``BruteForceKnnFactory(dimensions,
@@ -3569,7 +3590,9 @@ def persisted_index_graph(pw, emb, *, texts, vecs, queries, k: int, chunk_commit
     finishes (the first leg runs until it is killed; it creates ``fed_path`` once its feed is
     sent); ``queries_name`` names that source and ``qid_base`` offsets its query ids (a later
     program over the same store asks its queries anew under another name, past the offset the
-    first one persisted, and with other ids, so other row keys). Returns the
+    first one persisted, and with other ids, so other row keys); ``after_ask``, when given, runs
+    in the queries' source after it sends them (the source, and so the run, ends when it
+    returns). Returns the
     answers by query id, filled as they arrive; ``marks`` gets the host times and worker 0's
     running persistence manager."""
     cuda = device.type == "cuda"
@@ -3619,6 +3642,8 @@ def persisted_index_graph(pw, emb, *, texts, vecs, queries, k: int, chunk_commit
             self.next_batch({"qid": list(range(qid_base, qid_base + len(queries))),
                              "q": list(queries)})
             self.commit()
+            if after_ask is not None:
+                after_ask()
 
     answers: dict = {}
 
@@ -6413,22 +6438,27 @@ def geometric_calls(rank: int, n: int, factor: int, max_iterations: int) -> int:
 
 
 @contextlib.contextmanager
-def kernel_inputs(into: dict):
+def kernel_inputs(into: dict, when=None):
     """Keep the inputs of the block's first ``masked_attention`` launch at B=1 and of its first
-    ``knn_topk`` launch (the embedder's and the index engine's own calls)."""
+    ``knn_topk`` launch (the embedder's and the index engine's own calls); with ``when``, those
+    of the last launches made while ``when()`` holds (a query tick's), cut to their first
+    query."""
     from pathway_tpu_torch.models import embedder as emb_mod
     from pathway_tpu_torch.ops import index_engines
 
     attn, topk = emb_mod.masked_attention, index_engines.topk_scores
 
     def attention(q, k, v, mask, *a, **kw):
-        if q.shape[0] == 1 and "attention" not in into:
+        if when is not None and when():
+            into["attention"] = tuple(t[:1].detach().clone() for t in (q, k, v, mask))
+        elif when is None and q.shape[0] == 1 and "attention" not in into:
             into["attention"] = tuple(t.detach().clone() for t in (q, k, v, mask))
         return attn(q, k, v, mask, *a, **kw)
 
     def scores(queries, index, k, metric, *a, **kw):
-        if "knn" not in into:
-            into["knn"] = (queries.detach().clone(), index.detach().clone(), k, metric,
+        if (when() if when is not None else "knn" not in into):
+            into["knn"] = (queries[:1].detach().clone() if when is not None
+                           else queries.detach().clone(), index.detach().clone(), k, metric,
                            {n: (t.detach().clone() if torch.is_tensor(t) else t)
                             for n, t in kw.items()})
         return topk(queries, index, k, metric, *a, **kw)
@@ -7434,6 +7464,474 @@ def run_observability(device, *, rows: int = 1 << 22, commit: int = 1 << 16,
             "s": seconds}
 
 
+# -- phase 22: the command line ---------------------------------------------------------------
+
+
+CLI_BUDGET_S = 75.0
+#: (a): phase 10's chain over CLI_CHAIN_COMMITS commits of CLI_CHAIN_COMMIT rows, past the
+#: expression machine's gate (4,096 rows a batch) and its warm-up (16 batches)
+CLI_CHAIN_COMMIT, CLI_CHAIN_COMMITS, CLI_CHAIN_GROUPS = 16384, 32, 4096
+#: (b): phase 14's persisted index cut from 262,144 rows (16,384 chunks) to 65,536 rows (4,096
+#: chunks), so both generations' fresh processes fit in the phase's time (PERF.md section 4)
+CLI_CHUNKS, CLI_ROWS, CLI_QUERIES, CLI_K = 4096, 1 << 16, 64, 10
+CLI_CHUNK_COMMIT, CLI_VEC_COMMIT = 256, 4096
+
+#: (a)'s program, written to a temporary file and run by ``spawn --record`` and ``replay``: the
+#: chain over a python subject, its final table, timestamps and launch counts to a JSON file,
+#: and its own program held against the plain version on one of its batches
+CLI_CHAIN_SCRIPT = '''
+import json
+import sys
+import time
+
+args = json.loads(sys.argv[1])
+sys.path.insert(0, args["repo"])
+import chip_smoke as cs
+import numpy as np
+import pathway_tpu_torch as pw
+import torch
+from pathway_tpu_torch.internals import expression_compiler as ec
+
+device = torch.device(args["device"])
+if args["threshold"]:
+    ec.JIT_THRESHOLD = args["threshold"]
+cols = cs.pipeline_columns(args["rows"], args["groups"])
+commit = args["commit"]
+
+
+class Subject(pw.io.python.ConnectorSubject):
+    def run(self):
+        for s in range(0, args["send"], commit):
+            self.next_batch({c: v[s:s + commit] for c, v in cols.items()})
+            self.commit()
+
+
+t = pw.io.python.read(Subject(), schema=pw.schema_from_types(a=int, g=int, x=float),
+                      autocommit_duration_ms=None, name="chain")
+res = cs.chain_variant(pw, t, lifted=False).groupby(pw.this.g).reduce(
+    pw.this.g, s=pw.reducers.sum(pw.this.w), c=pw.reducers.count())
+times, final = set(), {}
+
+
+def on_batch(tm, b):
+    times.add(tm)
+    for g, s, c, d in zip(b.data["g"].tolist(), b.data["s"].tolist(), b.data["c"].tolist(),
+                          b.diffs.tolist()):
+        if d > 0:
+            final[g] = (s, c)
+        elif final.get(g) == (s, c):
+            del final[g]
+
+
+pw.io.subscribe(res, on_batch=on_batch)
+captured = {}
+with cs.first_program(captured):
+    t0 = time.perf_counter()
+    pw.run(device=device)
+    seconds = time.perf_counter() - t0
+launches = {name: fn.launches for name, fn in cs.launch_counters().items()}
+held = cs.check_first_program(device, captured) if device.type == "cuda" else None
+with open(args["out"], "w") as f:
+    json.dump({"table": sorted([g, s, c] for g, (s, c) in final.items()), "times": len(times),
+               "seconds": seconds, "launches": launches, "held": held,
+               "recorded_rows": args["send"]}, f)
+'''
+
+
+def cli_supervised_leg(args: dict) -> int:
+    """Phase 22 (b)'s program under ``spawn --supervise``: phase 14's persisted index. In
+    generation 0 (``PATHWAY_RESTART_COUNT=0``) it SIGKILLs itself once a commit covers
+    ``kill_rows`` rows; in generation 1 it restores, refills and answers the queries, writes
+    ``answered`` and waits for the parent's ``release`` file while the parent reads its
+    monitoring server, then holds its answers against the direct search, and its kernels on one
+    query's inputs against their plain versions, and writes its numbers to ``result``."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.models.embedder import Embedder, EmbedderConfig
+    from pathway_tpu_torch.ops.index_engines import BruteForceKnnEngine
+    from pathway_tpu_torch.persistence import Backend, Config, PersistenceManager
+
+    started = time.time()
+    gen = int(os.environ.get("PATHWAY_RESTART_COUNT", "0"))
+    device = torch.device(args["device"])
+    cfg = None
+    if args["cfg"] is not None:
+        cfg = EmbedderConfig(**{**args["cfg"], "dtype": getattr(torch, args["cfg"]["dtype"])})
+    emb = Embedder(cfg, seed=0, device=device)
+    with open(args["texts"]) as f:
+        texts = json.load(f)
+    with open(args["queries"]) as f:
+        queries = json.load(f)
+    vecs = np.load(args["vecs"])
+    n_rows = len(texts) + len(vecs)
+    config = Config.simple_config(Backend.filesystem(args["store"]),
+                                  snapshot_interval_ms=args["interval_ms"])
+    if gen == 0:
+        commit = PersistenceManager.commit
+
+        def killing(self, time_, **kw):
+            commit(self, time_, **kw)
+            covered = self.offsets.get("rows", {}).get("rows", 0)
+            if covered >= args["kill_rows"]:
+                with open(args["killed"], "w") as f:
+                    json.dump({"t": time.time(), "covered": covered}, f)
+                os.kill(os.getpid(), signal.SIGKILL)
+
+        PersistenceManager.commit = killing
+
+        def stop_when_fed():
+            # the feed ended before a commit covered kill_rows: the final commit of a stopped
+            # run covers every row and so kills
+            while not os.path.exists(args["fed"]):
+                time.sleep(0.01)
+            time.sleep(3 * args["interval_ms"] / 1e3)
+            pw.request_stop()
+
+        import threading
+
+        threading.Thread(target=stop_when_fed, daemon=True).start()
+        persisted_index_graph(pw, emb, texts=texts, vecs=vecs, queries=[], k=1,
+                              chunk_commit=args["chunk_commit"], vec_commit=args["vec_commit"],
+                              ask=False, device=device, marks={}, fed_path=args["fed"])
+        pw.run(device=device, persistence_config=config)
+        return 3  # the generation ran to an end instead of killing itself
+
+    marks: dict = {}
+
+    def hold():
+        deadline = time.time() + 600
+        while len(answers) < len(queries) and time.time() < deadline:
+            time.sleep(0.002)
+        marks["answered_unix"] = time.time()
+        with open(args["answered"], "w") as f:
+            json.dump({"t": marks["answered_unix"]}, f)
+        while not os.path.exists(args["release"]) and time.time() < deadline:
+            time.sleep(0.01)
+
+    captured: dict = {}
+    answers = persisted_index_graph(pw, emb, texts=texts, vecs=vecs, queries=queries,
+                                    k=args["k"], chunk_commit=args["chunk_commit"],
+                                    vec_commit=args["vec_commit"], ask=True, device=device,
+                                    marks=marks, after_ask=hold)
+    try:
+        with kernel_inputs(captured, when=lambda: "query" in marks):
+            t_run, run_t0 = time.time(), _wall()
+            pw.run(device=device, persistence_config=config)
+    finally:
+        pw.G.clear()
+    launches = {name: fn.launches for name, fn in launch_counters().items()}
+    if len(answers) != len(queries):
+        raise AssertionError(f"generation 1 answered {len(answers)} of {len(queries)} queries")
+    direct = BruteForceKnnEngine(emb.cfg.dim, reserved_space=n_rows, embedder=emb, device=device)
+    direct.add_batch(list(range(len(texts))), list(texts), [None] * len(texts))
+    direct.add_batch(list(range(len(texts), n_rows)), list(vecs), [None] * len(vecs))
+    want = dict(enumerate(direct.search(queries, [args["k"]] * len(queries),
+                                        [None] * len(queries))))
+    swapped = check_answers("phase 22 (b)", answers, want)
+    held = check_phase_kernels(captured, label="phase 22 (b)") if device.type == "cuda" else None
+    manager = marks["manager"]
+    with open(args["result"], "w") as f:
+        json.dump({"restart_count": gen, "reason": os.environ.get("PATHWAY_LAST_RESTART_REASON"),
+                   "started": started, "run_started": t_run,
+                   "filled": t_run + (marks["filled"] - run_t0),
+                   "answered": marks["answered_unix"], "recovery": manager.recovery_stats,
+                   "launches": launches, "held": held, "swapped": swapped}, f)
+    return 0
+
+
+def cli(*argv) -> tuple[int, str]:
+    """``main(argv)`` of the port's command line in this process: its exit code and its
+    standard output."""
+    import io
+
+    from pathway_tpu_torch.cli import main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        code = main([str(a) for a in argv])
+    return code, out.getvalue()
+
+
+def cli_child(argv: list, env: dict, log_path: str, timeout_s: float = 600) -> int:
+    """``python -m pathway_tpu_torch.cli <argv>`` in a fresh interpreter from the repository's
+    root, its output to ``log_path``; fails on a nonzero exit code."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(log_path, "w") as f:
+        code = subprocess.call([sys.executable, "-m", "pathway_tpu_torch.cli", *argv],
+                               env={**os.environ, "PYTHONPATH": root, **env}, cwd=root,
+                               stdout=f, stderr=subprocess.STDOUT, timeout=timeout_s)
+    if code != 0:
+        with open(log_path) as f:
+            tail = f.read()[-4000:]
+        raise AssertionError(f"`{' '.join(map(str, argv[:3]))} ...` exited with {code}:\n{tail}")
+    return code
+
+
+def run_cli_record_replay(device, work: str, *, commit: int, commits: int, groups: int,
+                          threshold: int | None) -> dict:
+    """(a): the chain program under ``spawn --record``, then under ``replay --mode speedrun``,
+    each a fresh process; an unrecorded run of the same pipeline in this process beside them."""
+    cuda = device.type == "cuda"
+    rows = commit * commits
+    script = os.path.join(work, "chain.py")
+    with open(script, "w") as f:
+        f.write(CLI_CHAIN_SCRIPT)
+    rec, trace = os.path.join(work, "record"), os.path.join(work, "trace.json")
+    base = {"repo": os.path.dirname(os.path.abspath(__file__)), "device": str(device),
+            "rows": rows, "commit": commit, "groups": groups, "threshold": threshold}
+    env = {"PATHWAY_INGEST_COALESCE_WINDOWS": "0", "PATHWAY_FUSION": "1", "PATHWAY_THREADS": "1",
+           "PATHWAY_MESH_EXCHANGE": "0"}
+    runs = {}
+    for label, argv, send, extra in (
+            ("record", ["spawn", "--record", "--record-path", rec], rows,
+             {"PATHWAY_TRACE_FILE": trace}),
+            ("replay", ["replay", "--record-path", rec, "--mode", "speedrun"], 0, {})):
+        out = os.path.join(work, f"{label}.json")
+        t0 = time.perf_counter()
+        cli_child([*argv, sys.executable, script,
+                   json.dumps({**base, "send": send, "out": out})], {**env, **extra},
+                  os.path.join(work, f"{label}.log"))
+        with open(out) as f:
+            runs[label] = {**json.load(f), "process_s": time.perf_counter() - t0}
+    cols = pipeline_columns(rows, groups)
+    want = pipeline_reference(cols)
+    from pathway_tpu_torch.internals import expression_compiler as ec
+
+    saved = ec.JIT_THRESHOLD
+    ec.JIT_THRESHOLD = threshold or saved
+    try:
+        direct, runs["unrecorded_s"] = run_pipeline(device, cols, commit, groups, 1,
+                                                    lifted=False)
+    finally:
+        ec.JIT_THRESHOLD = saved
+    for label in ("record", "replay"):
+        got = {g: (s_, c) for g, s_, c in runs[label]["table"]}
+        if got != want:
+            raise AssertionError(f"phase 22 (a): the {label} run's table differs from numpy's")
+    if direct != want:
+        raise AssertionError("phase 22 (a): the unrecorded run's table differs from numpy's")
+    if runs["replay"]["times"] != runs["record"]["times"] or runs["record"]["times"] != commits:
+        raise AssertionError(f"phase 22 (a): {runs['record']['times']} recorded timestamps, "
+                             f"{runs['replay']['times']} replayed, {commits} commits")
+    if cuda:
+        for label in ("record", "replay"):
+            if not runs[label]["launches"]["expression_vm"]:
+                raise AssertionError(f"phase 22 (a): expression_vm not launched in the {label} "
+                                     f"run")
+    runs["rows"], runs["trace"], runs["store"] = rows, trace, rec
+    return runs
+
+
+def start_cli_supervised(device, work: str, *, data, k: int, kill_rows: int, interval_ms: int,
+                         cfg) -> dict:
+    """(b), started: phase 14's persisted index under ``spawn --supervise`` with a flight
+    directory and the monitoring server on, in the background; ``finish_cli_supervised`` reads
+    it."""
+    texts, vecs, queries = data
+    args = {"device": str(device), "store": os.path.join(work, "store"), "k": k,
+            "kill_rows": kill_rows, "interval_ms": interval_ms, "chunk_commit": CLI_CHUNK_COMMIT,
+            "vec_commit": CLI_VEC_COMMIT,
+            "cfg": None if cfg is None else {**cfg.__dict__,
+                                             "dtype": str(cfg.dtype).split(".")[-1]}}
+    for name in ("texts", "vecs", "queries", "fed", "killed", "answered", "release", "result"):
+        args[name] = os.path.join(work, name + (".npy" if name == "vecs" else ".json"))
+    with open(args["texts"], "w") as f:
+        json.dump(texts, f)
+    with open(args["queries"], "w") as f:
+        json.dump(queries, f)
+    np.save(args["vecs"], vecs)
+    port = free_port()
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {"PATHWAY_FLIGHT_DIR": os.path.join(work, "flight"),
+           "PATHWAY_MONITORING_HTTP_SERVER": "1", "PATHWAY_MONITORING_HTTP_PORT": str(port),
+           "PATHWAY_THREADS": "1", "PATHWAY_MESH_EXCHANGE": "0",
+           "PATHWAY_SUPERVISE_BACKOFF_S": "0.05", "PATHWAY_SUPERVISE_BACKOFF_MAX_S": "0.2",
+           "PYTHONPATH": root}
+    log_path = os.path.join(work, "supervise.log")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as f:
+        sup = subprocess.Popen(
+            [sys.executable, "-m", "pathway_tpu_torch.cli", "spawn", "--supervise",
+             sys.executable, os.path.abspath(__file__), "--cli-leg", json.dumps(args)],
+            env={**os.environ, **env}, cwd=root, stdout=f, stderr=subprocess.STDOUT)
+    return {"sup": sup, "args": args, "port": port, "log_path": log_path, "t0": t0,
+            "flight": env["PATHWAY_FLIGHT_DIR"]}
+
+
+def finish_cli_supervised(b: dict) -> dict:
+    """(b), finished: once generation 1 has answered, ``top``, ``critpath --json`` and
+    ``profile --top 10`` read its monitoring server in this process; then generation 1 is
+    released and the supervisor must exit 0 after exactly one restart with one crash bundle."""
+    sup, args, port, flight = b["sup"], b["args"], b["port"], b["flight"]
+    out: dict = {"port": port}
+    try:
+        deadline = time.perf_counter() + 600
+        while not os.path.exists(args["answered"]):
+            if sup.poll() is not None or time.perf_counter() > deadline:
+                raise AssertionError("phase 22 (b): generation 1 did not answer")
+            time.sleep(0.02)
+        code, text = cli("top", "--frames", 3, "--no-clear", "--port", port, "-i", 0.2)
+        if code != 0 or text.count("pathway-tpu top") != 3:
+            raise AssertionError(f"phase 22 (b): top exited with {code}:\n{text[-2000:]}")
+        out["top"] = text
+        code, text = cli("critpath", "--json", "--port", port)
+        json.loads(text)
+        out["critpath"] = (code, text)
+        code_p, text_p = cli("profile", "--top", 10, "--port", port)
+        out["profile"] = (code_p, text_p)
+        if code or code_p:
+            raise AssertionError(f"phase 22 (b): critpath exited with {code}, profile with "
+                                 f"{code_p}")
+    finally:
+        open(args["release"], "w").close()
+        try:
+            out["exit_code"] = sup.wait(300)
+        except subprocess.TimeoutExpired:
+            sup.kill()
+            sup.wait(60)
+            raise
+    out["s"] = time.perf_counter() - b["t0"]
+    with open(b["log_path"]) as f:
+        out["log"] = f.read()
+    if out["exit_code"] != 0:
+        raise AssertionError(f"phase 22 (b): the supervisor exited with {out['exit_code']}:\n"
+                             f"{out['log'][-4000:]}")
+    restarts = re.findall(r"restart #(\d+)", out["log"])
+    if restarts != ["1"]:
+        raise AssertionError(f"phase 22 (b): restarts {restarts}, not exactly one")
+    bundles = sorted(n for n in os.listdir(flight) if n.startswith("crash-"))
+    if bundles != ["crash-0-0.json"]:
+        raise AssertionError(f"phase 22 (b): crash bundles {bundles}")
+    with open(os.path.join(flight, bundles[0])) as f:
+        out["bundle"] = json.load(f)
+    with open(args["killed"]) as f:
+        out["killed"] = json.load(f)
+    with open(args["result"]) as f:
+        out["result"] = json.load(f)
+    if out["result"]["restart_count"] != 1 or "crash-0-0.json" not in out["result"]["reason"]:
+        raise AssertionError(f"phase 22 (b): generation {out['result']['restart_count']}, "
+                             f"reason {out['result']['reason']!r}")
+    out["store"] = args["store"]
+    return out
+
+
+def run_cli(device, *, chain_commit: int = CLI_CHAIN_COMMIT,
+            chain_commits: int = CLI_CHAIN_COMMITS, chain_groups: int = CLI_CHAIN_GROUPS,
+            n_chunks: int = CLI_CHUNKS, n_rows: int = CLI_ROWS, n_queries: int = CLI_QUERIES,
+            k: int = CLI_K, fill_rows_per_s: float | None = None, threshold: int | None = None,
+            cfg=None) -> dict:
+    """Phase 22; sizes as the defaults say on the card (a CPU rehearsal passes small ones, a
+    lower expression ``threshold`` and a small encoder). Returns each leg's numbers, the kernels
+    held against their plain versions and the launch counts by path."""
+    import shutil
+    import tempfile
+
+    from pathway_tpu_torch.models.embedder import Embedder
+
+    cuda = device.type == "cuda"
+    card = card_line() if cuda else "cpu"
+    start = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="cli-phase-")
+    b_started = None
+    try:
+        # (b) runs in the background from the start (its two generations' fresh processes take
+        # most of its time), (a) in the meantime
+        emb = Embedder(cfg, seed=0, device=device)
+        data = index_data(n_chunks, n_rows, emb.cfg.dim, n_queries)
+        del emb
+        fill_s = n_rows / fill_rows_per_s if fill_rows_per_s else 5.0
+        interval_ms = max(100, int(1e3 * fill_s / 5))
+        os.makedirs(os.path.join(work, "b"))
+        b_started = start_cli_supervised(device, os.path.join(work, "b"), data=data, k=k,
+                                         kill_rows=n_rows * 3 // 4, interval_ms=interval_ms,
+                                         cfg=cfg)
+        del data
+        t0 = time.perf_counter()
+        os.makedirs(os.path.join(work, "a"))
+        a = run_cli_record_replay(device, os.path.join(work, "a"), commit=chain_commit,
+                                  commits=chain_commits, groups=chain_groups,
+                                  threshold=threshold)
+        a_s = time.perf_counter() - t0
+        rec, rep = a["record"], a["replay"]
+        log(f"cli (a): spawn --record then replay --mode speedrun of phase 10's chain over "
+            f"{a['rows']} rows in {chain_commits} commits: tables equal numpy's, "
+            f"{rec['times']} timestamps recorded and {rep['times']} replayed; rows/s "
+            f"{a['rows'] / rec['seconds']:.1f} recorded, {a['rows'] / rep['seconds']:.1f} "
+            f"replayed, {a['rows'] / a['unrecorded_s']:.1f} unrecorded in this process (each "
+            f"pw.run's own time, (b) running beside); each fresh process {rec['process_s']:.1f} "
+            f"and {rep['process_s']:.1f} s; expression_vm launches "
+            f"{rec['launches']['expression_vm']} and {rep['launches']['expression_vm']}" + (
+                f", its program ({rec['held']['instructions']} instructions, "
+                f"{rec['held']['rows']} rows) bitwise equal to its plain version in both"
+                if cuda else "") + f"; (a) {a_s:.1f} s [{card}]")
+        b = finish_cli_supervised(b_started)
+        res = b["result"]
+        rec_b = res["recovery"]
+        first_answer = res["answered"] - b["killed"]["t"]
+        log(f"cli (b): spawn --supervise of phase 14's index over {n_rows} rows "
+            f"(snapshot_interval_ms={interval_ms}): generation 0 SIGKILLed itself at a commit "
+            f"covering {b['killed']['covered']} rows; the crash bundle crash-0-0.json holds "
+            f"{len(b['bundle']['records'])} records ({len(b['bundle']['last_ticks'])} ticks); "
+            f"generation 1 (PATHWAY_RESTART_COUNT={res['restart_count']}) answered "
+            f"{n_queries} queries equal to the direct search ({res['swapped']} ids swapped "
+            f"inside near ties); the supervisor exited with {b['exit_code']} after one restart "
+            f"[{card}]")
+        log(f"cli (b): {first_answer:.2f} s from the kill to generation 1's first answer: "
+            f"{res['run_started'] - b['killed']['t']:.2f} s to its pw.run (supervisor, backoff, "
+            f"process start, the encoder), restore_operators {rec_b.get('restore_s', 0):.3f} s "
+            f"and the tail ({rec_b.get('replayed_rows')} rows) {rec_b.get('replay_s', 0):.3f} s, "
+            f"refill to every row {res['filled'] - res['run_started']:.2f} s, then the queries "
+            f"{res['answered'] - res['filled']:.2f} s; generation 1's launches masked_attention "
+            f"{res['launches']['masked_attention']}, knn_topk {res['launches']['knn_topk']}"
+            + (f"; on one query's inputs max |err| {res['held']['attention_err']:.3e} and "
+               f"{res['held']['knn_err']:.3e}" if res["held"] else "") + f" [{card}]")
+        frame = b["top"].split("pathway-tpu top")[-1].splitlines()
+        log(f"cli (b): top rendered 3 frames from generation 1's /query (the last: "
+            f"{' | '.join(x.strip() for x in frame[:4] if x.strip())}); critpath --json "
+            f"{len(b['critpath'][1])} bytes; profile --top 10 {len(b['profile'][1].splitlines())}"
+            f" lines; (b) {b['s']:.1f} s [{card}]")
+
+        t0 = time.perf_counter()
+        code, text = cli("lint", "--device", str(device),
+                          os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                       "pathway_tpu_torch", "examples", "rag_server"))
+        if code != 0:
+            raise AssertionError(f"phase 22 (c): lint exited with {code}:\n{text[-2000:]}")
+        merged = os.path.join(work, "merged.json")
+        code_t, text_t = cli("trace", "merge", a["trace"], "-o", merged)
+        with open(merged) as f:
+            n_events = len(json.load(f)["traceEvents"])
+        code_r, text_r = cli("rescale", "--dry-run", "--to", 2, b["store"])
+        report = json.loads(text_r.splitlines()[-1])
+        if code_t or code_r or not report.get("dry_run"):
+            raise AssertionError(f"phase 22 (c): trace merge exited with {code_t}, rescale "
+                                 f"--dry-run with {code_r}")
+        log(f"cli (c): lint --device {device} of the example exited 0; trace merge of (a)'s "
+            f"record run: {text_t.strip()} ({n_events} events parsed); rescale --dry-run --to 2 "
+            f"of (b)'s store: {len(report['operators'])} operators, "
+            f"{report['state_bytes_total'] / 2**20:.1f} MiB to redistribute; (c) "
+            f"{time.perf_counter() - t0:.1f} s [{card}]")
+    finally:
+        if b_started is not None and b_started["sup"].poll() is None:
+            b_started["sup"].kill()
+            b_started["sup"].wait(60)
+        shutil.rmtree(work, ignore_errors=True)
+    launches = {"cli_record": a["record"]["launches"], "cli_replay": a["replay"]["launches"],
+                "cli_supervised": res["launches"]}
+    held = None
+    if cuda:
+        for path, name in (("cli_supervised", "masked_attention"),
+                           ("cli_supervised", "knn_topk")):
+            if not launches[path][name]:
+                raise AssertionError(f"{name} not launched on the {path} path")
+        held = {"vm_err": max(a["record"]["held"]["max_abs_err"],
+                              a["replay"]["held"]["max_abs_err"]),
+                "attention_err": res["held"]["attention_err"], "knn_err": res["held"]["knn_err"]}
+    seconds = time.perf_counter() - start
+    log(f"cli: the phase took {seconds:.1f} s of its {CLI_BUDGET_S:.0f} [{card}]")
+    return {"launches": launches, "held": held, "a": a, "b": b, "s": seconds,
+            "first_answer_s": first_answer}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -7634,6 +8132,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     obs = run_observability(device, serve_p50=serve["rows"]["p50"])
 
+    phase("the command line")
+    torch.cuda.empty_cache()
+    cli_phase = run_cli(device, fill_rows_per_s=indexing["rates"]["indexing"]["fill_rows_per_s"])
+
     by_path = {**engine["device_ms_by_path"], **api["device_ms_by_path"]}
     all_launches = {**engine["launches"], **api["launches"]}
     for name in PATH_KERNELS:
@@ -7651,12 +8153,14 @@ def main() -> int:
         "masked_attention": ("pathway_tpu_torch/csrc/masked_attention.cu",
                              "pathway_tpu/models/embedder.py:90",
                              max(attn_err, times["masked_attention"]["err"],
-                                 qa["held"]["attention_err"], obs["held"]["attention_err"])),
+                                 qa["held"]["attention_err"], obs["held"]["attention_err"],
+                                 cli_phase["held"]["attention_err"])),
         "masked_attention_bwd": ("pathway_tpu_torch/csrc/masked_attention_bwd.cu",
                                  "pathway_tpu/models/pipeline.py:72",
                                  max(bwd_err, times["masked_attention_bwd"]["err"])),
         "knn_topk": ("pathway_tpu_torch/csrc/knn_topk.cu", "pathway_tpu/ops/knn.py:46",
-                     max(knn_err, qa["held"]["knn_err"], obs["held"]["knn_err"])),
+                     max(knn_err, qa["held"]["knn_err"], obs["held"]["knn_err"],
+                         cli_phase["held"]["knn_err"])),
         "infonce": ("pathway_tpu_torch/csrc/infonce.cu", "pathway_tpu/models/pipeline.py:61",
                     nce_err),
         "ring_attention": ("pathway_tpu_torch/csrc/ring_attention.cu",
@@ -7669,7 +8173,7 @@ def main() -> int:
         "expression_vm": ("pathway_tpu_torch/csrc/expression_vm.cu",
                           "pathway_tpu/internals/expression_compiler.py:272",
                           max(api["max_abs_err"], connectors["held"]["max_abs_err"],
-                              obs["held"]["vm_err"])),
+                              obs["held"]["vm_err"], cli_phase["held"]["vm_err"])),
     }
     kernels = []
     for name, (source, replaces, err) in sources.items():
@@ -7689,7 +8193,8 @@ def main() -> int:
                    **{p: c[name] for p, c in stdlib["launches"].items()},
                    **{p: c[name] for p, c in connectors["launches"].items()},
                    **{p: c[name] for p, c in qa["launches"].items()},
-                   **{p: c[name] for p, c in obs["launches"].items()}}
+                   **{p: c[name] for p, c in obs["launches"].items()},
+                   **{p: c[name] for p, c in cli_phase["launches"].items()}}
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -7719,4 +8224,6 @@ if __name__ == "__main__":
         sys.exit(spill_leg(json.loads(sys.argv[2])))
     if sys.argv[1:2] == ["--async-leg"]:  # phase 16's fresh processes
         sys.exit(async_leg(json.loads(sys.argv[2])))
+    if sys.argv[1:2] == ["--cli-leg"]:  # phase 22 (b)'s program under spawn --supervise
+        sys.exit(cli_supervised_leg(json.loads(sys.argv[2])))
     sys.exit(main())

@@ -91,7 +91,7 @@ def lint_script(
     saved_graph = dict(G.__dict__)
     saved_argv = list(sys.argv)
     G.clear()
-    lintmode.arm(script)
+    lintmode.arm(script, device)
     crash: BaseException | None = None
     report = Report(script=path)
     try:

@@ -31,8 +31,9 @@ profiler's operator slot (``PATHWAY_PROFILE``, default on), key-load
 accounting on the Exchange buckets (``PATHWAY_KEYLOAD``, default on), the
 flight recorder's run, tick and async records (``PATHWAY_FLIGHT_DIR``) and
 the tracer's tick, node and commit-wave spans (``PATHWAY_TRACE_FILE``).
-Left out: the CLI's replay modes, chaos injection and the upgrade
-fingerprints. The rescale protocol (``RESHARD``,
+``_recover``'s replay branch serves the command line's ``replay --mode
+batch|speedrun`` as the reference's does. Left out: chaos injection and the
+upgrade fingerprints. The rescale protocol (``RESHARD``,
 ``split_state``/``merge_states``) and the spill budget's hook after each tick
 are the reference's.
 """
@@ -1593,6 +1594,52 @@ class Executor:
             if src.persistent_id is None:
                 src.persistent_id = f"src-{i}"
         by_pid = {src.persistent_id: src for src in realtime}
+
+        replay_mode = getattr(self.persistence, "replay_mode", None)
+        if replay_mode is not None:
+            # CLI replay (replay --mode batch|speedrun):
+            # ignore operator snapshots — the point is to re-run the FULL
+            # recorded input history through the (possibly changed)
+            # program; nothing re-records and sources are not seeked
+            # (reference cli replay semantics: rows generated during a
+            # replay are not captured)
+            by_time: dict[int, list[tuple[SourceNode, Delta]]] = {}
+            for t, pid, delta in self.persistence.replay_batches(after_time=-1):
+                src = by_pid.get(pid)
+                if src is None or list(delta.columns) != list(src.column_names):
+                    raise RuntimeError(
+                        f"recorded input for source {pid!r} does not match "
+                        "this program (changed sources? give stable name= ids)"
+                    )
+                by_time.setdefault(int(t), []).append((src, delta))
+                src.observe_replay(delta)
+            times = sorted(by_time)
+            if self.ctx.is_sharded:
+                # a sharded replay ticks in lock-step over the union of
+                # every worker's recorded times, as recovery does below
+                # (only a source's owner records it, and Exchange nodes
+                # join a collective every tick). The reference ticks each
+                # worker's own times and so deadlocks past one worker.
+                gathered = self.ctx.comm.allgather(
+                    ("replay-times",), self.ctx.worker_id, tuple(times)
+                )
+                times = sorted({t for tup in gathered for t in tup})
+            clock = 0
+            if replay_mode == "batch" and times:
+                # one tick carries the whole history
+                t_last = times[-1]
+                merged: list[tuple[SourceNode, Delta]] = []
+                for t in sorted(by_time):
+                    merged.extend(by_time[t])
+                self._tick(t_last, merged)
+                clock = t_last
+            else:  # speedrun: recorded tick boundaries preserved
+                for t in times:
+                    self._tick(t, by_time.get(t, []))
+                    clock = max(clock, t)
+            if not getattr(self.persistence, "continue_after_replay", True):
+                self.request_stop()
+            return clock
 
         # pick the newest operator snapshot present on EVERY worker — a crash
         # mid-commit-wave may have left some workers one version ahead; the

@@ -34,8 +34,16 @@ from typing import Any
 
 import torch
 
+# Static-analysis suppressions (`python -m pathway_tpu_torch.cli lint`):
+# - a document store's index/state is SUPPOSED to grow with the corpus —
+#   there is no temporal cutoff to add;
+# - the parse/split/embed UDFs run arbitrary document-processing Python
+#   per row by design (they are io-heavy, not expression-shaped).
+# pathway: ignore[unbounded-state, perrow-udf]
+
 import pathway_tpu_torch as pw
 from pathway_tpu_torch._device import resolve_device
+from pathway_tpu_torch.internals import lintmode
 from pathway_tpu_torch.stdlib.indexing.nearest_neighbors import BruteForceKnnFactory
 from pathway_tpu_torch.xpacks.llm.document_store import DocumentStore
 from pathway_tpu_torch.xpacks.llm.embedders import TorchEmbedder
@@ -75,7 +83,8 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8666)
     ap.add_argument("--max-tokens", type=int, default=256)
-    ap.add_argument("--device", default="cuda",
+    # under `lint --device`, the lint's device
+    ap.add_argument("--device", default=lintmode.device(),
                     help="where the encoder, the index and the kernels run (cuda or cpu)")
     args = ap.parse_args(argv)
 

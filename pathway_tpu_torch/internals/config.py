@@ -16,10 +16,13 @@ reference reads them. The monitoring fields (``PATHWAY_TRACE_FILE``,
 ``PATHWAY_MONITORING_HTTP_HOST``, ``PATHWAY_MONITORING_HTTP_PORT``,
 ``PATHWAY_TELEMETRY_FLUSH_S``, ``PATHWAY_HEALTH_WEDGE_S``) are the
 reference's, with ``process_id`` (``PATHWAY_PROCESS_ID``), which the hub and
-the HTTP server's port read. The replay storage (the CLI's record/replay),
-fault plans, supervision and the cluster address book are left out with the
-runner branches that use them; persistence takes its settings from
-``pw.persistence.Config``.
+the HTTP server's port read. The command line's record and replay fields
+(``PATHWAY_REPLAY_STORAGE``, ``PATHWAY_SNAPSHOT_ACCESS``,
+``PATHWAY_PERSISTENCE_MODE``, ``PATHWAY_CONTINUE_AFTER_REPLAY``, with the
+``replay_mode`` accessor) and the supervisor's stamps (``PATHWAY_SUPERVISED``,
+``PATHWAY_RESTART_COUNT``, ``PATHWAY_LAST_RESTART_REASON``) are the
+reference's. Fault plans and the cluster address book are left out with the
+modules that use them (``chaos/``, ``parallel/cluster.py``).
 """
 
 from __future__ import annotations
@@ -58,8 +61,16 @@ def _env_float(name: str, default: float) -> float:
 
 @dataclass
 class PathwayConfig:
+    replay_storage: str | None = field(
+        default_factory=lambda: os.environ.get("PATHWAY_REPLAY_STORAGE"))
+    snapshot_access: str | None = field(
+        default_factory=lambda: os.environ.get("PATHWAY_SNAPSHOT_ACCESS"))
+    persistence_mode: str | None = field(
+        default_factory=lambda: os.environ.get("PATHWAY_PERSISTENCE_MODE"))
     monitoring_server: str | None = field(
         default_factory=lambda: os.environ.get("PATHWAY_MONITORING_SERVER"))
+    continue_after_replay: bool = field(
+        default_factory=lambda: _env_bool("PATHWAY_CONTINUE_AFTER_REPLAY"))
     #: span tracing → Chrome-trace JSON (internals/tracing.py; the OTLP
     #: telemetry analog of src/engine/telemetry.rs for a no-egress world)
     trace_file: str | None = field(
@@ -90,6 +101,17 @@ class PathwayConfig:
     #: /healthz fails when an unfinished executor's heartbeat is older
     health_wedge_timeout_s: float = field(
         default_factory=lambda: _env_float("PATHWAY_HEALTH_WEDGE_S", 30.0))
+    #: set by `spawn --supervise` on children: enables cooperative SIGTERM
+    #: wind-down so the supervisor's teardown flushes the persistence tail
+    supervised: bool = field(
+        default_factory=lambda: _env_bool("PATHWAY_SUPERVISED"))
+    #: restart generation (0 = first boot), stamped by the supervisor;
+    #: feeds pathway_restarts_total
+    restart_count: int = field(
+        default_factory=lambda: _env_int("PATHWAY_RESTART_COUNT", 0))
+    #: why the supervisor last restarted the ensemble (metrics label)
+    last_restart_reason: str | None = field(
+        default_factory=lambda: os.environ.get("PATHWAY_LAST_RESTART_REASON"))
     #: route dense Exchange columns through the card (parallel/meshcomm.py)
     #: instead of host memory
     mesh_exchange: bool = field(
@@ -109,6 +131,10 @@ class PathwayConfig:
     @property
     def total_workers(self) -> int:
         return self.threads * self.processes
+
+    @property
+    def replay_mode(self) -> str | None:
+        return self.persistence_mode
 
 
 def get_pathway_config() -> PathwayConfig:

@@ -23,9 +23,12 @@ otherwise. The observability branch is the reference's: with
 profiler, and the monitoring HTTP server (``engine/http_server.py``); the
 periodic telemetry flusher (``PATHWAY_MONITORING_SERVER``, the trace file);
 the dashboard at ``monitoring_level``; the tracer's ``graph.build`` span and
-its flush and OTLP export at the run's end. Left out: the multi-process
-cluster and cross-host mesh branches, the CLI's replay mode, and
-``Table.named`` pins (the port's nodes carry no upgrade identity).
+its flush and OTLP export at the run's end. The command line's replay mode
+is the reference's: each worker's manager takes the record/replay
+environment (``persistence.apply_replay_env``), and a plain ``Subscribe``
+skips no persisted time while replaying. Left out: the multi-process
+cluster and cross-host mesh branches, and ``Table.named`` pins (the port's
+nodes carry no upgrade identity).
 """
 
 from __future__ import annotations
@@ -176,8 +179,9 @@ class GraphRunner:
         cfg = get_pathway_config()
         if cfg.processes > 1:
             raise NotImplementedError(
-                "PATHWAY_PROCESSES > 1: the multi-process cluster is not "
-                "ported (ROADMAP.md Queue 3 item 12)"
+                "PATHWAY_PROCESSES > 1: the multi-process cluster "
+                "(parallel/cluster.py) is not ported (ROADMAP.md Queue 1 "
+                "item 9)"
             )
         if cfg.total_workers > 1:
             self._run_sharded(cfg)
@@ -237,11 +241,15 @@ class GraphRunner:
                 for w in range(n_workers):
                     worker_runner = GraphRunner(self.device)
                     if pcfg is not None:
-                        from ..persistence import PersistenceManager
+                        from ..persistence import (
+                            PersistenceManager,
+                            apply_replay_env,
+                        )
 
                         manager = PersistenceManager(
                             pcfg, worker_id=w, n_workers=n_workers
                         )
+                        apply_replay_env(manager, cfg)
                         worker_runner.persistence = manager
                         managers.append(manager)
                     for sink in G.sinks:
@@ -349,8 +357,12 @@ class GraphRunner:
                 ))
                 return
             skip_until = -1
-            if self.persistence is not None and sink.get(
-                "skip_persisted_batch", True
+            if (
+                self.persistence is not None
+                and sink.get("skip_persisted_batch", True)
+                # CLI replay re-emits the recorded history — that is the
+                # point; skip-persisted is a RECOVERY dedup mechanism
+                and getattr(self.persistence, "replay_mode", None) is None
             ):
                 skip_until = self.persistence.last_time
             self._nodes.append(ops.Subscribe(

@@ -1,6 +1,6 @@
 """Shared lint-mode state — armed by ``pathway_tpu_torch.analysis.lint``.
 
-Copy of ``pathway_tpu/internals/lintmode.py``.
+Copy of ``pathway_tpu/internals/lintmode.py``, with ``DEVICE``.
 
 When the static analyzer drives a user script (``analysis.lint.lint_script``), the
 script must BUILD its dataflow without EXECUTING it, and diagnostics
@@ -17,6 +17,10 @@ package (no import cycles, zero cost when lint mode is off):
 - ``LOCATIONS`` — ``table_seq -> (filename, lineno)`` creation sites.
 - ``CAPTURE`` — what the stubbed ``pw.run`` observed (persistence
   config, number of run calls).
+- ``DEVICE`` — the device the analysis lowers the graph on (``lint
+  --device``); the port's examples take it as their ``--device`` default
+  while they are linted (``device()``), so that a lint on the host builds
+  their encoders on the host.
 """
 
 from __future__ import annotations
@@ -28,20 +32,28 @@ ACTIVE: bool = False
 SCRIPT: str | None = None
 LOCATIONS: dict[int, tuple[str, int]] = {}
 CAPTURE: dict[str, Any] = {"persistence_config": None, "runs": 0}
+DEVICE: str | None = None
 
 
-def arm(script: str | None) -> None:
-    global ACTIVE, SCRIPT
+def arm(script: str | None, device: Any = None) -> None:
+    global ACTIVE, SCRIPT, DEVICE
     ACTIVE = True
     SCRIPT = script
+    DEVICE = None if device is None else str(device)
     LOCATIONS.clear()
     CAPTURE.update(persistence_config=None, runs=0)
 
 
 def disarm() -> None:
-    global ACTIVE, SCRIPT
+    global ACTIVE, SCRIPT, DEVICE
     ACTIVE = False
     SCRIPT = None
+    DEVICE = None
+
+
+def device(default: str = "cuda") -> str:
+    """The lint's device while a script is linted, else ``default``."""
+    return DEVICE if ACTIVE and DEVICE is not None else default
 
 
 def script_location(start_depth: int = 2) -> tuple[str, int] | None:

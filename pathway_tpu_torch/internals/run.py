@@ -10,8 +10,12 @@ Under lint mode (``internals/lintmode.py``, armed by ``analysis/lint.py``)
 runner. ``monitoring_level=`` draws the dashboard (``internals/monitoring.py``)
 and ``with_http_server=True`` serves the monitoring endpoints
 (``engine/http_server.py``), as in the reference; each run re-reads
-``PATHWAY_TRACE_FILE`` (``tracing.init_from_env``). Left out: the CLI's
-record/replay environment and the supervised SIGTERM wind-down.
+``PATHWAY_TRACE_FILE`` (``tracing.init_from_env``). With no
+``persistence_config`` and the command line's record/replay environment set
+(``spawn --record``, ``replay``), ``run`` persists to
+``PATHWAY_REPLAY_STORAGE`` itself; under ``spawn --supervise``
+(``PATHWAY_SUPERVISED=1``) a SIGTERM becomes ``request_stop()``, as in the
+reference.
 """
 
 from __future__ import annotations
@@ -63,7 +67,23 @@ def run(
     runner.with_http_server = with_http_server
     with _lock:
         _current["runner"] = runner
+    restore_sigterm = _install_supervised_sigterm()
     try:
+        if persistence_config is None:
+            # the CLI's record/replay env (spawn --record /
+            # replay --mode ...) must work WITHOUT program changes
+            # (reference run.py reads the replay config from env)
+            from .config import get_pathway_config
+
+            cfg = get_pathway_config()
+            if cfg.replay_storage and cfg.snapshot_access in (
+                "record", "replay"
+            ):
+                from ..persistence import Backend, Config
+
+                persistence_config = Config.simple_config(
+                    Backend.filesystem(cfg.replay_storage)
+                )
         if persistence_config is not None:
             from ..persistence import run_with_persistence
 
@@ -71,8 +91,31 @@ def run(
         else:
             runner.run()
     finally:
+        restore_sigterm()
         with _lock:
             _current["runner"] = None
+
+
+def _install_supervised_sigterm():
+    """Under ``spawn --supervise`` (PATHWAY_SUPERVISED=1) a SIGTERM is the
+    supervisor's cooperative teardown request: translate it into
+    ``request_stop()`` so the streaming loop winds down and the persistence
+    manager's ``close()`` flushes the recorded input tail before exit.
+    Returns a restore callback; a no-op off the main thread or when not
+    supervised."""
+    import os
+
+    if not os.environ.get("PATHWAY_SUPERVISED"):
+        return lambda: None
+    import signal
+
+    try:
+        prev = signal.signal(
+            signal.SIGTERM, lambda signum, frame: request_stop()
+        )
+    except ValueError:  # not the main thread — supervisor falls back to kill
+        return lambda: None
+    return lambda: signal.signal(signal.SIGTERM, prev)
 
 
 def request_stop() -> None:

@@ -40,11 +40,10 @@ The reference engine's telemetry pair — per-operator OTLP metrics
 The HTTP surface itself lives in ``engine/http_server.py``; instrumented
 state in ``engine/executor.EngineStats``.
 
-Copy of ``pathway_tpu/observability/__init__.py``. Left out with the
-command line (``cli.py``) that drives them: ``top`` (the ``top``
-command) and ``trace_merge`` (``trace merge``); the ``profile`` and
-``critpath`` commands' renderers (``render_top``,
-``critpath.render_report``) are here.
+Copy of ``pathway_tpu/observability/__init__.py``; the command line
+(``python -m pathway_tpu_torch.cli``) drives ``top``, ``trace_merge`` and the
+``profile`` and ``critpath`` renderers (``render_top``,
+``critpath.render_report``).
 """
 
 from .attribution import attribution_document, bottleneck_operator

@@ -5,8 +5,9 @@ User-facing config mirrors ``python/pathway/persistence/__init__.py:13-60``
 (KV backends, input snapshots, versioned metadata, offsets) mirrors
 ``src/persistence/`` — see backends.py / snapshots.py / manager.py.
 
-Copy of ``pathway_tpu/persistence/__init__.py`` without the CLI's
-record/replay environment (``apply_replay_env``).
+Copy of ``pathway_tpu/persistence/__init__.py``, with the command line's
+record/replay environment (``apply_replay_env``: ``spawn --record`` and
+``replay --mode``).
 """
 
 from dataclasses import dataclass
@@ -71,6 +72,16 @@ class Config:
         return cls(backend=backend, snapshot_interval_ms=snapshot_interval_ms)
 
 
+def apply_replay_env(manager: "PersistenceManager", pw_cfg: Any) -> None:
+    """CLI record/replay env (PATHWAY_SNAPSHOT_ACCESS / PERSISTENCE_MODE /
+    CONTINUE_AFTER_REPLAY, set by ``replay``) onto a manager."""
+    if pw_cfg.snapshot_access == "record":
+        manager.record_replay = True
+    elif pw_cfg.snapshot_access == "replay":
+        manager.replay_mode = pw_cfg.persistence_mode or "batch"
+        manager.continue_after_replay = bool(pw_cfg.continue_after_replay)
+
+
 def run_with_persistence(runner: Any, config: Config) -> None:
     """Attach persistence to the GraphRunner and run (called from pw.run
     when persistence_config is given). Sharded runs build one per-worker
@@ -79,10 +90,12 @@ def run_with_persistence(runner: Any, config: Config) -> None:
     from ..internals.config import get_pathway_config
 
     runner.persistence_config = config
-    if get_pathway_config().total_workers > 1:
+    pw_cfg = get_pathway_config()
+    if pw_cfg.total_workers > 1:
         runner.run()
         return
     manager = PersistenceManager(config)
+    apply_replay_env(manager, pw_cfg)
     runner.persistence = manager
     try:
         runner.run()

@@ -25,9 +25,10 @@ mismatch against real state is refused, unless ``PATHWAY_ELASTIC=1``: then
 worker 0 reshards the store in process (``rescale/resharder.py``) and its
 peers wait up to ``PATHWAY_RESCALE_WAIT_S`` for the new marker.
 
-Copy of ``pathway_tpu/persistence/manager.py``. Left out: the chaos wrap of
-the backend, the graph's fingerprint manifest (advisory metadata for the
-upgrade planner) and the CLI's record and replay modes.
+Copy of ``pathway_tpu/persistence/manager.py``, with the command line's
+record and replay modes (``replay_mode``, ``continue_after_replay``,
+``record_replay``). Left out: the chaos wrap of the backend and the graph's
+fingerprint manifest (advisory metadata for the upgrade planner).
 """
 
 from __future__ import annotations
@@ -127,6 +128,19 @@ class PersistenceManager:
         #: what this run's recovery did: the restored snapshot's time, the
         #: seconds restore_operators took, and the replayed tail's size
         self.recovery_stats: dict[str, Any] = {}
+        #: CLI replay mode (replay --mode): None = normal
+        #: persistence (record + snapshot + resume); "batch" coalesces the
+        #: whole recorded history into ONE tick, "speedrun" preserves the
+        #: recorded tick boundaries. In either replay mode operator
+        #: snapshots are ignored (full input replay), nothing re-records,
+        #: and sources are not seeked (reference cli replay semantics).
+        self.replay_mode: str | None = None
+        self.continue_after_replay = True
+        #: recording FOR REPLAY (spawn --record): keep the
+        #: full input history — no operator snapshots, no chunk
+        #: truncation (crash-recovery persistence truncates input once a
+        #: snapshot covers it, which would erase the replay tape)
+        self.record_replay = False
 
     @staticmethod
     def _resolve_layout(
@@ -350,9 +364,11 @@ class PersistenceManager:
             if offsets is not None
             else {s.persistent_id: s.offset_state() for s in self._sources}
         )
+        if self.record_replay:
+            with_operators = False  # the input history IS the artifact
         if with_operators:
             self._snapshot_operators(self.last_time)
-        covered = self._plan_chunk_truncation()
+        covered = [] if self.record_replay else self._plan_chunk_truncation()
         self._meta.commit({
             "last_time": self.last_time,
             "n_chunks": self._writer.n_chunks,

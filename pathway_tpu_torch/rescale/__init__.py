@@ -10,7 +10,8 @@ next epoch's namespaces — staged under ``rescale-tmp/`` and promoted by one
 atomic ``cluster``-marker rewrite.
 
 Copy of ``pathway_tpu/rescale/__init__.py``; the command line's ``rescale``
-is not ported.
+(``python -m pathway_tpu_torch.cli rescale``) runs it, and its dry run renders
+through :mod:`render`.
 """
 
 from .resharder import NoClusterMarker, RescaleError, rescale, stats

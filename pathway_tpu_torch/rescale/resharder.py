@@ -1,5 +1,6 @@
-"""The offline state resharder: ``rescale(backend, M)``, and the elastic boot
-(``PATHWAY_ELASTIC=1``) of ``persistence/manager.py``.
+"""The offline state resharder: ``rescale(backend, M)`` (the command line's
+``rescale``), and the elastic boot (``PATHWAY_ELASTIC=1``) of
+``persistence/manager.py``.
 
 Checkpoint resharding for a streaming engine — the analog of resharding
 model checkpoints across device meshes in JAX training stacks: persisted

@@ -2033,3 +2033,61 @@ def test_observed_run_on_the_card_serves_metrics(cuda, monkeypatch):
     inputs = {dict(lab)["worker"]: v for (name, lab), v in series.items()
               if name == "pathway_input_rows"}
     assert set(inputs) == {"0", "1"} and sum(inputs.values()) == 8000
+
+
+_CLI_CHAIN = '''
+import json
+import sys
+
+import numpy as np
+import pathway_tpu_torch as pw
+from pathway_tpu_torch.ops.expression_kernel import expression_vm
+
+rng = np.random.default_rng(5)
+g, x = rng.integers(0, 64, 81920), rng.integers(-1024, 1024, 81920) / 16.0
+
+
+class Feed(pw.io.python.ConnectorSubject):
+    def run(self):
+        for s in range(0, 81920, 4096):
+            self.next_batch({"g": g[s:s + 4096], "x": x[s:s + 4096]})
+            self.commit()
+
+
+src = pw.io.python.read(Feed(), schema=pw.schema_from_types(g=int, x=float),
+                        autocommit_duration_ms=None)
+res = (src.select(g=pw.this.g, z=pw.this.x * 2.0 - 1.0).filter(pw.this.z > -32.0)
+       .groupby(pw.this.g).reduce(pw.this.g, s=pw.reducers.sum(pw.this.z)))
+got = {}
+pw.io.subscribe(res, on_change=lambda key, row, time, is_addition:
+                got.__setitem__(row["g"], row["s"]) if is_addition else None)
+pw.run()
+z = x * 2.0 - 1.0
+want = {}
+for gg, zz in zip(g[z > -32.0], z[z > -32.0]):
+    want[int(gg)] = want.get(int(gg), 0.0) + zz
+with open(sys.argv[1], "w") as f:
+    json.dump({"launches": expression_vm.launches, "equal": got == want}, f)
+'''
+
+
+def test_cli_spawn_runs_a_chain_on_the_card(cuda, tmp_path):
+    """A short chain program (20 commits of 4,096 rows, past the expression machine's gate and
+    warm-up) through ``python -m pathway_tpu_torch.cli spawn`` in a fresh interpreter: its own
+    ``pw.run()`` takes the default device, the card, and the chain launches ``expression_vm``;
+    the table equals numpy's."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    prog, out = tmp_path / "chain.py", tmp_path / "out.json"
+    prog.write_text(_CLI_CHAIN)
+    r = subprocess.run([sys.executable, "-m", "pathway_tpu_torch.cli", "spawn", sys.executable,
+                        str(prog), str(out)], cwd=root, capture_output=True, text=True,
+                       timeout=300, env={**os.environ, "PYTHONPATH": root,
+                                         "PATHWAY_INGEST_COALESCE_WINDOWS": "0"})
+    assert r.returncode == 0, r.stderr[-3000:]
+    doc = json.loads(out.read_text())
+    assert doc["equal"] and doc["launches"] > 0, doc

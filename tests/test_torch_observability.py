@@ -9,11 +9,10 @@ single-process cases of ``test_tracing.py`` and the cases of ``test_critpath.py`
 port on the CPU; each case's own assertions hold in both, and every table it computes is held to
 the reference's. Two cases of ``test_signals.py`` end by feeding the merged ``/query`` document
 to the autoscaler's decider, which the port does not have: on the port's side they feed the
-port's document to the reference's decider. Left out, each with its reason in ``LEFT_OUT``:
-the cases that drive the
-``top`` command or the supervisor's crash bundles (``observability/top.py``,
-``parallel/supervisor.py``, not ported with the command line) and the one that spawns several
-processes through the command line.
+port's document to the reference's decider. The cases of ``top`` (``observability/top.py``)
+and of the supervisor's crash bundles (``parallel/supervisor.py``) run through both packages.
+Left out, with its reason in ``LEFT_OUT``: the one case that spawns several processes through
+the command line.
 
 ``tests/test_torch_observability_outputs.py`` holds the documents themselves: the same seeded
 inputs give the same bytes in both packages, and live runs of both give the same metrics.
@@ -35,16 +34,9 @@ PACKAGES = ("pathway_tpu", "pathway_tpu_torch")
 
 #: the reference's cases that are not run through the port, with the reason
 LEFT_OUT = {
-    # observability/top.py drives the `pathway-tpu top` command, left out with cli.py
-    "test_top_renders_workers_bottleneck_and_alerts": "top command",
-    "test_top_renders_empty_doc_without_errors": "top command",
-    "test_run_top_frames_against_live_server": "top command",
-    # parallel/supervisor.py (crash bundles at a restart) is not ported
-    "test_supervisor_harvests_crash_bundle": "supervisor",
-    "test_supervisor_skips_stale_ring_from_previous_run": "supervisor",
-    "test_supervisor_harvest_missing_ring_is_quiet": "supervisor",
-    # two processes spawned through `pathway-tpu spawn`; the port runs one process
-    "test_multiprocess_trace_files_cross_link": "several processes, the command line",
+    # two processes spawned through `spawn -n 2`: the cluster is not ported (ROADMAP.md Queue 1
+    # item 9)
+    "test_multiprocess_trace_files_cross_link": "several processes (parallel/cluster.py)",
 }
 
 _MODULES = ["test_observability", "test_profiler", "test_signals", "test_keyload",

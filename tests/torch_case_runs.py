@@ -182,7 +182,8 @@ def _redirect(env: dict, side: Side, pw: Any):
         if globals is env and level == 0 and name.split(".")[0] == "pathway_tpu":
             sub = name[len("pathway_tpu"):].lstrip(".")
             pkg = side.pkg
-            if sub.split(".")[0] in side.reference_modules:
+            if sub.split(".")[0] in side.reference_modules or (
+                    not sub and fromlist and set(fromlist) <= set(side.reference_modules)):
                 pkg = "pathway_tpu"
             mod = importlib.import_module(pkg + ("." + sub if sub else ""))
             if not fromlist:
@@ -202,19 +203,27 @@ def _redirect(env: dict, side: Side, pw: Any):
     return redirect
 
 
-def run_case(module_name: str, name: str, side: Side, prepare=None, **fixtures: Any) -> list[dict]:
+def run_case(module_name: str, name: str, side: Side, prepare=None,
+             rewrite: dict[str, str] | None = None, **fixtures: Any) -> list[dict]:
     """Execute the source of test module ``module_name`` afresh over ``side``'s package and call
     its function ``name`` with ``fixtures`` as arguments, and with those that
     ``prepare(module globals)`` returns (fixtures built from the module's own classes); return the
     tables it computed. The fresh module sits in ``sys.modules`` for the call, so its classes
-    pickle."""
+    pickle. ``rewrite`` maps source text to its replacement before the source is compiled (a
+    program the case writes to a file or a command it spawns names the package in a string, which
+    no import binding reaches); each key must occur in the source."""
     path = os.path.join(TESTS, module_name + ".py")
     mod = types.ModuleType(f"{module_name}__{side.pkg}")
     mod.__file__ = path
     env = mod.__dict__
     binds = side.bindings()
     with open(path) as f:
-        code = compile(f.read(), path, "exec")
+        source = f.read()
+    for old, new in (rewrite or {}).items():
+        if old not in source:
+            raise AssertionError(f"{module_name}: {old!r} is not in the source to rewrite")
+        source = source.replace(old, new)
+    code = compile(source, path, "exec")
     side.pw.G.clear()
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(builtins, "__import__", _redirect(env, side, binds["pw"]))
