@@ -6,12 +6,15 @@ temporal stdlib on Nexmark's event model, its ML, SQL and graph stdlib, its SQLi
 Lake and Debezium connectors, its RAG question answering with the last root names
 (``pw.analyze``, ``pw.load_yaml``, the error log, ``LiveTable``), its observability plane
 (the monitoring HTTP server, signals and SLO alerts, the profiler, key-load accounting, the flight
-recorder, OTLP telemetry), and its command line (record and replay, supervised recovery, ``top``,
-``critpath``, ``profile``, ``lint``, ``trace merge``, ``rescale``), on one NVIDIA card.
+recorder, OTLP telemetry), its command line (record and replay, supervised recovery, ``top``,
+``critpath``, ``profile``, ``lint``, ``trace merge``, ``rescale``), its training step on a (data,
+model) mesh with the dry run of ``graft_entry``, and its multi-process cluster (``spawn -n 2``
+over ``ClusterComm`` and ``MultiHostMeshComm``), on one NVIDIA card.
 
     python3 chip_smoke.py
 
-Phases, in order; any failure ends the run with a non-zero exit code:
+Phases, in order (phase 23 runs right after phase 8, on its world-1 group); any failure ends the
+run with a non-zero exit code:
 
 1. The card's name and power limit (``nvidia-smi``), then the build of every kernel of the path
    from ``pathway_tpu_torch/csrc`` (one ``nvcc`` per source, all started together), with ptxas's
@@ -356,7 +359,28 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    0; ``trace merge`` of (a)'s record run's trace file parses; ``rescale --dry-run --to 2`` of
    (b)'s store reports. Each child's launch counts (from 0 in a fresh process) are read just
    after its ``pw.run``, before the comparisons.
-23. Each engine-path kernel's launches and summed device time per path, one JSON line with each
+23. The training step on a (data, model) mesh and the dry run, on phase 6-8's world-1 NCCL
+   group. (a) ``make_step(..., mesh=data_model_mesh(1))`` at phase 5's inputs and weights (made
+   anew from their seeds): one step against phase 5's one-device step from the same weights and
+   index, the loss, every updated weight, the inserted rows and the search held to
+   ``tests/test_torch_pipeline.py``'s tolerances with each max |diff| logged; the first launch of
+   ``masked_attention``, its backward, InfoNCE, ``knn_topk`` and ``topk_merge`` in that step each
+   held against its plain version on its own inputs; then 10 steps with the launches counted,
+   the last 8 timed (CUDA events) beside phase 5's. (b) ``graft_entry.entry()``'s forward (unit
+   rows) and ``dryrun_multichip(1)`` (the mesh step, ring attention over a ``seq`` mesh, the
+   dataflow over ``LocalComm`` and ``MeshComm`` against one worker, and its recovery), its first
+   attention, ring step and largest bucketing held against their plain versions, every kernel of
+   its path launched.
+24. The cluster: phase 10's chain, written out, over 1,048,576 rows in 64 commits of 16,384,
+   under ``python -m pathway_tpu_torch.cli spawn -n 2 -t 2`` with both processes on the card, in
+   two arms run at once on disjoint ports: (a) ``ClusterComm``'s host frames (the async loop);
+   (b) ``PATHWAY_MESH_EXCHANGE=1``, ``MultiHostMeshComm`` (each process's leader buckets its
+   workers' dense rows on the card for all four workers, the leaders swap them over gloo, as
+   processes that share a card must). Each arm's table equal to numpy's; each process's
+   ``expression_vm`` launches (and in (b) ``bucket_exchange``'s) with one launch of each held
+   against the plain version on its inputs; logged: rows/s, each process's seconds from the
+   launch to its ``pw.run``, bytes and frames sent.
+25. Each engine-path kernel's launches and summed device time per path, one JSON line with each
    kernel's numbers, then the closing JSON line.
 
 It needs one CUDA card and exits non-zero, printing no result, without one. It imports nothing
@@ -755,8 +779,9 @@ def run_main_path(device, *, n_chunks: int, n_rows: int, tick: int, n_queries: i
     emb.embed_texts(texts[:8])  # first use: kernel libraries load, cuBLAS warms up
     sync()
 
-    masked_attention.launches = 0
-    topk_scores.launches = 0
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
 
     t0 = time.perf_counter()
     for start in range(0, n_chunks, tick):
@@ -809,11 +834,11 @@ def run_main_path(device, *, n_chunks: int, n_rows: int, tick: int, n_queries: i
     after = engine.search(query_sets[-1], [k] * n_queries, [None] * n_queries)
     if any(key in gone for row in after for key, _ in row):
         raise AssertionError("a removed key came back from search")
-    counts = {"masked_attention": masked_attention.launches, "knn_topk": topk_scores.launches}
+    counts = {name: fn.launches for name, fn in counters.items()}
     log(f"launches on the main path: {counts} (attention {ingest_attention} during ingest, "
         f"knn_topk {search_topk} over the first {n_searches + 1} unfiltered searches)")
-    for name, n in counts.items():
-        if n == 0 and device.type == "cuda":
+    for name in ("masked_attention", "knn_topk"):
+        if counts[name] == 0 and device.type == "cuda":
             raise AssertionError(f"{name} was not launched on the main path")
 
     # answers against the plain scorer on the same device tensors
@@ -1109,19 +1134,12 @@ def compare_grads(label: str, got: dict, want: dict) -> tuple[float, float]:
     return worst_cos, worst_rel
 
 
-def run_training(device, *, cfg=None, batch: int = 256, seq: int = 128, n_rows: int = 1 << 20,
-                 n_queries: int = 64, q_seq: int = 32, k: int = 10, warmup: int = 2,
-                 steps: int = 8) -> dict:
-    from pathway_tpu_torch.models import pipeline
-    from pathway_tpu_torch.models.embedder import (
-        EmbedderConfig, embed_tokens, init_params, tokenize_batch,
-    )
-    from pathway_tpu_torch.ops.attention import masked_attention, masked_attention_bwd
-    from pathway_tpu_torch.ops.infonce import infonce
-    from pathway_tpu_torch.ops.knn import topk_scores, topk_scores_plain
+def training_inputs(device, *, cfg=None, batch: int = 256, seq: int = 128, n_rows: int = 1 << 20,
+                    n_queries: int = 64, q_seq: int = 32):
+    """The training phase's inputs, made from their seeds: (cfg, tokens, tokens_aug, queries,
+    params, index)."""
+    from pathway_tpu_torch.models.embedder import EmbedderConfig, init_params, tokenize_batch
 
-    cuda = device.type == "cuda"
-    sync = torch.cuda.synchronize if cuda else (lambda: None)
     cfg = cfg or EmbedderConfig()
     texts = [c for c, _ in make_corpus(batch + n_queries, 256, seed=3)]
     tokens = torch.from_numpy(tokenize_batch(texts[:batch], cfg.vocab_size, seq)).to(device)
@@ -1133,6 +1151,20 @@ def run_training(device, *, cfg=None, batch: int = 256, seq: int = 128, n_rows: 
     gen = torch.Generator(device=device).manual_seed(17)
     index = torch.randn((n_rows, cfg.dim), generator=gen, device=device)
     index /= index.norm(dim=1, keepdim=True)
+    return cfg, tokens, tokens_aug, queries, params, index
+
+
+def run_training(device, *, cfg=None, batch: int = 256, seq: int = 128, n_rows: int = 1 << 20,
+                 n_queries: int = 64, q_seq: int = 32, k: int = 10, warmup: int = 2,
+                 steps: int = 8) -> dict:
+    from pathway_tpu_torch.models import pipeline
+    from pathway_tpu_torch.models.embedder import embed_tokens
+    from pathway_tpu_torch.ops.knn import topk_scores, topk_scores_plain
+
+    cuda = device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    cfg, tokens, tokens_aug, queries, params, index = training_inputs(
+        device, cfg=cfg, batch=batch, seq=seq, n_rows=n_rows, n_queries=n_queries, q_seq=q_seq)
     real = int((tokens > 0).sum().item())
     log(f"training inputs: {batch} pairs at S={seq} ({real} real tokens in the first view), "
         f"{n_queries} queries at S={q_seq}, index {n_rows} x {cfg.dim} f32, k={k}")
@@ -1191,8 +1223,8 @@ def run_training(device, *, cfg=None, batch: int = 256, seq: int = 128, n_rows: 
         torch.cuda.empty_cache()
 
     # the main path of this phase: a short training run, counts zeroed just before
-    counters = (masked_attention, masked_attention_bwd, infonce, topk_scores)
-    for fn in counters:
+    counters = launch_counters()
+    for fn in counters.values():
         fn.launches = 0
     p = params
     losses = []
@@ -1216,14 +1248,12 @@ def run_training(device, *, cfg=None, batch: int = 256, seq: int = 128, n_rows: 
     sync()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     step_ms = start.elapsed_time(end) / steps if cuda else float("nan")
-    counts = {"masked_attention": masked_attention.launches,
-              "masked_attention_bwd": masked_attention_bwd.launches,
-              "infonce": infonce.launches, "knn_topk": topk_scores.launches}
+    counts = {name: fn.launches for name, fn in counters.items()}
     n_steps = warmup + steps
     log(f"launches over {n_steps} training steps: {counts} "
         f"(per step {({n: c / n_steps for n, c in counts.items()})})")
-    for name, n in counts.items():
-        if n == 0 and cuda:
+    for name in ("masked_attention", "masked_attention_bwd", "infonce", "knn_topk"):
+        if counts[name] == 0 and cuda:
             raise AssertionError(f"{name} was not launched on the training path")
     trend = [round(x.item(), 6) for x in losses]
     if not all(math.isfinite(x) for x in trend):
@@ -1539,7 +1569,6 @@ def run_long_context(device, *, cfg=None, batch: int = 4, seq: int = 8192, warmu
                      iters: int = 5, check_seq: int = 2048) -> dict:
     from pathway_tpu_torch.models.embedder import EmbedderConfig, init_params
     from pathway_tpu_torch.models.ring_attention import embed_tokens_long
-    from pathway_tpu_torch.ops.ring import ring_block_attention
     from pathway_tpu_torch.parallel.distributed import global_mesh
 
     cuda = device.type == "cuda"
@@ -1553,7 +1582,9 @@ def run_long_context(device, *, cfg=None, batch: int = 4, seq: int = 8192, warmu
         f"{real} real tokens, the last all padding) on a {mesh.size()}-rank "
         f"{torch.distributed.get_backend()} group")
 
-    ring_block_attention.launches = 0
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
     with torch.no_grad():
         for _ in range(warmup):
             emb = embed_tokens_long(params, tokens, cfg, mesh)
@@ -1569,7 +1600,7 @@ def run_long_context(device, *, cfg=None, batch: int = 4, seq: int = 8192, warmu
         sync()
     wall_ms = (time.perf_counter() - t0) * 1e3 / iters
     fwd_ms = start.elapsed_time(end) / iters if cuda else float("nan")
-    counts = {"ring_attention": ring_block_attention.launches}
+    counts = {name: fn.launches for name, fn in counters.items()}
     n_fwd = warmup + iters
     log(f"launches over {n_fwd} long-context forwards: {counts} "
         f"(per forward {counts['ring_attention'] / n_fwd:g}, {cfg.n_layers} layers)")
@@ -1604,7 +1635,7 @@ def run_long_context(device, *, cfg=None, batch: int = 4, seq: int = 8192, warmu
 
 def run_sharded_search(device, *, n_rows: int = 1 << 20, dim: int = 384, n_queries: int = 64,
                        k: int = 10, searches: int = 8) -> dict:
-    from pathway_tpu_torch.ops.knn import ShardedKnnIndex, topk_merge, topk_scores
+    from pathway_tpu_torch.ops.knn import ShardedKnnIndex
     from pathway_tpu_torch.parallel.distributed import global_mesh
 
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
@@ -1627,16 +1658,17 @@ def run_sharded_search(device, *, n_rows: int = 1 << 20, dim: int = 384, n_queri
     queries = queries + 0.05 * rng.standard_normal(queries.shape, dtype=np.float32)
     sharded.query(queries, k)  # first use
 
-    topk_scores.launches = 0
-    topk_merge.launches = 0
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
     search_ms = []
     for _ in range(searches):
         t0 = time.perf_counter()
         s, i = sharded.query(queries, k)
         search_ms.append((time.perf_counter() - t0) * 1e3)
-    counts = {"knn_topk": topk_scores.launches, "topk_merge": topk_merge.launches}
+    counts = {name: fn.launches for name, fn in counters.items()}
     log(f"launches over {searches} sharded searches: {counts}")
-    if device.type == "cuda" and min(counts.values()) == 0:
+    if device.type == "cuda" and min(counts["knn_topk"], counts["topk_merge"]) == 0:
         raise AssertionError(f"a kernel was not launched on the sharded path: {counts}")
     if device.type == "cuda":  # what one search runs on the card, copies apart
         prof = profile_step(lambda: sharded.query(queries, k))
@@ -7932,6 +7964,496 @@ def run_cli(device, *, chain_commit: int = CLI_CHAIN_COMMIT,
             "first_answer_s": first_answer}
 
 
+# -- phase 23: the training step on a (data, model) mesh, and the dry run ----------------------
+
+
+MESH_BUDGET_S = 15.0
+#: the mesh step against the one-device step: tests/test_torch_pipeline.py's tolerances (the
+#: loss absolute; each parameter's update by cosine and relative norm; rows and scores absolute)
+MESH_LOSS_ATOL, MESH_UPDATE_MIN_COS, MESH_UPDATE_MAX_REL, MESH_EMB_ATOL = 1e-2, 0.999, 0.05, 1e-2
+
+
+@contextlib.contextmanager
+def first_call(module, name: str, into: dict, key: str, clone: bool = True):
+    """Keep the arguments of the block's first call of ``module.name`` under ``into[key]`` (its
+    tensors cloned unless ``clone`` is False). A wrapper wrapped in its own module counts its
+    launches on the module attribute, so the recording function carries the count and hands it
+    back, as ``record_largest_exchange`` does."""
+    original = getattr(module, name)
+
+    def recording(*args, **kw):
+        if key not in into:
+            into[key] = tuple(a.detach().clone() if clone and torch.is_tensor(a) else a
+                              for a in args)
+        return original(*args, **kw)
+
+    counted = original.__module__ == module.__name__ and hasattr(original, "launches")
+    if counted:
+        recording.launches = original.launches
+    setattr(module, name, recording)
+    try:
+        yield
+    finally:
+        setattr(module, name, original)
+        if counted:
+            original.launches = recording.launches
+
+
+def hold_training_kernels(captured: dict, label: str) -> dict:
+    """Rows 1, 8a, 8b, 3 and 5 against their plain versions on one launch's inputs each, as the
+    step gave them: the attention forward and backward within ATTN_ATOL + ATTN_RTOL, InfoNCE's
+    loss and gradient within INFONCE_RTOL, the scorer within one bf16 ulp (ids where the scores
+    are clear), the merge exactly. Returns each max |kernel - plain|."""
+    from pathway_tpu_torch.ops import attention
+    from pathway_tpu_torch.ops.infonce import infonce, infonce_plain
+    from pathway_tpu_torch.ops.knn import (
+        topk_merge_shards, topk_merge_shards_plain, topk_scores, topk_scores_plain,
+    )
+
+    errs = {"masked_attention": attention_error(label, *captured["attention"])}
+    q, k, v, dout, mask, stat = captured["bwd"]
+    got = attention.masked_attention_bwd(q, k, v, dout, mask, stat)
+    want = attention.masked_attention_bwd_plain(q, k, v, dout, mask)
+    torch.cuda.synchronize()
+    errs["masked_attention_bwd"] = 0.0
+    for name, g, w in zip("qkv", got, want):
+        err = (g.float() - w.float()).abs()
+        if not torch.isfinite(g.float()).all() or (
+                err > ATTN_ATOL + ATTN_RTOL * w.float().abs()).any():
+            raise AssertionError(f"{label}: masked_attention_bwd d{name} max |err| "
+                                 f"{err.max().item()}")
+        errs["masked_attention_bwd"] = max(errs["masked_attention_bwd"], err.max().item())
+    (logits,) = captured["infonce"]
+    live = logits.clone().requires_grad_()
+    loss = infonce(live)
+    (grad,) = torch.autograd.grad(loss, live)
+    want_loss = infonce_plain(live)
+    (want_grad,) = torch.autograd.grad(want_loss, live)
+    l_err, g_err = abs(loss.item() - want_loss.item()), (grad - want_grad).abs()
+    B = logits.shape[0]
+    if l_err > INFONCE_RTOL * max(1.0, abs(want_loss.item())) or (
+            g_err > INFONCE_RTOL * (1.0 / B + want_grad.abs())).any():
+        raise AssertionError(f"{label}: infonce B={B} loss err {l_err}, grad err {g_err.max()}")
+    errs["infonce"] = max(l_err, g_err.max().item())
+    queries, index, kk, metric = captured["knn"][:4]
+    s_k, i_k = topk_scores(queries, index, kk, metric)
+    s_p, i_p = topk_scores_plain(queries, index, kk + 1, metric)
+    torch.cuda.synchronize()
+    check_topk_against_plain(s_k, i_k, s_p, i_p, topk_tolerance(s_p, queries, index, metric))
+    errs["knn_topk"] = (s_k - s_p[:, :kk]).abs().max().item()
+    scores, ids, km, rows = captured["merge"]
+    m_s, m_i = topk_merge_shards(scores, ids, km, rows)
+    w_s, w_i = topk_merge_shards_plain(scores, ids, km, rows)
+    if not (torch.equal(m_s, w_s) and torch.equal(m_i, w_i)):
+        raise AssertionError(f"{label}: topk_merge differs from its plain version")
+    errs["topk_merge"] = 0.0
+    log(f"{label}: on one launch's inputs each, masked_attention {tuple(q.shape)} and its "
+        f"backward, infonce B={B}, knn_topk (q={queries.shape[0]}, n={index.shape[0]}, "
+        f"d={queries.shape[1]}, k={kk}) and topk_merge (P={scores.shape[0]}, kk={scores.shape[2]})"
+        f" held against their plain versions: max |err| "
+        f"{ {n: float(f'{e:.3e}') for n, e in errs.items()} }")
+    return errs
+
+
+def run_mesh_step(device, *, cfg=None, batch: int = 256, seq: int = 128, n_rows: int = 1 << 20,
+                  n_queries: int = 64, q_seq: int = 32, k: int = 10, warmup: int = 2,
+                  steps: int = 8) -> dict:
+    """Phase 23 (a): ``make_step(..., mesh=data_model_mesh(1))`` on the world-1 group at phase
+    5's inputs (made anew from their seeds). One step against phase 5's one-device step from the
+    same weights and index; the kernels of rows 1, 8a, 8b, 3 and 5 held on that step's launches;
+    then the launches counted over ``warmup + steps`` steps, the last ``steps`` timed."""
+    from pathway_tpu_torch.models import embedder, pipeline
+    from pathway_tpu_torch.ops import attention, knn
+    from pathway_tpu_torch.parallel.mesh import data_model_mesh
+
+    cuda = device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    cfg, tokens, tokens_aug, queries, params, index = training_inputs(
+        device, cfg=cfg, batch=batch, seq=seq, n_rows=n_rows, n_queries=n_queries, q_seq=q_seq)
+    mesh = data_model_mesh(1, device=device.type)
+    shard = pipeline.param_shardings(mesh, params, cfg)
+    insert_at = n_rows - batch // 2  # clamped to n_rows - batch
+    idx_one = index.clone()
+    new_o, _, loss_o, s_o, i_o = pipeline.make_step(cfg, k=k + 1, device=device)(
+        params, tokens, tokens_aug, idx_one, insert_at, queries)
+    step = pipeline.make_step(cfg, k=k, mesh=mesh, device=device)
+    captured: dict = {}
+    with contextlib.ExitStack() as stack:
+        for mod, name, key, clone in ((embedder, "masked_attention", "attention", True),
+                                      (attention, "masked_attention_bwd", "bwd", True),
+                                      (pipeline, "infonce", "infonce", True),
+                                      (knn, "topk_scores", "knn", False),
+                                      (knn, "topk_merge_shards", "merge", True)):
+            stack.enter_context(first_call(mod, name, captured, key, clone))
+        new_m, _, loss_m, s_m, i_m = step(shard, tokens, tokens_aug, index, insert_at, queries)
+    sync()
+    loss_diff = abs(loss_m.item() - loss_o.item())
+    if not math.isfinite(loss_m.item()) or loss_diff > MESH_LOSS_ATOL:
+        raise AssertionError(f"mesh step loss {loss_m.item()} against one device {loss_o.item()}")
+    worst_cos, worst_rel, weight_diff = 1.0, 0.0, 0.0
+    for new, one, old in zip(pipeline._leaves(pipeline.gather_params(mesh, new_m)),
+                             pipeline._leaves(new_o), pipeline._leaves(params)):
+        dm, do = new - old, one - old
+        cos = ((dm * do).sum() / (dm.norm() * do.norm())).item()
+        rel = ((dm - do).norm() / do.norm()).item()
+        if not cos >= MESH_UPDATE_MIN_COS or not rel <= MESH_UPDATE_MAX_REL:
+            raise AssertionError(f"mesh step: a parameter {tuple(old.shape)}'s update has cosine "
+                                 f"{cos}, relative error {rel} against one device")
+        worst_cos, worst_rel = min(worst_cos, cos), max(worst_rel, rel)
+        weight_diff = max(weight_diff, (new - one).abs().max().item())
+    rows = slice(n_rows - batch, n_rows)
+    row_diff = (index[rows] - idx_one[rows]).abs().max().item()
+    if row_diff > MESH_EMB_ATOL or not torch.equal(index[: n_rows - batch],
+                                                   idx_one[: n_rows - batch]):
+        raise AssertionError(f"mesh step: inserted rows differ by {row_diff} or landed elsewhere")
+    check_topk_against_plain(s_m, i_m, s_o, i_o, bf16_ulp(s_o) + MESH_EMB_ATOL)
+    score_diff = (s_m - s_o[:, :k]).abs().max().item()
+    log(f"mesh step (data_model_mesh(1)) against phase 5's one-device step: |loss| diff "
+        f"{loss_diff:.3e} ({loss_m.item():.6f}), updates' worst cosine {worst_cos:.6f} and "
+        f"relative error {worst_rel:.3e}, max |weight diff| {weight_diff:.3e}, rows "
+        f"{row_diff:.3e}, scores {score_diff:.3e}, ids equal where the scores are clear")
+    errs = hold_training_kernels(captured, "phase 23 (a)") if cuda else {}
+    del captured, new_o, new_m
+    if cuda:
+        torch.cuda.empty_cache()
+
+    def timed(step_fn, p, idx) -> tuple[float, float]:
+        """``warmup + steps`` steps, the last ``steps`` timed: (CUDA events ms, host ms) a step."""
+        losses = []
+        for i in range(warmup + steps):
+            if i == warmup:
+                sync()
+                t0 = time.perf_counter()
+                if cuda:
+                    start = torch.cuda.Event(enable_timing=True)
+                    start.record()
+            p, _, loss, _, _ = step_fn(p, tokens, tokens_aug, idx, i * batch, queries)
+            losses.append(loss)
+        if cuda:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+        sync()
+        if not all(math.isfinite(x.item()) for x in losses):
+            raise AssertionError("mesh step: loss not finite")
+        return (start.elapsed_time(end) / steps if cuda else float("nan"),
+                (time.perf_counter() - t0) * 1e3 / steps)
+
+    # the one-device step timed the same way in this call, then the mesh step's path
+    one_ms, one_wall_ms = timed(pipeline.make_step(cfg, k=k, device=device), params, idx_one)
+    del idx_one
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    step_ms, wall_ms = timed(step, shard, index)
+    counts = {name: fn.launches for name, fn in counters.items()}
+    log(f"launches over {warmup + steps} mesh steps: {counts}")
+    for name in ("masked_attention", "masked_attention_bwd", "infonce", "knn_topk", "topk_merge"):
+        if counts[name] == 0 and cuda:
+            raise AssertionError(f"{name} was not launched on the mesh step's path")
+    return {"step_ms": step_ms, "wall_ms": wall_ms, "one_device_ms": one_ms,
+            "one_device_wall_ms": one_wall_ms, "launches": counts, "errs": errs,
+            "diffs": {"loss": loss_diff, "weights": weight_diff, "rows": row_diff,
+                      "scores": score_diff}}
+
+
+def run_dryrun(device) -> dict:
+    """Phase 23 (b): ``graft_entry.entry()``'s forward and ``dryrun_multichip(1)`` on the
+    world-1 group; the dry run's first attention, ring step and bucketing held against their
+    plain versions on their inputs, and its launches counted."""
+    from pathway_tpu_torch import graft_entry
+    from pathway_tpu_torch.models import embedder, ring_attention
+    from pathway_tpu_torch.ops.ring import ring_block_attention, ring_block_attention_plain
+
+    cuda = device.type == "cuda"
+    fn, args = graft_entry.entry(device)
+    with torch.no_grad():
+        out = fn(*args)
+    norms = out.norm(dim=1)
+    if out.shape != (8, 128) or not torch.isfinite(out).all() or (norms - 1).abs().max() > 1e-3:
+        raise AssertionError(f"graft_entry.entry(): forward {tuple(out.shape)} not unit rows")
+    counters = launch_counters()
+    for c in counters.values():
+        c.launches = 0
+    captured: dict = {}
+    recorded: list = []
+    with first_call(embedder, "masked_attention", captured, "attention"), \
+            first_call(ring_attention, "ring_block_attention", captured, "ring"), \
+            record_largest_exchange(recorded):
+        dry = graft_entry.dryrun_multichip(1, device=device)
+    launches = {name: c.launches for name, c in counters.items()}
+    errs = {}
+    if cuda:
+        errs["masked_attention"] = attention_error("phase 23 (b) dry run",
+                                                   *captured["attention"])
+        # the state as the launch found it, folded by each version with the normalised output
+        q, k, v, mask, o, m, l, scale = captured["ring"]
+        states = [tuple(t.clone() for t in (o, m, l)) + (torch.empty_like(o),) for _ in range(2)]
+        ring_block_attention(q, k, v, mask, *states[0][:3], scale, out=states[0][3])
+        ring_block_attention_plain(q, k, v, mask, *states[1][:3], scale, out=states[1][3])
+        torch.cuda.synchronize()
+        errs["ring_attention"] = ring_close(f"phase 23 (b) ring_block_attention {tuple(q.shape)} "
+                                            f"{str(q.dtype)[6:]}", states[0][3], states[1][3])
+        errs["bucket_exchange"] = check_recorded_exchange(recorded, "phase 23 (b)")
+        for name in ("masked_attention", "knn_topk", "infonce", "masked_attention_bwd",
+                     "topk_merge", "ring_attention", "bucket_exchange"):
+            if not launches[name]:
+                raise AssertionError(f"{name} was not launched in the dry run")
+    log(f"graft_entry: entry()'s forward (8, 128) unit rows; dryrun_multichip(1): mesh "
+        f"{dry['mesh']}, loss {dry['loss']:.6f}, ids {dry['topk_ids']}, ring over "
+        f"{dry['seq']} tokens, dataflow parity {dry['dataflow']}, recovery parity "
+        f"{dry['recovery']}; launches {launches}")
+    return {"launches": launches, "errs": errs, "dry": dry}
+
+
+def check_recorded_exchange(recorded: list, label: str) -> int:
+    """``bucket_exchange`` against its plain version, bitwise, on the inputs
+    ``record_largest_exchange`` kept. Returns the largest word difference (0)."""
+    from pathway_tpu_torch.parallel.exchange import bucket_exchange, bucket_exchange_plain
+
+    words, dest, n_dst, cap_bucket = recorded
+    out, valid, counts = bucket_exchange(words, dest, n_dst, cap_bucket, return_counts=True)
+    want, want_valid, want_counts = bucket_exchange_plain(words, dest, n_dst, cap_bucket,
+                                                          return_counts=True)
+    torch.cuda.synchronize()
+    if not (torch.equal(out, want) and torch.equal(valid, want_valid)
+            and torch.equal(counts, want_counts)):
+        raise AssertionError(f"{label}: bucket_exchange differs from its plain version")
+    log(f"{label}: bucket_exchange at n_src={words.shape[0]} cap_in={words.shape[1]} "
+        f"w={words.shape[2]} n_dst={n_dst} cap_bucket={cap_bucket}, the largest launch's inputs, "
+        f"equal to its plain version bitwise")
+    return 0
+
+
+# -- phase 24: the cluster ----------------------------------------------------------------------
+
+
+CLUSTER_BUDGET_S = 60.0
+#: phase 10's chain over CLUSTER_COMMITS commits of CLUSTER_COMMIT rows (1,048,576) and its
+#: 65,536 groups, under ``spawn -n 2 -t 2``
+CLUSTER_COMMIT, CLUSTER_COMMITS, CLUSTER_GROUPS = 16384, 64, 1 << 16
+
+#: the program each process of an arm runs: the chain over a python subject; its table (process
+#: 0 holds the subscription), timestamps, launch counts, comm counters and held kernels to a JSON
+#: file a process
+CLUSTER_CHAIN_SCRIPT = """
+import json
+import os
+import sys
+import time
+
+args = json.loads(sys.argv[1])
+sys.path.insert(0, args["repo"])
+import chip_smoke as cs
+import pathway_tpu_torch as pw
+import torch
+from pathway_tpu_torch.internals import expression_compiler as ec
+from pathway_tpu_torch.parallel import cluster, meshcomm
+
+pid = int(os.environ["PATHWAY_PROCESS_ID"])
+comms = {}
+
+
+def keep(cls, key):
+    real = cls.__init__
+
+    def init(self, *a, **kw):
+        real(self, *a, **kw)
+        comms[key] = self
+
+    cls.__init__ = init
+
+
+keep(cluster.ClusterComm, "cluster")
+keep(meshcomm.MultiHostMeshComm, "mesh")
+device = torch.device(args["device"])
+if args["threshold"]:
+    ec.JIT_THRESHOLD = args["threshold"]
+cols = cs.pipeline_columns(args["rows"], args["groups"])
+commit = args["commit"]
+
+
+class Subject(pw.io.python.ConnectorSubject):
+    def run(self):
+        for s in range(0, args["rows"], commit):
+            self.next_batch({c: v[s:s + commit] for c, v in cols.items()})
+            self.commit()
+
+
+t = pw.io.python.read(Subject(), schema=pw.schema_from_types(a=int, g=int, x=float),
+                      autocommit_duration_ms=None, name="chain")
+res = cs.chain_variant(pw, t, lifted=False).groupby(pw.this.g).reduce(
+    pw.this.g, s=pw.reducers.sum(pw.this.w), c=pw.reducers.count())
+final = {}
+
+
+def on_batch(tm, b):
+    for g, s, c, d in zip(b.data["g"].tolist(), b.data["s"].tolist(), b.data["c"].tolist(),
+                          b.diffs.tolist()):
+        if d > 0:
+            final[g] = (s, c)
+        elif final.get(g) == (s, c):
+            del final[g]
+
+
+pw.io.subscribe(res, on_batch=on_batch)
+captured, recorded = {}, []
+with cs.first_program(captured), cs.record_largest_exchange(recorded):
+    run_at = time.time()
+    t0 = time.perf_counter()
+    pw.run(device=device)
+    seconds = time.perf_counter() - t0
+launches = {name: fn.launches for name, fn in cs.launch_counters().items()}
+held = {}
+if device.type == "cuda":
+    if captured:
+        held["vm"] = cs.check_first_program(device, captured)
+    if recorded:
+        held["exchange"] = cs.check_recorded_exchange(recorded, f"phase 24 process {pid}")
+stats = comms["cluster"].comm_stats()
+mesh = comms.get("mesh")
+with open(f"{args['out']}.p{pid}", "w") as f:
+    json.dump({"process": pid, "table": sorted([g, s, c] for g, (s, c) in final.items()),
+               "seconds": seconds, "run_at": run_at, "launches": launches, "held": held,
+               "bytes_sent": stats["cluster_bytes_sent"],
+               "frames_sent": stats["cluster_frames_sent"],
+               "transport": None if mesh is None else mesh.transport,
+               "mesh": None if mesh is None else {k: v for k, v in mesh.comm_stats().items()
+                                                  if k.startswith("mesh_")}}, f)
+"""
+
+
+def cluster_ports(start: int) -> int:
+    """A first port at or above ``start`` whose two cluster ports and the rendezvous above them
+    (``first_port + 1000``) are free."""
+    import socket
+
+    for first in range(start, start + 400, 4):
+        ok = True
+        for port in (first, first + 1, first + 1000):
+            with socket.socket() as sock:
+                sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+                try:
+                    sock.bind(("127.0.0.1", port))
+                except OSError:
+                    ok = False
+        if ok:
+            return first
+    raise RuntimeError(f"no free cluster ports above {start}")
+
+
+def run_cluster(device, *, commit: int = CLUSTER_COMMIT, commits: int = CLUSTER_COMMITS,
+                groups: int = CLUSTER_GROUPS, threshold: int | None = None) -> dict:
+    """Phase 24: the chain program under ``python -m pathway_tpu_torch.cli spawn -n 2 -t 2``, two
+    arms at once on disjoint ports: (a) ``ClusterComm``'s host frames, (b)
+    ``PATHWAY_MESH_EXCHANGE=1`` (``MultiHostMeshComm``, the swap over gloo: both processes share
+    the card). Each arm's table against numpy's, each process's launches and held kernels; logged:
+    rows/s, each process's seconds from the launch to its ``pw.run``, bytes and frames sent."""
+    import shutil
+    import tempfile
+
+    cuda = device.type == "cuda"
+    card = card_line() if cuda else "cpu"
+    start = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    rows = commit * commits
+    work = tempfile.mkdtemp(prefix="cluster-phase-")
+    procs = {}
+    try:
+        script = os.path.join(work, "chain.py")
+        with open(script, "w") as f:
+            f.write(CLUSTER_CHAIN_SCRIPT)
+        first = 24000
+        for arm, extra in (("a", {"PATHWAY_MESH_EXCHANGE": "0"}),
+                           ("b", {"PATHWAY_MESH_EXCHANGE": "1"})):
+            first = cluster_ports(first)
+            out = os.path.join(work, f"{arm}.json")
+            cfg = {"repo": root, "device": str(device), "rows": rows, "commit": commit,
+                   "groups": groups, "threshold": threshold, "out": out}
+            env = {**os.environ, "PYTHONPATH": root, "PATHWAY_INGEST_COALESCE_WINDOWS": "0",
+                   "PATHWAY_FUSION": "1", **extra}
+            log_path = os.path.join(work, f"{arm}.log")
+            launched = time.time()
+            with open(log_path, "w") as log_f:
+                proc = subprocess.Popen(
+                    [sys.executable, "-m", "pathway_tpu_torch.cli", "spawn", "-n", "2", "-t",
+                     "2", "--first-port", str(first), sys.executable, script, json.dumps(cfg)],
+                    env=env, cwd=root, stdout=log_f, stderr=subprocess.STDOUT)
+            procs[arm] = (proc, launched, out, log_path, first)
+            first += 8
+        want = pipeline_reference(pipeline_columns(rows, groups))
+        arms = {}
+        for arm, (proc, launched, out, log_path, first) in procs.items():
+            try:
+                code = proc.wait(timeout=600)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(60)
+                code = "timeout"
+            if code != 0:
+                with open(log_path) as f:
+                    raise AssertionError(f"phase 24 ({arm}): spawn exited with {code}:\n"
+                                         f"{f.read()[-4000:]}")
+            parts = []
+            for pid in (0, 1):
+                with open(f"{out}.p{pid}") as f:
+                    parts.append(json.load(f))
+            got = {g: (s_, c) for g, s_, c in parts[0]["table"]}
+            if got != want:
+                raise AssertionError(f"phase 24 ({arm}): the table differs from numpy's")
+            if parts[1]["table"]:
+                raise AssertionError(f"phase 24 ({arm}): process 1 holds a subscription's rows")
+            if cuda:
+                if not sum(p["launches"]["expression_vm"] for p in parts):
+                    raise AssertionError(f"phase 24 ({arm}): expression_vm not launched")
+                for p in parts:
+                    if p["launches"]["expression_vm"] and "vm" not in p["held"]:
+                        raise AssertionError(f"phase 24 ({arm}): process {p['process']}'s "
+                                             f"program not held")
+                    if arm == "b" and not (p["launches"]["bucket_exchange"]
+                                           and "exchange" in p["held"]):
+                        raise AssertionError(f"phase 24 (b): bucket_exchange not launched or "
+                                             f"not held in process {p['process']}")
+            if arm == "b" and {p["transport"] for p in parts} != {"gloo"}:
+                raise AssertionError(f"phase 24 (b): the swap's transport "
+                                     f"{[p['transport'] for p in parts]}, not gloo")
+            arms[arm] = {"rows_per_s": rows / parts[0]["seconds"],
+                         "to_run_s": [p["run_at"] - launched for p in parts],
+                         "bytes_sent": [p["bytes_sent"] for p in parts],
+                         "frames_sent": [p["frames_sent"] for p in parts],
+                         "launches": [p["launches"] for p in parts],
+                         "held": [p["held"] for p in parts],
+                         "transport": parts[0]["transport"], "mesh": [p["mesh"] for p in parts],
+                         "ports": first}
+            a = arms[arm]
+            log(f"cluster ({arm}{', MultiHostMeshComm over ' + a['transport'] if a['transport'] else ', ClusterComm host frames'}): "
+                f"phase 10's chain over {rows} rows in {commits} commits under spawn -n 2 -t 2 "
+                f"(ports {first}, {first + 1}): table equal to numpy's; "
+                f"{a['rows_per_s']:.1f} rows/s (process 0's pw.run); each process "
+                f"{[round(x, 2) for x in a['to_run_s']]} s from the launch to its pw.run; "
+                f"bytes sent {a['bytes_sent']}, frames {a['frames_sent']}; launches "
+                f"expression_vm {[x['expression_vm'] for x in a['launches']]}, bucket_exchange "
+                f"{[x['bucket_exchange'] for x in a['launches']]}"
+                + (f"; mesh {a['mesh']}" if a["transport"] else "") + "".join(
+                    f"; process {pid} held bitwise against the plain versions: " + " and ".join(
+                        f"expression_vm's program ({h['vm']['instructions']} instructions, "
+                        f"{h['vm']['rows']} rows)" if k == "vm"
+                        else "bucket_exchange's largest launch" for k in h)
+                    for pid, h in enumerate(a["held"]) if h) + f" [{card}]")
+    finally:
+        for proc, *_ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(60)
+        shutil.rmtree(work, ignore_errors=True)
+    launches = {f"cluster_{arm}_p{pid}": arms[arm]["launches"][pid]
+                for arm in arms for pid in (0, 1)}
+    held = {"vm_err": max([h["vm"]["max_abs_err"] for a in arms.values() for h in a["held"]
+                           if "vm" in h], default=0.0)}
+    seconds = time.perf_counter() - start
+    log(f"cluster: the phase took {seconds:.1f} s of its {CLUSTER_BUDGET_S:.0f} [{card}]")
+    return {"arms": arms, "launches": launches, "held": held, "s": seconds}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -8052,6 +8574,19 @@ def main() -> int:
     log(f"ShardedKnnIndex(mesh=...).add of 65536 x 384 f32 rows from the host, 1 rank: median "
         f"{sharded['add_ms']:.4f} ms (host clock, synchronised), bound "
         f"{sharded['add_bound_ms']:.4f} ms (bytes) [{card}]")
+    torch.cuda.empty_cache()
+
+    phase("the mesh step and the dry run")
+    t0 = time.perf_counter()
+    mesh_step = run_mesh_step(device)
+    log(f"mesh step (data_model_mesh(1), world-1 NCCL group): {mesh_step['step_ms']:.3f} ms "
+        f"(CUDA events, mean of 8 after 2; host clock {mesh_step['wall_ms']:.3f} ms) beside "
+        f"the one-device step's {mesh_step['one_device_ms']:.3f} ms in this phase and phase 5's "
+        f"{train['step_ms']:.3f} ms [{card}]")
+    torch.cuda.empty_cache()
+    dryrun = run_dryrun(device)
+    log(f"the mesh step and the dry run took {time.perf_counter() - t0:.1f} s of its "
+        f"{MESH_BUDGET_S:.0f} [{card}]")
     torch.distributed.destroy_process_group()
     torch.cuda.empty_cache()
 
@@ -8136,6 +8671,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     cli_phase = run_cli(device, fill_rows_per_s=indexing["rates"]["indexing"]["fill_rows_per_s"])
 
+    phase("the cluster")
+    torch.cuda.empty_cache()
+    cluster_phase = run_cluster(device)
+
     by_path = {**engine["device_ms_by_path"], **api["device_ms_by_path"]}
     all_launches = {**engine["launches"], **api["launches"]}
     for name in PATH_KERNELS:
@@ -8154,33 +8693,39 @@ def main() -> int:
                              "pathway_tpu/models/embedder.py:90",
                              max(attn_err, times["masked_attention"]["err"],
                                  qa["held"]["attention_err"], obs["held"]["attention_err"],
-                                 cli_phase["held"]["attention_err"])),
+                                 cli_phase["held"]["attention_err"],
+                                 mesh_step["errs"]["masked_attention"],
+                                 dryrun["errs"]["masked_attention"])),
         "masked_attention_bwd": ("pathway_tpu_torch/csrc/masked_attention_bwd.cu",
                                  "pathway_tpu/models/pipeline.py:72",
-                                 max(bwd_err, times["masked_attention_bwd"]["err"])),
+                                 max(bwd_err, times["masked_attention_bwd"]["err"],
+                                     mesh_step["errs"]["masked_attention_bwd"])),
         "knn_topk": ("pathway_tpu_torch/csrc/knn_topk.cu", "pathway_tpu/ops/knn.py:46",
                      max(knn_err, qa["held"]["knn_err"], obs["held"]["knn_err"],
-                         cli_phase["held"]["knn_err"])),
+                         cli_phase["held"]["knn_err"], mesh_step["errs"]["knn_topk"])),
         "infonce": ("pathway_tpu_torch/csrc/infonce.cu", "pathway_tpu/models/pipeline.py:61",
-                    nce_err),
+                    max(nce_err, mesh_step["errs"]["infonce"])),
         "ring_attention": ("pathway_tpu_torch/csrc/ring_attention.cu",
                            "pathway_tpu/models/ring_attention.py:80",
-                           max(ring_err, times["ring_attention"]["err"])),
+                           max(ring_err, times["ring_attention"]["err"],
+                               dryrun["errs"]["ring_attention"])),
         "topk_merge": ("pathway_tpu_torch/csrc/topk_merge.cu", "pathway_tpu/ops/knn.py:125",
-                       max(merge_err, times["topk_merge"]["err"])),
+                       max(merge_err, times["topk_merge"]["err"],
+                           mesh_step["errs"]["topk_merge"])),
         "bucket_exchange": ("pathway_tpu_torch/csrc/bucket_exchange.cu",
-                            "pathway_tpu/parallel/exchange.py:51", engine["exchange_err"]),
+                            "pathway_tpu/parallel/exchange.py:51",
+                            max(engine["exchange_err"], dryrun["errs"]["bucket_exchange"])),
         "expression_vm": ("pathway_tpu_torch/csrc/expression_vm.cu",
                           "pathway_tpu/internals/expression_compiler.py:272",
                           max(api["max_abs_err"], connectors["held"]["max_abs_err"],
-                              obs["held"]["vm_err"], cli_phase["held"]["vm_err"])),
+                              obs["held"]["vm_err"], cli_phase["held"]["vm_err"],
+                              cluster_phase["held"]["vm_err"])),
     }
     kernels = []
     for name, (source, replaces, err) in sources.items():
         t = times[name]
-        by_path = {"rag": path["launches"].get(name, 0), "train": train["launches"].get(name, 0),
-                   "long": long["launches"].get(name, 0),
-                   "sharded": sharded["launches"].get(name, 0),
+        by_path = {"rag": path["launches"][name], "train": train["launches"][name],
+                   "long": long["launches"][name], "sharded": sharded["launches"][name],
                    **{p: c[name] for p, c in engine["launches"].items()},
                    **{p: c[name] for p, c in api["launches"].items()},
                    **{p: c[name] for p, c in indexing["launches"].items()},
@@ -8194,7 +8739,10 @@ def main() -> int:
                    **{p: c[name] for p, c in connectors["launches"].items()},
                    **{p: c[name] for p, c in qa["launches"].items()},
                    **{p: c[name] for p, c in obs["launches"].items()},
-                   **{p: c[name] for p, c in cli_phase["launches"].items()}}
+                   **{p: c[name] for p, c in cli_phase["launches"].items()},
+                   "mesh_step": mesh_step["launches"][name],
+                   "dryrun": dryrun["launches"][name],
+                   **{p: c[name] for p, c in cluster_phase["launches"].items()}}
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,

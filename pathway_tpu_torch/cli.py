@@ -22,11 +22,12 @@ supervisor's. ``spawn`` and ``replay`` run the program unchanged: its own
 they take no device of their own. ``lint`` lowers each script's graph in
 this process, on ``--device`` (default ``cuda``).
 
+``spawn -n M`` launches M processes of the program, linked by the TCP
+cluster (``parallel/cluster.py``); with ``--addresses`` and ``-p`` one
+machine of a multi-host ensemble launches only its own process ids.
 Refused until the modules they need are ported, each naming its
-``ROADMAP.md`` item: ``spawn``/``replay`` over more than one process
-(``-n`` > 1, ``--addresses``, ``-p``: the cluster, Queue 1 item 9), and
-``spawn --autoscale``, ``spawn --upgrade-to`` and ``upgrade`` (Queue 1 item
-13's last part: ``autoscale/``, ``upgrade/``).
+``ROADMAP.md`` item: ``spawn --autoscale``, ``spawn --upgrade-to`` and
+``upgrade`` (Queue 1 item 13's last part: ``autoscale/``, ``upgrade/``).
 """
 
 from __future__ import annotations
@@ -44,11 +45,6 @@ __all__ = [
     "profile", "trace_merge", "dlq", "lint", "CommandError",
 ]
 
-#: why the multi-process options refuse
-_CLUSTER_ITEM = (
-    "the multi-process cluster (parallel/cluster.py) is not ported "
-    "(ROADMAP.md Queue 1 item 9)"
-)
 #: why the autoscale and upgrade options refuse
 _LAST_PART_ITEM = (
     "is not ported (ROADMAP.md Queue 1 item 13, its last part: upgrade/, "
@@ -71,14 +67,14 @@ def _spawn_processes(
     first_port: int,
     env_extra: dict,
     args: list[str],
+    addresses: str | None = None,
+    local_ids: list[int] | tuple[int, ...] = (),
     supervise: bool = False,
 ) -> int:
     if threads * processes > MAX_WORKERS:
         raise CommandError(
             f"{threads}×{processes} workers exceed the {MAX_WORKERS}-worker limit"
         )
-    if processes > 1:
-        raise CommandError(f"-n {processes}: {_CLUSTER_ITEM}")
     program = list(args)
     if not program:
         raise CommandError("pass the program to run, e.g. python app.py")
@@ -89,13 +85,76 @@ def _spawn_processes(
         "PATHWAY_FIRST_PORT": str(first_port),
         **env_extra,
     }
-    # one run identity for the whole run: tracers mint flow ids under it
-    # and `trace merge` refuses to mix different runs
+    # one run identity for the whole ensemble: tracers mint cross-process
+    # flow ids under it and `trace merge` refuses to mix different runs.
+    # A multi-host ensemble runs spawn once per machine, so the generated
+    # default cannot agree across machines — tell the operator to pin one.
+    if (
+        addresses
+        and "PATHWAY_RUN_ID" not in os.environ
+        and os.environ.get("PATHWAY_TRACE_FILE")
+    ):
+        _echo(
+            "warning: multi-host traced run without PATHWAY_RUN_ID — each "
+            "machine's spawn will mint its own run id and `trace merge` "
+            "will refuse to join the parts; export the same "
+            "PATHWAY_RUN_ID on every machine",
+            err=True,
+        )
     base_env.setdefault("PATHWAY_RUN_ID", secrets.token_hex(8))
+    if addresses:
+        entries = [a.strip() for a in addresses.split(",") if a.strip()]
+        if len(entries) != processes:
+            raise CommandError(
+                "--addresses must list one host[:port] per process"
+            )
+        # fail malformed entries at launch, not in every child's traceback
+        from .parallel.cluster import _address_book
+
+        try:
+            _address_book(entries, processes, "127.0.0.1", first_port)
+        except ValueError as e:
+            raise CommandError(str(e))
+        base_env["PATHWAY_ADDRESSES"] = ",".join(entries)
+    # multi-host ensembles run spawn once per machine, each launching only
+    # its own process ids (reference: timely hostfile + per-machine -p)
+    pids = list(local_ids) if local_ids else list(range(processes))
+    bad = [p for p in pids if not 0 <= p < processes]
+    if bad:
+        raise CommandError(
+            f"--process ids {bad} out of range for {processes} processes"
+        )
+    if len(set(pids)) != len(pids):
+        raise CommandError("--process ids must be distinct")
     if supervise:
-        return _run_supervised(base_env, program, [0])
-    env = {**base_env, "PATHWAY_PROCESS_ID": "0"}
-    return subprocess.call(program, env=env)
+        # the supervisor's contract is "restart the WHOLE ensemble from the
+        # last common snapshot"; a partial ensemble (multi-host book, or a
+        # -p subset of the ids) would restart only its local slice, and
+        # restart generations would diverge across machines
+        if addresses:
+            raise CommandError(
+                "--supervise cannot coordinate a multi-host ensemble "
+                "(--addresses): each machine would restart only its own "
+                "processes and restart generations would diverge — "
+                "supervise externally (e.g. your orchestrator) instead"
+            )
+        if local_ids and set(pids) != set(range(processes)):
+            raise CommandError(
+                "--supervise needs the full ensemble on this machine; "
+                f"-p selects only {sorted(pids)} of {processes} processes"
+            )
+        return _run_supervised(base_env, program, pids)
+    if processes <= 1:
+        env = {**base_env, "PATHWAY_PROCESS_ID": "0"}
+        return subprocess.call(program, env=env)
+    procs = []
+    for pid in pids:
+        env = {**base_env, "PATHWAY_PROCESS_ID": str(pid)}
+        procs.append(subprocess.Popen(program, env=env))
+    code = 0
+    for p in procs:
+        code = p.wait() or code
+    return code
 
 
 def _run_supervised(
@@ -157,11 +216,11 @@ def _program(args: list[str]) -> list[str]:
 
 
 def spawn(a: argparse.Namespace) -> int:
-    """Launch PROGRAM with the worker environment set (reference cli.py:53)."""
-    if a.addresses is not None:
-        raise CommandError(f"--addresses: {_CLUSTER_ITEM}")
-    if a.local_ids:
-        raise CommandError(f"-p/--process: {_CLUSTER_ITEM}")
+    """Launch PROGRAM with the worker environment set (reference cli.py:53).
+
+    Multi-host: run once per machine with the same ``--addresses`` book and
+    that machine's ``-p`` ids, e.g.
+    ``spawn -n 2 -t 2 -a hostA:10000,hostB:10000 -p 0 python app.py``."""
     if a.autoscale_range is not None:
         raise CommandError(f"--autoscale: autoscale/ {_LAST_PART_ITEM}")
     if a.upgrade_to is not None:
@@ -173,7 +232,8 @@ def spawn(a: argparse.Namespace) -> int:
     if a.elastic:
         env_extra["PATHWAY_ELASTIC"] = "1"
     return _spawn_processes(a.threads, a.processes, a.first_port, env_extra,
-                            _program(a.program), supervise=a.supervise)
+                            _program(a.program), addresses=a.addresses,
+                            local_ids=a.local_ids, supervise=a.supervise)
 
 
 def replay(a: argparse.Namespace) -> int:

@@ -21,8 +21,10 @@ the HTTP server's port read. The command line's record and replay fields
 ``PATHWAY_PERSISTENCE_MODE``, ``PATHWAY_CONTINUE_AFTER_REPLAY``, with the
 ``replay_mode`` accessor) and the supervisor's stamps (``PATHWAY_SUPERVISED``,
 ``PATHWAY_RESTART_COUNT``, ``PATHWAY_LAST_RESTART_REASON``) are the
-reference's. Fault plans and the cluster address book are left out with the
-modules that use them (``chaos/``, ``parallel/cluster.py``).
+reference's, and so is the cluster's layout: ``PATHWAY_FIRST_PORT``, the
+address book ``PATHWAY_ADDRESSES`` with its validation, and the timeouts
+``PATHWAY_COLLECTIVE_TIMEOUT_S`` and ``PATHWAY_CONNECT_TIMEOUT_S``
+(``parallel/cluster.py``). Fault plans are left out with ``chaos/``.
 """
 
 from __future__ import annotations
@@ -57,6 +59,13 @@ def _env_float(name: str, default: float) -> float:
         return float(v) if v is not None else default
     except ValueError:
         return default
+
+
+def _env_addresses(name: str) -> list[str] | None:
+    v = os.environ.get(name)
+    if not v or not v.strip():
+        return None
+    return [a.strip() for a in v.split(",") if a.strip()]
 
 
 @dataclass
@@ -101,6 +110,15 @@ class PathwayConfig:
     #: /healthz fails when an unfinished executor's heartbeat is older
     health_wedge_timeout_s: float = field(
         default_factory=lambda: _env_float("PATHWAY_HEALTH_WEDGE_S", 30.0))
+    #: how long a blocked cluster collective waits before declaring the
+    #: mesh dead (peer-death propagation normally fires in milliseconds —
+    #: this is the backstop for silent stalls)
+    collective_timeout_s: float = field(
+        default_factory=lambda: _env_float(
+            "PATHWAY_COLLECTIVE_TIMEOUT_S", 600.0))
+    #: per-peer mesh-establishment budget (jittered-backoff retries within)
+    connect_timeout_s: float = field(
+        default_factory=lambda: _env_float("PATHWAY_CONNECT_TIMEOUT_S", 30.0))
     #: set by `spawn --supervise` on children: enables cooperative SIGTERM
     #: wind-down so the supervisor's teardown flushes the persistence tail
     supervised: bool = field(
@@ -119,6 +137,12 @@ class PathwayConfig:
     threads: int = field(default_factory=lambda: _env_int("PATHWAY_THREADS", 1))
     processes: int = field(default_factory=lambda: _env_int("PATHWAY_PROCESSES", 1))
     process_id: int = field(default_factory=lambda: _env_int("PATHWAY_PROCESS_ID", 0))
+    first_port: int = field(default_factory=lambda: _env_int("PATHWAY_FIRST_PORT", 10000))
+    #: multi-host cluster address book: comma-separated host[:port], one per
+    #: process (the timely hostfile analog — communication/src/initialize.rs);
+    #: unset = all processes on 127.0.0.1 at first_port+pid
+    addresses: list[str] | None = field(
+        default_factory=lambda: _env_addresses("PATHWAY_ADDRESSES"))
 
     def __post_init__(self) -> None:
         if self.threads * self.processes > MAX_WORKERS:
@@ -126,6 +150,11 @@ class PathwayConfig:
                 f"too many workers: {self.threads}×{self.processes} > "
                 f"{MAX_WORKERS} (reference free-tier limit, "
                 "dataflow/config.rs:7-11)"
+            )
+        if self.addresses is not None and len(self.addresses) != self.processes:
+            raise RuntimeError(
+                f"PATHWAY_ADDRESSES lists {len(self.addresses)} hosts for "
+                f"{self.processes} processes — one host[:port] per process"
             )
 
     @property

@@ -26,9 +26,12 @@ the dashboard at ``monitoring_level``; the tracer's ``graph.build`` span and
 its flush and OTLP export at the run's end. The command line's replay mode
 is the reference's: each worker's manager takes the record/replay
 environment (``persistence.apply_replay_env``), and a plain ``Subscribe``
-skips no persisted time while replaying. Left out: the multi-process
-cluster and cross-host mesh branches, and ``Table.named`` pins (the port's
-nodes carry no upgrade identity).
+skips no persisted time while replaying. The multi-process branch is the
+reference's: with ``PATHWAY_PROCESSES`` > 1 the process runs its own
+workers (ids ``process_id * threads + i``) over ``ClusterComm``, wrapped in
+``MultiHostMeshComm(device=)`` under ``PATHWAY_MESH_EXCHANGE``, and serves
+their stats on ``base_port + process_id``. Left out: ``Table.named`` pins
+(the port's nodes carry no upgrade identity).
 """
 
 from __future__ import annotations
@@ -177,12 +180,6 @@ class GraphRunner:
         from .tracing import get_tracer, span
 
         cfg = get_pathway_config()
-        if cfg.processes > 1:
-            raise NotImplementedError(
-                "PATHWAY_PROCESSES > 1: the multi-process cluster "
-                "(parallel/cluster.py) is not ported (ROADMAP.md Queue 1 "
-                "item 9)"
-            )
         if cfg.total_workers > 1:
             self._run_sharded(cfg)
             return
@@ -202,21 +199,50 @@ class GraphRunner:
                 export_from_env(tracer)  # lowering-failure partial spans
 
     def _run_sharded(self, cfg) -> None:
-        """Multi-worker execution (reference: timely workers over thread
-        allocators). Every worker builds the same dataflow from the parse
-        graph, owns the ``shard_of(key)`` slice of all stateful operator
-        state, and exchanges records at stateful boundaries
-        (engine/executor.shard_graph), on threads of this process."""
+        """Multi-worker execution (reference: timely workers over thread /
+        cluster allocators). Every worker builds the same dataflow from the
+        parse graph, owns the ``shard_of(key)`` slice of all stateful
+        operator state, and exchanges records at stateful boundaries
+        (engine/executor.shard_graph). Threads within this process; with
+        PATHWAY_PROCESSES > 1, a TCP full mesh links the processes."""
         import threading
 
         from ..parallel.comm import LocalComm, WorkerContext
 
         n_workers = cfg.total_workers
-        comm = LocalComm(n_workers)
-        if cfg.mesh_exchange:
-            from ..parallel.meshcomm import MeshComm
+        if cfg.processes > 1:
+            from ..parallel.cluster import ClusterComm
 
-            comm = MeshComm(comm, device=self.device)
+            comm = ClusterComm(
+                process_id=cfg.process_id,
+                n_processes=cfg.processes,
+                threads_per_process=cfg.threads,
+                first_port=cfg.first_port,
+                addresses=cfg.addresses,
+            )
+            local_worker_ids = [
+                cfg.process_id * cfg.threads + i for i in range(cfg.threads)
+            ]
+        else:
+            comm = LocalComm(n_workers)
+            local_worker_ids = list(range(n_workers))
+        if cfg.mesh_exchange:
+            if cfg.processes > 1:
+                # across processes: one card a process, its workers' dense
+                # rows bucketed there and swapped between the processes
+                from ..parallel.meshcomm import MultiHostMeshComm
+
+                comm = MultiHostMeshComm(
+                    comm,
+                    process_id=cfg.process_id,
+                    n_processes=cfg.processes,
+                    threads=cfg.threads,
+                    device=self.device,
+                )
+            else:
+                from ..parallel.meshcomm import MeshComm
+
+                comm = MeshComm(comm, device=self.device)
 
         pcfg = getattr(self, "persistence_config", None)
         managers: list[Any] = []
@@ -238,7 +264,7 @@ class GraphRunner:
             with _span(
                 "graph.build", n_sinks=len(G.sinks), n_workers=n_workers
             ):
-                for w in range(n_workers):
+                for w in local_worker_ids:
                     worker_runner = GraphRunner(self.device)
                     if pcfg is not None:
                         from ..persistence import (
@@ -267,20 +293,25 @@ class GraphRunner:
                 for ex in executors:
                     ex.request_stop()
 
-            # this process serves its workers' stats (one process: the
-            # port's runner refuses PATHWAY_PROCESSES > 1)
+            # cluster observability: this process serves its workers'
+            # stats on base_port + process_id; process 0's /metrics is
+            # the merged per-worker view (it scrapes peer /snapshot)
             http_server, flusher, _hub = self._start_observability(
-                list(enumerate(ex.stats for ex in executors)), comm=comm
+                list(zip(local_worker_ids, (ex.stats for ex in executors))),
+                comm=comm,
             )
             try:
-                threads = [
-                    threading.Thread(target=work, args=(ex,), daemon=True)
-                    for ex in executors
-                ]
-                for t in threads:
-                    t.start()
-                for t in threads:
-                    t.join()
+                if len(executors) == 1:
+                    work(executors[0])
+                else:
+                    threads = [
+                        threading.Thread(target=work, args=(ex,), daemon=True)
+                        for ex in executors
+                    ]
+                    for t in threads:
+                        t.start()
+                    for t in threads:
+                        t.join()
             finally:
                 self._stop_observability(http_server, flusher, _hub)
         finally:

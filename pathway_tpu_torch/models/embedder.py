@@ -119,8 +119,10 @@ def _layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 
 def _heads(t: torch.Tensor, cfg: EmbedderConfig) -> torch.Tensor:
+    """``[b, s, heads * head_dim]`` -> ``[b, heads, s, head_dim]``: every head of the config, or a
+    tensor-parallel rank's share of them."""
     b, s, _ = t.shape
-    return t.view(b, s, cfg.n_heads, cfg.head_dim).transpose(1, 2)
+    return t.view(b, s, -1, cfg.head_dim).transpose(1, 2)
 
 
 def _merge_heads(out: torch.Tensor) -> torch.Tensor:
@@ -128,15 +130,25 @@ def _merge_heads(out: torch.Tensor) -> torch.Tensor:
     return out.transpose(1, 2).reshape(b, s, -1)
 
 
-def _block(x: torch.Tensor, layer: dict, cfg: EmbedderConfig, mask: torch.Tensor) -> torch.Tensor:
+def _block(x: torch.Tensor, layer: dict, cfg: EmbedderConfig, mask: torch.Tensor,
+           tp: Any = None) -> torch.Tensor:
+    """The preln block. With ``tp`` (``models/pipeline.py``'s model axis), ``layer`` holds one
+    rank's shard of ``qkv`` and ``mlp_in`` (column-split, whole heads) and of ``proj`` and
+    ``mlp_out`` (row-split): ``tp.enter`` goes before each column-split product and
+    ``tp.exit`` sums the row-split products over the axis."""
     dt = cfg.dtype
-    h = _layernorm(x, layer["ln1_scale"], layer["ln1_bias"])
-    q, k, v = (h @ layer["qkv"].to(dt)).split(cfg.dim, dim=-1)
+    enter, exit_ = (tp.enter, tp.exit) if tp is not None else (_same, _same)
+    h = enter(_layernorm(x, layer["ln1_scale"], layer["ln1_bias"]))
+    q, k, v = (h @ layer["qkv"].to(dt)).chunk(3, dim=-1)
     out = masked_attention(_heads(q, cfg), _heads(k, cfg), _heads(v, cfg), mask)
-    x = x + _merge_heads(out) @ layer["proj"].to(dt)
-    h = _layernorm(x, layer["ln2_scale"], layer["ln2_bias"])
+    x = x + exit_(_merge_heads(out) @ layer["proj"].to(dt))
+    h = enter(_layernorm(x, layer["ln2_scale"], layer["ln2_bias"]))
     h = F.gelu(h @ layer["mlp_in"].to(dt), approximate="tanh")
-    return x + h @ layer["mlp_out"].to(dt)
+    return x + exit_(h @ layer["mlp_out"].to(dt))
+
+
+def _same(t: torch.Tensor) -> torch.Tensor:
+    return t
 
 
 def _bert_block(x: torch.Tensor, layer: dict, cfg: EmbedderConfig,
@@ -157,9 +169,13 @@ def _bert_block(x: torch.Tensor, layer: dict, cfg: EmbedderConfig,
     )
 
 
-def embed_tokens(params: dict, token_ids: torch.Tensor, cfg: EmbedderConfig) -> torch.Tensor:
+def embed_tokens(params: dict, token_ids: torch.Tensor, cfg: EmbedderConfig, *,
+                 tp: Any = None) -> torch.Tensor:
     """token_ids int ``[batch, seq]`` (0 = pad) -> f32 ``[batch, dim]``, L2-normalised
-    (mean pooling + normalise — the sentence-transformers MiniLM head)."""
+    (mean pooling + normalise — the sentence-transformers MiniLM head). ``tp``: the
+    tensor-parallel model axis of ``models/pipeline.py``, for ``params`` cut by its
+    ``param_shardings`` (the preln arch; the bert arch's weights stay whole, as the
+    reference's layout leaves them)."""
     token_ids = token_ids.long()
     mask = token_ids > 0
     s = token_ids.shape[1]
@@ -174,7 +190,7 @@ def embed_tokens(params: dict, token_ids: torch.Tensor, cfg: EmbedderConfig) -> 
             x = _bert_block(x, layer, cfg, mask)
     else:
         for layer in params["layers"]:
-            x = _block(x, layer, cfg, mask)
+            x = _block(x, layer, cfg, mask, tp)
         x = _layernorm(x, params["ln_f_scale"], params["ln_f_bias"])
     m = mask[:, :, None].float()
     pooled = (x.float() * m).sum(1) / m.sum(1).clamp_min(1.0)

@@ -19,9 +19,8 @@ gets scraped, which is exactly when its frontier-lag gauge matters.
 Copy of ``pathway_tpu/observability/hub.py``. The port has no fault plan
 (``chaos/``) and no ``upgrade/``: ``_supervisor_snapshot`` takes the
 reference's no-plan branch (no armed plan) and its ``{"total": 0}`` branch
-for upgrades. The port's runner refuses ``PATHWAY_PROCESSES`` > 1, so
-``from_config`` builds no peer book there; the cluster roll-up over
-``peer_http`` is the reference's.
+for upgrades. ``from_config`` builds the reference's peer book, and the
+cluster roll-up over it is the reference's.
 """
 
 from __future__ import annotations
@@ -147,12 +146,40 @@ class ObservabilityHub:
 
     @classmethod
     def from_config(cls, cfg: Any) -> "ObservabilityHub":
-        # the port runs one process (its runner refuses PATHWAY_PROCESSES
-        # > 1), so there is no peer book to build: the roll-up over
-        # ``peer_http`` serves hubs built with peers directly
+        peers: list[tuple[str, int]] = []
+        base = cfg.monitoring_http_port
+        # base 0 = ephemeral ports — peers' actual ports are unknowable,
+        # so the roll-up degrades to local-only rather than scraping
+        # garbage targets
+        if cfg.processes > 1 and cfg.process_id == 0 and base:
+            hosts = (
+                [a.split(":")[0] if not a.startswith("[") else
+                 a[1:].partition("]")[0] for a in cfg.addresses]
+                if cfg.addresses
+                else ["127.0.0.1"] * cfg.processes
+            )
+            peers = [
+                (hosts[p], base + p)
+                for p in range(cfg.processes)
+                if p != cfg.process_id
+            ]
+            if (
+                any(h not in ("127.0.0.1", "localhost") for h, _ in peers)
+                and cfg.monitoring_http_host == "127.0.0.1"
+            ):
+                import warnings
+
+                warnings.warn(
+                    "cluster metrics roll-up: peers are on other hosts but "
+                    "their monitoring servers bind loopback by default — "
+                    "set PATHWAY_MONITORING_HTTP_HOST=0.0.0.0 on every "
+                    "process or process 0's merged /metrics will miss them",
+                    RuntimeWarning,
+                )
         return cls(
             process_id=cfg.process_id,
             n_processes=cfg.processes,
+            peer_http=peers,
             wedge_timeout_s=cfg.health_wedge_timeout_s,
         )
 

@@ -23,8 +23,8 @@ them into one Chrome/Perfetto JSON:
 Merging parts from different runs is refused (unless forced): their flow
 ids and clocks share nothing.
 Copy of ``pathway_tpu/observability/trace_merge.py``: the same merged
-document (``python -m pathway_tpu_torch.cli trace merge``). Until the
-multi-process cluster is ported a run of the port writes one part.
+document (``python -m pathway_tpu_torch.cli trace merge``) over the parts a
+``spawn -n M`` run of the port writes, one a process.
 """
 
 from __future__ import annotations

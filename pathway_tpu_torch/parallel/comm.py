@@ -5,10 +5,14 @@ allocators (``external/timely-dataflow/communication/src/allocator/``). Here:
 
 - :class:`LocalComm` — N worker threads in one process; exchange is direct
   in-memory handoff behind a barrier (the ``thread`` allocator analog).
+- :class:`~pathway_tpu_torch.parallel.cluster.ClusterComm` — full-mesh TCP
+  between processes, columnar frames (the ``zero_copy`` analog).
 - :class:`~pathway_tpu_torch.parallel.meshcomm.MeshComm` — wraps LocalComm;
   the dense numeric columns of Exchange frames ride the bucketed all-to-all
   on the card (``parallel/exchange.py``, ``engine/mesh_exchange.py``); object
-  columns take the host path.
+  columns take the host path. Across processes,
+  :class:`~pathway_tpu_torch.parallel.meshcomm.MultiHostMeshComm` wraps
+  ClusterComm the same way.
 
 Two progress protocols share these backends:
 
@@ -17,7 +21,7 @@ Two progress protocols share these backends:
   exchange is a blocking all-to-all — when a tick's sweep finishes on
   all workers, that logical time is complete everywhere.
 - **Frontier-driven asynchronous execution** (the default for sharded
-  streaming over ``LocalComm``): exchanges become fire-and-forget *posts*
+  streaming over ``LocalComm`` and ``ClusterComm``): exchanges become fire-and-forget *posts*
   into per-worker inboxes (``async_post_exchange``/``async_drain``),
   workers advance on data availability, and consistency comes from
   frontier broadcasts riding the same wire (``async_broadcast``). The
@@ -26,13 +30,9 @@ Two progress protocols share these backends:
 
 Copy of ``pathway_tpu/parallel/comm.py`` (``Comm`` with its async API,
 ``LocalComm`` with its async plane, ``WorkerContext`` with
-``async_plane``, ``single_worker_context``, ``async_queue_bound``) without
-the serve plane (it waits with sharded serving) and the chaos site. Still
-to come: ``ClusterComm`` (``parallel/cluster.py``, the TCP transport across
-processes, whose async plane the reference also has) and
-``MultiHostMeshComm``, both with the device exchange across processes; the
-commit waves' report renderer (``observability/critpath.py``'s
-``render_report``) comes with the CLI.
+``async_plane``, ``single_worker_context``, ``async_queue_bound``,
+``serve_queue_bound``) without ``LocalComm``'s serve plane (it waits with
+sharded serving) and the chaos site.
 """
 
 from __future__ import annotations
@@ -57,6 +57,12 @@ def async_queue_bound() -> int:
     from ..internals.config import _env_int
 
     return max(1, _env_int("PATHWAY_ASYNC_QUEUE_BATCHES", ASYNC_QUEUE_BATCHES))
+
+
+def serve_queue_bound() -> int:
+    from ..internals.config import _env_int
+
+    return max(1, _env_int("PATHWAY_SERVE_QUEUE_BOUND", 256))
 
 
 class Comm:

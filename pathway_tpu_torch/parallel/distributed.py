@@ -41,18 +41,21 @@ class _Layout:
         default_factory=lambda: _env_int("PATHWAY_FIRST_PORT", 10000))
 
 
-def init_from_env(coordinator_host: str = "127.0.0.1", *, device: str = "cuda") -> None:
+def init_from_env(coordinator_host: str = "127.0.0.1", *, device: str = "cuda",
+                  backend: str | None = None) -> None:
     """Initialise the default process group from ``PATHWAY_PROCESSES``, ``PATHWAY_PROCESS_ID``,
     ``PATHWAY_FIRST_PORT`` and ``PATHWAY_COORDINATOR`` (idempotent). The backend is NCCL for
     ``device="cuda"`` (each process takes card ``process_id`` modulo the cards it sees) and gloo
-    for ``"cpu"``. With more than one process the rendezvous is at ``PATHWAY_COORDINATOR``,
-    by default ``coordinator_host:first_port + 1000``; a single process gets a group of world
-    size 1 over an in-memory store."""
+    for ``"cpu"``, unless ``backend`` names one: processes that share a card cannot be ranks of
+    one NCCL communicator, and ``parallel/meshcomm.py::MultiHostMeshComm`` asks for gloo to
+    learn the placement first. With more than one process the rendezvous is at
+    ``PATHWAY_COORDINATOR``, by default ``coordinator_host:first_port + 1000``; a single process
+    gets a group of world size 1 over an in-memory store."""
     if dist.is_initialized():
         return
     dev = resolve_device(device)
     layout = _Layout()
-    backend = "nccl" if dev.type == "cuda" else "gloo"
+    backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
     if dev.type == "cuda":
         torch.cuda.set_device(layout.process_id % torch.cuda.device_count())
     if layout.processes <= 1:

@@ -42,10 +42,9 @@ disagree with the frame, raises :class:`CorruptFrame` — the reader
 thread turns that into a named ``_broken`` mark instead of feeding
 garbage arrays into operator state.
 
-Copy of ``pathway_tpu/parallel/frames.py``. The port has no cross-process
-data plane yet (ROADMAP.md Queue 1 item 9): the codec is the connector seam's
-(``connector_frame`` by reference in process) and the one a cluster would
-ship.
+Copy of ``pathway_tpu/parallel/frames.py``: the codec of the cluster's frames
+(``parallel/cluster.py``) and of the connector seam (``connector_frame``, by
+reference in process).
 """
 
 from __future__ import annotations

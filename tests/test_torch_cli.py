@@ -5,8 +5,8 @@ against the JAX package's, on the CPU.
 - The reference's own cases run through both packages (``tests/torch_case_runs.py``):
   ``tests/test_ported_cli.py`` (record and replay through the command line),
   ``tests/test_ops_surface.py``'s two command-line cases, the 14 cases of
-  ``tests/test_lint_cli.py`` and the cases of ``tests/test_supervise.py`` that need neither a
-  fault plan nor two processes (``LEFT_OUT`` gives each case left out its reason). On the port's
+  ``tests/test_lint_cli.py`` and the cases of ``tests/test_supervise.py`` that need no fault
+  plan (``LEFT_OUT`` gives each case left out its reason). On the port's
   side each program the case writes or spawns names the port (``pw.run(device="cpu")``, ``-m
   pathway_tpu_torch.cli``), ``lint`` runs with ``--device cpu`` over the port's own examples,
   and ``click.testing.CliRunner`` is a shim over the port's ``main(argv)`` that catches its exit
@@ -25,8 +25,9 @@ against the JAX package's, on the CPU.
 - ``trace merge``: both packages' ``merge_trace`` give the same document over a part a port run
   wrote and over two crafted parts of one run, and both refuse parts of two runs.
 - The command line, the supervisor, ``top`` and ``trace_merge`` load neither JAX, nor the JAX
-  package, nor ``click``; the options that need a module the port lacks refuse, naming their
-  ``ROADMAP.md`` item.
+  package, nor ``click``; ``spawn -n``, ``--addresses``, ``-p`` and ``replay -n`` launch each
+  process with the cluster's environment; the options that need a module the port lacks
+  refuse, naming their ``ROADMAP.md`` item.
 
 Tolerance: none. Tables, exit codes and rendered text are compared exactly; only wall-clock
 fields are left out.
@@ -34,8 +35,6 @@ fields are left out.
 
 from __future__ import annotations
 
-import contextlib
-import io
 import json
 import os
 import re
@@ -45,7 +44,7 @@ import textwrap
 
 import pytest
 
-from torch_case_runs import TESTS, Side, case_args, cases, run_case
+from torch_case_runs import TESTS, PortCliRunner, Side, case_args, cases, run_case
 
 ROOT = os.path.dirname(TESTS)
 PACKAGES = ("pathway_tpu", "pathway_tpu_torch")
@@ -54,7 +53,8 @@ PORT = "pathway_tpu_torch"
 #: the reference's cases of these modules that are not run through the port, with the reason
 LEFT_OUT = {
     "test_sharded_sigkill_supervised_recovery":
-        "two processes and a fault plan (parallel/cluster.py and chaos/ are not ported)",
+        "arms a fault plan (chaos/ is not ported); tests/test_torch_cluster_runs.py kills a "
+        "-n 2 ensemble without one",
     "test_chaos_injections_metric": "arms a fault plan (chaos/ is not ported)",
     "test_planned_stop_chaos_crash_propagates":
         "raises chaos.injector.ChaosInjected (chaos/ is not ported)",
@@ -83,29 +83,6 @@ _OPS_CLI = ["test_cli_spawn_sets_environment", "test_cli_replay_sets_replay_env"
 CASES = ([c for c in cases(["test_ported_cli", "test_lint_cli", "test_supervise"])
           if c[1] not in LEFT_OUT]
          + [c for c in cases(["test_ops_surface"]) if c[1] in _OPS_CLI])
-
-
-class _Result:
-    def __init__(self, exit_code: int, output: str) -> None:
-        self.exit_code = exit_code
-        self.output = output
-
-
-class PortCliRunner:
-    """``click.testing.CliRunner`` over the port's ``main(argv)``: its exit code, and stdout and
-    stderr captured as one output. ``lint`` runs on the CPU."""
-
-    def invoke(self, main, args) -> _Result:
-        args = list(args)
-        if args[:1] == ["lint"]:
-            args = ["lint", "--device", "cpu", *args[1:]]
-        out = io.StringIO()
-        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(out):
-            try:
-                code = main(args)
-            except SystemExit as e:
-                code = e.code
-        return _Result(code if isinstance(code, int) else 1, out.getvalue())
 
 
 @pytest.fixture(autouse=True)
@@ -588,18 +565,59 @@ def test_cli_supervisor_top_and_trace_merge_load_no_jax_and_no_click():
     assert r.stdout.strip() == "NO-JAX-OK"
 
 
+#: a program that writes the worker environment it was given, one line a process
+_ENV_PROGRAM = (
+    "import json, os, sys\n"
+    "keys = ('PATHWAY_PROCESSES', 'PATHWAY_PROCESS_ID', 'PATHWAY_THREADS', "
+    "'PATHWAY_FIRST_PORT', 'PATHWAY_ADDRESSES', 'PATHWAY_SNAPSHOT_ACCESS')\n"
+    "with open(sys.argv[1], 'a') as f:\n"
+    "    f.write(json.dumps({k: os.environ.get(k) for k in keys}) + '\\n')\n"
+)
+
+
+@pytest.mark.parametrize("argv,want", [
+    (["spawn", "-n", "2", "-t", "2", "--first-port", "23000"],
+     [("2", "0", "2", "23000", None, None), ("2", "1", "2", "23000", None, None)]),
+    (["spawn", "-n", "2", "--addresses", "127.0.0.1:1,127.0.0.1:2"],
+     [("2", "0", "1", "10000", "127.0.0.1:1,127.0.0.1:2", None),
+      ("2", "1", "1", "10000", "127.0.0.1:1,127.0.0.1:2", None)]),
+    (["spawn", "-n", "2", "-p", "1"], [("2", "1", "1", "10000", None, None)]),
+    (["replay", "-n", "2"],
+     [("2", "0", "1", "10000", None, "replay"), ("2", "1", "1", "10000", None, "replay")]),
+], ids=["processes", "addresses", "process-ids", "replay-processes"])
+def test_multi_process_options_launch_each_process(argv, want, tmp_path):
+    """``spawn -n``, ``--addresses``, ``-p`` and ``replay -n`` launch one process a process id
+    with the cluster's environment, as the reference's ``_spawn_processes`` does."""
+    import pathway_tpu_torch.cli as cli
+
+    prog, out = tmp_path / "env.py", tmp_path / "env.jsonl"
+    prog.write_text(_ENV_PROGRAM)
+    r = PortCliRunner().invoke(cli.main, [*argv, sys.executable, str(prog), str(out)])
+    assert r.exit_code == 0, r.output
+    got = sorted(tuple(json.loads(line).values()) for line in out.read_text().splitlines())
+    assert got == want
+
+
+@pytest.mark.parametrize("argv", [["spawn", "-n", "3", "-t", "3"], ["replay", "-n", "9"]],
+                         ids=["spawn", "replay"])
+def test_more_than_eight_workers_in_all_refuse(argv, tmp_path):
+    """``threads x processes`` past the reference's 8-worker limit refuses before anything is
+    launched, as the reference's ``_spawn_processes`` does."""
+    import pathway_tpu_torch.cli as cli
+
+    out = tmp_path / "env.jsonl"
+    r = PortCliRunner().invoke(cli.main, [*argv, sys.executable, "-c", "open(%r, 'w')" % str(out)])
+    assert r.exit_code == 1 and "exceed the 8-worker limit" in r.output, r.output
+    assert not out.exists()
+
+
 @pytest.mark.parametrize("argv,item", [
-    (["spawn", "-n", "2", "python", "x.py"], "ROADMAP.md Queue 1 item 9"),
-    (["spawn", "--addresses", "a:1", "python", "x.py"], "ROADMAP.md Queue 1 item 9"),
-    (["spawn", "-p", "0", "python", "x.py"], "ROADMAP.md Queue 1 item 9"),
-    (["replay", "-n", "2", "python", "x.py"], "ROADMAP.md Queue 1 item 9"),
     (["spawn", "--autoscale", "1..4", "--store", "s", "python", "x.py"],
      "ROADMAP.md Queue 1 item 13, its last part"),
     (["spawn", "--upgrade-to", "new.py", "--store", "s", "python", "x.py"],
      "ROADMAP.md Queue 1 item 13, its last part"),
     (["upgrade", "store", "new.py"], "ROADMAP.md Queue 1 item 13, its last part"),
-], ids=["processes", "addresses", "process-ids", "replay-processes", "autoscale", "upgrade-to",
-        "upgrade"])
+], ids=["autoscale", "upgrade-to", "upgrade"])
 def test_refusals_name_their_roadmap_item(argv, item):
     import pathway_tpu_torch.cli as cli
 

@@ -2091,3 +2091,72 @@ def test_cli_spawn_runs_a_chain_on_the_card(cuda, tmp_path):
     assert r.returncode == 0, r.stderr[-3000:]
     doc = json.loads(out.read_text())
     assert doc["equal"] and doc["launches"] > 0, doc
+
+
+_MESH_CHAIN = '''
+import json
+import logging
+import os
+import sys
+
+import numpy as np
+import pathway_tpu_torch as pw
+from pathway_tpu_torch.parallel.exchange import bucket_exchange
+
+logging.basicConfig(level=logging.INFO)
+rng = np.random.default_rng(5)
+g, x = rng.integers(0, 4096, 81920), rng.integers(-1024, 1024, 81920) / 16.0
+
+
+class Feed(pw.io.python.ConnectorSubject):
+    def run(self):
+        for s in range(0, 81920, 4096):
+            self.next_batch({"g": g[s:s + 4096], "x": x[s:s + 4096]})
+            self.commit()
+
+
+src = pw.io.python.read(Feed(), schema=pw.schema_from_types(g=int, x=float),
+                        autocommit_duration_ms=None)
+res = (src.select(g=pw.this.g, z=pw.this.x * 2.0 - 1.0).filter(pw.this.z > -32.0)
+       .groupby(pw.this.g).reduce(pw.this.g, s=pw.reducers.sum(pw.this.z)))
+got = {}
+pw.io.subscribe(res, on_change=lambda key, row, time, is_addition:
+                got.__setitem__(row["g"], row["s"]) if is_addition else None)
+pw.run()
+z = x * 2.0 - 1.0
+want = {}
+for gg, zz in zip(g[z > -32.0], z[z > -32.0]):
+    want[int(gg)] = want.get(int(gg), 0.0) + zz
+pid = os.environ["PATHWAY_PROCESS_ID"]
+with open(f"{sys.argv[1]}.p{pid}", "w") as f:
+    json.dump({"launches": bucket_exchange.launches, "equal": got == want, "rows": len(got)}, f)
+'''
+
+
+def test_multihost_mesh_exchange_swaps_over_nccl_between_cards(cuda, tmp_path):
+    """``spawn -n 2 -t 2`` with ``PATHWAY_MESH_EXCHANGE=1`` where each process has a card of its
+    own (cards 0 and 1): the swap's transport is NCCL, each process launches ``bucket_exchange``,
+    and process 0's table equals numpy's (process 1 holds none of the subscription's rows)."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from torch_ports import port_block
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards: the NCCL swap runs between processes on cards of "
+                    "their own")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    prog, out = tmp_path / "chain.py", tmp_path / "out.json"
+    prog.write_text(_MESH_CHAIN)
+    r = subprocess.run([sys.executable, "-m", "pathway_tpu_torch.cli", "spawn", "-n", "2", "-t",
+                        "2", "--first-port", str(port_block()), sys.executable, str(prog),
+                        str(out)], cwd=root, capture_output=True, text=True, timeout=300,
+                       env={**os.environ, "PYTHONPATH": root, "PATHWAY_MESH_EXCHANGE": "1",
+                            "PATHWAY_INGEST_COALESCE_WINDOWS": "0"})
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stderr.count("nccl swap") == 2 and "gloo swap" not in r.stderr, r.stderr[-3000:]
+    docs = [json.loads((tmp_path / f"out.json.p{pid}").read_text()) for pid in (0, 1)]
+    assert docs[0]["equal"] and docs[0]["rows"] > 0 and docs[1]["rows"] == 0, docs
+    assert all(d["launches"] > 0 for d in docs), docs

@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import ast
 import builtins
+import contextlib
+import io
 import importlib
 import os
 import sys
@@ -29,6 +31,30 @@ import numpy as np
 import pytest
 
 TESTS = os.path.dirname(os.path.abspath(__file__))
+
+
+class _Result:
+    def __init__(self, exit_code: int, output: str) -> None:
+        self.exit_code = exit_code
+        self.output = output
+
+
+class PortCliRunner:
+    """``click.testing.CliRunner`` over the port's ``main(argv)``: its exit code, and stdout and
+    stderr captured as one output. ``lint`` runs on the CPU."""
+
+    def invoke(self, main, args) -> _Result:
+        args = list(args)
+        if args[:1] == ["lint"]:
+            args = ["lint", "--device", "cpu", *args[1:]]
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(out):
+            try:
+                code = main(args)
+            except SystemExit as e:
+                code = e.code
+        return _Result(code if isinstance(code, int) else 1, out.getvalue())
+
 
 def norm(v: Any) -> Any:
     if isinstance(v, np.generic):

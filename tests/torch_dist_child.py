@@ -1,6 +1,6 @@
 """One rank of the port's multi-process tests, run without JAX: ring attention, long-context
-embedding, the sharded KNN search and the engine's bucketed all-to-all over a gloo group of CPU
-processes.
+embedding, the sharded KNN search, the engine's bucketed all-to-all, the training step on a
+(data, model) mesh and the dry run of ``graft_entry`` over a gloo group of CPU processes.
 
 The tests spawn one process per rank with :class:`RankRun`; each process runs every case of
 its suite on the inputs the test wrote (made with numpy from a seed, weights from the JAX
@@ -145,6 +145,62 @@ def _exchange_suite(inp: dict, mesh, rank: int, world: int) -> dict:
     return out
 
 
+def _pipeline_suite(inp: dict, mesh, rank: int, world: int) -> dict:
+    """Each case's step on ``data_model_mesh(world)``: the rank's shard of the JAX package's
+    weights and its rows of the batch and the index; the results gathered whole."""
+    import torch
+    import torch.distributed as dist
+
+    from pathway_tpu_torch.models import pipeline as P
+    from pathway_tpu_torch.models.embedder import EmbedderConfig, params_from_jax
+    from pathway_tpu_torch.parallel.mesh import data_model_mesh
+
+    dm = data_model_mesh(world, device="cpu")
+    ax = P._Axes(dm)
+    out = {"mesh": np.array([ax.n_data, ax.n_model, ax.d, ax.m])}
+    for name, case in inp["cases"].items():
+        cfg = EmbedderConfig(**case["cfg"])
+        full = params_from_jax(case["params"], device="cpu")
+        shard = P.param_shardings(dm, full, cfg)
+        out[f"{name}_qkv_shape"] = np.array(shard["layers"][0]["qkv"].shape)
+        out[f"{name}_roundtrip"] = np.array(all(
+            torch.equal(a, b) for a, b in zip(P._leaves(P.gather_params(dm, shard)),
+                                              P._leaves(full))))
+        n = len(case["tokens"]) // ax.n_data
+        mine = slice(ax.d * n, (ax.d + 1) * n)
+        index = torch.zeros((case["capacity"] // ax.n_data, cfg.dim))
+        step = P.make_step(cfg, k=case["k"], lr=case["lr"], mesh=dm, device="cpu")
+        new, idx, loss, s, i = step(shard, torch.from_numpy(case["tokens"][mine]),
+                                    torch.from_numpy(case["tokens_aug"][mine]), index,
+                                    case["insert_at"], torch.from_numpy(case["queries"]))
+        out[f"{name}_in_place"] = np.array(idx is index)
+        for j, leaf in enumerate(P._leaves(P.gather_params(dm, new))):
+            out[f"{name}_p{j}"] = leaf.numpy()
+        parts = [torch.empty_like(idx) for _ in range(ax.n_data)]
+        dist.all_gather(parts, idx, group=ax.data)
+        out[f"{name}_index"] = torch.cat(parts).numpy()
+        out[f"{name}_loss"] = np.array(float(loss))
+        out[f"{name}_scores"], out[f"{name}_ids"] = s.numpy(), i.numpy()
+    try:
+        P.make_step(EmbedderConfig(vocab_size=64, dim=48, n_layers=1, n_heads=3, max_len=8),
+                    mesh=dm, device="cpu")
+        out["odd_heads_refused"] = np.array("")
+    except ValueError as e:
+        out["odd_heads_refused"] = np.array(str(e))
+    return out
+
+
+def _dryrun_suite(inp: dict, mesh, rank: int, world: int) -> dict:
+    from pathway_tpu_torch.graft_entry import dryrun_multichip
+
+    got = dryrun_multichip(world, device="cpu")
+    out = {"loss": np.array(got["loss"]), "topk_ids": np.array(got["topk_ids"]),
+           "mesh": np.array([got["mesh"]["data"], got["mesh"]["model"]])}
+    if rank == 0:
+        out["dataflow"], out["recovery"] = np.array(got["dataflow"]), np.array(got["recovery"])
+    return out
+
+
 def main() -> None:
     suite, world, rank, workdir = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4])
     _block_jax_and_reference()
@@ -163,7 +219,8 @@ def main() -> None:
     mesh = make_mesh({"data": world}, device="cpu")
     with open(workdir / "inputs.pkl", "rb") as f:
         inp = pickle.load(f)
-    suites = {"ring": _ring_suite, "knn": _knn_suite, "exchange": _exchange_suite}
+    suites = {"ring": _ring_suite, "knn": _knn_suite, "exchange": _exchange_suite,
+              "pipeline": _pipeline_suite, "dryrun": _dryrun_suite}
     out = suites[suite](inp, mesh, rank, world)
     loaded = sorted(m for m, mod in sys.modules.items() if mod is not None and (
         m.startswith("jax") or m == "pathway_tpu" or m.startswith("pathway_tpu.")))
